@@ -1,0 +1,58 @@
+"""The port's hand-written CUDA kernels: build, launch helpers, launch counts.
+
+Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
+
+- K1 ``ops/cuda_encoder.py::fused_encoder_layer`` (``csrc/encoder.cu``)
+- K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``)
+- K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``)
+
+A wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises. Each wrapper adds one to its entry of
+``LAUNCHES`` where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .build import build  # noqa: F401
+
+LAUNCHES: Dict[str, int] = {"K1_encoder_layer": 0, "K2_rowcol_stats": 0, "K3_window_gather": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def check_cuda_operands(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor on the current device."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: expected CUDA tensors, got {device}")
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors on {device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: mixed devices {device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)} is not contiguous")
+    return device
+
+
+def ptr(t):
+    """Device pointer of a tensor (None stays NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -1,0 +1,129 @@
+"""LoFTR-style local feature transformer (port of
+``onepose_plus_plus_tpu/models/transformer.py``; reference
+``loftr_module/transformer.py``).
+
+Module and parameter names follow the reference state dict
+(``layers.N.{q_proj,k_proj,v_proj,merge,mlp.0,mlp.2,norm1,norm2}``).
+
+Two execution paths over the same parameters, chosen by the rule of the JAX
+package (transformer.py:168-181): long sequences with linear attention (the
+coarse stage, min(L, S) >= 256) run each layer as kernel K1
+(``ops/cuda_encoder.py``); everything else, such as the fine stage's 25-token
+windows, runs the eager layer. The port is inference-only.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import TransformerConfig
+from ..ops.attention import full_attention, linear_attention
+from ..ops.cuda_encoder import fused_encoder_layer
+from ..utils.dtypes import torch_dtype
+
+
+class LoFTREncoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, attention: str = "linear",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.nhead, self.attention, self.dtype = d_model, nhead, attention, dtype
+        self.q_proj = nn.Linear(d_model, d_model, bias=False)
+        self.k_proj = nn.Linear(d_model, d_model, bias=False)
+        self.v_proj = nn.Linear(d_model, d_model, bias=False)
+        self.merge = nn.Linear(d_model, d_model, bias=False)
+        self.mlp = nn.Sequential(
+            nn.Linear(2 * d_model, 2 * d_model, bias=False),
+            nn.ReLU(inplace=True),
+            nn.Linear(2 * d_model, d_model, bias=False),
+        )
+        self.norm1 = nn.LayerNorm(d_model)
+        self.norm2 = nn.LayerNorm(d_model)
+
+    def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), layer.weight.to(self.dtype))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        source: torch.Tensor,
+        x_mask: Optional[torch.Tensor] = None,
+        source_mask: Optional[torch.Tensor] = None,
+        fused: bool = False,
+    ) -> torch.Tensor:
+        """x [N, L, C] attends to source [N, S, C].
+
+        ``fused`` runs kernel K1 (float32 out); the eager path returns x's dtype
+        (LayerNorms in f32, projections in the compute dtype).
+        """
+        if fused and self.attention == "linear":
+            return fused_encoder_layer(
+                x, source,
+                self.q_proj.weight.t(), self.k_proj.weight.t(), self.v_proj.weight.t(),
+                self.merge.weight.t(), self.norm1.weight, self.norm1.bias,
+                self.mlp[0].weight.t(), self.mlp[2].weight.t(),
+                self.norm2.weight, self.norm2.bias,
+                x_mask, source_mask, nhead=self.nhead, dtype=self.dtype,
+            )
+        n, l, d = x.shape
+        s = source.shape[1]
+        if (self.attention == "linear" and s == 1
+                and x_mask is None and source_mask is None):
+            # exact shortcut for a length-1 source: linear attention returns
+            # V for every query (up to the 1e-6 normaliser eps); the fine
+            # stage's selected 3D descriptor is such a stream
+            message = self._linear(self.v_proj, source).expand(n, l, d)
+        else:
+            hd = d // self.nhead
+            q = self._linear(self.q_proj, x).view(n, l, self.nhead, hd)
+            k = self._linear(self.k_proj, source).view(n, s, self.nhead, hd)
+            v = self._linear(self.v_proj, source).view(n, s, self.nhead, hd)
+            attn = linear_attention if self.attention == "linear" else full_attention
+            message = attn(q, k, v, q_mask=x_mask, kv_mask=source_mask).reshape(n, l, d)
+        message = self._linear(self.merge, message)
+        message = F.layer_norm(message.float(), (d,), self.norm1.weight, self.norm1.bias, 1e-5)
+        message = self._linear(self.mlp[0], torch.cat([x.to(self.dtype), message.to(self.dtype)], -1))
+        message = self._linear(self.mlp[2], torch.relu(message))
+        message = F.layer_norm(message.float(), (d,), self.norm2.weight, self.norm2.bias, 1e-5)
+        return x + message.to(x.dtype)
+
+
+class LocalFeatureTransformer(nn.Module):
+    """Alternating self/cross attention over two feature streams."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        dt = torch_dtype(cfg.compute_dtype)
+        self.layers = nn.ModuleList(
+            LoFTREncoderLayer(cfg.d_model, cfg.nhead, cfg.attention, dtype=dt)
+            for _ in cfg.layer_sequence
+        )
+
+    def forward(
+        self,
+        feat0: torch.Tensor,
+        feat1: torch.Tensor,
+        mask0: Optional[torch.Tensor] = None,
+        mask1: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """feat0 [N, L, C] (3D descriptors), feat1 [N, S, C] (query grid)."""
+        fused = self.cfg.fused_encoder
+        if fused is None:
+            fused = self.cfg.attention == "linear" and min(feat0.shape[1], feat1.shape[1]) >= 256
+        for layer, name in zip(self.layers, self.cfg.layer_sequence):
+            if name == "self":
+                feat0, feat1 = (
+                    layer(feat0, feat0, mask0, mask0, fused=fused),
+                    layer(feat1, feat1, mask1, mask1, fused=fused),
+                )
+            elif name == "cross":
+                feat0, feat1 = (
+                    layer(feat0, feat1, mask0, mask1, fused=fused),
+                    layer(feat1, feat0, mask1, mask0, fused=fused),
+                )
+            else:
+                raise ValueError(name)
+        return feat0, feat1

@@ -1,0 +1,108 @@
+"""Dual-softmax coarse matching into K fixed match slots (dense path).
+
+Port of ``onepose_plus_plus_tpu/ops/matching.py`` (reference
+``src/models/OnePosePlus/utils/coarse_matching.py:56-251``). Matches live in K
+static slots with a validity mask; under mutual nearest neighbours each row
+has at most one column, so row-wise top-K selection loses nothing while
+K >= #matches. This path materialises the [N, L, S] confidence; inference on
+the main path uses the streaming K2 kernel (``ops/cuda_matching.py``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+
+class CoarseMatches(NamedTuple):
+    """K fixed match slots per batch element."""
+
+    i_ids: torch.Tensor  # [N, K] int32 row index (3D point id)
+    j_ids: torch.Tensor  # [N, K] int32 column index (query grid cell)
+    mconf: torch.Tensor  # [N, K] confidence (0 for invalid slots)
+    mask: torch.Tensor  # [N, K] bool validity
+
+
+def dual_softmax_confidence(
+    feat0: torch.Tensor,
+    feat1: torch.Tensor,
+    temperature: float,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+    feat_norm: str = "sqrt_feat_dim",
+) -> torch.Tensor:
+    """Dual-softmax confidence [N, L, S] from features [N, L, C], [N, S, C] (f32)."""
+    feat0, feat1 = feat0.float(), feat1.float()
+    if feat_norm == "sqrt_feat_dim":
+        scale = 1.0 / (feat0.shape[-1] ** 0.5)
+        feat0, feat1 = feat0 * scale, feat1 * scale
+    elif feat_norm not in ("none", None):
+        raise ValueError(f"unknown feat_norm {feat_norm}")
+    sim = torch.einsum("nlc,nsc->nls", feat0, feat1) / (temperature + 1e-4)
+    if mask0 is not None or mask1 is not None:
+        n, l, s = sim.shape
+        m0 = mask0.bool() if mask0 is not None else torch.ones((n, l), dtype=torch.bool, device=sim.device)
+        m1 = mask1.bool() if mask1 is not None else torch.ones((n, s), dtype=torch.bool, device=sim.device)
+        valid = m0[:, :, None] & m1[:, None, :]
+        sim = sim + torch.where(valid, 0.0, -1e9)
+    return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def _border_keep(h: int, w: int, border: int, two_sided: bool, device=None) -> torch.Tensor:
+    """[h*w] bool: grid cells outside the removed border.
+
+    ``two_sided=False`` keeps the reference 2D-3D matcher quirk: the torch
+    slice ``m[..., -b:0]`` is empty, so only the top/left borders are removed.
+    """
+    idx = torch.arange(h * w, device=device)
+    r, c = idx // w, idx % w
+    keep = (r >= border) & (c >= border)
+    if two_sided:
+        keep = keep & (r < h - border) & (c < w - border)
+    return keep
+
+
+def topk_stable(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, lower index first among equal scores (as
+    ``lax.top_k``); pads to k slots with score -1 and index 0 when k > L."""
+    n, l = score.shape
+    k_eff = min(k, l)
+    top_score, idx = torch.sort(score, dim=1, descending=True, stable=True)
+    top_score, idx = top_score[:, :k_eff], idx[:, :k_eff]
+    if k_eff < k:
+        top_score = torch.cat([top_score, top_score.new_full((n, k - k_eff), -1.0)], dim=1)
+        idx = torch.cat([idx, idx.new_zeros((n, k - k_eff))], dim=1)
+    return top_score, idx
+
+
+def select_topk_matches(
+    conf: torch.Tensor,
+    grid_hw: Tuple[int, int],
+    thr: float,
+    border_rm: int,
+    k: int,
+    border_two_sided: bool = False,
+) -> CoarseMatches:
+    """Mutual-nearest-neighbour + threshold + border filter into K slots.
+
+    Args:
+        conf: [N, L, S] dual-softmax confidence.
+        grid_hw: (h, w) of the S-axis grid (query image coarse grid).
+    """
+    n, l, s = conf.shape
+    h, w = grid_hw
+    if h * w != s:
+        raise ValueError(f"grid {grid_hw} != S {s}")
+    row_max = conf.amax(dim=2, keepdim=True)
+    col_max = conf.amax(dim=1, keepdim=True)
+    valid = (conf == row_max) & (conf == col_max) & (conf > thr)
+    valid = valid & _border_keep(h, w, border_rm, border_two_sided, conf.device)[None, None, :]
+    row_has = valid.any(dim=2)
+    j_of_row = torch.argmax(torch.where(valid, conf, torch.full_like(conf, -1.0)), dim=2)
+    conf_of_row = torch.gather(conf, 2, j_of_row[:, :, None])[..., 0]
+    score = torch.where(row_has, conf_of_row, torch.full_like(conf_of_row, -1.0))
+    top_score, i_ids = topk_stable(score, k)
+    j_ids = torch.gather(j_of_row, 1, i_ids)
+    mask = top_score > 0.0
+    mconf = torch.where(mask, top_score, torch.zeros_like(top_score))
+    return CoarseMatches(i_ids.to(torch.int32), j_ids.to(torch.int32), mconf, mask)
