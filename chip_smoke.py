@@ -18,6 +18,13 @@ exits non-zero):
      kernel, finite poses, poses/s and peak memory
   6  where the time goes in one bf16 step of phase 5 (16 frames): step wall,
      model forward, device time per kernel (torch.profiler), idle share
+  7  training: 7a K4 and 7b K5 against their plain versions at the train
+     shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256);
+     7c one f32 micro-batch on the GPU (kernels) against the same micro-batch
+     on the CPU (plain versions), loss and every gradient; 7d the train config
+     at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
+     optimizer updates on one batch: falling loss, launch counts, step time,
+     peak memory and a torch.profiler split of one micro-batch
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Weights are random, drawn from a numpy seed.
@@ -39,12 +46,21 @@ from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
 from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel
+from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer
-from onepose_plus_plus_tpu_torch.ops.cuda_gather import window_gather, window_gather_plain
+from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
+    window_gather,
+    window_gather_plain,
+    window_scatter,
+    window_scatter_plain,
+)
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
     rowcol_stats_plain,
 )
+from onepose_plus_plus_tpu_torch.ops.matching import sample_gt_rows
+from onepose_plus_plus_tpu_torch.train.losses import LossConfig, compute_losses
+from onepose_plus_plus_tpu_torch.train.train_step import TrainConfig, make_optimizer, train_step
 from onepose_plus_plus_tpu_torch.utils.weights import random_state_dict
 
 B = 16  # frames per batch in the kernel phases
@@ -61,7 +77,16 @@ KERNELS = {
         "source": "onepose_plus_plus_tpu_torch/csrc/gather.cu",
         "replaces": "onepose_plus_plus_tpu/ops/pallas_gather.py:169",
     },
+    "K4_window_scatter": {
+        "source": "onepose_plus_plus_tpu_torch/csrc/scatter.cu",
+        "replaces": "onepose_plus_plus_tpu/ops/pallas_gather.py:79",
+    },
+    "K5_coarse_loss": {
+        "source": "onepose_plus_plus_tpu_torch/csrc/coarse_loss.cu",
+        "replaces": "onepose_plus_plus_tpu/ops/pallas_coarse_loss.py:459",
+    },
 }
+TRAIN_B, TRAIN_P, TRAIN_IMG = 4, 7000, 512  # the train config: frames per micro-batch, points, size
 
 
 def log(msg: str) -> None:
@@ -266,7 +291,8 @@ def phase3() -> None:
     for dev in ("cuda", "cpu"):
         model = _model(cfg, dev)
         t0 = time.perf_counter()
-        out = model({k: v.to(dev) for k, v in batch.items()})
+        with torch.no_grad():
+            out = model({k: v.to(dev) for k, v in batch.items()})
         if dev == "cuda":
             torch.cuda.synchronize()
         outs[dev] = {k: v.cpu() for k, v in out.items() if torch.is_tensor(v)}
@@ -344,7 +370,8 @@ def phase5(smi: str):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     steps = n_frames // 16
-    expected = {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps, "K3_window_gather": steps}
+    expected = {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps, "K3_window_gather": steps,
+                "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0}
     log(f"[5] launches in the main-path run: {counts} (expected {expected})")
     check(counts == expected, "a kernel of the main path was not launched as the step implies")
     check(res.poses.shape == (n_frames, 4, 4), f"poses {res.poses.shape}")
@@ -355,6 +382,28 @@ def phase5(smi: str):
         f"{peak:.2f} GiB, ok {int(res.ok.sum())}/{n_frames}, median matches "
         f"{int(np.median(res.num_matches))} on {smi}")
     return counts, model, frames, anno
+
+
+def device_rows(fn):
+    """(device-time rows (ms, count, kernel name), total device ms, wall ms of
+    the profiled call) of one call of fn under torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and e.device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "the profiler saw no device time")
+    return rows, busy, wall
+
+
+def group_ms(rows, names) -> float:
+    pat = re.compile(r"\b(" + "|".join(names) + r")\b")
+    return sum(r[0] for r in rows if pat.search(r[2]))
 
 
 K1_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")
@@ -387,19 +436,10 @@ def phase6(model, frames, anno, smi: str) -> None:
     # the model forward alone, on the inputs the step hands it
     fwd_batch = {**batch, "query_image": batch["query_image"].float() / 255.0,
                  **{k: batch[k][None].expand(B, *batch[k].shape) for k in anno}}
-    fwd = time_ms(lambda: model(fwd_batch), reps=5, warmup=1)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        step(batch, gen, gt)
-        torch.cuda.synchronize()
-    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and e.device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    check(busy > 0, "the profiler saw no device time in the step")
-
-    def group(names):
-        pat = re.compile(r"\b(" + "|".join(names) + r")\b")
-        return sum(r[0] for r in rows if pat.search(r[2]))
+    with torch.no_grad():
+        fwd = time_ms(lambda: model(fwd_batch), reps=5, warmup=1)
+    rows, busy, _ = device_rows(lambda: step(batch, gen, gt))
+    group = lambda names: group_ms(rows, names)  # noqa: E731
 
     k1, k2, k3 = group(K1_NAMES), group(K2_NAMES), group(K3_NAMES)
     log(f"[6] bf16 step, {B} frames of 512^2, 7000 points, 512 slots: wall {wall:.2f} ms "
@@ -410,6 +450,220 @@ def phase6(model, frames, anno, smi: str) -> None:
         f"everything else {busy - k1 - k2 - k3:.2f} ms")
     for ms, count, key in rows[:25]:
         log(f"[6]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+
+
+# ----------------------------------------------------------------- phase 7
+
+
+def phase7a(gen) -> dict:
+    """K4 at the train shapes: map [4,256,256,128], 1028 predicted + 200 GT slots."""
+    n, hc, k = TRAIN_B, TRAIN_IMG // 8, 1228
+    ids = torch.randint(0, hc * hc, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+    ids[:, 1028:] = ids[:, :200]  # GT slots repeating predicted cells
+    ids[:, 1000:1028] = -1  # unfilled prediction slots
+    rec = {}
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        grad = torch.randn(n, k, 25, 128, generator=gen, device="cuda").to(dtype)
+        args = (grad, ids, (hc, hc), 4, 5, (4 * hc, 4 * hc))
+        got, again = window_scatter(*args), window_scatter(*args)
+        ref = window_scatter_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        same = torch.equal(got, again)
+        tol = 1e-4 if dtype == torch.float32 else 6e-2  # f32 summation order / one bf16 rounding of |sum| <= ~8
+        log(f"[7a] K4 {dt} grad{tuple(grad.shape)} -> map{tuple(got.shape)}: max|d| {err:.3e} "
+            f"(<= {tol:g}), two launches bitwise equal {same}")
+        check(err <= tol and same, f"K4 {dt} disagrees or is not deterministic")
+        ms = time_ms(lambda: window_scatter(*args))
+        pms = time_ms(lambda: window_scatter_plain(*args))
+        log(f"[7a] K4 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms (median of 20)")
+        rec[dt] = (err, ms, pms)
+    err, ms, pms = rec["f32"]  # the train config is f32
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+
+
+def phase7b(gen) -> dict:
+    """K5 at the train shapes against its plain version (dense, autograd)."""
+    c = 256
+    f0 = (torch.randn(TRAIN_B, TRAIN_P, c, generator=gen, device="cuda") / 16).to(torch.bfloat16)
+    f1 = (torch.randn(TRAIN_B, 4096, c, generator=gen, device="cuda") / 16).to(torch.bfloat16)
+    gt = torch.randint(0, 4096, (TRAIN_B, TRAIN_P), generator=gen, device="cuda", dtype=torch.int32)
+    gt = torch.where(torch.rand(TRAIN_B, TRAIN_P, generator=gen, device="cuda") < 0.5, gt, -1)
+    inv_temp = 1.0 / (0.08 + 1e-4)
+    n_pos = int((gt >= 0).sum())
+    coefs = (1.0 / n_pos, 1.0 / (TRAIN_B * TRAIN_P * 4096 - n_pos))  # the loss's count normalisation
+
+    def run(fn, backward=True):
+        a0, a1 = f0.clone().requires_grad_(backward), f1.clone().requires_grad_(backward)
+        pos, neg, mx = fn(a0, a1, gt, inv_temp, 0.5, 2.0)
+        loss = coefs[0] * pos + coefs[1] * neg
+        if backward:
+            loss.backward()
+            return loss.detach(), mx, a0.grad.float(), a1.grad.float()
+        return loss.detach(), mx
+
+    got, ref = run(coarse_focal_sums), run(coarse_focal_sums_plain)
+    torch.cuda.synchronize()
+    loss_rel = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+    mx_rel = abs(got[1].item() - ref[1].item()) / abs(ref[1].item())
+    worst, ok = 0.0, loss_rel <= 2e-4 and mx_rel <= 2e-4
+    for name, g, r in (("df0", got[2], ref[2]), ("df1", got[3], ref[3])):
+        scale = r.abs().max().item()
+        err = (g - r).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item()
+        log(f"[7b] K5 {name}: max|d| {err:.3e} = {err / scale:.2e} of max|grad| (< 2e-2), cosine {cos:.6f} (> 0.999)")
+        ok = ok and err < 2e-2 * scale and cos > 0.999
+        worst = max(worst, err)
+    log(f"[7b] K5 f0{tuple(f0.shape)} f1{tuple(f1.shape)}: loss {got[0].item():.6f} vs {ref[0].item():.6f} "
+        f"(rel {loss_rel:.2e} <= 2e-4), max_conf rel {mx_rel:.2e} (<= 2e-4)")
+    check(ok, "K5 disagrees with its plain version")
+    del got, ref
+    torch.cuda.empty_cache()
+    fwd = time_ms(lambda: run(coarse_focal_sums, backward=False), reps=10)
+    pfwd = time_ms(lambda: run(coarse_focal_sums_plain, backward=False), reps=5)
+    both = time_ms(lambda: run(coarse_focal_sums), reps=10)
+    pboth = time_ms(lambda: run(coarse_focal_sums_plain), reps=5)
+    log(f"[7b] K5 forward: kernel {fwd:.3f} ms, plain {pfwd:.3f} ms; forward + backward: kernel "
+        f"{both:.3f} ms, plain {pboth:.3f} ms (medians of 10 / 5)")
+    return {"max_abs_err": worst, "ms": both, "plain_ms": pboth}
+
+
+def _train_batch(rng, n, img, n_pts, dev):
+    """Textured frames of a synthetic scene; GT cells and fine locations from
+    projecting its points with the GT poses."""
+    K, pts, Ts = _scene(rng, n, n_pts, img=float(img))
+    w_c = img // 8
+    gt_cell = np.full((n, n_pts), -1, np.int32)
+    gt_fine = np.full((n, n_pts, 2), -50.0, np.float32)
+    for i, T in enumerate(Ts):
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        uv = pc[:, :2] / pc[:, 2:3] @ K[:2, :2].T + K[:2, 2]
+        cell = np.round(uv / 8).astype(np.int64)
+        inb = (cell >= 0).all(1) & (cell < w_c).all(1) & (pc[:, 2] > 0)
+        gt_cell[i, inb] = cell[inb, 1] * w_c + cell[inb, 0]
+        gt_fine[i, inb] = uv[inb]
+    batch = {
+        "query_image": _textured_images(rng, n, img)[..., None],
+        "keypoints3d": np.broadcast_to(pts, (n, n_pts, 3)).astype(np.float32),
+        "descriptors3d": rng.standard_normal((n, n_pts, 128)).astype(np.float32),
+        "descriptors3d_coarse": rng.standard_normal((n, n_pts, 256)).astype(np.float32),
+        "gt_cell": gt_cell,
+        "gt_fine_xy": gt_fine,
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def _train_model(cfg, dev):
+    model = OnePosePlusModel(cfg)
+    model.load_state_dict(random_state_dict(model, seed=0))
+    return model.to(dev).train()
+
+
+def phase7c() -> None:
+    """One f32 micro-batch, fused route: GPU (kernels) against CPU (plain versions)."""
+    rng = np.random.default_rng(7)
+    cfg = OnePosePlusConfig()
+    batch = _train_batch(rng, 2, 128, 500, "cpu")
+    rows = sample_gt_rows(batch["gt_cell"], cfg.coarse_matching.train_pad_num_gt_min,
+                          torch.Generator().manual_seed(0))  # the same GT slots on both devices
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = _train_model(cfg, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out = model(b, gt_pad_rows=rows.to(dev))
+        loss, sc = compute_losses(out, b, LossConfig(), cfg.fine.window_size)
+        loss.backward()
+        res[dev] = ({k: float(v.detach()) for k, v in sc.items()},
+                    {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
+                    out["match_mask"].cpu(), out["i_ids"].cpu(), out["j_ids"].cpu())
+    (sg, gg, mg, ig, jg), (sc_, gc, mc, ic, jc) = res["cuda"], res["cpu"]
+    same_slots = torch.equal(mg, mc) and torch.equal(ig[mg], ic[mc]) and torch.equal(jg[mg], jc[mc])
+    rel = {k: abs(sg[k] - sc_[k]) / max(abs(sc_[k]), 1e-12) for k in sc_}
+    log(f"[7c] f32 micro-batch, 2 frames of 128^2, 500 points, fused route: GPU {sg} vs CPU {sc_}; "
+        f"same match slots {same_slots} ({int(mg.sum())} valid)")
+    worst_norm, worst_max, bad = 0.0, 0.0, []
+    for name, r in gc.items():
+        g = gg[name]
+        nr = r.norm().item()
+        if nr == 0:
+            continue
+        norm_err = (g - r).norm().item() / nr
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item()
+        worst_norm = max(worst_norm, norm_err)
+        ok = norm_err <= 2e-2 and cos >= 0.999
+        if not name.startswith("backbone."):
+            max_err = (g - r).abs().max().item() / r.abs().max().item()
+            worst_max = max(worst_max, max_err)
+            ok = ok and max_err <= 2e-2
+        if not ok:
+            bad.append(name)
+    log(f"[7c] gradients of {len(gc)} tensors: worst relative norm error {worst_norm:.2e} (<= 2e-2, "
+        f"cosine >= 0.999), worst max error outside the backbone {worst_max:.2e} of max|grad| (<= 2e-2); "
+        f"loss rel {rel['loss']:.2e} (<= 2e-4)")
+    check(same_slots and not bad and max(rel.values()) <= 2e-4 and set(gg) == set(gc),
+          f"the GPU train step disagrees with the CPU one: {bad[:5]}")
+
+
+def phase7d(smi: str):
+    """The train config at full width: three optimizer updates on one batch."""
+    rng = np.random.default_rng(8)
+    cfg = OnePosePlusConfig()  # configs/experiment/train.yaml's model: {} (f32, fused route)
+    tc = TrainConfig(grad_accum=2)
+    torch.backends.cudnn.benchmark = True  # as the training CLI: fixed shapes, autotuned convs
+    batch = _train_batch(rng, TRAIN_B, TRAIN_IMG, TRAIN_P, "cuda")
+    model = _train_model(cfg, "cuda")
+    opt, sched = make_optimizer(model, tc, tc.true_lr(TRAIN_B * tc.grad_accum), 1000)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(6):  # three updates of two micro-batches
+        t0 = time.perf_counter()
+        sc = train_step(model, opt, batch, gen, tc, sched)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        losses.append({k: float(v) for k, v in sc.items()})
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {"K1_encoder_layer": 0, "K2_rowcol_stats": 6, "K3_window_gather": 6,
+                "K4_window_scatter": 6, "K5_coarse_loss": 6, "K5_coarse_loss_bwd": 6}
+    log(f"[7d] launches in 6 micro-batches: {counts} (expected {expected})")
+    check(counts == expected, "a kernel of the training path was not launched as the steps imply")
+    for i, v in enumerate(losses):
+        log(f"[7d] micro-batch {i}: " + ", ".join(f"{k} {x:.5f}" for k, x in v.items()))
+    total = [v["loss"] for v in losses]
+    check(bool(np.isfinite(total).all()), "non-finite training loss")
+    # the two micro-batches of an update share its parameters; GT padding resamples
+    check(np.mean(total[4:]) < np.mean(total[:2]), f"training loss does not fall: {total}")
+    step_ms = float(np.median(walls[1:]))
+    log(f"[7d] f32 train config, {TRAIN_B} frames of {TRAIN_IMG}^2 per micro-batch, {TRAIN_P} points, "
+        f"1228 slots, grad_accum 2: micro-batch {step_ms:.2f} ms (median of 5 after the first, synchronised), "
+        f"{1e3 / step_ms:.2f} micro-batches/s, {TRAIN_B * 1e3 / step_ms:.2f} frames/s, peak memory "
+        f"{peak:.2f} GiB, TF32 off, on {smi}")
+    rows, busy, prof_wall = device_rows(lambda: train_step(model, opt, batch, gen, tc, sched))
+    # K5's forward runs K2's LSE pass on bf16 operands; the f32 config's
+    # selection (K2) runs it on float
+    pick = lambda pat: sum(r[0] for r in rows if re.search(pat, r[2]))  # noqa: E731
+    split = {
+        "K2": pick(r"\b(lse_kernel<float>|col_lse_reduce|argmax_kernel|col_argmax_reduce)\b"),
+        "K3": group_ms(rows, K3_NAMES),
+        "K4": group_ms(rows, K4_NAMES),
+        "K5": pick(r"\blse_kernel<__nv_bfloat16>") + group_ms(rows, K5_NAMES),
+        "conv backward (cuDNN dgrad/wgrad: the backbone)": pick(r"dgrad|wgrad|[Cc]onvolution[_ ]?[Bb]ackward"),
+    }
+    log(f"[7d] one micro-batch under the profiler: wall {prof_wall:.2f} ms, device time {busy:.2f} ms, "
+        f"idle share {100 * (1 - busy / prof_wall):.1f} % of that wall")
+    log("[7d] device time: " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f", everything else {busy - sum(split.values()):.2f} ms")
+    for ms, count, key in rows[:25]:
+        log(f"[7d]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return counts
+
+
+K4_NAMES = ("window_scatter_kernel",)
+K5_NAMES = ("loss_kernel", "gsum_kernel", "colg_reduce", "df0_kernel", "df1_kernel")
 
 
 def main() -> int:
@@ -425,6 +679,14 @@ def main() -> int:
     phase4()
     counts, model, frames, anno = phase5(smi)
     phase6(model, frames, anno, smi)
+    del model
+    torch.cuda.empty_cache()
+    records["K4_window_scatter"] = phase7a(gen)
+    records["K5_coarse_loss"] = phase7b(gen)
+    torch.cuda.empty_cache()
+    phase7c()
+    train_counts = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
+    counts.update({k: v for k, v in train_counts.items() if k.startswith(("K4", "K5"))})
     check("jax" not in sys.modules, "the port loaded JAX")
     kernel_lines = [
         {"name": name, "route": "cuda", **meta, "launches": counts[name], **records[name]}

@@ -24,69 +24,11 @@
 // or column, shuffle-merged). Tensor cores (wgmma) are later work.
 #include <climits>
 
-#include "common.cuh"
+#include "sim_tile.cuh"
 
 namespace {
 
-constexpr int BR = 64;  // f0 rows per block
-constexpr int BL = 64;  // f1 columns per streamed tile
-constexpr int BK = 32;  // channel slice
-constexpr int NT = 256;
-constexpr float NEG = -1e30f;
-
-struct TileSmem {
-  __align__(16) float a[BK][BR + 4];
-  __align__(16) float b[BK][BL + 4];
-  float s[BR][BL + 1];
-};
-
-// s[r][c] = dot(f0[p0 + r], f1[l0 + c]) * inv_temp + radd[p] + cadd[l]
-template <typename T>
-__device__ void sim_tile(const T* __restrict__ f0, const T* __restrict__ f1,
-                         const float* __restrict__ radd, const float* __restrict__ cadd, int p0,
-                         int l0, int P, int L, int C, float inv_temp, TileSmem& sm) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < C; k0 += BK) {
-    for (int i = tid; i < BR * BK; i += NT) {
-      const int r = i / BK, k = i % BK, p = p0 + r;
-      sm.a[k][r] = (p < P && k0 + k < C) ? opp::to_f32(f0[(size_t)p * C + k0 + k]) : 0.f;
-    }
-    for (int i = tid; i < BL * BK; i += NT) {
-      const int c = i / BK, k = i % BK, l = l0 + c;
-      sm.b[k][c] = (l < L && k0 + k < C) ? opp::to_f32(f1[(size_t)l * C + k0 + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&sm.a[k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sm.b[k][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, p = p0 + r;
-    const float ra = (radd != nullptr && p < P) ? radd[p] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx * 4 + j, l = l0 + c;
-      const float ca = (cadd != nullptr && l < L) ? cadd[l] : 0.f;
-      sm.s[r][c] = acc[i][j] * inv_temp + ra + ca;
-    }
-  }
-  __syncthreads();
-}
+using namespace opp;
 
 // merge (max, sum-exp) pairs across the 4 lanes of a group
 __device__ __forceinline__ void merge_lse4(float& m, float& s) {
@@ -289,6 +231,21 @@ int launch_rowcol_stats(const void* f0, const void* f1, const float* radd, const
   return (int)cudaGetLastError();
 }
 
+// Pass 1 alone (row and column LSE), for K5's forward (coarse_loss.cu), as the
+// TPU kernel shares pallas_matching._lse_kernel with the fused focal loss.
+template <typename T>
+int launch_dual_lse(const void* f0, const void* f1, const float* radd, const float* cadd,
+                    float* row_lse, float* col_lse, float* part, int B, int P, int L, int C,
+                    float inv_temp, cudaStream_t stream) {
+  if (B <= 0 || P <= 0 || L <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const int n_pt = (P + BR - 1) / BR;
+  lse_kernel<T><<<dim3(n_pt, B), NT, 0, stream>>>(static_cast<const T*>(f0),
+                                                  static_cast<const T*>(f1), radd, cadd, row_lse,
+                                                  part, P, L, C, inv_temp);
+  col_lse_reduce<<<dim3((L + 255) / 256, B), 256, 0, stream>>>(part, col_lse, n_pt, L);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define OPP_STATS_ENTRY(NAME, T)                                                             \
@@ -305,4 +262,15 @@ OPP_STATS_ENTRY(opp_rowcol_stats_f32, float)
 OPP_STATS_ENTRY(opp_rowcol_stats_bf16, __nv_bfloat16)
 
 // Row tiles of the partial buffers: part_val / part_idx are [B, tiles, L].
-extern "C" int opp_rowcol_row_tiles(int P) { return (P + BR - 1) / BR; }
+extern "C" int opp_rowcol_row_tiles(int P) { return (P + opp::BR - 1) / opp::BR; }
+
+#define OPP_LSE_ENTRY(NAME, T)                                                                \
+  extern "C" int NAME(const void* f0, const void* f1, const float* radd, const float* cadd,  \
+                      float* row_lse, float* col_lse, float* part, int B, int P, int L, int C, \
+                      float inv_temp, void* stream) {                                        \
+    return launch_dual_lse<T>(f0, f1, radd, cadd, row_lse, col_lse, part, B, P, L, C,        \
+                              inv_temp, static_cast<cudaStream_t>(stream));                  \
+  }
+
+OPP_LSE_ENTRY(opp_dual_lse_f32, float)
+OPP_LSE_ENTRY(opp_dual_lse_bf16, __nv_bfloat16)

@@ -5,6 +5,10 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 - K1 ``ops/cuda_encoder.py::fused_encoder_layer`` (``csrc/encoder.cu``)
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``)
 - K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``)
+- K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP
+- K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``),
+  counted once per forward (``K5_coarse_loss``) and once per backward
+  (``K5_coarse_loss_bwd``)
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. Each wrapper adds one to its entry of
@@ -18,7 +22,14 @@ import torch
 
 from .build import build  # noqa: F401
 
-LAUNCHES: Dict[str, int] = {"K1_encoder_layer": 0, "K2_rowcol_stats": 0, "K3_window_gather": 0}
+LAUNCHES: Dict[str, int] = {
+    "K1_encoder_layer": 0,
+    "K2_rowcol_stats": 0,
+    "K3_window_gather": 0,
+    "K4_window_scatter": 0,
+    "K5_coarse_loss": 0,
+    "K5_coarse_loss_bwd": 0,
+}
 
 
 def reset_launch_counts() -> None:

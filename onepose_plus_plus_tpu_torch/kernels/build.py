@@ -2,7 +2,9 @@
 
 The sources under ``csrc/`` export a plain C interface (pointers, ints and a
 stream; each function returns ``cudaGetLastError()`` after its launches), so
-they compile in seconds without PyTorch's headers. The shared library goes to
+they compile in seconds without PyTorch's headers. Each source compiles in its
+own ``nvcc`` process, all started together, and one more links them. The
+shared library goes to
 ``onepose_plus_plus_tpu_torch/_build/`` (ignored by git), keyed by a hash of
 the sources and flags, and is built at first use: nothing here runs when the
 module is imported.
@@ -24,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +42,13 @@ _SIGNATURES = {
     "opp_rowcol_row_tiles": [_I],
     "opp_window_gather_f32": [_P] * 3 + [_I] * 9 + [_P],
     "opp_window_gather_bf16": [_P] * 3 + [_I] * 9 + [_P],
+    "opp_dual_lse_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "opp_dual_lse_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "opp_window_scatter_f32": [_P] * 4 + [_I] * 9 + [_P],
+    "opp_window_scatter_bf16": [_P] * 4 + [_I] * 9 + [_P],
+    "opp_coarse_loss_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
+    "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P],
+    "opp_coarse_loss_row_tiles": [_I],
 }
 
 
@@ -90,6 +99,39 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(lib_path: Path, verbose: bool) -> str:
+    """One nvcc per source, all started together, then one link; returns the log."""
+    cus, _ = _sources()
+    nvcc = _nvcc()
+    tmp_dir = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.objs")
+    tmp_dir.mkdir(exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    procs = []
+    for cu in cus:
+        obj = tmp_dir / f"{cu.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(cu)]
+        procs.append((cu, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for cu, _, proc in procs:
+        out, _ = proc.communicate()
+        log += f"--- {cu.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(cu.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in procs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, lib_path)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    return log
+
+
 def build(verbose: bool = False) -> KernelLibrary:
     """Compile (unless this source hash is already built) and load the library.
 
@@ -104,14 +146,6 @@ def build(verbose: bool = False) -> KernelLibrary:
     t0 = time.perf_counter()
     log = ""
     if verbose or not lib_path.exists():
-        cus, _ = _sources()
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), *map(str, cus)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)
+        log = _compile(lib_path, verbose)
     _loaded = KernelLibrary(lib_path, time.perf_counter() - t0, log)
     return _loaded

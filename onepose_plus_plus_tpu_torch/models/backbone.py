@@ -7,7 +7,11 @@ stem is the direct 7x7/2 conv (the JAX package's space-to-depth stem is equal
 in output and exists only for the TPU), and the FPN upsample is
 ``F.interpolate(bilinear, align_corners=True)``. Parameters stay float32; the
 compute dtype applies to the convolutions, and BatchNorm computes in float32
-and returns the compute dtype (as flax's BatchNorm does).
+and returns the compute dtype (as flax's BatchNorm does). In train mode
+(``module.train()``) BatchNorm follows flax's rules, not torch's: batch
+statistics with the biased variance ``E[x^2] - E[x]^2``, and running
+statistics updated with momentum 0.9 from that same biased variance
+(``F.batch_norm`` would update with the unbiased one).
 """
 from __future__ import annotations
 
@@ -32,11 +36,26 @@ class _Conv(nn.Conv2d):
 
 
 class _BN(nn.BatchNorm2d):
-    """Eval-mode BatchNorm (eps 1e-5) computed in f32, output in the input dtype."""
+    """BatchNorm (eps 1e-5) computed in f32, output in the input dtype; train
+    mode as flax's ``BatchNorm(momentum=0.9)`` (JAX backbone.py:228-240)."""
+
+    MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, False, 0.0, self.eps)
+        if not self.training:
+            # the f32 copy of x dies inside the call: no extra activation at peak
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        xf = x.float()
+        dims = (0, 2, 3)
+        mean = xf.mean(dim=dims)
+        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)  # biased
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_(mean, alpha=1.0 - self.MOMENTUM)
+            self.running_var.mul_(self.MOMENTUM).add_(var, alpha=1.0 - self.MOMENTUM)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
 

@@ -1,10 +1,18 @@
-"""OnePose++ 2D-3D matcher, inference forward (port of
+"""OnePose++ 2D-3D matcher forward, inference and training (port of
 ``onepose_plus_plus_tpu/models/onepose_plus.py:79-286``; reference
 ``OnePosePlusModel.py:96-201``):
 
     backbone -> sine PE -> 3D keypoint encoding -> coarse linear-attention
-    transformer (K1) -> dual-softmax mutual-NN matching into K slots (K2)
-    -> fine 5x5 window gather (K3) -> fine transformer -> heatmap soft-argmax.
+    transformer (K1 at inference) -> dual-softmax mutual-NN matching into K
+    slots (K2) [-> GT padding in training] -> fine 5x5 window gather (K3,
+    gradient K4) -> fine transformer -> heatmap soft-argmax.
+
+``model.train()`` is the JAX model's ``train=True``: BatchNorm on batch
+statistics, the eager coarse transformer, ``train_max_matches`` slots of
+which the last ``train_pad_num_gt_min`` are GT-padded, and, on the fused
+route, ``coarse_loss_ctx`` for the fused focal loss (K5) in place of a
+confidence matrix. The forward records no autograd graph only where its
+caller asks (the inference pipeline runs it under ``torch.no_grad``).
 
 Inputs (dict of tensors on one device):
     query_image          [N, H, W, 1] grayscale in [0, 1]
@@ -13,26 +21,33 @@ Inputs (dict of tensors on one device):
     descriptors3d_coarse [N, L, C]   optional, used for coarse attention
     query_image_scale    [N, 2] optional (h_scale, w_scale)
     query_image_mask     [N, H/8 * W/8] optional padding mask
-Outputs as the JAX model at inference: i_ids, j_ids, mconf, match_mask,
-mkpts_query_c, mkpts_3d, mkpts_query_f, expec_f (+ conf_matrix on the dense
-matching path).
+Training extras: gt_cell [N, L] (GT coarse cell of each point, -1 = none).
+Outputs as the JAX model: i_ids, j_ids, mconf, match_mask, mkpts_query_c,
+mkpts_3d, mkpts_query_f, expec_f, plus conf_matrix on the dense matching path
+(and log_conf_matrix in training) or coarse_loss_ctx on the fused route in
+training.
 
 dtype rules as the JAX model: parameters stay float32; ``compute_dtype``
-applies to the backbone and the transformer projections; LayerNorms, the
-matching statistics and the heatmap soft-argmax compute in float32; the
-coarse K1 layers return float32.
+applies to the backbone, the transformer projections and the fine heatmap
+soft-argmax (computed in the fine windows' dtype); LayerNorms and the matching
+statistics compute in float32; the coarse K1 layers return float32.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from ..config import OnePosePlusConfig
 from ..ops.cuda_matching import fused_select_topk_matches
-from ..ops.matching import dual_softmax_confidence, select_topk_matches
+from ..ops.matching import (
+    dual_softmax_confidence,
+    dual_softmax_log_confidence,
+    pad_matches_with_gt,
+    select_topk_matches,
+)
 from ..ops.soft_argmax import heatmap_std, spatial_expectation_2d
 from ..ops.take import take_rows
 from ..ops.window_gather import gather_windows_aligned
@@ -63,10 +78,18 @@ class OnePosePlusModel(nn.Module):
                 dataclasses.replace(cfg.fine.transformer, compute_dtype=cfg.compute_dtype)
             )
 
-    @torch.no_grad()
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def forward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        gt_pad_rows: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
+        """Match a batch. In train mode the GT slots' rows are drawn from
+        ``generator`` (a ``torch.Generator`` on the batch's device), or taken
+        from ``gt_pad_rows`` [N, train_pad_num_gt_min] when given."""
         cfg = self.cfg
         cm = cfg.coarse_matching
+        train = self.training
         img = batch["query_image"]
         n, h_i, w_i, _ = img.shape
 
@@ -87,22 +110,38 @@ class OnePosePlusModel(nn.Module):
 
         # 3. coarse transformer + dual-softmax matching
         desc3d_c, feat_query_c = self.loftr_coarse(desc3d_coarse, feat_query_c, mask1=query_mask)
-        conf = None
-        if cm.use_fused_kernel is None or cm.use_fused_kernel:
+        k_pred = cm.train_max_matches - cm.train_pad_num_gt_min if train else cm.max_matches
+        use_fused = cm.use_fused_kernel is None or cm.use_fused_kernel
+        if train and query_mask is not None:
+            # the fused focal loss has no masked-column variant
+            use_fused = False
+        conf = log_conf = None
+        if use_fused:
+            # selection is index-only: it runs on detached features, and in
+            # training the loss differentiates through K5 instead
             matches = fused_select_topk_matches(
-                desc3d_c, feat_query_c, cm.temperature, (h_c, w_c), cm.thr, cm.border_rm,
-                cm.max_matches, border_two_sided=cm.border_two_sided,
+                desc3d_c.detach(), feat_query_c.detach(), cm.temperature, (h_c, w_c), cm.thr,
+                cm.border_rm, k_pred, border_two_sided=cm.border_two_sided,
                 feat_norm=cm.feat_norm_method, col_mask=query_mask, dtype=self.dtype,
             )
         else:
-            conf = dual_softmax_confidence(
-                desc3d_c, feat_query_c, cm.temperature, mask1=query_mask,
-                feat_norm=cm.feat_norm_method,
-            )
+            if train:
+                conf, log_conf = dual_softmax_log_confidence(
+                    desc3d_c, feat_query_c, cm.temperature, mask1=query_mask,
+                    feat_norm=cm.feat_norm_method,
+                )
+            else:
+                conf = dual_softmax_confidence(
+                    desc3d_c, feat_query_c, cm.temperature, mask1=query_mask,
+                    feat_norm=cm.feat_norm_method,
+                )
             matches = select_topk_matches(
-                conf, (h_c, w_c), cm.thr, cm.border_rm, cm.max_matches,
+                conf.detach(), (h_c, w_c), cm.thr, cm.border_rm, k_pred,
                 border_two_sided=cm.border_two_sided,
             )
+        if train:
+            matches = pad_matches_with_gt(matches, batch["gt_cell"], cm.train_pad_num_gt_min,
+                                          generator=generator, rows=gt_pad_rows)
 
         # coarse pixel coordinates (original resolution via query_image_scale)
         j = matches.j_ids.long()
@@ -123,6 +162,15 @@ class OnePosePlusModel(nn.Module):
         }
         if conf is not None:
             out["conf_matrix"] = conf
+            if log_conf is not None:
+                out["log_conf_matrix"] = log_conf
+        elif train:
+            # the fused focal loss (K5) consumes the coarse features directly
+            out["coarse_loss_ctx"] = {
+                "feats": (desc3d_c, feat_query_c),
+                "temperature": cm.temperature,
+                "feat_norm": cm.feat_norm_method,
+            }
         if not cfg.fine.enable:
             out["mkpts_query_f"] = mkpts_query_c
             return out
@@ -143,8 +191,8 @@ class OnePosePlusModel(nn.Module):
         d1 = windows.reshape(n * k, w_win * w_win, c_f)
         d0, d1 = self.loftr_fine(d0, d1)
 
-        # 5. correlation heatmap soft-argmax (f32)
-        sim = torch.einsum("mc,mrc->mr", d0[:, 0, :].float(), d1.float()) / (c_f ** 0.5)
+        # 5. correlation heatmap soft-argmax, in the windows' (compute) dtype
+        sim = torch.einsum("mc,mrc->mr", d0[:, 0, :], d1) / (c_f ** 0.5)
         heat = torch.softmax(sim, dim=-1)
         coords = spatial_expectation_2d(heat, w_win)  # [N*K, 2] in [-1, 1]
         std = heatmap_std(heat, coords, w_win).reshape(n, k)

@@ -6,10 +6,11 @@ Module and parameter names follow the reference state dict
 (``layers.N.{q_proj,k_proj,v_proj,merge,mlp.0,mlp.2,norm1,norm2}``).
 
 Two execution paths over the same parameters, chosen by the rule of the JAX
-package (transformer.py:168-181): long sequences with linear attention (the
-coarse stage, min(L, S) >= 256) run each layer as kernel K1
+package (transformer.py:168-181): out of training, long sequences with linear
+attention (the coarse stage, min(L, S) >= 256) run each layer as kernel K1
 (``ops/cuda_encoder.py``); everything else, such as the fine stage's 25-token
-windows, runs the eager layer. The port is inference-only.
+windows and every layer in train mode, runs the eager layer, which autograd
+differentiates (K1 has no backward).
 """
 from __future__ import annotations
 
@@ -112,7 +113,8 @@ class LocalFeatureTransformer(nn.Module):
         """feat0 [N, L, C] (3D descriptors), feat1 [N, S, C] (query grid)."""
         fused = self.cfg.fused_encoder
         if fused is None:
-            fused = self.cfg.attention == "linear" and min(feat0.shape[1], feat1.shape[1]) >= 256
+            fused = (not self.training and self.cfg.attention == "linear"
+                     and min(feat0.shape[1], feat1.shape[1]) >= 256)
         for layer, name in zip(self.layers, self.cfg.layer_sequence):
             if name == "self":
                 feat0, feat1 = (

@@ -1,0 +1,170 @@
+"""K5: the fused coarse focal loss over the dual softmax as hand-written CUDA kernels.
+
+Replaces ``onepose_plus_plus_tpu/ops/pallas_coarse_loss.py::fused_coarse_focal_loss``
+(its custom VJP ``_core``: the LSE pass, ``_loss_kernel``, ``_gsum_kernel`` and
+``_dfeat_kernel``). Source: ``csrc/coarse_loss.cu``; the LSE pass is K2's
+(``csrc/matching.cu``, entry ``opp_dual_lse_bf16``), as the TPU kernel shares
+``pallas_matching._lse_kernel``.
+
+It computes the log-space focal BCE of ``train/losses.py::coarse_focal_loss``
+on the dual-softmax confidence without building the [B, P, L] matrix, using
+``log conf[p, l] = 2 s[p, l] - colLSE[l] - rowLSE[p]`` (capped at -1e-6), at
+the TPU kernel's precision: f0 and f1 are scaled by 1/sqrt(C) and rounded to
+bf16, similarities accumulate in f32. The backward is analytic, with
+g = dL/dlogconf (zero where the cap is active),
+``dL/ds = 2 g - softmax_p * colsum(g) - softmax_l * rowsum(g)``, rounded to
+bf16 before the two products with the features (f32 accumulation).
+
+What bounds it on the card: FP32 FMA throughput of seven similarity-sized
+passes (2*B*P*L*C FLOP each, ~59 GFLOP at the train shapes), then the
+exponentials. Every pass recomputes its similarity tiles (flash-attention
+style): df0 runs one block per row tile over the column tiles, df1 one block
+per column tile over the row tiles, so neither needs atomics or a
+[B, row tiles, L, C] partial, and the result is the same bit for bit from run
+to run. Column sums of g are per-row-tile partials merged in order, as K2's
+column statistics.
+
+The count normalisation and ``max_conf`` live in the wrapper, as in JAX.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..kernels import LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+
+LOGCAP = -1e-6  # log conf <= log(1 - ~1e-6): the negative term's log1p stays finite
+
+
+def _focal_terms(conf: torch.Tensor, log_conf: torch.Tensor, gamma: float):
+    """(pos, neg) terms of the log-space focal BCE, unweighted."""
+    one_m = 1.0 - conf
+    if gamma == 2.0:
+        pg, ng = one_m * one_m, conf * conf
+    else:
+        pg, ng = one_m ** gamma, conf ** gamma
+    return -pg * log_conf, -ng * torch.log1p(-conf)
+
+
+def coarse_focal_sums_plain(
+    f0: torch.Tensor, f1: torch.Tensor, gt: torch.Tensor, inv_temp: float, alpha: float, gamma: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5's core (dense log-space path, autograd).
+
+    f0 [B, P, C], f1 [B, L, C] already scaled and cast; gt [B, P] the GT column
+    of each row (-1 = none). Returns (alpha * sum of positive terms,
+    (1 - alpha) * sum of negative terms, max conf). Materialises [B, P, L].
+    """
+    sim = torch.einsum("bpc,blc->bpl", f0.float(), f1.float()) * inv_temp
+    raw = 2.0 * sim - torch.logsumexp(sim, dim=1, keepdim=True) - torch.logsumexp(sim, dim=2, keepdim=True)
+    log_conf = torch.clamp(raw, max=LOGCAP)
+    conf = torch.exp(log_conf)
+    pos_t, neg_t = _focal_terms(conf, log_conf, gamma)
+    is_pos = gt.long()[:, :, None] == torch.arange(f1.shape[1], device=f0.device)
+    pos = alpha * torch.where(is_pos, pos_t, torch.zeros_like(pos_t)).sum()
+    neg = (1.0 - alpha) * torch.where(is_pos, torch.zeros_like(neg_t), neg_t).sum()
+    return pos, neg, conf.detach().max()
+
+
+def _check(f0, f1, gt):
+    b, p, c = f0.shape
+    l = f1.shape[1]
+    if f0.dtype != torch.bfloat16 or f1.dtype != torch.bfloat16:
+        raise ValueError("coarse focal loss kernel: operands must be bfloat16")
+    if f1.shape != (b, l, c) or gt.shape != (b, p) or gt.dtype != torch.int32:
+        raise ValueError(f"coarse focal loss kernel: f0 {tuple(f0.shape)}, f1 {tuple(f1.shape)}, "
+                         f"gt {tuple(gt.shape)} {gt.dtype}")
+    if c > 256:
+        raise ValueError(f"coarse focal loss kernel: C={c} > 256")
+    return check_cuda_operands("coarse focal loss", f0, f1, gt), b, p, l, c
+
+
+class _CoarseFocalSums(torch.autograd.Function):
+    """K5's core on CUDA tensors: forward LSE + loss passes, backward gsum + df passes."""
+
+    @staticmethod
+    def forward(ctx, f0, f1, gt, inv_temp, alpha, gamma):
+        device, b, p, l, c = _check(f0, f1, gt)
+        lib = build()
+        f32 = torch.float32
+        row_lse = torch.empty((b, p), dtype=f32, device=device)
+        col_lse = torch.empty((b, l), dtype=f32, device=device)
+        part = torch.empty((b, lib.lib.opp_rowcol_row_tiles(p), l), dtype=f32, device=device)
+        pos, neg, mx = (torch.empty((b, p), dtype=f32, device=device) for _ in range(3))
+        stream = stream_ptr(device)
+        lib.call("opp_dual_lse_bf16", ptr(f0), ptr(f1), None, None, ptr(row_lse), ptr(col_lse),
+                 ptr(part), b, p, l, c, inv_temp, stream)
+        lib.call("opp_coarse_loss_fwd", ptr(f0), ptr(f1), ptr(gt), ptr(row_lse), ptr(col_lse),
+                 ptr(pos), ptr(neg), ptr(mx), b, p, l, c, inv_temp, alpha, gamma, stream)
+        LAUNCHES["K5_coarse_loss"] += 1
+        ctx.save_for_backward(f0, f1, gt, row_lse, col_lse)
+        ctx.consts = (inv_temp, alpha, gamma)
+        mx = mx.max()
+        ctx.mark_non_differentiable(mx)
+        return pos.sum(), neg.sum(), mx
+
+    @staticmethod
+    def backward(ctx, g_pos, g_neg, _g_mx):
+        f0, f1, gt, row_lse, col_lse = ctx.saved_tensors
+        inv_temp, alpha, gamma = ctx.consts
+        device, b, p, l, c = _check(f0, f1, gt)
+        lib = build()
+        f32 = torch.float32
+        coef = torch.stack([g_pos, g_neg]).to(f32).contiguous()
+        rowg = torch.empty((b, p), dtype=f32, device=device)
+        colg = torch.empty((b, l), dtype=f32, device=device)
+        colpart = torch.empty((b, lib.lib.opp_coarse_loss_row_tiles(p), l), dtype=f32, device=device)
+        df0 = torch.empty((b, p, c), dtype=f32, device=device)
+        df1 = torch.empty((b, l, c), dtype=f32, device=device)
+        lib.call("opp_coarse_loss_bwd", ptr(f0), ptr(f1), ptr(gt), ptr(row_lse), ptr(col_lse),
+                 ptr(coef), ptr(rowg), ptr(colg), ptr(colpart), ptr(df0), ptr(df1),
+                 b, p, l, c, inv_temp, alpha, gamma, stream_ptr(device))
+        LAUNCHES["K5_coarse_loss_bwd"] += 1
+        return df0.to(f0.dtype), df1.to(f1.dtype), None, None, None, None
+
+
+def coarse_focal_sums(
+    f0: torch.Tensor, f1: torch.Tensor, gt: torch.Tensor, inv_temp: float, alpha: float, gamma: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's core: (alpha * pos sum, (1 - alpha) * neg sum, max conf), differentiable
+    in the bf16 operands f0 [B, P, C], f1 [B, L, C]. CPU tensors run the plain version."""
+    if f0.device.type == "cpu":
+        return coarse_focal_sums_plain(f0, f1, gt, inv_temp, alpha, gamma)
+    return _CoarseFocalSums.apply(f0, f1, gt.to(torch.int32).contiguous(), inv_temp, alpha, gamma)
+
+
+def fused_coarse_focal_loss(
+    feat0: torch.Tensor,
+    feat1: torch.Tensor,
+    gt_cell: torch.Tensor,
+    temperature: float,
+    alpha: float = 0.5,
+    gamma: float = 2.0,
+    pos_weight: float = 1.0,
+    neg_weight: float = 1.0,
+    feat_norm: str = "sqrt_feat_dim",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, max_conf) of the dual-softmax focal BCE, never building [P, L] on the card.
+
+    Drop-in for ``coarse_focal_loss`` on the log-space confidence of
+    ``dual_softmax_log_confidence(feat0, feat1, temperature)`` plus
+    ``max(conf)``, at bf16 similarity precision. Differentiable in feat0
+    [B, P, C] and feat1 [B, L, C]; ``max_conf`` is detached. gt_cell [B, P] is
+    each row's GT column, -1 for none.
+    """
+    b, p, c = feat0.shape
+    l = feat1.shape[1]
+    if feat_norm == "sqrt_feat_dim":
+        scale = 1.0 / (c ** 0.5)
+    elif feat_norm in ("none", None):
+        scale = 1.0
+    else:
+        raise ValueError(f"unknown feat_norm {feat_norm}")
+    f0 = (feat0 * scale).to(torch.bfloat16).contiguous()
+    f1 = (feat1 * scale).to(torch.bfloat16).contiguous()
+    pos_sum, neg_sum, mx = coarse_focal_sums(f0, f1, gt_cell, 1.0 / (temperature + 1e-4), alpha, gamma)
+    n_pos = (gt_cell >= 0).sum()
+    n_neg = b * p * l - n_pos
+    loss = pos_weight * pos_sum / n_pos.clamp(min=1) + neg_weight * neg_sum / n_neg.clamp(min=1)
+    return loss, mx.detach()

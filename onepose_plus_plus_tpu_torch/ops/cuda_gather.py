@@ -1,8 +1,11 @@
-"""K3: the fine-window gather as a hand-written CUDA kernel.
+"""K3 and K4: the fine-window gather and its VJP as hand-written CUDA kernels.
 
-Replaces ``onepose_plus_plus_tpu/ops/pallas_gather.py::take_rows_mxu`` as
+K3 replaces ``onepose_plus_plus_tpu/ops/pallas_gather.py::take_rows_mxu`` as
 ``ops/window_gather.py::gather_windows_aligned`` uses it (window_gather.py:
-109-119). Source: ``csrc/gather.cu``.
+109-119); source ``csrc/gather.cu``. K4 replaces ``scatter_rows_mxu``, the
+backward of ``take_rows_mxu_grad`` there; source ``csrc/scatter.cu``.
+``WindowGather`` joins them as one ``torch.autograd.Function`` (the ids carry
+no gradient).
 
 On the TPU the window gather is a one-hot matmul over a space-to-depth copy of
 the map, because the matrix unit is the only fast way to select rows there.
@@ -10,10 +13,18 @@ Both exist only for the TPU: the kernel copies each W x W window straight from
 the NHWC map into ``[B, K, W*W, C]``. Taps outside the map, and every tap of an
 out-of-range cell id (a padded match slot), are zero.
 
-What bounds it on the card: device-memory bandwidth (the output and the taps it
+What bounds K3 on the card: device-memory bandwidth (the output and the taps it
 reads; a few tens of MB at the main-path shapes). The design gives each window
 one block and copies 16-byte vectors, neighbouring threads on neighbouring
 addresses, so loads and stores coalesce.
+
+K4 is K3's transpose: window gradients summed back onto the map. Windows
+overlap and GT-padded slots repeat cells, so collisions are the norm; the sum
+is deterministic, bit for bit, with no atomics. The wrapper orders the slots
+by cell id (a stable sort) and gives the kernel per-cell slot ranges; one
+thread per (pixel, 16-byte vector) sums the slots of the at most
+ceil(W/stride)^2 cells whose windows hold its pixel, in a fixed order, in f32.
+Bound: bandwidth again (one write of the map, one read of each gradient tap).
 """
 from __future__ import annotations
 
@@ -22,6 +33,28 @@ from typing import Tuple
 import torch
 
 from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+
+
+def _window_taps(
+    cell_ids: torch.Tensor, hw: Tuple[int, int], grid_hw: Tuple[int, int], stride: int, window: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat map index [N, K*W*W] (clamped into the map) and validity of every tap."""
+    n, k = cell_ids.shape
+    h, w = hw
+    h_c, w_c = grid_hw
+    ids = cell_ids.long()
+    in_range = (ids >= 0) & (ids < h_c * w_c)
+    ci, cj = ids // w_c, ids % w_c
+    offs = torch.arange(window, device=cell_ids.device) - window // 2
+    rows = stride * ci[..., None] + offs  # [N, K, W]
+    cols = stride * cj[..., None] + offs
+    valid = (
+        in_range[..., None, None]
+        & ((rows >= 0) & (rows < h))[..., :, None]
+        & ((cols >= 0) & (cols < w))[..., None, :]
+    )  # [N, K, W, W]
+    flat = rows.clamp(0, h - 1)[..., :, None] * w + cols.clamp(0, w - 1)[..., None, :]
+    return flat.reshape(n, k * window * window), valid.reshape(n, k * window * window)
 
 
 def window_gather_plain(
@@ -33,24 +66,12 @@ def window_gather_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of K3 (indexed gather + zero mask; exact)."""
     n, h, w, c = feat.shape
-    h_c, w_c = grid_hw
-    ids = cell_ids.long()
-    k = ids.shape[1]
-    in_range = (ids >= 0) & (ids < h_c * w_c)
-    ci, cj = ids // w_c, ids % w_c
-    offs = torch.arange(window, device=feat.device) - window // 2
-    rows = stride * ci[..., None] + offs  # [N, K, W]
-    cols = stride * cj[..., None] + offs
-    valid = (
-        in_range[..., None, None]
-        & ((rows >= 0) & (rows < h))[..., :, None]
-        & ((cols >= 0) & (cols < w))[..., None, :]
-    )  # [N, K, W, W]
-    flat = rows.clamp(0, h - 1)[..., :, None] * w + cols.clamp(0, w - 1)[..., None, :]
-    flat = flat.reshape(n, k * window * window)
+    k = cell_ids.shape[1]
+    flat, valid = _window_taps(cell_ids, (h, w), grid_hw, stride, window)
     out = torch.gather(feat.reshape(n, h * w, c), 1, flat[..., None].expand(-1, -1, c))
     out = out.reshape(n, k, window * window, c)
-    return torch.where(valid.reshape(n, k, window * window, 1), out, torch.zeros_like(out))
+    valid = valid.reshape(n, k, window * window, 1)
+    return torch.where(valid, out, torch.zeros_like(out))
 
 
 def window_gather(
@@ -86,3 +107,86 @@ def window_gather(
     )
     LAUNCHES["K3_window_gather"] += 1
     return out
+
+
+def window_scatter_plain(
+    grad: torch.Tensor,
+    cell_ids: torch.Tensor,
+    grid_hw: Tuple[int, int],
+    stride: int,
+    window: int,
+    hw: Tuple[int, int],
+) -> torch.Tensor:
+    """Plain PyTorch version of K4: ``index_add_`` of the valid taps into an f32
+    zero map, then a cast to grad's dtype."""
+    n, k, taps, c = grad.shape
+    h, w = hw
+    flat, valid = _window_taps(cell_ids, hw, grid_hw, stride, window)
+    flat = flat + h * w * torch.arange(n, device=grad.device)[:, None]
+    out = torch.zeros((n * h * w, c), dtype=torch.float32, device=grad.device)
+    out.index_add_(0, flat[valid], grad.reshape(n, k * taps, c)[valid].float())
+    return out.reshape(n, h, w, c).to(grad.dtype)
+
+
+def window_scatter(
+    grad: torch.Tensor,
+    cell_ids: torch.Tensor,
+    grid_hw: Tuple[int, int],
+    stride: int,
+    window: int,
+    hw: Tuple[int, int],
+) -> torch.Tensor:
+    """Sum window gradients grad [N, K, W*W, C] back onto an [N, H, W, C] map.
+
+    The transpose of :func:`window_gather`: duplicate and overlapping windows
+    add up (in f32), taps outside the map and out-of-range ids are dropped.
+    Output has grad's dtype. CPU tensors run the plain version.
+    """
+    if grad.device.type == "cpu":
+        return window_scatter_plain(grad, cell_ids, grid_hw, stride, window, hw)
+    if grad.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"window_scatter: unsupported dtype {grad.dtype}")
+    n, k, taps, c = grad.shape
+    h, w = hw
+    h_c, w_c = grid_hw
+    if cell_ids.shape != (n, k) or taps != window * window:
+        raise ValueError(f"window_scatter: cell_ids {tuple(cell_ids.shape)} vs grad {tuple(grad.shape)}")
+    if h != stride * h_c or w != stride * w_c:
+        raise ValueError(f"window_scatter: map {hw} != stride {stride} * grid {grid_hw}")
+    if (c * grad.element_size()) % 16 != 0:
+        raise ValueError(f"window_scatter: C * itemsize must be a multiple of 16 bytes, C={c}")
+    grad = grad.contiguous()
+    # index preparation: slots in a stable order of their cell id (invalid ids
+    # last) and each cell's range of sorted slots
+    n_cells = h_c * w_c
+    ids = cell_ids.long()
+    key = torch.where((ids >= 0) & (ids < n_cells), ids, torch.full_like(ids, n_cells))
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    cells = torch.arange(n_cells + 1, device=grad.device).expand(n, -1).contiguous()
+    cell_start = torch.searchsorted(sorted_key, cells).to(torch.int32)
+    order = order.to(torch.int32)
+    device = check_cuda_operands("window_scatter", grad, order, cell_start)
+    out = torch.empty((n, h, w, c), dtype=grad.dtype, device=device)
+    build().call(
+        f"opp_window_scatter_{KERNEL_DTYPES[grad.dtype]}",
+        ptr(grad), ptr(order), ptr(cell_start), ptr(out), n, h, w, c, h_c, w_c, k, stride,
+        window, stream_ptr(device),
+    )
+    LAUNCHES["K4_window_scatter"] += 1
+    return out
+
+
+class WindowGather(torch.autograd.Function):
+    """The window gather with a gradient in feat: forward K3, backward K4."""
+
+    @staticmethod
+    def forward(ctx, feat, cell_ids, grid_hw, stride, window):
+        ctx.save_for_backward(cell_ids)
+        ctx.geometry = (grid_hw, stride, window, (feat.shape[1], feat.shape[2]))
+        return window_gather(feat, cell_ids, grid_hw, stride, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (cell_ids,) = ctx.saved_tensors
+        grid_hw, stride, window, hw = ctx.geometry
+        return window_scatter(grad, cell_ids, grid_hw, stride, window, hw), None, None, None, None

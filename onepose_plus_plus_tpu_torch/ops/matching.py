@@ -4,8 +4,9 @@ Port of ``onepose_plus_plus_tpu/ops/matching.py`` (reference
 ``src/models/OnePosePlus/utils/coarse_matching.py:56-251``). Matches live in K
 static slots with a validity mask; under mutual nearest neighbours each row
 has at most one column, so row-wise top-K selection loses nothing while
-K >= #matches. This path materialises the [N, L, S] confidence; inference on
-the main path uses the streaming K2 kernel (``ops/cuda_matching.py``).
+K >= #matches. This path materialises the [N, L, S] confidence; the main path
+selects with the streaming K2 kernel (``ops/cuda_matching.py``). Training
+appends GT slots (:func:`pad_matches_with_gt`).
 """
 from __future__ import annotations
 
@@ -46,6 +47,35 @@ def dual_softmax_confidence(
         valid = m0[:, :, None] & m1[:, None, :]
         sim = sim + torch.where(valid, 0.0, -1e9)
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def dual_softmax_log_confidence(
+    feat0: torch.Tensor,
+    feat1: torch.Tensor,
+    temperature: float,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+    feat_norm: str = "sqrt_feat_dim",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(conf, log_conf) with ``log_conf = log_softmax(sim, 1) + log_softmax(sim, 2)``.
+
+    The log form stays finite, with bounded gradients, where the product of the
+    two softmaxes underflows f32; the log-space coarse focal loss consumes it.
+    """
+    feat0, feat1 = feat0.float(), feat1.float()
+    if feat_norm == "sqrt_feat_dim":
+        scale = 1.0 / (feat0.shape[-1] ** 0.5)
+        feat0, feat1 = feat0 * scale, feat1 * scale
+    elif feat_norm not in ("none", None):
+        raise ValueError(f"unknown feat_norm {feat_norm}")
+    sim = torch.einsum("nlc,nsc->nls", feat0, feat1) / (temperature + 1e-4)
+    if mask0 is not None or mask1 is not None:
+        n, l, s = sim.shape
+        m0 = mask0.bool() if mask0 is not None else torch.ones((n, l), dtype=torch.bool, device=sim.device)
+        m1 = mask1.bool() if mask1 is not None else torch.ones((n, s), dtype=torch.bool, device=sim.device)
+        sim = sim + torch.where(m0[:, :, None] & m1[:, None, :], 0.0, -1e9)
+    log_conf = torch.log_softmax(sim, dim=1) + torch.log_softmax(sim, dim=2)
+    return torch.exp(log_conf), log_conf
 
 
 def _border_keep(h: int, w: int, border: int, two_sided: bool, device=None) -> torch.Tensor:
@@ -106,3 +136,48 @@ def select_topk_matches(
     mask = top_score > 0.0
     mconf = torch.where(mask, top_score, torch.zeros_like(top_score))
     return CoarseMatches(i_ids.to(torch.int32), j_ids.to(torch.int32), mconf, mask)
+
+
+def sample_gt_rows(gt_cell: torch.Tensor, num: int, generator: torch.Generator) -> torch.Tensor:
+    """Rows for the GT slots: Gumbel top-``num`` over the rows with a GT cell
+    (sampling without replacement), [N, num]. Rows without GT get -inf and come
+    last; the assembly wraps around when there are fewer GT rows than slots."""
+    u = torch.rand(gt_cell.shape, generator=generator, device=gt_cell.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    scores = torch.where(gt_cell >= 0, gumbel, torch.full_like(gumbel, float("-inf")))
+    return topk_stable(scores, num)[1]
+
+
+def pad_matches_with_gt(
+    matches: CoarseMatches,
+    gt_cell: torch.Tensor,
+    num_gt_min: int,
+    generator: Optional[torch.Generator] = None,
+    rows: Optional[torch.Tensor] = None,
+) -> CoarseMatches:
+    """Training-time GT padding: append ``num_gt_min`` GT slots to the K
+    prediction slots (K + num_gt_min slots out).
+
+    GT slots carry mconf 0 and mask True (False for a frame without GT).
+    ``rows`` [N, num_gt_min] are the sampled rows in sampling order; when
+    absent they are drawn from ``generator`` by :func:`sample_gt_rows`
+    (a test injects the JAX package's rows here). Slot t takes sampled row
+    min(t, n_gt - 1), so a frame with fewer GT rows than slots repeats its
+    last one.
+    """
+    n = gt_cell.shape[0]
+    if rows is None:
+        rows = sample_gt_rows(gt_cell, num_gt_min, generator)
+    rows = rows.long()
+    n_gt = (gt_cell >= 0).sum(dim=1, keepdim=True)  # [N, 1]
+    slot = torch.arange(num_gt_min, device=gt_cell.device)[None, :]
+    take = torch.where(n_gt > 0, torch.minimum(slot, n_gt - 1), torch.zeros_like(slot))
+    gt_i = torch.gather(rows, 1, take)
+    gt_j = torch.gather(gt_cell.long().clamp_min(0), 1, gt_i)
+    gt_mask = (n_gt > 0).expand(n, num_gt_min)
+    return CoarseMatches(
+        torch.cat([matches.i_ids, gt_i.to(torch.int32)], dim=1),
+        torch.cat([matches.j_ids, gt_j.to(torch.int32)], dim=1),
+        torch.cat([matches.mconf, matches.mconf.new_zeros((n, num_gt_min))], dim=1),
+        torch.cat([matches.mask, gt_mask], dim=1),
+    )

@@ -3,7 +3,8 @@
 Instead of unfolding every W x W window of the fine map (reference
 ``fine_preprocess.py:41-54``), only the K matched windows are gathered. Both
 matchers centre each window on a coarse cell (``center = stride * cell``);
-the gather itself is kernel K3 (``ops/cuda_gather.py``).
+the gather itself is kernel K3 and its gradient in feat kernel K4
+(``ops/cuda_gather.py``).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_gather import window_gather
+from .cuda_gather import WindowGather
 
 
 def gather_windows_aligned(
@@ -32,9 +33,10 @@ def gather_windows_aligned(
         window: odd window size W.
     Returns:
         [N, K, W*W, C] windows in feat's dtype; taps outside the map are zero.
+        Differentiable in feat (K4 sums the window gradients back).
     """
     n, h, w, c = feat.shape
     h_c, w_c = grid_hw
     if h != stride * h_c or w != stride * w_c:
         raise ValueError(f"feat {tuple(feat.shape)} != stride {stride} * grid {grid_hw}")
-    return window_gather(feat, cell_ids, grid_hw, stride, window)
+    return WindowGather.apply(feat, cell_ids, grid_hw, stride, window)

@@ -5,6 +5,8 @@ The port's modules carry the reference's state-dict names, so
 port ``state_dict()`` onto the JAX variable tree, and :func:`state_dict_from_jax`
 is its inverse: flax ``{'params', 'batch_stats'}`` (numpy leaves) -> port
 ``state_dict``. Layouts: conv HWIO -> OIHW, linear [in, out] -> [out, in].
+:func:`load_jax_train_state` carries a whole JAX ``TrainState`` across:
+parameters, BatchNorm statistics, Adam moments and the update count.
 """
 from __future__ import annotations
 
@@ -96,3 +98,63 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     missing = [k for k in result.missing_keys if not k.endswith("num_batches_tracked")]
     if missing or result.unexpected_keys:
         raise KeyError(f"weight bridge: missing {missing}, unexpected {result.unexpected_keys}")
+
+
+def _find_opt_states(tree: Any, found: Dict[str, Any]) -> None:
+    """Walk an optax state (namedtuples and tuples) for the MultiSteps and
+    Adam states, by their fields."""
+    fields = getattr(tree, "_fields", ())
+    if "mini_step" in fields:
+        found["multisteps"] = tree
+        _find_opt_states(tree.inner_opt_state, found)
+    elif "mu" in fields and "nu" in fields:
+        found["adam"] = tree
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            _find_opt_states(t, found)
+
+
+def load_jax_train_state(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    scheduler: torch.optim.lr_scheduler.LambdaLR,
+    state: Any,
+) -> int:
+    """Carry a JAX ``TrainState`` (numpy leaves) into the port's model, AdamW
+    optimizer and schedule (``train.train_step.make_optimizer``).
+
+    Loads params and batch_stats, Adam's ``mu``/``nu`` as AdamW's
+    ``exp_avg``/``exp_avg_sq`` and its update count as AdamW's ``step`` and the
+    schedule's position. Raises unless the ``optax.MultiSteps`` accumulator
+    (when there is one) sits at an update boundary, since an accumulated
+    half-step has no place to go. Returns the micro-batch step.
+    """
+    load_jax_variables(model, {"params": state.params, "batch_stats": state.batch_stats})
+    found: Dict[str, Any] = {}
+    _find_opt_states(state.opt_state, found)
+    if "adam" not in found:
+        raise ValueError("no Adam state (mu, nu) in the JAX optimizer state")
+    ms = found.get("multisteps")
+    if ms is not None and int(np.asarray(ms.mini_step)) != 0:
+        raise ValueError(
+            f"the JAX MultiSteps accumulator is mid-accumulation (mini_step "
+            f"{int(np.asarray(ms.mini_step))}); carry a state at an update boundary"
+        )
+    adam = found["adam"]
+    count = int(np.asarray(adam.count))
+    mu = state_dict_from_jax({"params": adam.mu})
+    nu = state_dict_from_jax({"params": adam.nu})
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
+        }
+        p.grad = None
+    optimizer.param_groups[0]["mini_step"] = 0
+    scheduler.last_epoch = count
+    lrs = [base * fn(count) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(optimizer.param_groups, lrs):
+        group["lr"] = lr
+    scheduler._last_lr = lrs
+    return int(np.asarray(state.step))

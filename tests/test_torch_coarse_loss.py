@@ -1,0 +1,73 @@
+"""K5's plain version against the JAX package's fused coarse focal loss.
+
+``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` on CPU tensors runs the
+dense log-space path on the same bf16-rounded, scaled features as the kernel;
+the JAX side is ``pallas_coarse_loss.fused_coarse_focal_loss`` in interpret
+mode, as ``tests/test_pallas_coarse_loss.py`` runs it. Bounds are that file's:
+loss and max_conf rtol 2e-4; gradients max error < 2e-2 of the largest
+gradient and cosine > 0.999 (the TPU kernel rounds dL/ds to bf16 before its
+products, the plain version keeps f32).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from onepose_plus_plus_tpu.ops.pallas_coarse_loss import fused_coarse_focal_loss as jax_fused_loss
+from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import fused_coarse_focal_loss
+
+
+def _inputs(b, p, l, c, seed=0, frac_pos=0.3):
+    rng = np.random.default_rng(seed)
+    feat0 = rng.standard_normal((b, p, c)).astype(np.float32)
+    feat1 = rng.standard_normal((b, l, c)).astype(np.float32)
+    gt = np.where(rng.random((b, p)) < frac_pos, rng.integers(0, l, (b, p)), -1).astype(np.int32)
+    return feat0, feat1, gt
+
+
+def _jax(feat0, feat1, gt, t, gamma):
+    def f(a, b):
+        return jax_fused_loss(a, b, jnp.asarray(gt), t, 0.5, gamma, 1.0, 1.0,
+                              tiles=(128, 128), interpret=True)
+    (loss, mx), grads = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(feat0), jnp.asarray(feat1))
+    return float(loss), float(mx), [np.asarray(g) for g in grads]
+
+
+def _port(feat0, feat1, gt, t, gamma):
+    f0 = torch.from_numpy(feat0).requires_grad_()
+    f1 = torch.from_numpy(feat1).requires_grad_()
+    loss, mx = fused_coarse_focal_loss(f0, f1, torch.from_numpy(gt), t, 0.5, gamma, 1.0, 1.0)
+    loss.backward()
+    assert not mx.requires_grad
+    return float(loss.detach()), float(mx), [f0.grad.numpy(), f1.grad.numpy()]
+
+
+def _assert_grads_close(got, ref):
+    for g, r in zip(got, ref):
+        scale = np.abs(r).max()
+        assert scale > 0
+        assert np.abs(g - r).max() < 2e-2 * scale
+        cos = (g * r).sum() / (np.linalg.norm(g) * np.linalg.norm(r) + 1e-12)
+        assert cos > 0.999
+
+
+@pytest.mark.parametrize(
+    "b,p,l,gamma,frac_pos",
+    [
+        (2, 96, 64, 2.0, 0.3),  # one tile, unaligned shapes
+        (1, 300, 160, 2.0, 0.3),  # several row and column tiles
+        (1, 96, 64, 2.5, 0.3),  # general gamma
+        (1, 96, 64, 2.0, 0.0),  # no positives
+    ],
+)
+def test_k5_plain_matches_jax(b, p, l, gamma, frac_pos):
+    feat0, feat1, gt = _inputs(b, p, l, 32, seed=p + l, frac_pos=frac_pos)
+    assert (frac_pos > 0) == bool((gt >= 0).any())
+    ref_loss, ref_mx, ref_g = _jax(feat0, feat1, gt, 0.08, gamma)
+    loss, mx, g = _port(feat0, feat1, gt, 0.08, gamma)
+    assert np.isfinite(loss)
+    np.testing.assert_allclose(loss, ref_loss, rtol=2e-4)
+    np.testing.assert_allclose(mx, ref_mx, rtol=2e-4)
+    _assert_grads_close(g, ref_g)

@@ -1,4 +1,4 @@
-"""Kernels K1-K3 on the GPU against their plain PyTorch versions (marker ``cuda``).
+"""Kernels K1-K5 on the GPU against their plain PyTorch versions (marker ``cuda``).
 
 These build the kernels with nvcc and launch them, so they run only on a
 machine with an NVIDIA Hopper GPU and the CUDA toolkit, and skip elsewhere:
@@ -12,11 +12,22 @@ import torch
 
 from onepose_plus_plus_tpu_torch import kernels
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer
-from onepose_plus_plus_tpu_torch.ops.cuda_gather import window_gather, window_gather_plain
+from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import (
+    coarse_focal_sums,
+    coarse_focal_sums_plain,
+    fused_coarse_focal_loss,
+)
+from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
+    window_gather,
+    window_gather_plain,
+    window_scatter,
+    window_scatter_plain,
+)
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
     rowcol_stats_plain,
 )
+from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows_aligned
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +90,91 @@ def test_wrapper_raises_for_unsupported_operands(gen):
     with pytest.raises(ValueError):
         window_gather(torch.zeros(1, 8, 8, 3, device="cuda"), torch.zeros(1, 2, device="cuda"), (2, 2), 4, 5)
     kernels.build()  # the library itself builds from csrc/
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_and_is_deterministic(gen, dtype):
+    """Duplicates, overlapping windows, -1 and out-of-range ids; two launches
+    bitwise equal (no atomics)."""
+    grad = torch.randn(2, 300, 25, 128, generator=gen, device="cuda").to(dtype)
+    ids = torch.randint(-5, 12 * 16 + 5, (2, 300), generator=gen, device="cuda")
+    ids[:, 100:140] = ids[:, :40]  # repeated cells
+    before = kernels.launch_counts()["K4_window_scatter"]
+    got = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
+    again = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
+    assert kernels.launch_counts()["K4_window_scatter"] == before + 2
+    ref = window_scatter_plain(grad, ids, (12, 16), 4, 5, (48, 64))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # f32: summation order only; bf16: one rounding of the f32 sum each
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() < tol
+    # an id out of range contributes nothing
+    only_bad = torch.full_like(ids, -1)
+    only_bad[:, 0] = 12 * 16
+    assert not window_scatter(grad, only_bad, (12, 16), 4, 5, (48, 64)).any()
+
+
+def _k5_inputs(gen, b, p, l, c, frac_pos=0.3):
+    f0 = (torch.randn(b, p, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
+    f1 = (torch.randn(b, l, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
+    gt = torch.randint(0, l, (b, p), generator=gen, device="cuda", dtype=torch.int32)
+    gt = torch.where(torch.rand(b, p, generator=gen, device="cuda") < frac_pos, gt, -1)
+    return f0, f1, gt
+
+
+@pytest.mark.parametrize("b,p,l,c,gamma,frac_pos", [
+    (2, 300, 200, 64, 2.0, 0.3),
+    (1, 129, 65, 256, 2.5, 0.3),
+    (1, 100, 70, 32, 2.0, 0.0),
+])
+def test_k5_matches_plain(gen, b, p, l, c, gamma, frac_pos):
+    f0, f1, gt = _k5_inputs(gen, b, p, l, c, frac_pos)
+    inv_temp = 1 / (0.08 + 1e-4)
+    sums, grads = [], []
+    for fn in (coarse_focal_sums, coarse_focal_sums_plain):
+        a0, a1 = f0.clone().requires_grad_(), f1.clone().requires_grad_()
+        pos, neg, mx = fn(a0, a1, gt, inv_temp, 0.5, gamma)
+        (0.7 * pos + 1.3 * neg).backward()
+        sums.append(torch.stack([pos.detach(), neg.detach(), mx]))
+        grads.append((a0.grad.float(), a1.grad.float()))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sums[0], sums[1], rtol=2e-4, atol=1e-6)
+    for g, r in zip(*grads):
+        scale = r.abs().max().item()
+        assert scale > 0
+        assert (g - r).abs().max().item() < 2e-2 * scale
+        assert torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item() > 0.999
+
+
+def test_k5_is_deterministic_and_counts(gen):
+    f0, f1, gt = _k5_inputs(gen, 2, 200, 150, 64)
+    before = kernels.launch_counts()
+    runs = []
+    for _ in range(2):
+        a0 = f0.float().requires_grad_()
+        loss, mx = fused_coarse_focal_loss(a0, f1.float(), gt, 0.08, feat_norm="none")
+        loss.backward()
+        runs.append((loss.detach(), a0.grad))
+    after = kernels.launch_counts()
+    assert after["K5_coarse_loss"] == before["K5_coarse_loss"] + 2
+    assert after["K5_coarse_loss_bwd"] == before["K5_coarse_loss_bwd"] + 2
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_window_gather_autograd_runs_k3_forward_k4_backward(gen):
+    """The differentiable gather on the card: K3 forward, K4 backward, and the
+    gradient equal to the CPU's (plain versions) up to f32 summation order."""
+    feat = torch.randn(2, 48, 64, 128, generator=gen, device="cuda")
+    ids = torch.randint(-3, 12 * 16 + 3, (2, 90), generator=gen, device="cuda")
+    cot = torch.randn(2, 90, 25, 128, generator=gen, device="cuda")
+    before = kernels.launch_counts()
+    grads = []
+    for dev in ("cuda", "cpu"):
+        f = feat.detach().to(dev).requires_grad_()  # a leaf on each device
+        gather_windows_aligned(f, ids.to(dev), (12, 16), 4, 5).backward(cot.to(dev))
+        grads.append(f.grad.cpu())
+    after = kernels.launch_counts()
+    assert after["K3_window_gather"] == before["K3_window_gather"] + 1
+    assert after["K4_window_scatter"] == before["K4_window_scatter"] + 1
+    assert (grads[0] - grads[1]).abs().max().item() < 1e-5

@@ -1,8 +1,11 @@
 """The PyTorch port loads no JAX.
 
 Statically: no port source imports ``jax``, ``flax`` or ``optax``, and from the
-JAX package it imports only the modules that load no JAX. At run time: a fresh
-interpreter that imports every port module leaves ``jax`` out of
+JAX package it imports only the modules that load no JAX (``data.dataset``
+and ``data.augment`` pull in the rest of the ``data`` package, which loads none
+either; the training CLI loads ``utils/config_loader.py`` by its path, not
+through the JAX ``utils`` package). At run time: a fresh interpreter that
+imports every port module, the training CLI included, leaves ``jax`` out of
 ``sys.modules``.
 """
 import ast
@@ -17,6 +20,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "onepose_plus_plus_tpu_torch"
 SHARED = {
     "onepose_plus_plus_tpu.config",
+    "onepose_plus_plus_tpu.data.augment",
+    "onepose_plus_plus_tpu.data.dataset",
     "onepose_plus_plus_tpu.data.preprocessing",
     "onepose_plus_plus_tpu.eval.metrics",
 }
