@@ -25,9 +25,24 @@ exits non-zero):
      at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
      optimizer updates on one batch: falling loss, launch counts, step time,
      peak memory and a torch.profiler split of one micro-batch
+  8  the keypoint-free SfM: 8a K6 against its plain version at the refine
+     (K 1024) and extract (K 4096) shapes, W 9, on a [8,256,256,128] map;
+     8b the LoFTR pair matcher in f32 on the GPU against the CPU, full width,
+     one 512^2 pair, all three modes; 8c the SfM configuration
+     (configs/preprocess/sfm_inference_onepose.yaml, bf16, pair batch 8, 1024
+     slots, LM) at full width on a 20-frame plane-rendered object of 512^2:
+     every stage of run_sfm in its order, on in-memory images with the match
+     gallery, PLY and h5 exports off (the card's machine has no matplotlib and
+     no h5py), launch counts, stage walls, pairs/s and peak memory; 8d the same
+     stages in f32 on a 6-frame object of 256^2, GPU against CPU
 
-The second-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``. Weights are random, drawn from a numpy seed.
+Every kernel's record carries its time, its plain version's, the time of one
+PyTorch call that computes the same function where there is one, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its operations
+over the peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s f32), from
+this run's inputs. The second-to-last line is the kernels' JSON record, the
+last line ``{"ok": true, "device": {...}}``. Weights are random, drawn from a
+numpy seed.
 """
 from __future__ import annotations
 
@@ -41,14 +56,18 @@ import numpy as np
 import torch
 
 from onepose_plus_plus_tpu_torch import kernels
-from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, OnePosePlusConfig
+from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, LoFTRConfig, OnePosePlusConfig
 from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
+from onepose_plus_plus_tpu_torch.geometry.levenberg_marquardt import lm_solve_scalar
 from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
+from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, make_loftr_fns
+from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
+    _window_taps,
     window_gather,
     window_gather_plain,
     window_scatter,
@@ -58,8 +77,31 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
     rowcol_stats_plain,
 )
+from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps
 from onepose_plus_plus_tpu_torch.ops.matching import sample_gt_rows
+from onepose_plus_plus_tpu_torch.data.colmap_model import model_stats
+from onepose_plus_plus_tpu_torch.sfm.annotation import build_annotations
+from onepose_plus_plus_tpu_torch.sfm.cli import CONFIGS_DIR, sfm_config
+from onepose_plus_plus_tpu_torch.sfm.coarse_match import merge_keypoints, run_pairs
+from onepose_plus_plus_tpu_torch.sfm.filtering import (
+    filter_by_3d_box,
+    filter_track_length,
+    merge_close_points,
+    track_length_for_budget,
+)
+from onepose_plus_plus_tpu_torch.sfm.pairs import pose_covisibility_pairs
+from onepose_plus_plus_tpu_torch.sfm.post_optimization import (
+    assign_keyframes_greedy,
+    build_depth_problems,
+    build_refinement_pairs,
+    optimize_depths,
+    run_fine_refinement,
+    write_back,
+)
+from onepose_plus_plus_tpu_torch.sfm.runner import extract_keypoint_descriptors
+from onepose_plus_plus_tpu_torch.sfm.triangulate import triangulate_scene
 from onepose_plus_plus_tpu_torch.train.losses import LossConfig, compute_losses
+from onepose_plus_plus_tpu_torch.utils.config_loader import load_config
 from onepose_plus_plus_tpu_torch.train.train_step import TrainConfig, make_optimizer, train_step
 from onepose_plus_plus_tpu_torch.utils.weights import random_state_dict
 
@@ -84,6 +126,10 @@ KERNELS = {
     "K5_coarse_loss": {
         "source": "onepose_plus_plus_tpu_torch/csrc/coarse_loss.cu",
         "replaces": "onepose_plus_plus_tpu/ops/pallas_coarse_loss.py:459",
+    },
+    "K6_patch_gather": {
+        "source": "onepose_plus_plus_tpu_torch/csrc/patch_gather.cu",
+        "replaces": "onepose_plus_plus_tpu/ops/pallas_patch_gather.py:70",
     },
 }
 TRAIN_B, TRAIN_P, TRAIN_IMG = 4, 7000, 512  # the train config: frames per micro-batch, points, size
@@ -114,6 +160,38 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor cores; f32 CUDA cores
+
+
+def bound(n_bytes: float, ops: float, dtype: torch.dtype) -> dict:
+    """Least time of the work on the card: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S[dtype]
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def gather_bytes(flat: torch.Tensor, valid: torch.Tensor, hw_pixels: int, row_bytes: int,
+                 out: torch.Tensor, index_bytes: int) -> float:
+    """Bytes a window/patch gather must move: the output written once, each map
+    pixel its taps cover read once (this run's indices), the indices read once."""
+    n = flat.shape[0]
+    pix = (flat + hw_pixels * torch.arange(n, device=flat.device)[:, None])[valid]
+    return out.numel() * out.element_size() + torch.unique(pix).numel() * row_bytes + index_bytes
+
+
+def index_select_table(feat: torch.Tensor, flat: torch.Tensor, valid: torch.Tensor):
+    """(table, idx) for the one-call library yardstick of a gather: the flat map
+    with one zero row appended, and precomputed row indices (out-of-map taps
+    point at the zero row); ``torch.index_select(table, 0, idx)`` then computes
+    the gather's output."""
+    n, h, w, c = feat.shape
+    table = torch.cat([feat.reshape(n * h * w, c), feat.new_zeros(1, c)])
+    rows = flat + h * w * torch.arange(n, device=flat.device)[:, None]
+    return table, torch.where(valid, rows, torch.full_like(rows, n * h * w)).reshape(-1)
+
+
 def no_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -142,6 +220,14 @@ def phase1() -> None:
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"[1]   {line.strip()}")
+    # the process's first forward-mode derivative (the SfM depth solver's) pays
+    # a one-time set-up; time it here, before anything else has paid it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm_solve_scalar(lambda d: (d * d - 2.0)[:, None], torch.ones(8, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"[1] first forward-mode derivative of the process (a trivial LM solve): "
+        f"{time.perf_counter() - t0:.3f} s")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -191,7 +277,14 @@ def phase2_k1(gen) -> dict:
             log(f"[2] K1 {tag} {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms (median of 20)")
             rec[f"{tag}_{dt}"] = (ms, pms)
     ms, pms = rec["self_bf16"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": pms}
+    # the recorded instance: self [B, 7000, 256], bf16 product operands, f32 streams
+    l, c, hd = 7000, 256, 256 // 8
+    ops = B * (16 * l * c * c + 4 * l * c * c + 4 * l * c * (hd + 1))  # 6 projections + FFN, K'^T[V|1], apply
+    n_bytes = 2 * B * l * c * 4 + 10 * c * c * 2 + 4 * c * 4  # x in, out, bf16 weights, LayerNorms
+    b = bound(n_bytes, ops, torch.bfloat16)
+    log(f"[2] K1 self bf16 bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call "
+        f"computes a linear-attention encoder layer")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
 
 
 def phase2_k2(gen) -> dict:
@@ -218,7 +311,12 @@ def phase2_k2(gen) -> dict:
         rec[dt] = (ms, pms)
         del got, ref
     ms, pms = rec["bf16"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": pms}
+    p, l, c = f0.shape[1], f1.shape[1], f0.shape[2]
+    n_bytes = B * (p + l) * c * 4 + B * (p + l) * 4 * 4  # f32 features in; LSE, value, index rows/cols out
+    b = bound(n_bytes, 2 * B * p * l * c, torch.bfloat16)  # one similarity product
+    log(f"[2] K2 bf16 bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call "
+        f"computes the dual-softmax statistics")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
 
 
 def phase2_k3(gen) -> dict:
@@ -237,10 +335,16 @@ def phase2_k3(gen) -> dict:
         check(equal and bool((got[:, :4] == 0).all()), f"K3 {dt} disagrees")
         ms = time_ms(lambda: window_gather(f, ids, (64, 64), 4, 5))
         pms = time_ms(lambda: window_gather_plain(f, ids, (64, 64), 4, 5))
-        log(f"[2] K3 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms (median of 20)")
-        rec[dt] = (ms, pms)
-    ms, pms = rec["bf16"]
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms}
+        flat, valid = _window_taps(ids, (256, 256), (64, 64), 4, 5)
+        table, idx = index_select_table(f, flat, valid)
+        check(torch.equal(torch.index_select(table, 0, idx).view_as(got), ref), "K3 yardstick differs")
+        lms = time_ms(lambda: torch.index_select(table, 0, idx))
+        b = bound(gather_bytes(flat, valid, 256 * 256, 128 * f.element_size(), got, ids.numel() * 4), 0, f.dtype)
+        log(f"[2] K3 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms, index_select with precomputed indices "
+            f"{lms:.3f} ms (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        rec[dt] = {"ms": ms, "plain_ms": pms, "library_ms": lms, **b}
+        del table, idx
+    return {"max_abs_err": 0.0, **rec["bf16"]}
 
 
 # --------------------------------------------------------------- phase 3-5
@@ -371,7 +475,8 @@ def phase5(smi: str):
     counts = kernels.launch_counts()
     steps = n_frames // 16
     expected = {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps, "K3_window_gather": steps,
-                "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0}
+                "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
+                "K6_patch_gather": 0}
     log(f"[5] launches in the main-path run: {counts} (expected {expected})")
     check(counts == expected, "a kernel of the main path was not launched as the step implies")
     check(res.poses.shape == (n_frames, 4, 4), f"poses {res.poses.shape}")
@@ -476,10 +581,19 @@ def phase7a(gen) -> dict:
         check(err <= tol and same, f"K4 {dt} disagrees or is not deterministic")
         ms = time_ms(lambda: window_scatter(*args))
         pms = time_ms(lambda: window_scatter_plain(*args))
-        log(f"[7a] K4 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms (median of 20)")
-        rec[dt] = (err, ms, pms)
-    err, ms, pms = rec["f32"]  # the train config is f32
-    return {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+        # yardstick: one index_add_ of the valid taps (indices and rows precomputed)
+        flat, valid = _window_taps(ids, (4 * hc, 4 * hc), (hc, hc), 4, 5)
+        rows = (flat + (16 * hc * hc) * torch.arange(n, device="cuda")[:, None])[valid]
+        src = grad.reshape(n, k * 25, 128)[valid]
+        acc = torch.zeros(n * 16 * hc * hc, 128, dtype=dtype, device="cuda")
+        lms = time_ms(lambda: acc.index_add_(0, rows, src))
+        n_bytes = src.numel() * src.element_size() + rows.numel() * 4 + got.numel() * got.element_size()
+        b = bound(n_bytes, src.numel(), dtype)  # one add per tap element
+        log(f"[7a] K4 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ {lms:.3f} ms (median of 20); "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        rec[dt] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": lms, **b}
+        del acc, src, rows
+    return rec["f32"]  # the train config is f32
 
 
 def phase7b(gen) -> dict:
@@ -523,9 +637,12 @@ def phase7b(gen) -> dict:
     pfwd = time_ms(lambda: run(coarse_focal_sums_plain, backward=False), reps=5)
     both = time_ms(lambda: run(coarse_focal_sums), reps=10)
     pboth = time_ms(lambda: run(coarse_focal_sums_plain), reps=5)
+    n_bytes = 2 * (f0.numel() + f1.numel()) * 2 + gt.numel() * 4  # bf16 features in, their gradients out, GT
+    b = bound(n_bytes, 3 * 2 * TRAIN_B * TRAIN_P * 4096 * c, torch.bfloat16)  # similarity, df0, df1 products
     log(f"[7b] K5 forward: kernel {fwd:.3f} ms, plain {pfwd:.3f} ms; forward + backward: kernel "
-        f"{both:.3f} ms, plain {pboth:.3f} ms (medians of 10 / 5)")
-    return {"max_abs_err": worst, "ms": both, "plain_ms": pboth}
+        f"{both:.3f} ms, plain {pboth:.3f} ms (medians of 10 / 5); forward + backward bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes the focal loss")
+    return {"max_abs_err": worst, "ms": both, "plain_ms": pboth, **b, "library_ms": None}
 
 
 def _train_batch(rng, n, img, n_pts, dev):
@@ -628,7 +745,8 @@ def phase7d(smi: str):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {"K1_encoder_layer": 0, "K2_rowcol_stats": 6, "K3_window_gather": 6,
-                "K4_window_scatter": 6, "K5_coarse_loss": 6, "K5_coarse_loss_bwd": 6}
+                "K4_window_scatter": 6, "K5_coarse_loss": 6, "K5_coarse_loss_bwd": 6,
+                "K6_patch_gather": 0}
     log(f"[7d] launches in 6 micro-batches: {counts} (expected {expected})")
     check(counts == expected, "a kernel of the training path was not launched as the steps imply")
     for i, v in enumerate(losses):
@@ -662,6 +780,282 @@ def phase7d(smi: str):
     return counts
 
 
+# ----------------------------------------------------------------- phase 8
+
+
+def phase8a(gen) -> dict:
+    """K6 at the SfM shapes: refine (K 1024) and extract (K 4096), W 9, on the
+    [8, 256, 256, 128] fine maps of 8 image pairs of 512^2."""
+    n, h, w, c, win = 8, 256, 256, 128, 9
+    feat = torch.randn(n, h, w, c, generator=gen, device="cuda")
+    rec = {}
+    for k, tag in ((1024, "refine"), (4096, "extract")):
+        r0 = torch.randint(-win - 4, h + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+        c0 = torch.randint(-win - 4, w + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+        r0[:, -16:] = -10 * win  # invalid slots: all-zero patches
+        for dt, f in (("f32", feat), ("bf16", feat.to(torch.bfloat16))):
+            got = patch_gather(f, r0, c0, win)
+            ref = patch_gather_plain(f, r0, c0, win)
+            flat, valid = patch_taps(r0, c0, (h, w), win)
+            table, idx = index_select_table(f, flat, valid)
+            lib = torch.index_select(table, 0, idx).view_as(got)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, ref) and torch.equal(lib, ref)
+            zero = bool((got[:, -16:] == 0).all())
+            log(f"[8a] K6 {tag} {dt} feat{tuple(f.shape)} -> {tuple(got.shape)}: bitwise equal to the plain "
+                f"version and the yardstick {equal}, invalid slots zero {zero}")
+            check(equal and zero and got.shape == (n, k, win * win, c), f"K6 {tag} {dt} disagrees")
+            ms = time_ms(lambda: patch_gather(f, r0, c0, win))
+            pms = time_ms(lambda: patch_gather_plain(f, r0, c0, win))
+            lms = time_ms(lambda: torch.index_select(table, 0, idx))
+            b = bound(gather_bytes(flat, valid, h * w, c * f.element_size(), got, 2 * r0.numel() * 4), 0, f.dtype)
+            log(f"[8a] K6 {tag} {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms, index_select with precomputed "
+                f"indices {lms:.3f} ms (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            rec[(tag, dt)] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "library_ms": lms, **b}
+            del got, ref, lib, table, idx, flat, valid
+        torch.cuda.empty_cache()
+    return rec[("refine", "bf16")]  # the SfM configuration refines in bf16
+
+
+def _loftr(cfg: LoFTRConfig, device: str) -> LoFTRMatcher:
+    model = LoFTRMatcher(cfg)
+    model.load_state_dict(random_state_dict(model, seed=0))
+    return model.eval().to(device)
+
+
+def _pair_sets(out, b):
+    m = out["match_mask"][b]
+    return {(int(i), int(j)): s for s, i, j in zip(torch.nonzero(m)[:, 0].tolist(),
+                                                    out["i_ids"][b][m].tolist(), out["j_ids"][b][m].tolist())}
+
+
+def phase8b() -> None:
+    """The LoFTR pair matcher in f32, full width: GPU (kernels) against CPU
+    (plain versions) on one 512^2 pair shifted by (32, 16) px."""
+    no_tf32()
+    rng = np.random.default_rng(81)
+    img0 = _textured_images(rng, 1)[..., None]
+    img1 = np.ascontiguousarray(np.roll(img0, (16, 32), axis=(1, 2)))
+    cfg = LoFTRConfig(coarse_matching=CoarseMatchingConfig(thr=1e-6, temperature=0.1, border_rm=2,
+                                                           border_two_sided=True, max_matches=1024))
+    k = 256  # refine slots: random matches, some across the border, the last 24 invalid
+    mk0 = rng.uniform(-8, 520, (1, k, 2)).astype(np.float32)
+    mk1 = (mk0 + np.array([32.0, 16.0]) + rng.normal(0, 4, mk0.shape)).astype(np.float32)
+    mask = np.ones((1, k), bool)
+    mask[:, -24:] = False
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = _loftr(cfg, dev)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = (model.match_coarse(t(img0), t(img1)), model.match(t(img0), t(img1)),
+                   model.refine(t(img0), t(img1), t(mk0), t(mk1), t(mask), extract_features=True))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = [{key: v.cpu() if torch.is_tensor(v) else v for key, v in r.items()} for r in res]
+        log(f"[8b] LoFTR f32 on {dev}: match_coarse + match + refine in {time.perf_counter() - t0:.2f} s "
+            f"(first calls)")
+    (gc, gm, gr), (cc, cm, cr) = out["cuda"], out["cpu"]
+    sg, sc = _pair_sets(gc, 0), _pair_sets(cc, 0)
+    common = set(sg) & set(sc)
+    jacc = len(common) / max(len(set(sg) | set(sc)), 1)
+    mconf = max((abs(float(gc["mconf"][0, sg[p]]) - float(cc["mconf"][0, sc[p]])) for p in common), default=0.0)
+    shift = (gc["mkpts1_c"][0] - gc["mkpts0_c"][0])[gc["match_mask"][0]]
+    log(f"[8b] match_coarse: {len(sg)} / {len(sc)} matches, jaccard {jacc:.4f} (>= 0.98), mconf max|d| "
+        f"{mconf:.2e} (<= 1e-4); median coarse shift {shift.median(0).values.tolist()} px (true (32, 16))")
+    key = lambda o, s: tuple(o["mkpts0_c"][0, s].tolist() + o["mkpts1_c"][0, s].tolist())  # noqa: E731
+    kg = {key(gm, s): s for s in torch.nonzero(gm["match_mask"][0])[:, 0].tolist()}
+    kc = {key(cm, s): s for s in torch.nonzero(cm["match_mask"][0])[:, 0].tolist()}
+    both = set(kg) & set(kc)
+    mk_match = max(((gm["mkpts1_f"][0, kg[q]] - cm["mkpts1_f"][0, kc[q]]).abs().max().item() for q in both),
+                   default=0.0)
+    m = torch.from_numpy(mask[0])
+    mk_refine = (gr["mkpts1_f"][0][m] - cr["mkpts1_f"][0][m]).abs().max().item()
+    feat_rel = max((gr[f] - cr[f]).abs().max().item() / cr[f].abs().max().item()
+                   for f in ("feat_coarse_0", "feat_coarse_1", "feat_fine_0", "feat_fine_1"))
+    log(f"[8b] match: {len(both)} common fine matches, mkpts1_f max|d| {mk_match:.2e} px (<= 1e-2); refine "
+        f"({k} slots): mkpts1_f max|d| {mk_refine:.2e} px (<= 1e-2), sampled features max|d| {feat_rel:.2e} "
+        f"of their largest value (<= 1e-4)")
+    check(len(common) > 0 and jacc >= 0.98 and mconf <= 1e-4 and len(both) > 0 and mk_match <= 1e-2
+          and mk_refine <= 1e-2 and feat_rel <= 1e-4, "the LoFTR matcher on the GPU disagrees with the CPU")
+
+
+def _plane_object(n_frames: int, img: int, seed: int):
+    """Every view renders one textured plane (z = 0) through its plane-induced
+    homography (as tests/test_cli_end_to_end.py renders its object), so that
+    matches satisfy the epipolar geometry. Returns in-memory frames as
+    run_sfm's loader gives them (float32 gray in [0, 1], scale 1) with K,
+    world->cam poses and the object's box."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    K, _, Ts = _scene(rng, n_frames, 32, img=float(img))
+    tex = (np.kron(rng.random((32, 32)), np.ones((16, 16))) * 255).astype(np.uint8)
+    S = np.array([[512 / 0.8, 0, 256], [0, 512 / 0.8, 256], [0, 0, 1.0]])  # plane [-0.4, 0.4]^2 -> texture
+    images = {}
+    for i, T in enumerate(Ts):
+        H = K @ np.stack([T[:3, 0], T[:3, 1], T[:3, 3]], axis=1) @ np.linalg.inv(S)
+        images[i] = cv2.warpPerspective(tex, H, (img, img)).astype(np.float32) / 255.0
+    corners = np.array([[x, y, z] for z in (-0.3, 0.3) for y in (-0.3, 0.3) for x in (-0.3, 0.3)])
+    return images, {i: K for i in images}, {i: Ts[i] for i in images}, corners
+
+
+def _counted(fn, calls, name):
+    def wrapped(*args):
+        calls[name] += 1
+        return fn(*args)
+    return wrapped
+
+
+def sfm_stages(images, Ks, poses, corners, sc, matcher, device):
+    """run_sfm's stages in its order on in-memory frames (no gallery, PLY or h5
+    export): pairs, coarse matching, merge, verification + triangulation, the
+    post-optimisation (keyframes, refinement pairs, fine refinement, depth
+    solve, write-back), filtering, descriptor extraction, annotations. Returns
+    the results, the stage walls (s, synchronised) and the matcher calls."""
+    calls = {"coarse": 0, "refine": 0, "extract": 0}
+    coarse_fn, refine_fn, extract_fn = make_loftr_fns(matcher)
+    coarse_fn = _counted(coarse_fn, calls, "coarse")
+    refine_fn = _counted(refine_fn, calls, "refine")
+    extract_fn = _counted(extract_fn, calls, "extract")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    walls, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        sync()
+        walls[name] = time.perf_counter() - t
+        t = time.perf_counter()
+
+    n = len(images)
+    scales = {i: np.ones(2, np.float32) for i in images}
+    sizes = {i: im.shape for i, im in images.items()}
+    names = {i: f"{i}.png" for i in images}
+    pairs = pose_covisibility_pairs([poses[i] for i in range(n)], num_matched=sc.covis_num,
+                                    min_rotation_deg=sc.min_rotation_deg)
+    raw = run_pairs(coarse_fn, images, scales, pairs, pair_batch=sc.pair_batch)
+    lap("coarse matching")
+    scene = merge_keypoints(raw)
+    tri = triangulate_scene(scene, Ks, poses, sizes, image_names=names, max_error_px=sc.max_epipolar_error_px,
+                            max_reproj_px=sc.max_reproj_error_px, min_tri_angle_deg=sc.min_tri_angle_deg,
+                            max_track_length=sc.max_track_length, device=device)
+    cameras, imgs, points3d = tri.cameras, tri.images, tri.points3d
+    coarse_xyz = {pid: p.xyz.copy() for pid, p in points3d.items()}
+    lap("verify + triangulate")
+    keyframes, assignment = assign_keyframes_greedy(imgs, points3d)
+    ref_pairs = build_refinement_pairs(imgs, points3d, keyframes)
+    fine = run_fine_refinement(refine_fn, images, ref_pairs, 1024, sc.pair_batch)
+    lap("fine refinement")
+    problems = build_depth_problems(cameras, imgs, points3d, assignment, fine, 16)
+    check(len(problems["point3d_ids"]) > 0, "no depth problems to solve")
+    depths = optimize_depths(problems, solver=sc.solver_type, device=device)
+    write_back(cameras, imgs, points3d, assignment, problems["point3d_ids"], depths)
+    lap("depth solve (" + sc.solver_type + ")")
+    refined = model_stats(cameras, imgs, points3d)
+    points3d = filter_by_3d_box(imgs, points3d, corners, sc.box_padding_ratio)
+    points3d = filter_track_length(imgs, points3d, track_length_for_budget(points3d, sc.max_num_kp3d))
+    points3d = merge_close_points(imgs, points3d, sc.merge_dist_threshold)
+    lap("filtering")
+    fine_desc, coarse_desc = extract_keypoint_descriptors(extract_fn, images, imgs)
+    lap("descriptor extraction")
+    anno = build_annotations(imgs, points3d, fine_desc, coarse_descriptors=coarse_desc)
+    lap("annotations")
+    return {"pairs": pairs, "raw": raw, "coarse_xyz": coarse_xyz, "problems": problems, "depths": depths,
+            "refined": refined, "points3d": points3d, "anno": anno, "walls": walls, "calls": calls}
+
+
+def phase8c(smi: str):
+    """The SfM configuration at full width on the card: 20 frames of 512^2."""
+    cfg = load_config(str(CONFIGS_DIR), ["+preprocess=sfm_inference_onepose", "dataset.down_ratio=1",
+                                         "model.match_coarse.thr=0.000001"])
+    sc = sfm_config(cfg)
+    check(cfg.model["compute_dtype"] == "bfloat16" and sc.pair_batch == 8 and sc.solver_type == "lm",
+          "phase 8c is the bf16, pair batch 8, LM configuration")
+    images, Ks, poses, corners = _plane_object(20, 512, seed=82)
+    torch.backends.cudnn.benchmark = False
+    matcher = build_loftr_matcher(dict(cfg.model), device="cuda")
+    matcher.load_state_dict(random_state_dict(matcher, seed=666))
+    check(matcher.cfg.coarse_matching.max_matches == 1024, "1024 match slots")
+    # set-up, timed apart from the stages: one call of each matcher surface at
+    # the stages' shapes (cuDNN's first choice of algorithms, first launches)
+    coarse_fn, refine_fn, extract_fn = make_loftr_fns(matcher)
+    pair_imgs = np.stack([images[0][..., None]] * sc.pair_batch)
+    slots = np.zeros((sc.pair_batch, 1024, 2), np.float32)
+    kpts = np.zeros((sc.pair_batch, 4096, 2), np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coarse_fn(pair_imgs, pair_imgs)
+    refine_fn(pair_imgs, pair_imgs, slots, slots, slots[..., 0] > 0)
+    extract_fn(pair_imgs, kpts, kpts[..., 0] > 0)
+    torch.cuda.synchronize()
+    log(f"[8c] set-up: first calls of the three matcher surfaces {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = sfm_stages(images, Ks, poses, corners, sc, matcher, "cuda")
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    calls = res["calls"]
+    per_forward = 2 * len(matcher.cfg.coarse.layer_sequence)  # both streams of every coarse layer
+    expected = {"K1_encoder_layer": per_forward * sum(calls.values()), "K2_rowcol_stats": calls["coarse"],
+                "K3_window_gather": 0, "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
+                "K6_patch_gather": 2 * (calls["refine"] + calls["extract"])}
+    log(f"[8c] matcher calls {calls}; launches {counts} (expected {expected})")
+    check(counts == expected, "a kernel of the SfM path was not launched as the calls imply")
+    n_matches = sum(len(pm.conf) for pm in res["raw"])
+    st = res["refined"]  # model statistics after the depth solve
+    pts = np.array([p.xyz for p in res["points3d"].values()]).reshape(-1, 3)
+    anno = res["anno"]
+    finite = (np.isfinite(pts).all() and np.isfinite(res["depths"]).all()
+              and np.isfinite(anno["descriptors3d"]).all() and np.isfinite(anno["descriptors3d_coarse"]).all())
+    walls = res["walls"]
+    log(f"[8c] SfM bf16, {len(images)} frames of 512^2, pair batch {sc.pair_batch}, 1024 slots, "
+        f"{sc.solver_type}: {len(res['pairs'])} pairs, {n_matches} coarse matches, after the depth solve "
+        f"{st['num_points3D']} points, mean track length {st['mean_track_length']:.3f}, mean reprojection "
+        f"error {st['mean_reprojection_error']:.3f} px; {len(pts)} points after filtering, annotations of "
+        f"{len(anno['anno_2d'])} frames; peak memory {peak:.2f} GiB, on {smi}")
+    log("[8c] stage walls (s, synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; total {sum(walls.values()):.3f}")
+    log(f"[8c] match_coarse: {len(res['pairs']) / walls['coarse matching']:.2f} pairs/s "
+        f"({calls['coarse']} calls of {sc.pair_batch} pairs)")
+    check(bool(finite) and len(pts) > 0 and st["num_points3D"] > 0, "the SfM run gave no finite points")
+    return counts
+
+
+def phase8d() -> None:
+    """The same stages in f32 on a 6-frame object of 256^2: GPU against CPU."""
+    no_tf32()
+    cfg = load_config(str(CONFIGS_DIR), ["+preprocess=sfm_inference_onepose", "dataset.down_ratio=1",
+                                         "model.match_coarse.thr=0.000001", "model.compute_dtype=float32"])
+    sc = sfm_config(cfg)
+    images, Ks, poses, corners = _plane_object(6, 256, seed=83)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        matcher = build_loftr_matcher(dict(cfg.model), device=dev)
+        matcher.load_state_dict(random_state_dict(matcher, seed=666))
+        res[dev] = sfm_stages(images, Ks, poses, corners, sc, matcher, dev)
+        log(f"[8d] f32 stages on {dev}: " + ", ".join(f"{k} {v:.2f} s" for k, v in res[dev]["walls"].items()))
+    g, c = res["cuda"], res["cpu"]
+    jacc = []
+    for pg, pc in zip(g["raw"], c["raw"]):
+        key = lambda pm: {tuple(np.round(np.r_[a, b], 3)) for a, b in zip(pm.pts0, pm.pts1)}  # noqa: E731
+        a, b = key(pg), key(pc)
+        jacc.append(len(a & b) / max(len(a | b), 1))
+    n_g, n_c = len(g["coarse_xyz"]), len(c["coarse_xyz"])
+    common = sorted(set(g["coarse_xyz"]) & set(c["coarse_xyz"]))
+    dxyz = np.median([np.abs(g["coarse_xyz"][p] - c["coarse_xyz"][p]).max() for p in common]) if common else np.inf
+    ids_g = {int(p): d for p, d in zip(g["problems"]["point3d_ids"], g["depths"])}
+    ids_c = {int(p): d for p, d in zip(c["problems"]["point3d_ids"], c["depths"])}
+    both = sorted(set(ids_g) & set(ids_c))
+    ddep = np.median([abs(ids_g[p] - ids_c[p]) / ids_c[p] for p in both]) if both else np.inf
+    log(f"[8d] GPU vs CPU: {len(g['raw'])} pairs, per-pair match jaccard min {min(jacc):.4f} (>= 0.98), "
+        f"points {n_g} vs {n_c} (within 2 %), median |dxyz| {dxyz:.2e} (<= 1e-3), refined depths of "
+        f"{len(both)} tracks median relative |d| {ddep:.2e} (<= 1e-3)")
+    check(min(jacc) >= 0.98 and n_c > 0 and abs(n_g - n_c) <= 0.02 * n_c and dxyz <= 1e-3 and ddep <= 1e-3,
+          "the f32 SfM stages on the GPU disagree with the CPU")
+
+
 K4_NAMES = ("window_scatter_kernel",)
 K5_NAMES = ("loss_kernel", "gsum_kernel", "colg_reduce", "df0_kernel", "df1_kernel")
 
@@ -687,7 +1081,17 @@ def main() -> int:
     phase7c()
     train_counts = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
     counts.update({k: v for k, v in train_counts.items() if k.startswith(("K4", "K5"))})
+    torch.cuda.empty_cache()
+    records["K6_patch_gather"] = phase8a(gen)
+    torch.cuda.empty_cache()
+    phase8b()
+    sfm_counts = phase8c(smi)  # the SfM path's own run: K6's launches come from it
+    counts["K6_patch_gather"] = sfm_counts["K6_patch_gather"]
+    torch.cuda.empty_cache()
+    phase8d()
     check("jax" not in sys.modules, "the port loaded JAX")
+    reference = kernels.__name__.split(".")[0].removesuffix("_torch")  # the JAX package
+    check(not any(m.split(".")[0] == reference for m in sys.modules), "the port loaded the JAX package")
     kernel_lines = [
         {"name": name, "route": "cuda", **meta, "launches": counts[name], **records[name]}
         for name, meta in KERNELS.items()

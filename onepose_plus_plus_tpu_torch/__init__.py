@@ -9,10 +9,15 @@ the ``python -m onepose_plus_plus_tpu_torch.train`` loop), with kernels K4
 (the window gather's VJP) and K5 (the fused coarse focal loss). The kernels
 live under ``csrc/`` and are built by ``kernels.build`` at first use.
 
-It imports no JAX; from the JAX package it shares only the modules that load
-none: ``config``, ``data.preprocessing``, ``data.dataset``, ``data.augment``
-and the numpy functions of ``eval.metrics`` (and the training CLI loads
-``utils/config_loader.py`` by its path).
+Slice 3 is the keypoint-free SfM (``sfm``: ``run_sfm`` and the
+``python -m onepose_plus_plus_tpu_torch.sfm`` CLI over the LoFTR pair matcher
+``models.loftr``, the epipolar, triangulation and depth solvers of
+``geometry``), with kernel K6 (the patch gather at any corner).
+
+It imports nothing of the JAX package: the host modules it needs
+(``config``, ``data``, ``utils.config_loader``, the numpy
+``eval.metrics.aggregate_metrics``) are its own copies, held to the originals
+by ``tests/test_torch_host_copies.py``.
 """
 
 __version__ = "0.1.0"

@@ -13,8 +13,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from onepose_plus_plus_tpu.data.preprocessing import pad_point_cloud
-
+from ..data.preprocessing import pad_point_cloud
 from ..eval.metrics import aggregate_metrics, batched_pose_errors
 from ..geometry.pnp import ransac_pnp
 

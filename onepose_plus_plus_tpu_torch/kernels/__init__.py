@@ -9,6 +9,8 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 - K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``),
   counted once per forward (``K5_coarse_loss``) and once per backward
   (``K5_coarse_loss_bwd``)
+- K6 ``ops/cuda_patch_gather.py::patch_gather`` (``csrc/patch_gather.cu``), the
+  patch gather at any corner
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. Each wrapper adds one to its entry of
@@ -29,6 +31,7 @@ LAUNCHES: Dict[str, int] = {
     "K4_window_scatter": 0,
     "K5_coarse_loss": 0,
     "K5_coarse_loss_bwd": 0,
+    "K6_patch_gather": 0,
 }
 
 

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "opp_coarse_loss_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P],
     "opp_coarse_loss_row_tiles": [_I],
+    "opp_patch_gather_f32": [_P] * 4 + [_I] * 6 + [_P],
+    "opp_patch_gather_bf16": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

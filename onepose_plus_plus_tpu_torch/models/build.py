@@ -1,22 +1,30 @@
-"""Model configuration from the reference's YAML keys.
+"""Model construction from the reference's YAML keys, and the SfM surfaces.
 
-Port of ``onepose_plus_plus_tpu/models/build.py::onepose_config_from_dict``,
-whose module loads JAX: the same mapping of ``train.yaml``'s ``model`` block
-(reference ``train.yaml:44-127`` key names) onto the shared dataclasses of
-``config.py``. A test holds both to equal configs.
+Port of ``onepose_plus_plus_tpu/models/build.py``: the mapping of
+``train.yaml``'s ``model`` block (reference ``train.yaml:44-127`` key names)
+and of the SfM configs' ``model`` block onto the dataclasses of
+``config.py`` (tests hold both packages to equal configs), the LoFTR
+builder, and :func:`make_loftr_fns`, the three batched surfaces the SfM
+runner calls. They take host numpy arrays and return CPU tensors, which
+``np.asarray`` reads.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
 
 from ..config import (
     CoarseMatchingConfig,
     FineConfig,
     KeypointEncodingConfig,
+    LoFTRConfig,
     OnePosePlusConfig,
     ResNetFPNConfig,
     TransformerConfig,
 )
+from .loftr import LoFTRMatcher
 
 
 def onepose_config_from_dict(d: Optional[Dict[str, Any]] = None) -> OnePosePlusConfig:
@@ -75,3 +83,73 @@ def onepose_config_from_dict(d: Optional[Dict[str, Any]] = None) -> OnePosePlusC
             ),
         ),
     )
+
+
+def loftr_config_from_dict(d: Optional[Dict[str, Any]] = None) -> LoFTRConfig:
+    """Image-pair LoFTR config (reference loftr_for_onepose_plus_cfg.py)."""
+    d = d or {}
+    cm = d.get("match_coarse", {})
+    return LoFTRConfig(
+        compute_dtype=d.get("compute_dtype", "float32"),
+        backbone=ResNetFPNConfig(
+            quant_int8=d.get("backbone", {}).get("quant_int8", False),
+            stem_s2d=d.get("backbone", {}).get("stem_s2d", True),
+        ),
+        coarse=TransformerConfig(
+            d_model=d.get("d_model", 256),
+            nhead=d.get("nhead", 8),
+            layer_iter_n=d.get("layer_iter_n", 4),
+        ),
+        coarse_matching=CoarseMatchingConfig(
+            thr=cm.get("thr", 0.2),
+            temperature=cm.get("dsmax_temperature", 0.1),
+            border_rm=cm.get("border_rm", 2),
+            border_two_sided=True,
+            max_matches=cm.get("max_matches", 1024),
+        ),
+        fine_window_size=d.get("fine_window_size", 9),
+    )
+
+
+def build_loftr_matcher(cfg_dict: Optional[Dict[str, Any]] = None,
+                        device: str = "cuda") -> LoFTRMatcher:
+    """The LoFTR pair matcher in eval mode on ``device`` (weights are torch's
+    initialisation: load a state dict, or ``utils.weights.random_state_dict``)."""
+    return LoFTRMatcher(loftr_config_from_dict(cfg_dict)).eval().to(device)
+
+
+def _to_host(out: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def make_loftr_fns(model: LoFTRMatcher) -> Tuple[Callable, Callable, Callable]:
+    """(coarse_match_fn, refine_fn, extract_fn) for the SfM runner.
+
+    All three take numpy arrays, run on the model's device under
+    ``torch.inference_mode`` and return CPU tensors:
+      coarse_match_fn(img0, img1) -> match_coarse dict
+      refine_fn(img0, img1, mkpts0, mkpts1, mask) -> refine dict (+features)
+      extract_fn(img, kpts, mask) -> {"feat_fine", "feat_coarse"} at kpts
+    """
+    device = next(model.parameters()).device
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    @torch.inference_mode()
+    def coarse_match_fn(img0, img1):
+        return _to_host(model.match_coarse(dev(img0), dev(img1)))
+
+    @torch.inference_mode()
+    def refine_fn(img0, img1, mkpts0, mkpts1, mask):
+        return _to_host(model.refine(dev(img0), dev(img1), dev(mkpts0), dev(mkpts1), dev(mask),
+                                     extract_features=True))
+
+    @torch.inference_mode()
+    def extract_fn(img, kpts, mask):
+        # a self-pair refine call reuses the feature-sampling path
+        img, kpts = dev(img), dev(kpts)
+        out = model.refine(img, img, kpts, kpts, dev(mask), extract_features=True)
+        return {"feat_fine": out["feat_fine_0"].cpu(), "feat_coarse": out["feat_coarse_0"].cpu()}
+
+    return coarse_match_fn, refine_fn, extract_fn

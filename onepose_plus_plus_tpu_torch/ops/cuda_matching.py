@@ -143,6 +143,7 @@ def fused_select_topk_matches(
     border_rm: int,
     k: int,
     border_two_sided: bool = False,
+    row_grid_hw: Optional[Tuple[int, int]] = None,
     feat_norm: str = "sqrt_feat_dim",
     col_mask: Optional[torch.Tensor] = None,
     dtype: torch.dtype = torch.float32,
@@ -152,7 +153,8 @@ def fused_select_topk_matches(
     Border cells take part in the softmax normalisation and the mutual-NN
     argmaxes; a row whose best column lies in the removed border gives no
     match (it is not rerouted to its second-best column), like the reference
-    ``mask_border`` on the thresholded mask.
+    ``mask_border`` on the thresholded mask. ``row_grid_hw`` makes the rows a
+    grid too (image-pair matching), whose border rows give no match.
     """
     b, p, _ = feat0.shape
     l = feat1.shape[1]
@@ -172,6 +174,11 @@ def fused_select_topk_matches(
     keep_at_j = col_keep[j_of_row]
     conf = torch.exp(stats["row_best_val"] - stats["row_lse"])  # [B, P]
     valid = mutual & (conf > thr) & keep_at_j
+    if row_grid_hw is not None:
+        rh, rw = row_grid_hw
+        if rh * rw != p:
+            raise ValueError(f"row grid {row_grid_hw} != P {p}")
+        valid = valid & _border_keep(rh, rw, border_rm, border_two_sided, feat0.device)[None, :]
     score = torch.where(valid, conf, torch.full_like(conf, -1.0))
     top_score, i_ids = topk_stable(score, k)
     j_ids = torch.gather(j_of_row, 1, i_ids)

@@ -112,12 +112,15 @@ def select_topk_matches(
     border_rm: int,
     k: int,
     border_two_sided: bool = False,
+    row_grid_hw: Optional[Tuple[int, int]] = None,
 ) -> CoarseMatches:
     """Mutual-nearest-neighbour + threshold + border filter into K slots.
 
     Args:
         conf: [N, L, S] dual-softmax confidence.
         grid_hw: (h, w) of the S-axis grid (query image coarse grid).
+        row_grid_hw: if given, the L axis is also an (h, w) grid whose border
+            is removed too (image-pair matching); otherwise L indexes 3D points.
     """
     n, l, s = conf.shape
     h, w = grid_hw
@@ -127,6 +130,11 @@ def select_topk_matches(
     col_max = conf.amax(dim=1, keepdim=True)
     valid = (conf == row_max) & (conf == col_max) & (conf > thr)
     valid = valid & _border_keep(h, w, border_rm, border_two_sided, conf.device)[None, None, :]
+    if row_grid_hw is not None:
+        rh, rw = row_grid_hw
+        if rh * rw != l:
+            raise ValueError(f"row grid {row_grid_hw} != L {l}")
+        valid = valid & _border_keep(rh, rw, border_rm, border_two_sided, conf.device)[None, :, None]
     row_has = valid.any(dim=2)
     j_of_row = torch.argmax(torch.where(valid, conf, torch.full_like(conf, -1.0)), dim=2)
     conf_of_row = torch.gather(conf, 2, j_of_row[:, :, None])[..., 0]

@@ -2,9 +2,11 @@
 
 Instead of unfolding every W x W window of the fine map (reference
 ``fine_preprocess.py:41-54``), only the K matched windows are gathered. Both
-matchers centre each window on a coarse cell (``center = stride * cell``);
-the gather itself is kernel K3 and its gradient in feat kernel K4
-(``ops/cuda_gather.py``).
+matchers centre each window on a coarse cell (``center = stride * cell``) in
+:func:`gather_windows_aligned`: kernel K3, its gradient in feat kernel K4
+(``ops/cuda_gather.py``). The SfM refine path centres windows on arbitrary
+integer pixels (:func:`gather_windows`): kernel K6
+(``ops/cuda_patch_gather.py``), which has no gradient.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Tuple
 import torch
 
 from .cuda_gather import WindowGather
+from .cuda_patch_gather import patch_gather
 
 
 def gather_windows_aligned(
@@ -40,3 +43,17 @@ def gather_windows_aligned(
     if h != stride * h_c or w != stride * w_c:
         raise ValueError(f"feat {tuple(feat.shape)} != stride {stride} * grid {grid_hw}")
     return WindowGather.apply(feat, cell_ids, grid_hw, stride, window)
+
+
+def gather_windows(feat: torch.Tensor, centers_rc: torch.Tensor, window: int) -> torch.Tensor:
+    """Gather W x W windows around arbitrary integer centers.
+
+    Args:
+        feat: [N, H, W, C] feature map.
+        centers_rc: [N, K, 2] integer (row, col) window centers.
+        window: odd window size W.
+    Returns:
+        [N, K, W*W, C] windows in feat's dtype; taps outside the map are zero.
+    """
+    half = window // 2
+    return patch_gather(feat, centers_rc[..., 0] - half, centers_rc[..., 1] - half, window)

@@ -6,15 +6,14 @@ autoscale, MultiStep schedule over optimizer updates, gradient accumulation,
 TensorBoard scalars when TensorBoard is installed, per-epoch and ``last``
 weight checkpoints, a full ``last_state.pt`` for resume, and per-epoch pose
 validation through the port's ``run_inference``. The data pipeline
-(``OnePosePlusTrainDataset``, ``TrainLoader``) is the JAX package's own, which
-loads no JAX. ``trainer.device`` (default ``cuda``) names the device;
+(``OnePosePlusTrainDataset``, ``TrainLoader``) is the port's own copy of the
+JAX package's (``data/``). ``trainer.device`` (default ``cuda``) names the device;
 ``trainer.n_devices`` above 1 (data parallelism) is not ported yet. cuDNN
 autotunes its convolutions (``cudnn.benchmark``), since every micro-batch has
 the train config's fixed shapes.
 """
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import sys
@@ -24,20 +23,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from onepose_plus_plus_tpu.data.augment import build_augmentor
-from onepose_plus_plus_tpu.data.dataset import (
+from ..data.augment import build_augmentor
+from ..data.dataset import (
     OnePosePlusInferenceDataset,
     OnePosePlusTrainDataset,
     TrainLoader,
     load_manifest,
     records_from_coco,
 )
-
 from ..eval.metrics import aggregate_metrics
 from ..inference.pipeline import run_inference
 from ..models.build import onepose_config_from_dict
 from ..models.onepose_plus import OnePosePlusModel
 from ..utils.checkpoint import restore_train_state, save_train_state, save_weights
+from ..utils.config_loader import load_config as load_config_file
 from ..utils.weights import random_state_dict
 from .losses import LossConfig
 from .train_step import TrainConfig, make_optimizer, train_step
@@ -47,26 +46,8 @@ BATCH_KEYS = ("query_image", "keypoints3d", "descriptors3d", "descriptors3d_coar
               "gt_cell", "gt_fine_xy")
 
 
-def _config_loader():
-    """The JAX package's ``utils/config_loader.py``, loaded by its path.
-
-    The file itself imports only os/typing/yaml, but importing it as
-    ``onepose_plus_plus_tpu.utils.config_loader`` runs that package's
-    ``__init__``, which loads JAX. Loading the file alone shares the code
-    without the package. Its XLA compile-cache hook is switched off: the port
-    runs no XLA.
-    """
-    root = importlib.util.find_spec("onepose_plus_plus_tpu").submodule_search_locations[0]
-    spec = importlib.util.spec_from_file_location(
-        "_opp_config_loader", os.path.join(root, "utils", "config_loader.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    module._enable_persistent_compile_cache = lambda: None
-    return module
-
-
 def load_config(argv):
-    return _config_loader().load_config(str(CONFIGS_DIR), argv)
+    return load_config_file(str(CONFIGS_DIR), argv)
 
 
 def load_records(path: str):

@@ -4,7 +4,9 @@ The port's modules carry the reference's state-dict names, so
 ``onepose_plus_plus_tpu.utils.checkpoint.convert_torch_state_dict`` maps a
 port ``state_dict()`` onto the JAX variable tree, and :func:`state_dict_from_jax`
 is its inverse: flax ``{'params', 'batch_stats'}`` (numpy leaves) -> port
-``state_dict``. Layouts: conv HWIO -> OIHW, linear [in, out] -> [out, in].
+``state_dict``, for the 2D-3D matcher and the LoFTR pair matcher alike (its
+``backbone``, ``loftr_coarse`` and ``loftr_fine`` trees follow the same
+names). Layouts: conv HWIO -> OIHW, linear [in, out] -> [out, in].
 :func:`load_jax_train_state` carries a whole JAX ``TrainState`` across:
 parameters, BatchNorm statistics, Adam moments and the update count.
 """

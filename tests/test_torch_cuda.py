@@ -1,4 +1,4 @@
-"""Kernels K1-K5 on the GPU against their plain PyTorch versions (marker ``cuda``).
+"""Kernels K1-K6 on the GPU against their plain PyTorch versions (marker ``cuda``).
 
 These build the kernels with nvcc and launch them, so they run only on a
 machine with an NVIDIA Hopper GPU and the CUDA toolkit, and skip elsewhere:
@@ -27,7 +27,8 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
     rowcol_stats_plain,
 )
-from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows_aligned
+from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain
+from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows, gather_windows_aligned
 
 pytestmark = pytest.mark.cuda
 
@@ -178,3 +179,63 @@ def test_window_gather_autograd_runs_k3_forward_k4_backward(gen):
     assert after["K3_window_gather"] == before["K3_window_gather"] + 1
     assert after["K4_window_scatter"] == before["K4_window_scatter"] + 1
     assert (grads[0] - grads[1]).abs().max().item() < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [5, 9])
+def test_k6_matches_plain(gen, dtype, window):
+    """K6 is a copy: bitwise equal to its plain version, with corners across
+    every border, entirely off the map, and K not a multiple of anything."""
+    feat = torch.randn(2, 40, 56, 128, generator=gen, device="cuda").to(dtype)
+    r0 = torch.randint(-window - 3, 40 + 3, (2, 77), generator=gen, device="cuda")
+    c0 = torch.randint(-window - 3, 56 + 3, (2, 77), generator=gen, device="cuda")
+    r0[:, :5] = -10 * window  # invalid slots
+    before = kernels.launch_counts()["K6_patch_gather"]
+    got = patch_gather(feat, r0, c0, window)
+    ref = patch_gather_plain(feat, r0, c0, window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["K6_patch_gather"] == before + 1
+    assert got.shape == (2, 77, window * window, 128) and got.dtype == dtype
+    assert torch.equal(got, ref)
+    assert bool((got[:, :5] == 0).all())
+
+
+def test_k6_gather_windows_and_operand_checks(gen):
+    feat = torch.randn(1, 16, 16, 64, generator=gen, device="cuda")
+    centers = torch.randint(-4, 20, (1, 33, 2), generator=gen, device="cuda", dtype=torch.int32)
+    got = gather_windows(feat, centers, 9)
+    ref = gather_windows(feat.cpu(), centers.cpu(), 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    with pytest.raises(ValueError):  # 3 channels of f32 are 12 bytes, not a 16-byte vector
+        patch_gather(torch.zeros(1, 8, 8, 3, device="cuda"), centers[..., 0], centers[..., 1], 5)
+    with pytest.raises(ValueError):
+        patch_gather(torch.zeros(1, 8, 8, 4, device="cuda", dtype=torch.float16),
+                     centers[..., 0], centers[..., 1], 5)
+
+
+def test_triangulation_eigh_in_chunks_on_the_card(gen):
+    """More 4 x 4 eigensolves than cuSOLVER's batched solver takes in one call
+    (it refused phase 8c's 110608): the chunked DLT on the card recovers the
+    points, as the CPU does."""
+    from onepose_plus_plus_tpu_torch.geometry.rotations import angle_axis_to_matrix
+    from onepose_plus_plus_tpu_torch.geometry.triangulation import triangulate_tracks
+
+    n = 40000
+    X = torch.rand(n, 3, generator=gen, device="cuda") * 2 - 1 + torch.tensor([0.0, 0.0, 5.0], device="cuda")
+    K = torch.tensor([[500.0, 0, 256], [0, 500.0, 256], [0, 0, 1]], device="cuda")
+    R = angle_axis_to_matrix(torch.rand(n, 3, generator=gen, device="cuda") * 0.2)
+    t = torch.tensor([1.0, 0.0, 0.0], device="cuda").expand(n, 3)
+    P0 = (K @ torch.eye(3, 4, device="cuda")).expand(n, 3, 4)
+    P1 = K @ torch.cat([R, t[..., None]], dim=-1)
+    P = torch.stack([P0, P1], dim=1)
+    Xh = torch.cat([X, torch.ones(n, 1, device="cuda")], dim=-1)
+    proj = torch.einsum("nvij,nj->nvi", P, Xh)
+    uv = proj[..., :2] / proj[..., 2:3]
+    valid = torch.ones(n, 2, dtype=torch.bool, device="cuda")
+    got = triangulate_tracks(P, uv, valid)
+    ref = triangulate_tracks(P.cpu(), uv.cpu(), valid.cpu())
+    torch.cuda.synchronize()
+    assert got.shape == (n, 3)
+    assert (got - X).abs().max().item() < 1e-2
+    assert (got.cpu() - ref).abs().max().item() < 1e-2

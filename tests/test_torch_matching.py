@@ -130,3 +130,34 @@ def test_fused_and_dense_select_agree():
     dense = select_topk_matches(dual_softmax_confidence(ft0, ft1, TEMP), (12, 12), 0.05, 2, 64)
     fused = fused_select_topk_matches(ft0, ft1, TEMP, (12, 12), 0.05, 2, 64)
     assert _match_sets(fused) == _match_sets(dense)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_select_with_row_grid_matches_jax_two_sided(fused):
+    """Image-pair matching (LoFTR): rows are a 12 x 12 grid too, and
+    ``border_two_sided`` with ``row_grid_hw`` drops matches on the border of
+    either grid. Rows planted on border cells of the row grid give no match."""
+    # (row cell, column cell): interior pairs, border rows (0, 13, 131, 143)
+    # and a border column (11)
+    planted = [(0, 50), (13, 60), (131, 70), (143, 80), (26, 11), (30, 40), (40, 90), (52, 100),
+               (64, 30), (77, 66), (90, 101), (100, 29)]
+    f0, f1 = make_feats(p=144, l=144, seed=7, planted=planted)
+    if fused:
+        ref = jax_fused_select(jnp.asarray(f0), jnp.asarray(f1), TEMP, (12, 12), 0.0, 2, 64,
+                               border_two_sided=True, row_grid_hw=(12, 12), interpret=True)
+        got = fused_select_topk_matches(torch.from_numpy(f0), torch.from_numpy(f1), TEMP, (12, 12),
+                                        0.0, 2, 64, border_two_sided=True, row_grid_hw=(12, 12))
+    else:
+        conf = dual_softmax_confidence(torch.from_numpy(f0), torch.from_numpy(f1), TEMP)
+        ref = jax_select(jnp.asarray(conf.numpy()), (12, 12), 0.0, 2, 64, border_two_sided=True,
+                         row_grid_hw=(12, 12))
+        got = select_topk_matches(conf, (12, 12), 0.0, 2, 64, border_two_sided=True,
+                                  row_grid_hw=(12, 12))
+    sets = _match_sets(got)
+    assert sets == _match_sets(ref)
+    for s in sets:
+        assert {(30, 40), (40, 90), (52, 100), (64, 30), (77, 66), (90, 101), (100, 29)} <= s
+        assert not any(row in (0, 13, 131, 143, 26) for row, _ in s)  # border row or column
+    with pytest.raises(ValueError):  # the row grid must cover every row
+        fused_select_topk_matches(torch.from_numpy(f0), torch.from_numpy(f1), TEMP, (12, 12), 0.0, 2,
+                                  64, row_grid_hw=(10, 12))

@@ -37,6 +37,7 @@ from onepose_plus_plus_tpu_torch.models.position_encoding import (
     sine_position_encoding,
 )
 from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables, state_dict_from_jax
+from port_helpers import perturbed as _perturbed, textured as _textured
 
 torch.set_num_threads(2)
 
@@ -48,30 +49,6 @@ NARROW = OnePosePlusConfig(
     coarse_matching=CoarseMatchingConfig(thr=0.0, max_matches=256),
     fine=FineConfig(d_model=32, transformer=TransformerConfig(d_model=32, nhead=8, layer_iter_n=1)),
 )
-
-
-def _perturbed(variables, seed=0):
-    """numpy copy of a variable tree with random BN statistics and norm parameters."""
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, x):
-        x = np.asarray(x)
-        name = str(getattr(path[-1], "key", path[-1]))
-        if name == "var":
-            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        if name in ("mean", "bias"):
-            return (0.1 * rng.standard_normal(x.shape)).astype(np.float32)
-        if name == "scale":
-            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
-        return x
-
-    return jax.tree_util.tree_map_with_path(leaf, jax.tree_util.tree_map(np.asarray, variables))
-
-
-def _textured(rng, n, size):
-    blocks = rng.random((n, size // 8, size // 8))
-    img = np.kron(blocks, np.ones((1, 8, 8))) + 0.05 * rng.standard_normal((n, size, size))
-    return np.clip(img, 0, 1).astype(np.float32)[..., None]
 
 
 def test_backbone_matches_jax():

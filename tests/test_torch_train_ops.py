@@ -38,6 +38,7 @@ from onepose_plus_plus_tpu_torch.ops.matching import (
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows_aligned
 from onepose_plus_plus_tpu_torch.train.losses import LossConfig
 from onepose_plus_plus_tpu_torch.train.train_step import TrainConfig
+from port_helpers import to_port_config
 
 torch.set_num_threads(2)
 
@@ -219,4 +220,5 @@ def test_config_from_dict_equals_jax(overrides):
     with open(Path(__file__).resolve().parent.parent / "configs/experiment/train.yaml") as f:
         model = yaml.safe_load(f)["model"] or {}
     d = {**model, **overrides}
-    assert onepose_config_from_dict(d) == jax_config_from_dict(d)
+    # each package builds its own config classes (the port keeps a copy)
+    assert onepose_config_from_dict(d) == to_port_config(jax_config_from_dict(d))
