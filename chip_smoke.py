@@ -35,6 +35,21 @@ exits non-zero):
      gallery, PLY and h5 exports off (the card's machine has no matplotlib and
      no h5py), launch counts, stage walls, pairs/s and peak memory; 8d the same
      stages in f32 on a 6-frame object of 256^2, GPU against CPU
+  9  the serving entry points and K7: 9a K7 against its plain version at the
+     fine transformer's four (L, S) shapes, M 8192 (and 8189, not a multiple
+     of 8), f32 and bf16; 9b the fine transformer (bf16, random weights) through
+     K7 (ops.cuda_short_encoder.fine_transformer_short, the workload K7 was
+     written for; no path of the model routes to it) against the port's eager
+     fine transformer at [8192, 25, 128] and [24576, 25, 128]; 9c the bench
+     script's main() at its defaults (its JSON line, then peak memory and launch
+     counts); 9d the inference CLI at full width (bf16) on a 32-frame video of
+     a textured plane at 512^2, whose 7000-point annotation carries the
+     random-weight model's own features, so that poses are held to GT; 9e the
+     tracking demo at full width (its configuration: f32) on 30 such frames,
+     every third one blank (tracking lost), with 15 DB views: launch counts
+     the detect/track sequence implies, per-frame latency of each mode, poses
+     against GT. 9c-9e run with PyTorch's default TF32 settings, as a fresh
+     CLI process does
 
 Every kernel's record carries its time, its plain version's, the time of one
 PyTorch call that computes the same function where there is one, and its
@@ -47,23 +62,28 @@ numpy seed.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from onepose_plus_plus_tpu_torch import kernels
+from onepose_plus_plus_tpu_torch import bench, demo, kernels
 from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, LoFTRConfig, OnePosePlusConfig
 from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
 from onepose_plus_plus_tpu_torch.geometry.levenberg_marquardt import lm_solve_scalar
 from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
+from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
-from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, make_loftr_fns
+from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, build_onepose_model, make_loftr_fns
 from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
-from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel
+from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
+from onepose_plus_plus_tpu_torch.models.position_encoding import sine_position_encoding
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
@@ -78,8 +98,15 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps
+from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
+    fine_transformer_short,
+    fused_short_encoder_layer,
+    short_encoder_layer_plain,
+)
 from onepose_plus_plus_tpu_torch.ops.matching import sample_gt_rows
+from onepose_plus_plus_tpu_torch.data import colmap_model
 from onepose_plus_plus_tpu_torch.data.colmap_model import model_stats
+from onepose_plus_plus_tpu_torch.data.preprocessing import save_3d_annotation
 from onepose_plus_plus_tpu_torch.sfm.annotation import build_annotations
 from onepose_plus_plus_tpu_torch.sfm.cli import CONFIGS_DIR, sfm_config
 from onepose_plus_plus_tpu_torch.sfm.coarse_match import merge_keypoints, run_pairs
@@ -130,6 +157,10 @@ KERNELS = {
     "K6_patch_gather": {
         "source": "onepose_plus_plus_tpu_torch/csrc/patch_gather.cu",
         "replaces": "onepose_plus_plus_tpu/ops/pallas_patch_gather.py:70",
+    },
+    "K7_short_encoder": {
+        "source": "onepose_plus_plus_tpu_torch/csrc/short_encoder.cu",
+        "replaces": "experiments/pallas_short_encoder.py:146",
     },
 }
 TRAIN_B, TRAIN_P, TRAIN_IMG = 4, 7000, 512  # the train config: frames per micro-batch, points, size
@@ -233,18 +264,21 @@ def phase1() -> None:
 # ----------------------------------------------------------------- phase 2
 
 
-def _encoder_inputs(gen, l, s, c=256):
-    dev = "cuda"
-    rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale  # noqa: E731
-    x = rn(B, l, c)
-    src = x if s is None else rn(B, s, c)
-    w = dict(
+def _layer_weights(gen, c):
+    """Random weights of one encoder layer ([in, out] layout), as K1 and K7 take them."""
+    rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale  # noqa: E731
+    return dict(
         wq=rn(c, c, scale=c ** -0.5), wk=rn(c, c, scale=c ** -0.5), wv=rn(c, c, scale=c ** -0.5),
         wmerge=rn(c, c, scale=c ** -0.5), ln1_scale=1 + rn(c, scale=0.1), ln1_bias=rn(c, scale=0.1),
         wmlp0=rn(2 * c, 2 * c, scale=(2 * c) ** -0.5), wmlp1=rn(2 * c, c, scale=(2 * c) ** -0.5),
         ln2_scale=1 + rn(c, scale=0.1), ln2_bias=rn(c, scale=0.1),
     )
-    return x, src, w
+
+
+def _encoder_inputs(gen, l, s, c=256):
+    x = torch.randn(B, l, c, generator=gen, device="cuda")
+    src = x if s is None else torch.randn(B, s, c, generator=gen, device="cuda")
+    return x, src, _layer_weights(gen, c)
 
 
 def _bf16(t):
@@ -476,7 +510,7 @@ def phase5(smi: str):
     steps = n_frames // 16
     expected = {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps, "K3_window_gather": steps,
                 "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
-                "K6_patch_gather": 0}
+                "K6_patch_gather": 0, "K7_short_encoder": 0}
     log(f"[5] launches in the main-path run: {counts} (expected {expected})")
     check(counts == expected, "a kernel of the main path was not launched as the step implies")
     check(res.poses.shape == (n_frames, 4, 4), f"poses {res.poses.shape}")
@@ -746,7 +780,7 @@ def phase7d(smi: str):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expected = {"K1_encoder_layer": 0, "K2_rowcol_stats": 6, "K3_window_gather": 6,
                 "K4_window_scatter": 6, "K5_coarse_loss": 6, "K5_coarse_loss_bwd": 6,
-                "K6_patch_gather": 0}
+                "K6_patch_gather": 0, "K7_short_encoder": 0}
     log(f"[7d] launches in 6 micro-batches: {counts} (expected {expected})")
     check(counts == expected, "a kernel of the training path was not launched as the steps imply")
     for i, v in enumerate(losses):
@@ -1000,7 +1034,8 @@ def phase8c(smi: str):
     per_forward = 2 * len(matcher.cfg.coarse.layer_sequence)  # both streams of every coarse layer
     expected = {"K1_encoder_layer": per_forward * sum(calls.values()), "K2_rowcol_stats": calls["coarse"],
                 "K3_window_gather": 0, "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
-                "K6_patch_gather": 2 * (calls["refine"] + calls["extract"])}
+                "K6_patch_gather": 2 * (calls["refine"] + calls["extract"]),
+                "K7_short_encoder": 0}
     log(f"[8c] matcher calls {calls}; launches {counts} (expected {expected})")
     check(counts == expected, "a kernel of the SfM path was not launched as the calls imply")
     n_matches = sum(len(pm.conf) for pm in res["raw"])
@@ -1056,6 +1091,319 @@ def phase8d() -> None:
           "the f32 SfM stages on the GPU disagree with the CPU")
 
 
+# ----------------------------------------------------------------- phase 9
+
+FINE_SHAPES = ((1, 1), (25, 25), (1, 25), (25, 1))  # (L, S) of the fine transformer's layer applications
+
+
+def k7_bound(m: int, l: int, s: int, c: int, self_attention: bool, dtype: torch.dtype) -> dict:
+    """K7's least time: x read once (and a source of its own, unless x is the
+    source), y written once, both f32; the weights read once in the operand
+    type; the products: Q, merge and the FFN (8 C^2 multiply-adds a query
+    row), K and V (2 C^2 a source row), scores and A.V (2 L S C a sequence)."""
+    n_bytes = 4 * m * c * (2 * l + (0 if self_attention else s)) + 10 * c * c * (2 if dtype == torch.bfloat16 else 4) + 16 * c
+    return bound(n_bytes, 2 * m * c * c * (8 * l + 2 * s) + 4 * m * l * s * c, dtype)
+
+
+def _short_inputs(gen, m, l, s, c=128):
+    """x [m, l, c] and its source (x itself for a self layer, l == s), with
+    the weights of one layer ([in, out] layout)."""
+    x = torch.randn(m, l, c, generator=gen, device="cuda")
+    return x, (x if l == s else torch.randn(m, s, c, generator=gen, device="cuda")), _layer_weights(gen, c)
+
+
+def phase9a(gen) -> dict:
+    """K7 at the fine transformer's shapes: M 8192 sequences (a frame batch of
+    16 x 512 slots), timed, and M 8189 (not a multiple of 8), checked."""
+    rec, worst = {}, 0.0
+    for m in (8189, 8192):
+        for l, s in FINE_SHAPES:
+            x, src, w = _short_inputs(gen, m, l, s)
+            for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                got = fused_short_encoder_layer(x, src, **w, nhead=8, dtype=dtype)
+                ref = short_encoder_layer_plain(x, src, **w, nhead=8, dtype=dtype)
+                torch.cuda.synchronize()
+                d = (got - ref).abs()
+                # f32: summation order only; bf16: a rounded operand may land
+                # on the neighbouring bf16 value and move its row by ~1e-2
+                tol = (1e-4, 1e-5) if dtype == torch.float32 else (5e-2, 5e-4)
+                log(f"[9a] K7 {dt} x{tuple(x.shape)} src{tuple(src.shape)}: max|d| {d.max().item():.3e} "
+                    f"(<= {tol[0]:g}), mean|d| {d.mean().item():.3e} (<= {tol[1]:g})")
+                check(got.shape == x.shape and got.dtype == torch.float32 and d.max().item() <= tol[0]
+                      and d.mean().item() <= tol[1], f"K7 {dt} ({l}, {s}) M {m} disagrees")
+                if dtype == torch.float32:
+                    worst = max(worst, d.max().item())
+                del got, ref, d
+                if m != 8192:
+                    continue
+                ms = time_ms(lambda: fused_short_encoder_layer(x, src, **w, nhead=8, dtype=dtype))
+                pms = time_ms(lambda: short_encoder_layer_plain(x, src, **w, nhead=8, dtype=dtype))
+                b = k7_bound(m, l, s, 128, src is x, dtype)
+                log(f"[9a] K7 {dt} (L, S) = ({l}, {s}), M {m}: kernel {ms:.3f} ms, plain {pms:.3f} ms "
+                    f"(median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                rec[(l, s, dt)] = {"ms": ms, "plain_ms": pms, **b}
+    for dt in ("f32", "bf16"):
+        tot = {k: sum(rec[(l, s, dt)][k] for l, s in FINE_SHAPES) for k in ("ms", "plain_ms", "bound_ms")}
+        log(f"[9a] K7 {dt}, the four shapes of one (self, cross) pair at M 8192: kernel {tot['ms']:.3f} ms, "
+            f"plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms")
+    log("[9a] no single PyTorch call computes an encoder layer over many short sequences")
+    return {"max_abs_err": worst, **rec[(25, 25, "bf16")], "library_ms": None}
+
+
+def phase9b(gen, smi: str) -> int:
+    """The fine transformer of the bf16 model (random weights) through K7
+    against the port's eager fine transformer, on the fine stage's streams."""
+    model = _model(OnePosePlusConfig(compute_dtype="bfloat16"), "cuda")
+    fine = model.loftr_fine
+    check(fine.cfg.layer_sequence == ("self", "cross") and fine.cfg.d_model == 128,
+          "the fine transformer is one (self, cross) pair at 128 channels")
+    launches = None
+    with torch.inference_mode():
+        for m, what in ((8192, "frame batch 16"), (24576, "bench.py's batch 48")):
+            f0 = torch.randn(m, 1, 128, generator=gen, device="cuda").to(torch.bfloat16)
+            f1 = torch.randn(m, 25, 128, generator=gen, device="cuda").to(torch.bfloat16)
+            kernels.reset_launch_counts()
+            k0, k1 = fine_transformer_short(fine, f0, f1)
+            e0, e1 = fine(f0, f1)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            expected = {k: (4 if k == "K7_short_encoder" else 0) for k in counts}
+            check(counts == expected, f"the fine transformer through K7 launched {counts}, expected {expected}")
+            if launches is None:
+                launches = counts["K7_short_encoder"]
+            d = torch.cat([(k0 - e0.float()).abs().flatten(), (k1 - e1.float()).abs().flatten()])
+            finite = bool(torch.isfinite(k0).all() and torch.isfinite(k1).all())
+            scale = max(e0.float().abs().max().item(), e1.float().abs().max().item())
+            # the eager layers return bf16 streams, K7 f32 ones: they differ by
+            # bf16 rounding of the streams (values up to ~scale), not by a bug
+            log(f"[9b] fine transformer through K7 vs eager (bf16), f0[{m}, 1, 128] f1[{m}, 25, 128] ({what}): "
+                f"launches {counts['K7_short_encoder']} (4), max|d| {d.max().item():.3e} (<= 0.25), mean|d| "
+                f"{d.mean().item():.3e} (<= 1e-2), largest |value| {scale:.2f}, finite {finite}")
+            check(finite and d.max().item() <= 0.25 and d.mean().item() <= 1e-2,
+                  f"the fine transformer through K7 disagrees with the eager one at M {m}")
+            del k0, k1, e0, e1, d
+            ms_k = time_ms(lambda: fine_transformer_short(fine, f0, f1))
+            ms_e = time_ms(lambda: fine(f0, f1))
+            log(f"[9b] M {m}: through K7 {ms_k:.3f} ms, eager {ms_e:.3f} ms (CUDA-event medians of 20), on {smi}")
+    del model
+    return launches
+
+
+def phase9c(smi: str) -> None:
+    """bench.py's step in-process at its defaults (48 frames of 512^2, 7000
+    points, 512 slots, bf16, 32 timed steps after one warm-up)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    record = bench.main()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 33
+    expected = {k: 0 for k in counts} | {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps,
+                                         "K3_window_gather": steps}
+    log(f"[9c] bench line above: {record['value']} poses/s, peak memory {peak:.2f} GiB; launches {counts} "
+        f"(expected {expected} for {steps} steps), on {smi}")
+    check(counts == expected and record["value"] > 0, "the bench step did not run the kernels as it implies")
+
+
+def _video_object(root: str, obj: str, n_frames: int, blank=(), img: int = 512, seed: int = 0):
+    """A OnePose-format object (one sequence, ``color``, ``intrin_ba``,
+    ``poses_ba``, ``box3d_corners.txt``): a textured plane (z = 0, 1.2 m wide)
+    that fills every frame, seen from 1 m by a camera orbiting it 1 degree a
+    frame, as a video moves; each view rendered through its plane-induced
+    homography. Frames in ``blank`` are black (the object occluded). Returns
+    the frames [n, img, img] in [0, 1], K and the world->camera poses."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, img / 2], [0, 500.0, img / 2], [0, 0, 1.0]])
+    tex = (np.kron(rng.random((48, 48)), np.ones((16, 16))) * 255).astype(np.uint8)
+    S = np.array([[768 / 1.2, 0, 384], [0, 768 / 1.2, 384], [0, 0, 1.0]])  # plane metres -> texture pixels
+    seq = os.path.join(root, obj, obj.split("-", 1)[1] + "-1")
+    for sub in ("color", "intrin_ba", "poses_ba"):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+    frames, poses = [], []
+    for i in range(n_frames):
+        a = np.deg2rad(i)
+        center = np.array([np.sin(a), 0.0, -np.cos(a)])
+        z = -center
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        T = np.eye(4)
+        T[:3, :3] = np.stack([x, np.cross(z, x), z])
+        T[:3, 3] = -T[:3, :3] @ center
+        H = K @ np.stack([T[:3, 0], T[:3, 1], T[:3, 3]], axis=1) @ np.linalg.inv(S)
+        frame = np.zeros((img, img), np.uint8) if i in blank else cv2.warpPerspective(tex, H, (img, img))
+        cv2.imwrite(os.path.join(seq, "color", f"{i:04d}.png"), frame)  # the CLIs read frames in name order
+        np.savetxt(os.path.join(seq, "intrin_ba", f"{i:04d}.txt"), K)
+        np.savetxt(os.path.join(seq, "poses_ba", f"{i:04d}.txt"), T)
+        frames.append(frame.astype(np.float32) / 255.0)
+        poses.append(T)
+    box = np.array([[x, y, z] for z in (-0.05, 0.05) for y in (-0.45, 0.45) for x in (-0.45, 0.45)])
+    np.savetxt(os.path.join(root, obj, "box3d_corners.txt"), box)
+    return np.stack(frames), K, np.stack(poses)
+
+
+def _own_feature_annotation(model, frames, K, poses, refs, n_pts: int, path: str, seed: int = 0) -> dict:
+    """``anno_3d_average.npz`` (and ``_coarse``) for a ``_video_object`` whose
+    descriptors are ``model``'s own features: ``n_pts`` points on the plane,
+    split among the reference frames ``refs``, each described by the
+    backbone's fine feature and its coarse feature (with the sine PE, less
+    the keypoint encoding the model adds to the 3D side) at the point's
+    projection in its reference frame. It stands in for an SfM annotation
+    that a random-weight matcher can match, so that poses can be held to GT.
+    Returns the point cloud as the query step takes it."""
+    rng = np.random.default_rng(seed)
+    dev = next(model.parameters()).device
+    pts, coarse, fine = [], [], []
+    with torch.inference_mode():
+        for r in refs:
+            fc, ff = model.backbone(torch.from_numpy(frames[r])[None, ..., None].to(dev))
+            fc = sine_position_encoding(fc, model.cfg.pe_temp_bug_fix)
+            p = np.c_[rng.uniform(-0.45, 0.45, (n_pts // len(refs), 2)), np.zeros(n_pts // len(refs))]
+            pc = p @ poses[r][:3, :3].T + poses[r][:3, 3]
+            uv = pc[:, :2] / pc[:, 2:3] @ K[:2, :2].T + K[:2, 2]
+
+            def at(fmap, stride):  # the [1, h, w, c] map's feature at each point's cell
+                x, y = torch.from_numpy(np.clip(uv // stride, 0, [fmap.shape[2] - 1, fmap.shape[1] - 1])
+                                        .astype(np.int64).T).to(dev)
+                return fmap[0, y, x].float()
+
+            coarse.append(at(fc, 8))  # the backbone's 1/8 and 1/2 maps
+            fine.append(at(ff, 2))
+            pts.append(p)
+        kp = torch.from_numpy(np.concatenate(pts).astype(np.float32)).to(dev)
+        coarse = torch.cat(coarse) - model.kpt_3d_pos_encoding.encoder(normalize_3d_keypoints(kp[None]))[0]
+    cloud = {"keypoints3d": kp, "descriptors3d": torch.cat(fine), "descriptors3d_coarse": coarse}
+    arrays = {k: v.cpu().numpy() for k, v in cloud.items()}
+    scores = np.ones(len(kp), np.float32)
+    save_3d_annotation(path, arrays["keypoints3d"], arrays["descriptors3d"], scores)
+    save_3d_annotation(path.replace(".npz", "_coarse.npz"), arrays["keypoints3d"], arrays["descriptors3d_coarse"],
+                       scores)
+    return cloud
+
+
+def _cli_model(cfg):
+    """The model a CLI builds from ``cfg`` without weights: random, seed 666."""
+    model = build_onepose_model(dict(cfg.get("model", {}) or {}), device="cuda")
+    model.load_state_dict(random_state_dict(model, seed=666))
+    return model
+
+
+def _pose_errors(poses, gt):
+    r, t = batched_pose_errors(torch.as_tensor(np.asarray(poses, np.float32)),
+                               torch.as_tensor(np.asarray(gt, np.float32)))
+    return r.numpy(), t.numpy()
+
+
+def phase9d(tmp: str, smi: str) -> None:
+    """The inference CLI at full width (inference_onepose.yaml: bf16, frame
+    batch 16) on a 32-frame object of 512^2 and a 7000-point annotation."""
+    n, obj = 32, "0001-plane"
+    out = os.path.join(tmp, "results")
+    cfg = load_config(str(CONFIGS_DIR), [
+        "+experiment=inference_onepose", "ids=null", f"dataset.data_dir={tmp}/data",
+        f"dataset.sfm_outputs_dir={tmp}/sfm", f"output_dir={out}", "model.match_coarse.thr=0.0"])
+    check(cfg.model["compute_dtype"] == "bfloat16" and cfg.get("device", "cuda") == "cuda", "9d runs bf16 on cuda")
+    frames, K, poses = _video_object(os.path.join(tmp, "data"), obj, n)
+    _own_feature_annotation(_cli_model(cfg), frames, K, poses, (0, 8, 16, 24), 7000,
+                            os.path.join(tmp, "sfm", obj, "anno", "anno_3d_average.npz"))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    inference_cli.inference(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    steps = -(-n // cfg.inference.frame_batch)
+    expected = {k: 0 for k in counts} | {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps,
+                                         "K3_window_gather": steps}
+    errors = json.loads(Path(out, f"errors_{obj}.json").read_text())
+    metrics = Path(out, "metrics.txt").read_text().splitlines()
+    summary = json.loads(metrics[-1].removeprefix("ALL: "))
+    log(f"[9d] inference CLI, {n} frames of 512^2, bf16: {wall:.3f} s wall (model built, weights drawn, first "
+        f"step's set-up included), files {sorted(os.listdir(out))}, launches {counts} (expected {expected}), "
+        f"matches median {int(np.median(errors['num_matches']))}, inliers median "
+        f"{int(np.median(errors['num_inliers']))}, on {smi}")
+    r_med, t_med = np.median(errors["R_errs_deg"]), np.median(errors["t_errs_cm"])
+    # a pose from random matches misses by tens of degrees and ~1 m
+    log(f"[9d] against GT: R err median {r_med:.3f} deg (<= 5), t err median {t_med:.3f} cm (<= 5); "
+        f"{metrics[-1]}")
+    check(counts == expected, "the inference CLI did not run the kernels as its steps imply")
+    check(len(errors["frames"]) == n and r_med <= 5 and t_med <= 5 and "5cm@5degree" in summary
+          and set(errors) == {"frames", "R_errs_deg", "t_errs_cm", "num_inliers", "num_matches"},
+          "the inference CLI's files are incomplete or its poses miss the GT")
+
+
+def phase9e(tmp: str, smi: str) -> None:
+    """The tracking demo at full width (inference_demo.yaml: f32) on 30 frames
+    of 512^2, every third frame blank (the object occluded: tracking is lost
+    and the next frame goes to the detector), 15 DB views."""
+    n, obj = 30, "0002-plane"
+    blank = set(range(2, n, 3))
+    frames_dir, video = os.path.join(tmp, "frames"), os.path.join(tmp, "demo.mp4")
+    cfg = load_config(str(CONFIGS_DIR), [
+        "+experiment=inference_demo", f"dataset.data_dir={tmp}/demo_data", f"dataset.sfm_outputs_dir={tmp}/demo_sfm",
+        f"demo.frames_dir={frames_dir}", f"demo.output_video={video}", "model.match_coarse.thr=0.0"])
+    frames, K, poses = _video_object(os.path.join(tmp, "demo_data"), obj, n, blank=blank, seed=1)
+    sfm = os.path.join(tmp, "demo_sfm", obj)
+    model = _cli_model(cfg)
+    cloud = _own_feature_annotation(model, frames, K, poses, (0, 9, 18, 27), 7000,
+                                    os.path.join(sfm, "anno", "anno_3d_average.npz"), seed=1)
+    cams = {1: colmap_model.Camera(1, "PINHOLE", 512, 512, K[[0, 1, 0, 1], [0, 1, 2, 2]])}
+    images = {i + 1: colmap_model.Image(i + 1, np.array([1.0, 0, 0, 0]), np.zeros(3), 1, f"{i:04d}.png",
+                                        np.zeros((0, 2)), np.zeros(0, np.int64)) for i in range(n)}
+    colmap_model.write_model(cams, images, {}, os.path.join(sfm, "model"))  # names the DB views
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = demo.demo(cfg)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    det = [r for r in records if r["mode"] == "detect"]
+    loftr_layers = 2 * 8  # both streams of LoFTR's 4 (self, cross) coarse layers
+    expected = {k: 0 for k in counts} | {"K1_encoder_layer": 12 * n + loftr_layers * len(det),
+                                         "K2_rowcol_stats": n + len(det), "K3_window_gather": n}
+    log(f"[9e] demo, {n} frames of 512^2 (blank: {sorted(blank)}), {cfg.demo.num_ref_views} DB views, "
+        f"min_track_inliers {cfg.demo.min_track_inliers}: {wall:.3f} s wall; modes "
+        f"{''.join(r['mode'][0] for r in records)}, inliers {[r['inliers'] for r in records]}; launches {counts} "
+        f"(expected {expected})")
+    check(len(records) == n and counts == expected, "the demo did not run the kernels as its frames imply")
+    for mode in ("detect", "track"):
+        ms = [1e3 * r["seconds"] for r in records[1:] if r["mode"] == mode]
+        stat = (f"median {np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms over {len(ms)} frames"
+                if ms else "no such frame after the first")
+        log(f"[9e] {mode} frames (batch 1, synchronised, frame 0 apart): {stat}, on {smi}")
+    log(f"[9e] frame 0 (detect, first calls' set-up included): {1e3 * records[0]['seconds']:.2f} ms")
+    for mode in ("detect", "track"):
+        seen = [i for i, r in enumerate(records) if r["mode"] == mode and i not in blank]
+        r_err, t_err = _pose_errors([records[i]["pose"] for i in seen], poses[seen])
+        log(f"[9e] {mode} frames that show the object ({len(seen)}) against GT: R err median "
+            f"{np.median(r_err):.3f} deg (<= 5), t err median {np.median(t_err):.3f} cm (<= 5)")
+        check(len(seen) > 0 and np.median(r_err) <= 5 and np.median(t_err) <= 5,
+              f"the demo's {mode} poses miss the GT")
+    check(all(np.isfinite(r["pose"]).all() for r in records), "non-finite demo pose")
+    check(sorted(os.listdir(frames_dir)) == [f"{i:06d}.png" for i in range(n)] and os.path.getsize(video) > 0,
+          "the demo's frames or video are missing")
+    # where a frame's device time goes: the demo's batch-1 step (its
+    # configuration, the same weights) on one full frame, under the profiler
+    step = make_query_step(model, reproj_threshold_px=cfg.demo.pnp_reproj_thr,
+                           num_hypotheses=cfg.demo.num_hypotheses)
+    batch = {"query_image": torch.from_numpy(np.ascontiguousarray(frames[:1, ..., None])).cuda(),
+             "intrinsics": torch.from_numpy(K[None].astype(np.float32)).cuda(), **cloud}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for _ in range(3):
+        step(batch, gen, None)
+    rows, busy, wall = device_rows(lambda: step(batch, gen, None))
+    k1, k2, k3 = group_ms(rows, K1_NAMES), group_ms(rows, K2_NAMES), group_ms(rows, K3_NAMES)
+    log(f"[9e] one batch-1 step under the profiler: wall {wall:.2f} ms, device time {busy:.2f} ms, idle share "
+        f"{100 * (1 - busy / wall):.1f} % of that wall; K1 {k1:.2f} ms, K2 {k2:.2f} ms, K3 {k3:.3f} ms, "
+        f"everything else {busy - k1 - k2 - k3:.2f} ms")
+    for ms, count, key in rows[:15]:
+        log(f"[9e]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+
+
 K4_NAMES = ("window_scatter_kernel",)
 K5_NAMES = ("loss_kernel", "gsum_kernel", "colg_reduce", "df0_kernel", "df1_kernel")
 
@@ -1089,6 +1437,19 @@ def main() -> int:
     counts["K6_patch_gather"] = sfm_counts["K6_patch_gather"]
     torch.cuda.empty_cache()
     phase8d()
+    torch.cuda.empty_cache()
+    records["K7_short_encoder"] = phase9a(gen)
+    counts["K7_short_encoder"] = phase9b(gen, smi)  # K7's harness: the fine transformer
+    torch.cuda.empty_cache()
+    # the CLIs as a fresh process runs them: PyTorch's default TF32 settings
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    phase9c(smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase9d(tmp, smi)
+        torch.cuda.empty_cache()
+        phase9e(tmp, smi)
     check("jax" not in sys.modules, "the port loaded JAX")
     reference = kernels.__name__.split(".")[0].removesuffix("_torch")  # the JAX package
     check(not any(m.split(".")[0] == reference for m in sys.modules), "the port loaded the JAX package")

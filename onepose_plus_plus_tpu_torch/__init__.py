@@ -14,9 +14,16 @@ Slice 3 is the keypoint-free SfM (``sfm``: ``run_sfm`` and the
 ``models.loftr``, the epipolar, triangulation and depth solvers of
 ``geometry``), with kernel K6 (the patch gather at any corner).
 
+Slice 4 is the serving entry points: the evaluation CLI
+(``python -m onepose_plus_plus_tpu_torch.inference``), the one-line bench
+(``python -m onepose_plus_plus_tpu_torch.bench``) and the tracking demo with
+its detector (``python -m onepose_plus_plus_tpu_torch.demo``,
+``inference.detector``), with kernel K7 (the encoder layer over many short
+sequences, ``ops.cuda_short_encoder``; no path of the model routes to it).
+
 It imports nothing of the JAX package: the host modules it needs
-(``config``, ``data``, ``utils.config_loader``, the numpy
-``eval.metrics.aggregate_metrics``) are its own copies, held to the originals
+(``config``, ``data``, ``utils.config_loader``, the numpy ``eval``
+functions, ``utils.visualization``) are its own copies, held to the originals
 by ``tests/test_torch_host_copies.py``.
 """
 

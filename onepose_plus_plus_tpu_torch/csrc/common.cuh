@@ -28,4 +28,51 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// acc[r] += sum_k in[r, k] * W[k, col] for the R rows staged in shared memory
+// `in` (row stride `ld`, K columns, K a multiple of 4), W row-major [K, ldw]
+// of T. One thread per output column: each weight is read once per block and
+// each float4 of `in` is a shared-memory broadcast feeding four FMAs.
+template <typename T, int R>
+__device__ __forceinline__ void mac_rows(const float* __restrict__ in, int ld, int K,
+                                         const T* __restrict__ W, int ldw, int col,
+                                         float (&acc)[R]) {
+  for (int k = 0; k < K; k += 4) {
+    const float w0 = to_f32(W[(size_t)(k + 0) * ldw + col]);
+    const float w1 = to_f32(W[(size_t)(k + 1) * ldw + col]);
+    const float w2 = to_f32(W[(size_t)(k + 2) * ldw + col]);
+    const float w3 = to_f32(W[(size_t)(k + 3) * ldw + col]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(in + r * ld + k);
+      acc[r] = fmaf(v.x, w0, acc[r]);
+      acc[r] = fmaf(v.y, w1, acc[r]);
+      acc[r] = fmaf(v.z, w2, acc[r]);
+      acc[r] = fmaf(v.w, w3, acc[r]);
+    }
+  }
+}
+
+// Row-wise LayerNorm of buf [rows, C] in place (one warp per row), output
+// rounded to T.
+template <typename T>
+__device__ __forceinline__ void layernorm_rows(float* buf, int rows, int C,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ bias, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int r = warp; r < rows; r += nwarps) {
+    float* row = buf + r * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += row[c];
+    const float mean = warp_sum(s) / C;
+    float v = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = row[c] - mean;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / C + eps);
+    for (int c = lane; c < C; c += 32)
+      row[c] = round_to<T>((row[c] - mean) * rstd * scale[c] + bias[c]);
+  }
+}
+
 }  // namespace opp

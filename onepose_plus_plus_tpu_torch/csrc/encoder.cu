@@ -41,43 +41,7 @@ __device__ __forceinline__ void matvec_rows(const float* __restrict__ in, int ld
                                             float (&acc)[R]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  for (int k = 0; k < K; k += 4) {
-    const float w0 = opp::to_f32(W[(size_t)(k + 0) * ldw + col]);
-    const float w1 = opp::to_f32(W[(size_t)(k + 1) * ldw + col]);
-    const float w2 = opp::to_f32(W[(size_t)(k + 2) * ldw + col]);
-    const float w3 = opp::to_f32(W[(size_t)(k + 3) * ldw + col]);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(in + r * ld + k);
-      acc[r] = fmaf(v.x, w0, acc[r]);
-      acc[r] = fmaf(v.y, w1, acc[r]);
-      acc[r] = fmaf(v.z, w2, acc[r]);
-      acc[r] = fmaf(v.w, w3, acc[r]);
-    }
-  }
-}
-
-// Row-wise LayerNorm of buf [rows, C] in place (one warp per row), output
-// rounded to T.
-template <typename T>
-__device__ __forceinline__ void layernorm_rows(float* buf, int rows, int C,
-                                               const float* __restrict__ scale,
-                                               const float* __restrict__ bias) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += nwarps) {
-    float* row = buf + r * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += row[c];
-    const float mean = opp::warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(opp::warp_sum(v) / C + LN_EPS);
-    for (int c = lane; c < C; c += 32)
-      row[c] = opp::round_to<T>((row[c] - mean) * rstd * scale[c] + bias[c]);
-  }
+  opp::mac_rows<T, R>(in, ld, K, W, ldw, col, acc);
 }
 
 template <typename T>
@@ -193,7 +157,7 @@ __global__ void apply_kernel(const float* __restrict__ x, const float* __restric
 #pragma unroll
   for (int r = 0; r < TL; ++r) qs[r * C + c] = acc[r];
   __syncthreads();
-  layernorm_rows<T>(qs, TL, C, ln1s, ln1b);
+  opp::layernorm_rows<T>(qs, TL, C, ln1s, ln1b, LN_EPS);
   __syncthreads();
 
   // FFN hidden: relu(concat(x, h1) @ W0), columns c and c + C
@@ -212,7 +176,7 @@ __global__ void apply_kernel(const float* __restrict__ x, const float* __restric
 #pragma unroll
   for (int r = 0; r < TL; ++r) ms[r * C + c] = acc[r];
   __syncthreads();
-  layernorm_rows<float>(ms, TL, C, ln2s, ln2b);
+  opp::layernorm_rows<float>(ms, TL, C, ln2s, ln2b, LN_EPS);
   __syncthreads();
 
   float* yb = y + ((size_t)b * L + l0) * C;

@@ -11,6 +11,8 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
   (``K5_coarse_loss_bwd``)
 - K6 ``ops/cuda_patch_gather.py::patch_gather`` (``csrc/patch_gather.cu``), the
   patch gather at any corner
+- K7 ``ops/cuda_short_encoder.py::fused_short_encoder_layer``
+  (``csrc/short_encoder.cu``), the encoder layer over many short sequences
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. Each wrapper adds one to its entry of
@@ -32,6 +34,7 @@ LAUNCHES: Dict[str, int] = {
     "K5_coarse_loss": 0,
     "K5_coarse_loss_bwd": 0,
     "K6_patch_gather": 0,
+    "K7_short_encoder": 0,
 }
 
 

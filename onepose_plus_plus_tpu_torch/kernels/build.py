@@ -51,6 +51,9 @@ _SIGNATURES = {
     "opp_coarse_loss_row_tiles": [_I],
     "opp_patch_gather_f32": [_P] * 4 + [_I] * 6 + [_P],
     "opp_patch_gather_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "opp_short_encoder_f32": [_P] * 13 + [_I] * 5 + [_P],
+    "opp_short_encoder_bf16": [_P] * 13 + [_I] * 5 + [_P],
+    "opp_short_encoder_smem_bytes": [_I] * 4,
 }
 
 

@@ -3,9 +3,10 @@
 Port of ``onepose_plus_plus_tpu/models/build.py``: the mapping of
 ``train.yaml``'s ``model`` block (reference ``train.yaml:44-127`` key names)
 and of the SfM configs' ``model`` block onto the dataclasses of
-``config.py`` (tests hold both packages to equal configs), the LoFTR
-builder, and :func:`make_loftr_fns`, the three batched surfaces the SfM
-runner calls. They take host numpy arrays and return CPU tensors, which
+``config.py`` (tests hold both packages to equal configs), the builders of
+the 2D-3D matcher and of LoFTR (both on ``cuda`` unless asked otherwise),
+and :func:`make_loftr_fns`, the three batched surfaces the SfM runner and the
+detector call. They take host numpy arrays and return CPU tensors, which
 ``np.asarray`` reads.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..config import (
     TransformerConfig,
 )
 from .loftr import LoFTRMatcher
+from .onepose_plus import OnePosePlusModel
 
 
 def onepose_config_from_dict(d: Optional[Dict[str, Any]] = None) -> OnePosePlusConfig:
@@ -109,6 +111,14 @@ def loftr_config_from_dict(d: Optional[Dict[str, Any]] = None) -> LoFTRConfig:
         ),
         fine_window_size=d.get("fine_window_size", 9),
     )
+
+
+def build_onepose_model(cfg_dict: Optional[Dict[str, Any]] = None,
+                        device: str = "cuda") -> OnePosePlusModel:
+    """The 2D-3D matcher in eval mode on ``device`` (weights are torch's
+    initialisation: load a checkpoint with ``utils.checkpoint.load_weights``,
+    or ``utils.weights.random_state_dict``)."""
+    return OnePosePlusModel(onepose_config_from_dict(cfg_dict)).eval().to(device)
 
 
 def build_loftr_matcher(cfg_dict: Optional[Dict[str, Any]] = None,

@@ -46,6 +46,15 @@ class LoFTREncoderLayer(nn.Module):
     def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), layer.weight.to(self.dtype))
 
+    def kernel_weights(self) -> Tuple[torch.Tensor, ...]:
+        """The layer's weights as the encoder kernels (K1, K7) take them: wq,
+        wk, wv, wmerge, ln1 scale and bias, wmlp0, wmlp1, ln2 scale and bias,
+        linear weights in the [in, out] layout."""
+        return (self.q_proj.weight.t(), self.k_proj.weight.t(), self.v_proj.weight.t(),
+                self.merge.weight.t(), self.norm1.weight, self.norm1.bias,
+                self.mlp[0].weight.t(), self.mlp[2].weight.t(),
+                self.norm2.weight, self.norm2.bias)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -60,14 +69,8 @@ class LoFTREncoderLayer(nn.Module):
         (LayerNorms in f32, projections in the compute dtype).
         """
         if fused and self.attention == "linear":
-            return fused_encoder_layer(
-                x, source,
-                self.q_proj.weight.t(), self.k_proj.weight.t(), self.v_proj.weight.t(),
-                self.merge.weight.t(), self.norm1.weight, self.norm1.bias,
-                self.mlp[0].weight.t(), self.mlp[2].weight.t(),
-                self.norm2.weight, self.norm2.bias,
-                x_mask, source_mask, nhead=self.nhead, dtype=self.dtype,
-            )
+            return fused_encoder_layer(x, source, *self.kernel_weights(), x_mask, source_mask,
+                                       nhead=self.nhead, dtype=self.dtype)
         n, l, d = x.shape
         s = source.shape[1]
         if (self.attention == "linear" and s == 1

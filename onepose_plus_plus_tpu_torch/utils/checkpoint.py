@@ -7,7 +7,8 @@
 the accumulation count in its param group), the accumulated gradients,
 scheduler, micro-batch step and next epoch. Writes go to a temporary file
 first, so an interrupted save never leaves a partial checkpoint under the
-final name.
+final name. ``load_weights`` reads a ``save_weights`` file or a reference
+Lightning ``.ckpt`` into a model, strictly.
 """
 from __future__ import annotations
 
@@ -27,6 +28,31 @@ def _atomic_save(obj, path: str) -> None:
 
 def save_weights(path: str, model: torch.nn.Module) -> None:
     _atomic_save(model.state_dict(), path)
+
+
+def _strip_prefix(name: str) -> str:
+    """Remove the reference's wrapper prefixes (its Lightning module keeps the
+    matcher under ``matcher.``; ``model.`` and ``module.`` wrap it elsewhere),
+    as ``onepose_plus_plus_tpu/utils/checkpoint.py::_strip_prefix`` does."""
+    for p in ("model.", "matcher.", "module."):
+        if name.startswith(p):
+            name = name[len(p):]
+    return name
+
+
+def load_weights(path: str, model: torch.nn.Module) -> None:
+    """Load weights into ``model`` in place, strictly: every tensor of the
+    model is set and none of the file is left over (else ``RuntimeError``).
+
+    ``path`` is a port checkpoint (``save_weights``: the model's
+    ``state_dict``, read with ``weights_only``) or a reference Lightning
+    ``.ckpt``, whose ``state_dict`` carries the reference's names (the port's
+    own) under a wrapper prefix. A ``.ckpt`` is a full pickle: load only
+    files you trust.
+    """
+    blob = torch.load(path, map_location="cpu", weights_only=not path.endswith(".ckpt"))
+    state = blob.get("state_dict", blob)
+    model.load_state_dict({_strip_prefix(k): v for k, v in state.items()}, strict=True)
 
 
 def save_train_state(

@@ -7,8 +7,15 @@
   BatchNorm statistics and norm parameters, so that no layer is an identity.
 - :func:`textured`: block-textured grayscale frames (iid pixel noise gives
   featureless coarse cells).
+- :func:`load_short_encoder_experiment`: the JAX package's K7
+  (``experiments/pallas_short_encoder.py``), which does not import as a file.
+- :func:`make_plane_object`, :func:`write_annotation`, :func:`write_db_model`:
+  a OnePose-format object with its SfM outputs, for the CLIs.
 """
 import dataclasses
+import functools
+import types
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -76,3 +83,55 @@ def make_plane_object(root, obj="0001-toy-box", seq="toy-1", n_frames=6, img=128
     corners = np.array([[x, y, z] for z in (-0.3, 0.3) for y in (-0.3, 0.3) for x in (-0.3, 0.3)])
     np.savetxt(os.path.join(root, obj, "box3d_corners.txt"), corners)
     return obj
+
+
+def write_annotation(sfm_dir, obj, n_pts, fine_dim, coarse_dim, seed=0):
+    """A synthetic ``anno/anno_3d_average.npz`` (and ``_coarse``) for ``obj``:
+    ``n_pts`` points on the plane object's box, random unit descriptors."""
+    import os
+
+    from onepose_plus_plus_tpu_torch.data.preprocessing import save_3d_annotation
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.3, 0.3, (n_pts, 3)).astype(np.float32)
+    pts[:, 2] *= 0.1  # near the textured plane z = 0
+    anno = os.path.join(sfm_dir, obj, "anno", "anno_3d_average.npz")
+    for path, dim in ((anno, fine_dim), (anno.replace(".npz", "_coarse.npz"), coarse_dim)):
+        desc = rng.standard_normal((n_pts, dim)).astype(np.float32)
+        save_3d_annotation(path, pts, desc / np.linalg.norm(desc, axis=1, keepdims=True),
+                           np.ones(n_pts, np.float32))
+    return anno
+
+
+def write_db_model(sfm_dir, obj, image_names, size):
+    """A COLMAP model (``sfm_dir/obj/model``) whose images are ``image_names``:
+    what the demo reads to pick its DB views."""
+    import os
+
+    from onepose_plus_plus_tpu_torch.data import colmap_model as cm
+
+    cams = {1: cm.Camera(1, "PINHOLE", size, size, np.array([500.0, 500.0, size / 2, size / 2]))}
+    imgs = {i + 1: cm.Image(i + 1, np.array([1.0, 0, 0, 0]), np.zeros(3), 1, name,
+                            np.zeros((0, 2)), np.zeros(0, np.int64))
+            for i, name in enumerate(image_names)}
+    cm.write_model(cams, imgs, {}, os.path.join(sfm_dir, obj, "model"))
+
+
+@functools.lru_cache(maxsize=None)
+def load_short_encoder_experiment():
+    """``experiments/pallas_short_encoder.py`` as a fresh module.
+
+    The file opens with two string literals, so its ``from __future__ import
+    annotations`` comes after the docstring and importing the file is a
+    SyntaxError. The file stays as it is: its source is read, that one line is
+    dropped (no annotation in it needs it), and the rest runs in a new module.
+    """
+    path = Path(__file__).resolve().parent.parent / "experiments" / "pallas_short_encoder.py"
+    lines = path.read_text().splitlines(keepends=True)
+    future = [i for i, line in enumerate(lines) if line.strip() == "from __future__ import annotations"]
+    assert len(future) == 1, "the experiment's source changed"
+    del lines[future[0]]
+    module = types.ModuleType("pallas_short_encoder_experiment")
+    module.__file__ = str(path)
+    exec(compile("".join(lines), str(path), "exec"), module.__dict__)
+    return module

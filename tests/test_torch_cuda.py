@@ -1,4 +1,4 @@
-"""Kernels K1-K6 on the GPU against their plain PyTorch versions (marker ``cuda``).
+"""Kernels K1-K7 on the GPU against their plain PyTorch versions (marker ``cuda``).
 
 These build the kernels with nvcc and launch them, so they run only on a
 machine with an NVIDIA Hopper GPU and the CUDA toolkit, and skip elsewhere:
@@ -28,6 +28,10 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain
+from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
+    fused_short_encoder_layer,
+    short_encoder_layer_plain,
+)
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows, gather_windows_aligned
 
 pytestmark = pytest.mark.cuda
@@ -239,3 +243,32 @@ def test_triangulation_eigh_in_chunks_on_the_card(gen):
     assert got.shape == (n, 3)
     assert (got - X).abs().max().item() < 1e-2
     assert (got.cpu() - ref).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,s", [(1, 1), (25, 25), (1, 25), (25, 1), (32, 7)])
+def test_k7_matches_plain(gen, dtype, l, s):
+    """The fine transformer's four (L, S) shapes and the largest L the TPU
+    kernel's callers used, M not a multiple of the kernel's sequence group
+    (f32: summation order only; bf16: a rounded operand may land on the
+    neighbouring bf16 value, moving a row by up to ~1e-2)."""
+    c, m = 128, 77
+    rn = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device="cuda") * scale)  # noqa: E731
+    w = [rn(c, c, scale=c ** -0.5) for _ in range(4)]
+    args = (rn(m, l, c), rn(m, s, c), *w, 1 + rn(c, scale=0.1), rn(c, scale=0.1),
+            rn(2 * c, 2 * c, scale=(2 * c) ** -0.5), rn(2 * c, c, scale=(2 * c) ** -0.5),
+            1 + rn(c, scale=0.1), rn(c, scale=0.1))
+    before = kernels.launch_counts()["K7_short_encoder"]
+    got = fused_short_encoder_layer(*args, nhead=8, dtype=dtype)
+    assert kernels.launch_counts()["K7_short_encoder"] == before + 1
+    ref = short_encoder_layer_plain(*args, nhead=8, dtype=dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (m, l, c) and got.dtype == torch.float32
+    d = (got - ref).abs()
+    if dtype == torch.float32:
+        assert d.max().item() < 1e-4
+    else:
+        assert d.max().item() < 5e-2 and d.mean().item() < 5e-4
+    with pytest.raises(ValueError):  # C not a multiple of 32
+        fused_short_encoder_layer(rn(2, l, 48), rn(2, s, 48), *[rn(48, 48) for _ in range(4)],
+                                  rn(48), rn(48), rn(96, 96), rn(96, 48), rn(48), rn(48), nhead=8)

@@ -2,9 +2,10 @@
 
 The port imports nothing of the JAX package, so it keeps copies of the host
 code it needs: ``config.py``, ``data/`` (preprocessing, image_io, homography,
-dataset, augment, colmap_model), ``utils/config_loader.py`` and
-``eval.metrics.aggregate_metrics``. Each copy must behave as its original on
-the same inputs: exactly, since both are the same numpy code.
+dataset, augment, colmap_model), ``utils/config_loader.py``, the numpy
+functions of ``eval/`` (metrics, cad, trajectory) and
+``utils/visualization.py``. Each copy must behave as its original on the same
+inputs: exactly, since both are the same numpy code.
 """
 import dataclasses
 import inspect
@@ -19,14 +20,18 @@ from onepose_plus_plus_tpu.data import augment as jax_augment
 from onepose_plus_plus_tpu.data import colmap_model as jax_colmap
 from onepose_plus_plus_tpu.data import dataset as jax_dataset
 from onepose_plus_plus_tpu.data import preprocessing as jax_pre
+from onepose_plus_plus_tpu import eval as jax_eval
 from onepose_plus_plus_tpu.eval.metrics import aggregate_metrics as jax_aggregate
+from onepose_plus_plus_tpu.utils import visualization as jax_vis
 from onepose_plus_plus_tpu.utils.config_loader import load_config as jax_load_config
 from onepose_plus_plus_tpu_torch import config as port_config
 from onepose_plus_plus_tpu_torch.data import augment as port_augment
 from onepose_plus_plus_tpu_torch.data import colmap_model as port_colmap
 from onepose_plus_plus_tpu_torch.data import dataset as port_dataset
 from onepose_plus_plus_tpu_torch.data import preprocessing as port_pre
+from onepose_plus_plus_tpu_torch import eval as port_eval
 from onepose_plus_plus_tpu_torch.eval.metrics import aggregate_metrics
+from onepose_plus_plus_tpu_torch.utils import visualization as port_vis
 from onepose_plus_plus_tpu_torch.utils.config_loader import load_config
 from port_helpers import to_port_config
 from synthetic_scenes import make_scene
@@ -176,3 +181,123 @@ def test_port_config_loader_has_no_compile_cache_hook():
     assert not hasattr(config_loader, "_enable_persistent_compile_cache")
     assert "jax" not in Path(config_loader.__file__).read_text()
     assert os.path.basename(config_loader.__file__) == "config_loader.py"
+
+
+EVAL_NAMES = ("query_pose_error", "add_metric", "projection_2d_error", "model_diameter_from_bbox",
+              "aggregate_metrics", "SYMMETRIC_OBJ_IDS", "load_ply_vertices", "sample_points_on_cad",
+              "model_diameter_from_vertices", "load_cad_for_eval", "umeyama_alignment",
+              "absolute_trajectory_error", "camera_centers_from_poses", "batched_pose_errors")
+
+
+def test_eval_package_exports_the_same_names():
+    assert set(n for n in dir(jax_eval) if not n.startswith("_")) >= set(EVAL_NAMES)
+    for name in EVAL_NAMES:
+        assert hasattr(port_eval, name), name
+    assert port_eval.SYMMETRIC_OBJ_IDS == jax_eval.SYMMETRIC_OBJ_IDS
+
+
+def _poses(rng, n):
+    K, _, Ts = make_scene(rng, n_views=n, n_pts=8)
+    noisy = Ts.copy()
+    noisy[:, :3, 3] += rng.normal(0, 0.01, (n, 3))
+    return K, Ts, noisy
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_pose_metrics_match(symmetric):
+    rng = np.random.default_rng(2)
+    K, Ts, noisy = _poses(rng, 4)
+    pts = rng.uniform(-0.1, 0.1, (300, 3))
+    for a, b in zip(noisy, Ts):
+        assert port_eval.query_pose_error(a, b) == jax_eval.query_pose_error(a, b)
+        for d in (0.05, 0.2):
+            assert (port_eval.add_metric(a, b, pts, d, symmetric=symmetric)
+                    == jax_eval.add_metric(a, b, pts, d, symmetric=symmetric))
+        for thr in (1.0, 5.0):
+            assert (port_eval.projection_2d_error(a, b, pts, K, thr)
+                    == jax_eval.projection_2d_error(a, b, pts, K, thr))
+    corners = rng.uniform(-1, 1, (8, 3))
+    assert port_eval.model_diameter_from_bbox(corners) == jax_eval.model_diameter_from_bbox(corners)
+
+
+def _write_ply(path, verts, binary):
+    header = (f"ply\nformat {'binary_little_endian' if binary else 'ascii'} 1.0\nelement vertex {len(verts)}\n"
+              "property float x\nproperty float y\nproperty float z\nproperty uchar red\n"
+              "element face 0\nproperty list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        for v in verts:
+            if binary:
+                import struct
+                f.write(struct.pack("<fffB", *v, 7))
+            else:
+                f.write(f"{v[0]} {v[1]} {v[2]} 7\n".encode())
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_cad_helpers_match(tmp_path, binary):
+    verts = np.random.default_rng(3).uniform(-50, 50, (1500, 3)).astype(np.float32)
+    path = str(tmp_path / "m.ply")
+    _write_ply(path, verts, binary)
+    a, b = port_eval.load_ply_vertices(path), jax_eval.load_ply_vertices(path)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, verts, rtol=1e-6)
+    np.testing.assert_array_equal(port_eval.sample_points_on_cad(a, 100, seed=4),
+                                  jax_eval.sample_points_on_cad(a, 100, seed=4))
+    assert port_eval.model_diameter_from_vertices(a) == jax_eval.model_diameter_from_vertices(a)
+    pa, da = port_eval.load_cad_for_eval(path, n_points=200, unit_scale=0.001)
+    pb, db = jax_eval.load_cad_for_eval(path, n_points=200, unit_scale=0.001)
+    np.testing.assert_array_equal(pa, pb)
+    assert da == db
+
+
+@pytest.mark.parametrize("align,with_scale", [(True, True), (True, False), (False, True)])
+def test_trajectory_helpers_match(align, with_scale):
+    rng = np.random.default_rng(5)
+    _, Ts, noisy = _poses(rng, 12)
+    est, gt = port_eval.camera_centers_from_poses(noisy), port_eval.camera_centers_from_poses(Ts)
+    np.testing.assert_array_equal(est, jax_eval.camera_centers_from_poses(noisy))
+    est = 1.7 * est + 0.3  # a similarity away from the GT
+    for x, y in zip(port_eval.umeyama_alignment(est, gt, with_scale),
+                    jax_eval.umeyama_alignment(est, gt, with_scale)):
+        np.testing.assert_array_equal(x, y)
+    a = port_eval.absolute_trajectory_error(est, gt, align, with_scale)
+    b = jax_eval.absolute_trajectory_error(est, gt, align, with_scale)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_visualization_matches(tmp_path):
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(6)
+    K, Ts, _ = _poses(rng, 3)
+    corners = np.array([[x, y, z] for z in (-0.2, 0.2) for y in (-0.2, 0.2) for x in (-0.2, 0.2)])
+    assert port_vis.BOX_EDGES == jax_vis.BOX_EDGES
+    image = rng.random((128, 160)).astype(np.float32)
+    paths = {}
+    for name, vis in (("port", port_vis), ("jax", jax_vis)):
+        uv = vis.project_box_corners(corners, Ts[0], K)
+        np.testing.assert_array_equal(uv, jax_vis.project_box_corners(corners, Ts[0], K))
+        np.testing.assert_array_equal(vis.draw_3d_box(image, uv), jax_vis.draw_3d_box(image, uv))
+        garbage = np.full((8, 2), 1e12)  # poses before tracking locks on project far away
+        np.testing.assert_array_equal(vis.draw_3d_box(image, garbage), jax_vis.draw_3d_box(image, garbage))
+        paths[name] = []
+        for i, T in enumerate(Ts):
+            paths[name].append(str(tmp_path / name / f"{i}.png"))
+            vis.save_demo_frame(image, T, K, corners, paths[name][-1], inliers=i)
+        vis.make_video(paths[name], str(tmp_path / name / "v.mp4"), fps=5)
+    for a, b in zip(paths["port"], paths["jax"]):
+        assert Path(a).read_bytes() == Path(b).read_bytes()
+    assert (tmp_path / "port" / "v.mp4").stat().st_size > 0
+
+
+def test_visualization_line_fallback_without_cv2(monkeypatch):
+    """Without OpenCV the copy draws lines point by point, as the original."""
+    monkeypatch.setattr(port_vis, "_HAS_CV2", False)
+    monkeypatch.setattr(jax_vis, "_HAS_CV2", False)
+    image = np.zeros((64, 64, 3), np.uint8)
+    uv = np.array([[5, 5], [50, 5], [50, 50], [5, 50]] * 2, np.float64)
+    a, b = port_vis.draw_3d_box(image, uv), jax_vis.draw_3d_box(image, uv)
+    np.testing.assert_array_equal(a, b)
+    assert a.any()
