@@ -8,7 +8,9 @@ exits non-zero):
   0  device: GPU name and power limit, torch and CUDA versions
   1  build the CUDA kernels from csrc/ (nvcc, -Xptxas -v report)
   2  each kernel against its plain PyTorch version at main-path shapes
-     (batch 16), f32 and bf16, with CUDA-event medians over 20 runs
+     (batch 16), f32 and bf16, with CUDA-event medians over 20 runs; K1 also
+     at the LoFTR shape [8, 4096, 256], with masks and at a small ragged shape,
+     timed with packed weights and split by launch
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
      of 512^2, a 7000-point cloud, 512 match slots, thr 0
@@ -19,7 +21,9 @@ exits non-zero):
   6  where the time goes in one bf16 step of phase 5 (16 frames): step wall,
      model forward, device time per kernel (torch.profiler), idle share
   7  training: 7a K4 and 7b K5 against their plain versions at the train
-     shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256);
+     shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256), K4's
+     index launch exactly equal to the plain index preparation and its two
+     launches timed apart;
      7c one f32 micro-batch on the GPU (kernels) against the same micro-batch
      on the CPU (plain versions), loss and every gradient; 7d the train config
      at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
@@ -85,9 +89,16 @@ from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
 from onepose_plus_plus_tpu_torch.models.position_encoding import sine_position_encoding
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
-from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer
+from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
+    encoder_layer_plain,
+    fused_encoder_layer,
+    fused_encoder_layer_packed,
+    pack_encoder_weights,
+)
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     _window_taps,
+    scatter_index,
+    scatter_index_plain,
     window_gather,
     window_gather_plain,
     window_scatter,
@@ -275,9 +286,9 @@ def _layer_weights(gen, c):
     )
 
 
-def _encoder_inputs(gen, l, s, c=256):
-    x = torch.randn(B, l, c, generator=gen, device="cuda")
-    src = x if s is None else torch.randn(B, s, c, generator=gen, device="cuda")
+def _encoder_inputs(gen, l, s, c=256, n=B):
+    x = torch.randn(n, l, c, generator=gen, device="cuda")
+    src = x if s is None else torch.randn(n, s, c, generator=gen, device="cuda")
     return x, src, _layer_weights(gen, c)
 
 
@@ -285,39 +296,67 @@ def _bf16(t):
     return t.to(torch.bfloat16)
 
 
+K1_PREVIOUS_MS = 7.455  # the CUDA-core design at the recorded shape (NVIDIA H100 80GB HBM3, 700.00 W)
+
+
 def phase2_k1(gen) -> dict:
+    """K1 against its plain version: the query step's two shapes, the LoFTR
+    shape, a masked and a small ragged case; f32 (CUDA cores) and bf16 operands
+    (tensor cores). Timed with packed weights, as the model calls it."""
     worst, rec = 0.0, {}
-    for tag, l, s in (("cross", 4096, 7000), ("self", 7000, None)):
-        x, src, w = _encoder_inputs(gen, l, s)
-        got = fused_encoder_layer(x, src, **w, nhead=8)
-        ref = encoder_layer_plain(x, src, **w, nhead=8)
+    cases = (("cross", B, 4096, 7000, False), ("self", B, 7000, None, False),
+             ("loftr-self", 8, 4096, None, False), ("masked-cross", 4, 4096, 7000, True),
+             ("ragged", 3, 130, 257, True))
+    for tag, n, l, s, masked in cases:
+        x, src, w = _encoder_inputs(gen, l, s, n=n)
+        masks = {}
+        if masked:
+            masks = {"x_mask": torch.rand(n, l, generator=gen, device="cuda") < 0.8,
+                     "source_mask": torch.rand(n, src.shape[1], generator=gen, device="cuda") < 0.8}
+        got = fused_encoder_layer(x, src, **w, **masks, nhead=8)
+        ref = encoder_layer_plain(x, src, **w, **masks, nhead=8)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        log(f"[2] K1 {tag} f32  x{tuple(x.shape)} src{tuple(src.shape)}: max|d| {err:.3e} (<= 1e-3)")
-        check(err <= 1e-3, f"K1 {tag} f32 disagrees: {err}")
+        log(f"[2] K1 {tag} f32  x{tuple(x.shape)} src{tuple(src.shape)}{' masked' if masked else ''}: "
+            f"max|d| {err:.3e} (<= 1e-3)")
+        check(err <= 1e-3 and bool(torch.isfinite(got).all()), f"K1 {tag} f32 disagrees: {err}")
         worst = max(worst, err)
-        # bf16 product operands; x and source stay f32, as on the main path
+        # bf16 product operands; x and source stay f32, as on the main path.
+        # The tensor cores sum each product in another order than the plain
+        # version, so a rounded operand can land on the neighbouring bf16 value
         wb = {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
-        got = fused_encoder_layer(x, src, **wb, nhead=8, dtype=torch.bfloat16)
-        ref = encoder_layer_plain(x, src, **wb, nhead=8, dtype=torch.bfloat16)
+        got = fused_encoder_layer(x, src, **wb, **masks, nhead=8, dtype=torch.bfloat16)
+        ref = encoder_layer_plain(x, src, **wb, **masks, nhead=8, dtype=torch.bfloat16)
         torch.cuda.synchronize()
         d = (got - ref).abs()
         log(f"[2] K1 {tag} bf16 operands: max|d| {d.max().item():.3e} (<= 5e-2), "
             f"mean|d| {d.mean().item():.3e} (<= 5e-3)")
-        check(d.max().item() <= 5e-2 and d.mean().item() <= 5e-3, f"K1 {tag} bf16 disagrees")
+        check(d.max().item() <= 5e-2 and d.mean().item() <= 5e-3 and bool(torch.isfinite(got).all()),
+              f"K1 {tag} bf16 disagrees")
+        if masked:
+            continue
         for dt, dtype, ws in (("f32", torch.float32, w), ("bf16", torch.bfloat16, wb)):
-            ms = time_ms(lambda: fused_encoder_layer(x, src, **ws, nhead=8, dtype=dtype))
+            packed = pack_encoder_weights(**ws, nhead=8, dtype=dtype)
+            ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed))
+            loose = time_ms(lambda: fused_encoder_layer(x, src, **ws, nhead=8, dtype=dtype))
             pms = time_ms(lambda: encoder_layer_plain(x, src, **ws, nhead=8, dtype=dtype))
-            log(f"[2] K1 {tag} {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms (median of 20)")
+            log(f"[2] K1 {tag} {dt}: kernel {ms:.3f} ms with packed weights ({loose:.3f} ms packing "
+                f"loose weights at the call), plain {pms:.3f} ms (median of 20)")
             rec[f"{tag}_{dt}"] = (ms, pms)
+            if dt == "bf16":
+                rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed), reps=5)
+                log(f"[2] K1 {tag} bf16 device time by launch: {launch_names(rows)} "
+                    f"({busy / 5:.3f} ms a call, torch.profiler, 5 calls)")
     ms, pms = rec["self_bf16"]
     # the recorded instance: self [B, 7000, 256], bf16 product operands, f32 streams
     l, c, hd = 7000, 256, 256 // 8
     ops = B * (16 * l * c * c + 4 * l * c * c + 4 * l * c * (hd + 1))  # 6 projections + FFN, K'^T[V|1], apply
     n_bytes = 2 * B * l * c * 4 + 10 * c * c * 2 + 4 * c * 4  # x in, out, bf16 weights, LayerNorms
     b = bound(n_bytes, ops, torch.bfloat16)
-    log(f"[2] K1 self bf16 bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call "
-        f"computes a linear-attention encoder layer")
+    log(f"[2] K1 self bf16 {ms:.3f} ms ({K1_PREVIOUS_MS} ms before the tensor-core design), "
+        f"{ms / b['bound_ms']:.1f}x its bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single "
+        f"PyTorch call computes a linear-attention encoder layer")
+    check(ms < K1_PREVIOUS_MS, "K1's tensor-core instance is not faster than the CUDA-core design")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
 
 
@@ -523,14 +562,17 @@ def phase5(smi: str):
     return counts, model, frames, anno
 
 
-def device_rows(fn):
+def device_rows(fn, reps: int = 1):
     """(device-time rows (ms, count, kernel name), total device ms, wall ms of
-    the profiled call) of one call of fn under torch.profiler."""
+    the profiled calls) of `reps` calls of fn under torch.profiler. The
+    profiler can miss the first launch after it starts: where every launch of
+    a short call matters, profile a few calls and read the names."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
@@ -545,7 +587,24 @@ def group_ms(rows, names) -> float:
     return sum(r[0] for r in rows if pat.search(r[2]))
 
 
-K1_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")
+def _short(key: str) -> str:
+    """A kernel's name without namespaces, template and function arguments."""
+    m = re.search(r"(\w+)(?:<[^(]*>)?\(", key)
+    return m.group(1) if m else key[:40]
+
+
+def only_launches(rows, names) -> bool:
+    """Whether the profiled calls launched exactly the kernels in `names`, each at least once."""
+    return {_short(r[2]) for r in rows} == set(names)
+
+
+def launch_names(rows) -> str:
+    """'kernel ms (mean of its launches) xcount, ...' of device_rows' rows."""
+    return ", ".join(f"{_short(key)} {ms / count:.4f} ms x{count}" for ms, count, key in rows)
+
+
+K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")  # bf16, tensor cores
+K1_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel") + K1_TC_NAMES  # f32 first
 K2_NAMES = ("lse_kernel", "col_lse_reduce", "argmax_kernel", "col_argmax_reduce")
 K3_NAMES = ("window_gather_kernel",)
 
@@ -587,11 +646,28 @@ def phase6(model, frames, anno, smi: str) -> None:
         f"{100 * (1 - busy / wall):.1f} % of the step wall, on {smi}")
     log(f"[6] device time: K1 {k1:.2f} ms, K2 {k2:.2f} ms, K3 {k3:.3f} ms, "
         f"everything else {busy - k1 - k2 - k3:.2f} ms")
+    copies = [r for r in rows if "copy_kernel" in r[2] or "Memcpy" in r[2]]
+    log(f"[6] casts and copies in the step (every launch whose name holds copy_kernel or Memcpy): "
+        f"{sum(r[0] for r in copies):.2f} ms in {sum(r[1] for r in copies)} launches")
     for ms, count, key in rows[:25]:
         log(f"[6]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    # one coarse layer through the model's own call: its weights were packed
+    # when the layer first ran, so the call launches K1's three kernels and
+    # no transpose or cast of a weight
+    layer = model.loftr_coarse.layers[0]
+    x = torch.randn(B, 7000, 256, generator=gen, device=dev)
+    with torch.no_grad():
+        layer(x, x, fused=True)
+        lrows, lbusy, _ = device_rows(lambda: layer(x, x, fused=True), reps=5)
+    log(f"[6] five coarse layer calls (self, [{B}, 7000, 256]) launch {launch_names(lrows)} "
+        f"({lbusy / 5:.3f} ms a call)")
+    check(only_launches(lrows, K1_TC_NAMES), "a coarse layer call launches something besides K1's kernels")
 
 
 # ----------------------------------------------------------------- phase 7
+
+
+K4_PREVIOUS_MS = 0.393  # f32, eight PyTorch launches before the one kernel (NVIDIA H100 80GB HBM3, 700.00 W)
 
 
 def phase7a(gen) -> dict:
@@ -600,6 +676,14 @@ def phase7a(gen) -> dict:
     ids = torch.randint(0, hc * hc, (n, k), generator=gen, device="cuda", dtype=torch.int32)
     ids[:, 1028:] = ids[:, :200]  # GT slots repeating predicted cells
     ids[:, 1000:1028] = -1  # unfilled prediction slots
+    # the index launch against the plain preparation (a stable library sort and searchsorted)
+    order, cell_start = scatter_index(ids, hc * hc)
+    order_ref, cell_start_ref = scatter_index_plain(ids, hc * hc)
+    torch.cuda.synchronize()
+    exact = torch.equal(order, order_ref) and torch.equal(cell_start, cell_start_ref)
+    log(f"[7a] K4 index launch ids{tuple(ids.shape)}, {hc * hc} cells: order and cell_start equal the "
+        f"plain preparation exactly {exact}")
+    check(exact, "K4's index kernel disagrees with the plain preparation")
     rec = {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         grad = torch.randn(n, k, 25, 128, generator=gen, device="cuda").to(dtype)
@@ -615,16 +699,23 @@ def phase7a(gen) -> dict:
         check(err <= tol and same, f"K4 {dt} disagrees or is not deterministic")
         ms = time_ms(lambda: window_scatter(*args))
         pms = time_ms(lambda: window_scatter_plain(*args))
-        # yardstick: one index_add_ of the valid taps (indices and rows precomputed)
+        rows_, busy, _ = device_rows(lambda: window_scatter(*args), reps=5)
+        log(f"[7a] K4 {dt} device time by launch: {launch_names(rows_)} "
+            f"({busy / 5:.4f} ms a call, torch.profiler, 5 calls)")
+        check(only_launches(rows_, K4_NAMES), "K4 launches something besides its two kernels")
+        # yardstick: the function K4 computes is the whole map, so zero it and
+        # index_add_ the valid taps (indices and rows precomputed; atomics)
         flat, valid = _window_taps(ids, (4 * hc, 4 * hc), (hc, hc), 4, 5)
         rows = (flat + (16 * hc * hc) * torch.arange(n, device="cuda")[:, None])[valid]
         src = grad.reshape(n, k * 25, 128)[valid]
         acc = torch.zeros(n * 16 * hc * hc, 128, dtype=dtype, device="cuda")
-        lms = time_ms(lambda: acc.index_add_(0, rows, src))
+        bare = time_ms(lambda: acc.index_add_(0, rows, src))
+        lms = time_ms(lambda: acc.zero_().index_add_(0, rows, src))
         n_bytes = src.numel() * src.element_size() + rows.numel() * 4 + got.numel() * got.element_size()
         b = bound(n_bytes, src.numel(), dtype)  # one add per tap element
-        log(f"[7a] K4 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms, index_add_ {lms:.3f} ms (median of 20); "
-            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        before = f" ({K4_PREVIOUS_MS} ms with the library sort in the wrapper)" if dt == "f32" else ""
+        log(f"[7a] K4 {dt}: kernel {ms:.3f} ms{before}, plain {pms:.3f} ms, zero_ + index_add_ {lms:.3f} ms (index_add_ alone, into a map "
+            f"that exists, {bare:.3f} ms) (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         rec[dt] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": lms, **b}
         del acc, src, rows
     return rec["f32"]  # the train config is f32
@@ -1404,7 +1495,7 @@ def phase9e(tmp: str, smi: str) -> None:
         log(f"[9e]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
 
 
-K4_NAMES = ("window_scatter_kernel",)
+K4_NAMES = ("scatter_index_kernel", "window_scatter_kernel")
 K5_NAMES = ("loss_kernel", "gsum_kernel", "colg_reduce", "df0_kernel", "df1_kernel")
 
 

@@ -11,15 +11,28 @@
 //
 // Collisions are the norm (stride-4 windows of width 5 overlap by one row or
 // column, and GT-padded slots repeat predicted cells), and the sum must be
-// the same bit for bit from run to run, so there are no atomics. The wrapper
-// sorts the slots by cell id (stable) and hands over per-cell slot ranges;
-// one thread per (pixel, 16-byte channel vector) visits the at most
-// ceil(W/stride)^2 cells whose windows hold its pixel, in (row, column)
-// order, and each cell's slots in ascending slot order, accumulating in f32
-// and writing once in the map's dtype.
+// the same bit for bit from run to run, so there are no atomics. Two launches:
+//   1. scatter_index_kernel orders the slots by cell id, stably, and finds
+//      each cell's range of ordered slots. It is a counting sort by brute
+//      force: one thread per slot counts the slots that sort before it (its
+//      place in `order`), one thread per cell counts the slots of smaller
+//      cells (`cell_start`); every block stages the ids in shared memory and
+//      reads them as broadcasts. K * (K + cells) comparisons (6.5 M a batch
+//      element at the train shape) spread over the whole card take a few
+//      microseconds, where a library sort, searchsorted and their casts took
+//      eight launches.
+//   2. window_scatter_kernel: one block per (map row, batch element). The
+//      block loads the cell_start entries of the one or two cell rows whose
+//      windows reach its map row into shared memory, and each pixel column's
+//      cell-column range once; a thread owns one 16-byte channel vector and
+//      walks the row's pixels, so no division is left in its loop. It visits
+//      the at most ceil(W/stride)^2 cells of its pixel in (row, column) order
+//      and each cell's slots in ascending slot order, accumulates in f32 and
+//      writes once in the map's dtype; a pixel under no window costs two
+//      shared-memory reads and a 16-byte store of zeros.
 //
 // Bound: device-memory bandwidth (one write of the map, one read of every
-// gradient tap, the index ranges stay in L1/L2). Neighbouring threads own
+// gradient tap; the index arrays are a few KB). Neighbouring threads own
 // neighbouring 16-byte vectors of a pixel, so loads and stores coalesce.
 #include "common.cuh"
 
@@ -71,68 +84,159 @@ __device__ __forceinline__ void cell_range(int x, int half, int stride, int n, i
   hi = min(n - 1, (x + half) / stride);
 }
 
+constexpr int IDX_THREADS = 256;
+constexpr int IDX_CHUNK = 2048;  // ids staged in shared memory at a time
+
+// order[b, :]: the slots in a stable order of their key (the cell id, or
+// n_cells for an id outside the grid); cell_start[b, c], c in [0, n_cells]:
+// the number of slots whose key is below c. Thread i < K is slot i, thread
+// K + c is cell c.
+__global__ void scatter_index_kernel(const int* __restrict__ ids, int* __restrict__ order,
+                                     int* __restrict__ cell_start, int K, int n_cells) {
+  __shared__ __align__(16) int keys[IDX_CHUNK];
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int* idb = ids + (size_t)b * K;
+  const bool is_slot = i < K;
+  const bool is_cell = !is_slot && i - K <= n_cells;
+  int my_key = i - K;
+  if (is_slot) {
+    const int id = idb[i];
+    my_key = (id >= 0 && id < n_cells) ? id : n_cells;
+  }
+  // a slot also comes after the equal keys of smaller slot index; a cell does not
+  const int ties_below = is_slot ? i : 0;
+  int count = 0;
+  for (int base = 0; base < K; base += IDX_CHUNK) {
+    const int len = min(IDX_CHUNK, K - base);
+    const int padded = (len + 3) & ~3;
+    __syncthreads();
+    for (int j = threadIdx.x; j < padded; j += blockDim.x) {
+      int key = 0x7fffffff;  // padding sorts after everything
+      if (j < len) {
+        const int id = idb[base + j];
+        key = (id >= 0 && id < n_cells) ? id : n_cells;
+      }
+      keys[j] = key;
+    }
+    __syncthreads();
+    if (is_slot || is_cell) {
+      const int lim = ties_below - base;
+      for (int j = 0; j < padded; j += 4) {
+        const int4 q = *reinterpret_cast<const int4*>(keys + j);
+        count += (q.x < my_key) | ((q.x == my_key) & (j < lim));
+        count += (q.y < my_key) | ((q.y == my_key) & (j + 1 < lim));
+        count += (q.z < my_key) | ((q.z == my_key) & (j + 2 < lim));
+        count += (q.w < my_key) | ((q.w == my_key) & (j + 3 < lim));
+      }
+    }
+  }
+  if (is_slot) order[(size_t)b * K + count] = i;
+  else if (is_cell) cell_start[(size_t)b * (n_cells + 1) + my_key] = count;
+}
+
 template <typename T>
 __global__ void window_scatter_kernel(const T* __restrict__ grad, const int* __restrict__ order,
                                       const int* __restrict__ cell_start, T* __restrict__ out,
                                       int H, int W, int C, int hc, int wc, int K, int stride,
                                       int window) {
   constexpr int VEC = Vec<T>::N;
+  extern __shared__ int sm[];
   const int nv = C / VEC;
-  const int b = blockIdx.y;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)H * W * nv) return;
-  const int v = (int)(i % nv);
-  const int pix = (int)(i / nv);
-  const int r = pix / W, c = pix % W;
+  const int r = blockIdx.x, b = blockIdx.y;
   const int half = window / 2, taps = window * window;
-  const int n_cells = hc * wc;
-  const int* starts = cell_start + (size_t)b * (n_cells + 1);
+  const int* starts = cell_start + (size_t)b * (hc * wc + 1);
   const int* ord = order + (size_t)b * K;
   const uint4* g = reinterpret_cast<const uint4*>(grad + (size_t)b * K * taps * C);
+  uint4* o = reinterpret_cast<uint4*>(out + ((size_t)b * H + r) * W * C);
 
-  float acc[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-  int ci_lo, ci_hi, cj_lo, cj_hi;
+  int ci_lo, ci_hi;
   cell_range(r, half, stride, hc, ci_lo, ci_hi);
-  cell_range(c, half, stride, wc, cj_lo, cj_hi);
-  for (int ci = ci_lo; ci <= ci_hi; ++ci) {
-    const int tr = r - (stride * ci - half);
-    for (int cj = cj_lo; cj <= cj_hi; ++cj) {
-      const int t = tr * window + (c - (stride * cj - half));
-      const int cell = ci * wc + cj;
-      for (int s = starts[cell]; s < starts[cell + 1]; ++s) {
-        const int slot = ord[s];
-        Vec<T>::add(g[((size_t)slot * taps + t) * nv + v], acc);
+  const int n_ci = max(0, ci_hi - ci_lo + 1);
+  int2* cols = reinterpret_cast<int2*>(sm);  // [W] cell columns whose windows hold pixel column c
+  int* st = sm + 2 * W;                      // [n_ci, wc + 1] cell_start of the cell rows in reach
+  for (int c = threadIdx.x; c < W; c += blockDim.x) {
+    int lo, hi;
+    cell_range(c, half, stride, wc, lo, hi);
+    cols[c] = make_int2(lo, hi);
+  }
+  for (int i = threadIdx.x; i < n_ci * (wc + 1); i += blockDim.x) {
+    const int rr = i / (wc + 1);
+    st[i] = starts[(ci_lo + rr) * wc + (i - rr * (wc + 1))];
+  }
+  __syncthreads();
+
+  // blockDim.x is a multiple of nv: this thread owns channel vector v of
+  // every (blockDim.x / nv)-th pixel of the row
+  const int v = threadIdx.x % nv;
+  const int step = blockDim.x / nv;
+  for (int c = threadIdx.x / nv; c < W; c += step) {
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    const int2 cj = cols[c];
+    for (int a = 0; a < n_ci; ++a) {
+      const int tr = r - (stride * (ci_lo + a) - half);
+      const int* row = st + a * (wc + 1);
+      for (int j = cj.x; j <= cj.y; ++j) {
+        const int t = tr * window + (c - (stride * j - half));
+        for (int s = row[j]; s < row[j + 1]; ++s) {
+          const int slot = ord[s];
+          Vec<T>::add(g[((size_t)slot * taps + t) * nv + v], acc);
+        }
       }
     }
+    o[(size_t)c * nv + v] = Vec<T>::pack(acc);
   }
-  reinterpret_cast<uint4*>(out + (size_t)b * H * W * C)[(size_t)pix * nv + v] = Vec<T>::pack(acc);
+}
+
+int launch_scatter_index(const int* ids, int* order, int* cell_start, int B, int K, int n_cells,
+                         cudaStream_t stream) {
+  if (B <= 0 || K <= 0 || n_cells <= 0) return (int)cudaErrorInvalidValue;
+  const int n = K + n_cells + 1;
+  scatter_index_kernel<<<dim3((n + IDX_THREADS - 1) / IDX_THREADS, B), IDX_THREADS, 0, stream>>>(
+      ids, order, cell_start, K, n_cells);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_window_scatter(const void* grad, const int* order, const int* cell_start, void* out,
-                          int B, int H, int W, int C, int hc, int wc, int K, int stride,
-                          int window, cudaStream_t stream) {
+int launch_window_scatter(const void* grad, const int* ids, int* order, int* cell_start,
+                          void* out, int B, int H, int W, int C, int hc, int wc, int K,
+                          int stride, int window, cudaStream_t stream) {
   constexpr int VEC = Vec<T>::N;
-  if (B <= 0 || K <= 0 || C % VEC != 0 || window <= 0 || stride <= 0)
+  if (B <= 0 || K <= 0 || C % VEC != 0 || C / VEC > 1024 || window <= 0 || stride <= 0)
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)H * W * (C / VEC);
-  const int threads = 256;
-  window_scatter_kernel<T><<<dim3((unsigned)((n + threads - 1) / threads), B), threads, 0,
-                             stream>>>(static_cast<const T*>(grad), order, cell_start,
-                                       static_cast<T*>(out), H, W, C, hc, wc, K, stride, window);
+  const int rc = launch_scatter_index(ids, order, cell_start, B, K, hc * wc, stream);
+  if (rc != 0) return rc;
+  const int nv = C / VEC;
+  const int threads = nv * (nv >= 256 ? 1 : 256 / nv);
+  const int rows_in_reach = 2 * (window / 2) / stride + 1;
+  const size_t smem = ((size_t)2 * W + (size_t)rows_in_reach * (wc + 1)) * sizeof(int);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(window_scatter_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  window_scatter_kernel<T><<<dim3(H, B), threads, smem, stream>>>(
+      static_cast<const T*>(grad), order, cell_start, static_cast<T*>(out), H, W, C, hc, wc, K,
+      stride, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define OPP_SCATTER_ENTRY(NAME, T)                                                           \
-  extern "C" int NAME(const void* grad, const int* order, const int* cell_start, void* out, \
-                      int B, int H, int W, int C, int hc, int wc, int K, int stride,        \
-                      int window, void* stream) {                                           \
-    return launch_window_scatter<T>(grad, order, cell_start, out, B, H, W, C, hc, wc, K,    \
-                                    stride, window, static_cast<cudaStream_t>(stream));     \
+// The index launch alone: order [B, K] and cell_start [B, n_cells + 1] of ids [B, K].
+extern "C" int opp_window_scatter_index(const int* ids, int* order, int* cell_start, int B, int K,
+                                        int n_cells, void* stream) {
+  return launch_scatter_index(ids, order, cell_start, B, K, n_cells,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Both launches; order and cell_start are scratch the caller allocates.
+#define OPP_SCATTER_ENTRY(NAME, T)                                                          \
+  extern "C" int NAME(const void* grad, const int* ids, int* order, int* cell_start,        \
+                      void* out, int B, int H, int W, int C, int hc, int wc, int K,         \
+                      int stride, int window, void* stream) {                               \
+    return launch_window_scatter<T>(grad, ids, order, cell_start, out, B, H, W, C, hc, wc, \
+                                    K, stride, window, static_cast<cudaStream_t>(stream)); \
   }
 
 OPP_SCATTER_ENTRY(opp_window_scatter_f32, float)

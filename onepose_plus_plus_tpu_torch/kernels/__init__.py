@@ -2,10 +2,12 @@
 
 Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 
-- K1 ``ops/cuda_encoder.py::fused_encoder_layer`` (``csrc/encoder.cu``)
+- K1 ``ops/cuda_encoder.py::fused_encoder_layer`` and ``fused_encoder_layer_packed``
+  (``csrc/encoder.cu``: tensor cores for bf16 operands, CUDA cores for f32)
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``)
 - K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``)
-- K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP
+- K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP: an index
+  launch (``scatter_index``) and the scatter launch
 - K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``),
   counted once per forward (``K5_coarse_loss``) and once per backward
   (``K5_coarse_loss_bwd``)

@@ -22,7 +22,11 @@ from torch import nn
 
 from ..config import TransformerConfig
 from ..ops.attention import full_attention, linear_attention
-from ..ops.cuda_encoder import fused_encoder_layer
+from ..ops.cuda_encoder import (
+    PackedEncoderWeights,
+    fused_encoder_layer_packed,
+    pack_encoder_weights,
+)
 from ..utils.dtypes import torch_dtype
 
 
@@ -42,6 +46,7 @@ class LoFTREncoderLayer(nn.Module):
         )
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
+        self._packed: Optional[Tuple[tuple, PackedEncoderWeights]] = None  # (key, weights) of K1
 
     def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), layer.weight.to(self.dtype))
@@ -54,6 +59,23 @@ class LoFTREncoderLayer(nn.Module):
                 self.merge.weight.t(), self.norm1.weight, self.norm1.bias,
                 self.mlp[0].weight.t(), self.mlp[2].weight.t(),
                 self.norm2.weight, self.norm2.bias)
+
+    def packed_weights(self) -> PackedEncoderWeights:
+        """The layer's weights packed for K1 (``ops/cuda_encoder.py``) in the
+        layer's operand dtype, on the weights' device. Packed once and kept
+        until a weight changes: the key holds every parameter's version
+        counter (in-place updates: an optimizer step, ``load_state_dict``),
+        storage address, dtype and device (``.to()``). In train mode nothing
+        is kept: the weights change at every step."""
+        weights = self.kernel_weights()
+        if self.training:
+            return pack_encoder_weights(*weights, nhead=self.nhead, dtype=self.dtype)
+        key = (self.dtype,) + tuple((w._version, w.data_ptr(), w.dtype, w.device) for w in weights)
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                packed = pack_encoder_weights(*weights, nhead=self.nhead, dtype=self.dtype)
+            self._packed = (key, packed)
+        return self._packed[1]
 
     def forward(
         self,
@@ -69,8 +91,7 @@ class LoFTREncoderLayer(nn.Module):
         (LayerNorms in f32, projections in the compute dtype).
         """
         if fused and self.attention == "linear":
-            return fused_encoder_layer(x, source, *self.kernel_weights(), x_mask, source_mask,
-                                       nhead=self.nhead, dtype=self.dtype)
+            return fused_encoder_layer_packed(x, source, self.packed_weights(), x_mask, source_mask)
         n, l, d = x.shape
         s = source.shape[1]
         if (self.attention == "linear" and s == 1

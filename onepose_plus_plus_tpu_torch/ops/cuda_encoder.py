@@ -10,12 +10,24 @@ grid; on Hopper the per-head K'^T V and sum K' are written as per-source-tile
 partials and summed by a second small launch (deterministic, no atomics), then
 one block per x tile runs the whole rest of the layer in shared memory.
 
-What bounds it on the card: FP32 FMA throughput of the CUDA cores (every
-projection and FFN product is computed in the kernel's own body, ~10 C^2
-multiply-adds per row); weights are reread from L2 by every block. The design
-stages each tile in shared memory and reads it as float4 broadcasts (one
-shared load per four FMAs); tensor cores are later work. Only the coarse stage
-(sequences of 256 tokens or more, linear attention, inference) runs it.
+What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
+row), every product computed in the kernel's own body. Routing by operand
+type, both counted as ``K1_encoder_layer``:
+
+- **bfloat16 operands** (the bench, inference and SfM configurations) run on
+  the tensor cores through ``wgmma``: 64-row tiles, activations as bf16 tiles
+  in shared memory, accumulators and every epilogue (elu+1, masks, division,
+  LayerNorms, ReLU) in registers, the weights streamed from L2 by bulk copies
+  into a ring of a few stages. This instance takes C = 256 with 8 heads (both
+  coarse transformers) and raises ``ValueError`` for any other width.
+- **float32 operands** (the demo, the f32 parity paths) keep exact f32 FMAs on
+  the CUDA cores (no TF32) for any C that is a multiple of 32 up to 256.
+
+The weights reach the kernels packed (:func:`pack_encoder_weights`): for bf16
+as byte images of the shared-memory chunks the tensor cores read, in the order
+the kernel consumes them, for f32 as contiguous [in, out] matrices. A model
+packs each layer once (``LoFTREncoderLayer.packed_weights``); the loose-tensor
+entry :func:`fused_encoder_layer` packs at every call.
 
 The reference's 1/S value pre-scaling and trailing *S cancel exactly and are
 omitted, as in the TPU kernel. The residual stream stays float32 whatever the
@@ -23,7 +35,8 @@ operand type: only the operands of products are rounded to it.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +45,8 @@ from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, 
 
 _EPS = 1e-6
 _LN_EPS = 1e-5
+_TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instance's only width
+_CHUNK_K = 64  # input columns of one packed weight chunk
 
 
 def _elu_p1(x: torch.Tensor) -> torch.Tensor:
@@ -93,6 +108,153 @@ def encoder_layer_plain(
     return x32 + h2
 
 
+@dataclass(frozen=True)
+class PackedEncoderWeights:
+    """One layer's weights as K1 reads them, for one operand type and device.
+
+    ``width``: C. ``loose``: wq, wk, wv, wmerge, wmlp0, wmlp1 cast to ``dtype``
+    in the [in, out] layout (what the plain version and the f32 instance read;
+    views where no copy was needed), empty where the tensor-core instance reads
+    the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and bias
+    in f32. ``stats`` / ``apply``: the bf16 chunk images of the tensor-core
+    instance (CUDA, bfloat16 only, else None).
+    """
+
+    dtype: torch.dtype
+    nhead: int
+    width: int
+    loose: Tuple[torch.Tensor, ...]
+    ln: Tuple[torch.Tensor, ...]
+    stats: Optional[torch.Tensor] = None
+    apply: Optional[torch.Tensor] = None
+
+
+def pack_weight_chunks(w_out_in: torch.Tensor) -> torch.Tensor:
+    """A weight [N, K] in torch's Linear layout ([out, in]) as the chunks the
+    tensor-core instance copies into shared memory: [K / 64, N / 8, 8, 8, 8]
+    indexed (chunk, out group, in group, out % 8, in % 8), i.e. per chunk of 64
+    input columns the 8 x 8 core matrices of the ``wgmma`` K-major layout, so
+    that element (n, k) of a chunk lies at byte
+    ``(n // 8) * 1024 + (k // 8) * 128 + (n % 8) * 16 + (k % 8) * 2``."""
+    n, k = w_out_in.shape
+    if n % 8 != 0 or k % _CHUNK_K != 0:
+        raise ValueError(f"pack_weight_chunks: shape {(n, k)} needs N % 8 == 0 and K % 64 == 0")
+    t = w_out_in.reshape(n // 8, 8, k // _CHUNK_K, 8, 8)  # [ng, nr, chunk, kg, kc]
+    return t.permute(2, 0, 3, 1, 4).contiguous()
+
+
+def pack_encoder_weights(
+    wq: torch.Tensor,
+    wk: torch.Tensor,
+    wv: torch.Tensor,
+    wmerge: torch.Tensor,
+    ln1_scale: torch.Tensor,
+    ln1_bias: torch.Tensor,
+    wmlp0: torch.Tensor,
+    wmlp1: torch.Tensor,
+    ln2_scale: torch.Tensor,
+    ln2_bias: torch.Tensor,
+    *,
+    nhead: int = 8,
+    dtype: torch.dtype = torch.float32,
+) -> PackedEncoderWeights:
+    """Pack one layer's weights ([in, out] layout, as :func:`fused_encoder_layer`
+    takes them) for operand type ``dtype`` on the weights' device."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"pack_encoder_weights: unsupported operand dtype {dtype}")
+    c = wq.shape[0]
+    for w, shape in ((wq, (c, c)), (wk, (c, c)), (wv, (c, c)), (wmerge, (c, c)),
+                     (wmlp0, (2 * c, 2 * c)), (wmlp1, (2 * c, c))):
+        if w.shape != shape:
+            raise ValueError(f"pack_encoder_weights: weight {tuple(w.shape)} != {shape}")
+    ln = tuple(p.float().contiguous() for p in (ln1_scale, ln1_bias, ln2_scale, ln2_bias))
+    if any(p.shape != (c,) for p in ln):
+        raise ValueError("pack_encoder_weights: LayerNorm parameters must be [C]")
+    loose = tuple(w.to(dtype) for w in (wq, wk, wv, wmerge, wmlp0, wmlp1))
+    if wq.device.type == "cpu":
+        return PackedEncoderWeights(dtype, nhead, c, loose, ln)
+    if dtype == torch.float32:
+        return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln)
+    if c != _TC_WIDTH or nhead != _TC_HEADS:
+        raise ValueError(
+            f"fused_encoder_layer: the bfloat16 (tensor-core) instance takes C = {_TC_WIDTH} with "
+            f"{_TC_HEADS} heads, got C = {c}, nhead = {nhead}; float32 operands take any multiple "
+            f"of 32 up to 256")
+    q, k, v, m, w0, w1 = (w.t() for w in loose)  # torch Linear layout [out, in]
+    stats = torch.cat([pack_weight_chunks(k), pack_weight_chunks(v)])
+    # in the kernel's order: Q, merge, the FFN's first product by output half
+    # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
+    apply = torch.cat([pack_weight_chunks(q), pack_weight_chunks(m), pack_weight_chunks(w0[:c]),
+                       pack_weight_chunks(w0[c:]), pack_weight_chunks(w1)])
+    return PackedEncoderWeights(dtype, nhead, c, (), ln, stats, apply)
+
+
+def fused_encoder_layer_packed(
+    x: torch.Tensor,
+    source: torch.Tensor,
+    packed: PackedEncoderWeights,
+    x_mask: Optional[torch.Tensor] = None,
+    source_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`fused_encoder_layer` on weights packed beforehand: on a CUDA
+    tensor, the kernel's launches and no cast or copy of a weight."""
+    dtype, nhead = packed.dtype, packed.nhead
+    x, source = x.float().contiguous(), source.float().contiguous()
+    masks = [None if m is None else m.float().contiguous() for m in (x_mask, source_mask)]
+    ln = packed.ln
+    if x.device.type == "cpu":
+        wq, wk, wv, wmerge, wmlp0, wmlp1 = packed.loose
+        return encoder_layer_plain(
+            x, source, wq, wk, wv, wmerge, ln[0], ln[1], wmlp0, wmlp1, ln[2], ln[3],
+            masks[0], masks[1], nhead=nhead, dtype=dtype,
+        )
+
+    n, l, c = x.shape
+    s = source.shape[1]
+    if source.shape != (n, s, c):
+        raise ValueError(f"fused_encoder_layer: source {tuple(source.shape)} vs x {tuple(x.shape)}")
+    if c % 32 != 0 or c > 256 or c % nhead != 0:
+        raise ValueError(f"fused_encoder_layer: unsupported C={c}, nhead={nhead}")
+    if packed.width != c:
+        raise ValueError(f"fused_encoder_layer: weights packed for C={packed.width}, x has C={c}")
+    if masks[0] is not None and masks[0].shape != (n, l):
+        raise ValueError("fused_encoder_layer: x_mask must be [N, L]")
+    if masks[1] is not None and masks[1].shape != (n, s):
+        raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
+    if dtype == torch.bfloat16:  # its bulk copies read 16-byte aligned rows
+        x = x if x.data_ptr() % 16 == 0 else x.clone()
+        source = source if source.data_ptr() % 16 == 0 else source.clone()
+    weights = packed.loose if dtype == torch.float32 else (packed.stats, packed.apply)
+    operands = [x, source, *weights, *ln] + [m for m in masks if m is not None]
+    device = check_cuda_operands("fused_encoder_layer", *operands)
+
+    lib = build()
+    hd = c // nhead
+    y = torch.empty((n, l, c), dtype=torch.float32, device=device)
+    if dtype == torch.float32:
+        n_tiles = lib.lib.opp_encoder_source_tiles(s)
+        part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
+        kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
+        lib.call(
+            "opp_encoder_layer_f32",
+            ptr(x), ptr(source), *(ptr(w) for w in weights),
+            ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
+            ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
+        )
+    else:
+        n_tiles = lib.lib.opp_encoder_tc_source_tiles(s)
+        part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
+        kv_image = torch.empty((n, nhead * 40 * hd), dtype=torch.bfloat16, device=device)
+        lib.call(
+            "opp_encoder_layer_tc",
+            ptr(x), ptr(source), ptr(packed.stats), ptr(packed.apply),
+            ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
+            ptr(part), ptr(kv_image), ptr(y), n, l, s, stream_ptr(device),
+        )
+    LAUNCHES["K1_encoder_layer"] += 1
+    return y
+
+
 def fused_encoder_layer(
     x: torch.Tensor,
     source: torch.Tensor,
@@ -120,55 +282,14 @@ def fused_encoder_layer(
     dtype when it is bfloat16, else float32) is the product operand type: the
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
-    kernel does). Returns [N, L, C] float32. CPU tensors run the plain version.
+    kernel does). It also routes: bfloat16 to the tensor-core instance (C = 256,
+    8 heads, else ``ValueError``), float32 to the exact CUDA-core instance.
+    Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
+    weights at every call; a caller that keeps its weights packs them once
+    (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.
     """
     if dtype is None:
         dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    if dtype not in KERNEL_DTYPES:
-        raise ValueError(f"fused_encoder_layer: unsupported operand dtype {dtype}")
-    x, source = x.float().contiguous(), source.float().contiguous()
-    wq, wk, wv, wmerge, wmlp0, wmlp1 = (
-        w.to(dtype).contiguous() for w in (wq, wk, wv, wmerge, wmlp0, wmlp1)
-    )
-    ln = [p.float().contiguous() for p in (ln1_scale, ln1_bias, ln2_scale, ln2_bias)]
-    masks = [None if m is None else m.float().contiguous() for m in (x_mask, source_mask)]
-    if x.device.type == "cpu":
-        return encoder_layer_plain(
-            x, source, wq, wk, wv, wmerge, ln[0], ln[1], wmlp0, wmlp1, ln[2], ln[3],
-            masks[0], masks[1], nhead=nhead, dtype=dtype,
-        )
-
-    n, l, c = x.shape
-    s = source.shape[1]
-    if source.shape != (n, s, c):
-        raise ValueError(f"fused_encoder_layer: source {tuple(source.shape)} vs x {tuple(x.shape)}")
-    if c % 32 != 0 or c > 256 or c % nhead != 0:
-        raise ValueError(f"fused_encoder_layer: unsupported C={c}, nhead={nhead}")
-    for w, shape in ((wq, (c, c)), (wk, (c, c)), (wv, (c, c)), (wmerge, (c, c)),
-                     (wmlp0, (2 * c, 2 * c)), (wmlp1, (2 * c, c))):
-        if w.shape != shape:
-            raise ValueError(f"fused_encoder_layer: weight {tuple(w.shape)} != {shape}")
-    if any(p.shape != (c,) for p in ln):
-        raise ValueError("fused_encoder_layer: LayerNorm parameters must be [C]")
-    if masks[0] is not None and masks[0].shape != (n, l):
-        raise ValueError("fused_encoder_layer: x_mask must be [N, L]")
-    if masks[1] is not None and masks[1].shape != (n, s):
-        raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
-    operands = [x, source, wq, wk, wv, wmerge, wmlp0, wmlp1, *ln]
-    operands += [m for m in masks if m is not None]
-    device = check_cuda_operands("fused_encoder_layer", *operands)
-
-    lib = build()
-    hd = c // nhead
-    n_tiles = lib.lib.opp_encoder_source_tiles(s)
-    part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
-    kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
-    y = torch.empty((n, l, c), dtype=torch.float32, device=device)
-    lib.call(
-        f"opp_encoder_layer_{KERNEL_DTYPES[dtype]}",
-        ptr(x), ptr(source), ptr(wq), ptr(wk), ptr(wv), ptr(wmerge), ptr(wmlp0), ptr(wmlp1),
-        ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
-        ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
-    )
-    LAUNCHES["K1_encoder_layer"] += 1
-    return y
+    packed = pack_encoder_weights(wq, wk, wv, wmerge, ln1_scale, ln1_bias, wmlp0, wmlp1,
+                                  ln2_scale, ln2_bias, nhead=nhead, dtype=dtype)
+    return fused_encoder_layer_packed(x, source, packed, x_mask, source_mask)

@@ -20,11 +20,17 @@ addresses, so loads and stores coalesce.
 
 K4 is K3's transpose: window gradients summed back onto the map. Windows
 overlap and GT-padded slots repeat cells, so collisions are the norm; the sum
-is deterministic, bit for bit, with no atomics. The wrapper orders the slots
-by cell id (a stable sort) and gives the kernel per-cell slot ranges; one
-thread per (pixel, 16-byte vector) sums the slots of the at most
-ceil(W/stride)^2 cells whose windows hold its pixel, in a fixed order, in f32.
-Bound: bandwidth again (one write of the map, one read of each gradient tap).
+is deterministic, bit for bit, with no atomics. Bound: bandwidth again (one
+write of the map, one read of each gradient tap). What held the first version
+back on the card was not the bound but its index preparation, eight PyTorch
+launches (a library sort, ``searchsorted``, casts) before the one kernel. Now
+the wrapper makes two hand-written launches and nothing else: an index kernel
+that orders the slots by cell id with a brute-force counting sort spread over
+the card (:func:`scatter_index_plain` is its plain version, held exactly
+equal), and the scatter itself, one block per map row with that row's index
+ranges in shared memory and one thread per 16-byte vector summing, in a fixed
+order and in f32, the slots of the at most ceil(W/stride)^2 cells whose
+windows hold its pixel.
 """
 from __future__ import annotations
 
@@ -109,6 +115,43 @@ def window_gather(
     return out
 
 
+def scatter_index_plain(cell_ids: torch.Tensor, n_cells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4's index launch.
+
+    ``order`` [N, K] int32: the slots in a stable order of their cell id, ids
+    outside ``[0, n_cells)`` last. ``cell_start`` [N, n_cells + 1] int32: the
+    number of slots in cells below c, so that cell c's slots are
+    ``order[cell_start[c]:cell_start[c + 1]]`` and ``cell_start[n_cells]``
+    counts the valid slots.
+    """
+    n = cell_ids.shape[0]
+    ids = cell_ids.long()
+    key = torch.where((ids >= 0) & (ids < n_cells), ids, torch.full_like(ids, n_cells))
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    cells = torch.arange(n_cells + 1, device=cell_ids.device).expand(n, -1).contiguous()
+    cell_start = torch.searchsorted(sorted_key, cells)
+    return order.to(torch.int32), cell_start.to(torch.int32)
+
+
+def scatter_index(cell_ids: torch.Tensor, n_cells: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's index launch alone: ``(order, cell_start)`` of cell_ids [N, K], as
+    :func:`scatter_index_plain` defines them. :func:`window_scatter` makes this
+    launch itself; this entry exists to hold it against the plain version.
+    CPU tensors run the plain version."""
+    if cell_ids.device.type == "cpu":
+        return scatter_index_plain(cell_ids, n_cells)
+    if cell_ids.dim() != 2 or n_cells <= 0:
+        raise ValueError(f"scatter_index: cell_ids {tuple(cell_ids.shape)}, n_cells {n_cells}")
+    ids = cell_ids.to(torch.int32)
+    device = check_cuda_operands("scatter_index", ids)
+    n, k = ids.shape
+    order = torch.empty((n, k), dtype=torch.int32, device=device)
+    cell_start = torch.empty((n, n_cells + 1), dtype=torch.int32, device=device)
+    build().call("opp_window_scatter_index", ptr(ids), ptr(order), ptr(cell_start), n, k, n_cells,
+                 stream_ptr(device))
+    return order, cell_start
+
+
 def window_scatter_plain(
     grad: torch.Tensor,
     cell_ids: torch.Tensor,
@@ -156,21 +199,15 @@ def window_scatter(
     if (c * grad.element_size()) % 16 != 0:
         raise ValueError(f"window_scatter: C * itemsize must be a multiple of 16 bytes, C={c}")
     grad = grad.contiguous()
-    # index preparation: slots in a stable order of their cell id (invalid ids
-    # last) and each cell's range of sorted slots
-    n_cells = h_c * w_c
-    ids = cell_ids.long()
-    key = torch.where((ids >= 0) & (ids < n_cells), ids, torch.full_like(ids, n_cells))
-    sorted_key, order = torch.sort(key, dim=1, stable=True)
-    cells = torch.arange(n_cells + 1, device=grad.device).expand(n, -1).contiguous()
-    cell_start = torch.searchsorted(sorted_key, cells).to(torch.int32)
-    order = order.to(torch.int32)
-    device = check_cuda_operands("window_scatter", grad, order, cell_start)
+    ids = cell_ids.to(torch.int32)  # a launch only where the caller's ids are not int32
+    device = check_cuda_operands("window_scatter", grad, ids)
+    order = torch.empty((n, k), dtype=torch.int32, device=device)
+    cell_start = torch.empty((n, h_c * w_c + 1), dtype=torch.int32, device=device)
     out = torch.empty((n, h, w, c), dtype=grad.dtype, device=device)
     build().call(
         f"opp_window_scatter_{KERNEL_DTYPES[grad.dtype]}",
-        ptr(grad), ptr(order), ptr(cell_start), ptr(out), n, h, w, c, h_c, w_c, k, stride,
-        window, stream_ptr(device),
+        ptr(grad), ptr(ids), ptr(order), ptr(cell_start), ptr(out), n, h, w, c, h_c, w_c, k,
+        stride, window, stream_ptr(device),
     )
     LAUNCHES["K4_window_scatter"] += 1
     return out
@@ -181,6 +218,7 @@ class WindowGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat, cell_ids, grid_hw, stride, window):
+        cell_ids = cell_ids.to(torch.int32)  # once here, so that the backward casts nothing
         ctx.save_for_backward(cell_ids)
         ctx.geometry = (grid_hw, stride, window, (feat.shape[1], feat.shape[2]))
         return window_gather(feat, cell_ids, grid_hw, stride, window)

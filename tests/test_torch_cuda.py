@@ -11,13 +11,20 @@ import pytest
 import torch
 
 from onepose_plus_plus_tpu_torch import kernels
-from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer
+from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
+    encoder_layer_plain,
+    fused_encoder_layer,
+    fused_encoder_layer_packed,
+    pack_encoder_weights,
+)
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import (
     coarse_focal_sums,
     coarse_focal_sums_plain,
     fused_coarse_focal_loss,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
+    scatter_index,
+    scatter_index_plain,
     window_gather,
     window_gather_plain,
     window_scatter,
@@ -47,24 +54,83 @@ def gen():
     return g
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("l,s,masks", [(300, 450, False), (97, 61, True)])
-def test_k1_matches_plain(gen, dtype, l, s, masks):
-    c = 256
+def _k1_args(gen, n, l, s, masks, dtype, c=256):
     rn = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device="cuda") * scale)  # noqa: E731
-    x, src = rn(2, l, c), rn(2, s, c)  # f32 streams; dtype is the product operand type
+    x = rn(n, l, c)  # f32 streams; dtype is the product operand type
+    src = x if s is None else rn(n, s, c)
     w = [rn(c, c, scale=c ** -0.5).to(dtype) for _ in range(4)]
     ln1 = [1 + rn(c, scale=0.1), rn(c, scale=0.1)]
     w0, w1 = rn(2 * c, 2 * c, scale=(2 * c) ** -0.5).to(dtype), rn(2 * c, c, scale=(2 * c) ** -0.5).to(dtype)
     ln2 = [1 + rn(c, scale=0.1), rn(c, scale=0.1)]
-    xm = (torch.rand(2, l, generator=gen, device="cuda") > 0.3).float() if masks else None
-    sm = (torch.rand(2, s, generator=gen, device="cuda") > 0.3).float() if masks else None
-    args = (x, src, *w, *ln1, w0, w1, *ln2, xm, sm)
+    xm = (torch.rand(n, l, generator=gen, device="cuda") > 0.3).float() if masks else None
+    sm = (torch.rand(n, src.shape[1], generator=gen, device="cuda") > 0.3).float() if masks else None
+    return x, src, (*w, *ln1, w0, w1, *ln2), xm, sm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,s,masks", [
+    (300, 450, False), (97, 61, True),  # ragged: neither a multiple of the 64-row tile
+    (130, 257, False), (63, 65, True), (64, 128, True), (1, 1, False), (200, None, True),
+])
+def test_k1_matches_plain(gen, dtype, l, s, masks):
+    x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, dtype)
     before = kernels.launch_counts()["K1_encoder_layer"]
-    got = fused_encoder_layer(*args, nhead=8, dtype=dtype)
+    got = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
     assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
-    ref = encoder_layer_plain(*args, nhead=8, dtype=dtype)
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8, dtype=dtype)
     torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    d = (got - ref).abs()
+    if dtype == torch.float32:
+        assert d.max().item() < 1e-3  # f32 FMAs in another order than cuBLAS
+    else:
+        # the tensor cores sum a product in another order than the plain
+        # version, so an operand that is rounded to bf16 (Q', K', msg, the LN1
+        # output, the FFN hidden) can land on the neighbouring bf16 value: a
+        # few elements differ by one bf16 step of an O(1) value, the mean stays small
+        assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+
+
+@pytest.mark.parametrize("l,s,masks", [(1000, 1500, False), (777, None, True)])
+def test_k1_tensor_core_f32_epilogues_do_not_drift(gen, l, s, masks):
+    """The tensor-core instance computes elu+1 through ex2.approx and divides by
+    (den + 1e-6) through a reciprocal. Flips between neighbouring bf16 values
+    have no sign and cost no accuracy; an epilogue that drifted would show as a
+    bias against the plain version, or as a larger distance than the plain
+    version's to the same layer with every activation kept in f32."""
+    x, src, w, xm, sm = _k1_args(gen, 4, l, s, masks, torch.bfloat16)
+    got = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=torch.bfloat16)
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8, dtype=torch.bfloat16)
+    exact = encoder_layer_plain(x, src, *w, xm, sm, nhead=8, dtype=torch.float32)  # bf16-valued weights
+    torch.cuda.synchronize()
+    bias = (got - ref).mean().item()
+    err_kernel, err_plain = (got - exact).abs().mean().item(), (ref - exact).abs().mean().item()
+    print(f"K1 bf16 l={l} s={s}: bias {bias:.3e}, mean|kernel - f32| {err_kernel:.4e}, "
+          f"mean|plain - f32| {err_plain:.4e}")
+    assert abs(bias) <= 5e-6  # the mean |difference| is ~1e-3
+    assert err_kernel <= 1.02 * err_plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_packed_weights_equal_loose_and_repeat_bitwise(gen, dtype):
+    """Packing once gives the same bits as packing at the call, and two launches
+    agree bit for bit (the K'^T[V|1] partials are reduced in a fixed order)."""
+    x, src, w, xm, sm = _k1_args(gen, 3, 333, 500, True, dtype)
+    packed = pack_encoder_weights(*w, nhead=8, dtype=dtype)
+    a = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    b = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    c = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_k1_tensor_core_instance_names_its_width(gen):
+    """bf16 operands take C = 256 with 8 heads; another width raises, f32 runs it."""
+    x, src, w, _, _ = _k1_args(gen, 1, 70, 70, False, torch.bfloat16, c=128)
+    with pytest.raises(ValueError, match="C = 256"):
+        fused_encoder_layer(x, src, *w, nhead=8, dtype=torch.bfloat16)
+    got = fused_encoder_layer(x, src, *w, nhead=8, dtype=torch.float32)
+    ref = encoder_layer_plain(x, src, *w, nhead=8, dtype=torch.float32)
     assert (got - ref).abs().max().item() < 1e-3
 
 
@@ -118,6 +184,21 @@ def test_k4_matches_plain_and_is_deterministic(gen, dtype):
     only_bad = torch.full_like(ids, -1)
     only_bad[:, 0] = 12 * 16
     assert not window_scatter(grad, only_bad, (12, 16), 4, 5, (48, 64)).any()
+
+
+@pytest.mark.parametrize("n,k,n_cells", [(2, 300, 192), (4, 1228, 4096), (3, 37, 16), (2, 5000, 64)])
+def test_k4_index_kernel_equals_plain_preparation(gen, n, k, n_cells):
+    """order and cell_start of the index launch equal a stable library sort and
+    searchsorted exactly: duplicates, negative and out-of-range ids, K not a
+    multiple of 32 and above one shared-memory chunk, an empty batch element."""
+    ids = torch.randint(-4, n_cells + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+    ids[:, k // 2:k // 2 + k // 8] = ids[:, :k // 8]
+    ids[-1] = -1
+    order, cell_start = scatter_index(ids, n_cells)
+    order_ref, cell_start_ref = scatter_index_plain(ids, n_cells)
+    torch.cuda.synchronize()
+    assert order.dtype == torch.int32 and cell_start.shape == (n, n_cells + 1)
+    assert torch.equal(order, order_ref) and torch.equal(cell_start, cell_start_ref)
 
 
 def _k5_inputs(gen, b, p, l, c, frac_pos=0.3):
