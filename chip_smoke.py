@@ -10,10 +10,15 @@ exits non-zero):
   2  each kernel against its plain PyTorch version at main-path shapes
      (batch 16), f32 and bf16, with CUDA-event medians over 20 runs; K1 also
      at the LoFTR shape [8, 4096, 256], with masks and at a small ragged shape,
-     timed with packed weights and split by launch
+     timed with packed weights and split by launch, and a bf16 layer at
+     C = 64 through K1's CUDA-core bf16 instance; K2's bf16 (tensor-core)
+     instance split by launch, its two launches bitwise equal, faster than its
+     plain version
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
-     of 512^2, a 7000-point cloud, 512 match slots, thr 0
+     of 512^2, a 7000-point cloud, 512 match slots, thr 0; then K2's bf16
+     instance on that forward's coarse features against the plain bf16 version:
+     the same match set
   4  batched RANSAC-PnP on the GPU: 16 frames, 512 noisy correspondences each
   5  run_inference at the bench configuration (bf16, 512 slots, 48 frames of
      512^2, frame_batch 16, 7000 points, GT poses): launch counts of every
@@ -23,7 +28,8 @@ exits non-zero):
   7  training: 7a K4 and 7b K5 against their plain versions at the train
      shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256), K4's
      index launch exactly equal to the plain index preparation and its two
-     launches timed apart;
+     launches timed apart, K5's launches split by kernel, bitwise repeatable and
+     faster than its plain version;
      7c one f32 micro-batch on the GPU (kernels) against the same micro-batch
      on the CPU (plain versions), loss and every gradient; 7d the train config
      at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
@@ -86,6 +92,7 @@ from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
 from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, build_onepose_model, make_loftr_fns
 from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
+from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
 from onepose_plus_plus_tpu_torch.models.position_encoding import sine_position_encoding
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
@@ -106,6 +113,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
+    fused_select_topk_matches,
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps
@@ -357,7 +365,38 @@ def phase2_k1(gen) -> dict:
         f"{ms / b['bound_ms']:.1f}x its bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single "
         f"PyTorch call computes a linear-attention encoder layer")
     check(ms < K1_PREVIOUS_MS, "K1's tensor-core instance is not faster than the CUDA-core design")
+    fb = bound(n_bytes + 10 * c * c * 2, ops, torch.float32)  # f32 weights
+    log(f"[2] K1 self f32 (the demo's instance): bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}) "
+        f"at 67 TFLOP/s; kernel {rec['self_f32'][0]:.3f} ms")
+    phase2_k1_narrow(gen)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
+
+
+def phase2_k1_narrow(gen) -> None:
+    """A bf16 layer at a width the tensor-core instance does not take (C = 64, 8
+    heads, as the narrow configurations) runs K1's CUDA-core bf16 instance."""
+    torch.manual_seed(0)
+    layer = LoFTREncoderLayer(64, 8, "linear", dtype=torch.bfloat16).cuda().eval()
+    x = torch.randn(4, 1000, 64, generator=gen, device="cuda")
+    src = torch.randn(4, 700, 64, generator=gen, device="cuda")
+    with torch.no_grad():
+        before = kernels.launch_counts()["K1_encoder_layer"]
+        got = layer(x, src, fused=True)
+        launched = kernels.launch_counts()["K1_encoder_layer"] - before
+        ref = encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.bfloat16)
+        rows, busy, _ = device_rows(lambda: layer(x, src, fused=True), reps=5)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    log(f"[2] K1 bf16 at C = 64, 8 heads, x{tuple(x.shape)} src{tuple(src.shape)}: instance "
+        f"{layer.packed_weights().instance!r}, {launched} launch, max|d| {d.max().item():.3e} (<= 5e-2), "
+        f"mean|d| {d.mean().item():.3e} (<= 5e-3); launches {launch_names(rows)}")
+    check(layer.packed_weights().instance == "bf16" and launched == 1
+          and d.max().item() <= 5e-2 and d.mean().item() <= 5e-3 and bool(torch.isfinite(got).all()),
+          "K1's CUDA-core bf16 instance disagrees at C = 64")
+    check(only_launches(rows, K1_CC_NAMES), "a C = 64 bf16 layer launches something besides K1's CUDA-core kernels")
+
+
+K2_PREVIOUS_MS = 24.138  # bf16 on the CUDA-core tile at the recorded shape (NVIDIA H100 80GB HBM3, 700.00 W)
 
 
 def phase2_k2(gen) -> dict:
@@ -366,6 +405,7 @@ def phase2_k2(gen) -> dict:
     worst, rec = 0.0, {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         got = dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype)
+        again = dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype)
         a0 = (f0 / 16.0).to(dtype)
         a1 = (f1 / 16.0).to(dtype)
         ref = rowcol_stats_plain(a0, a1, 1.0 / (0.08 + 1e-4))
@@ -373,22 +413,35 @@ def phase2_k2(gen) -> dict:
         lse = max((got[k] - ref[k]).abs().max().item() for k in ("row_lse", "col_lse"))
         row_ag = (got["row_best_j"] == ref["row_best_j"]).float().mean().item()
         col_ag = (got["col_best_p"] == ref["col_best_p"]).float().mean().item()
+        same = all(torch.equal(got[k], again[k]) for k in got)
         log(f"[2] K2 {dt} f0{tuple(f0.shape)} f1{tuple(f1.shape)}: LSE max|d| {lse:.3e} (<= 1e-3), "
-            f"row argmax agree {row_ag:.6f}, col argmax agree {col_ag:.6f} (>= 0.999)")
-        check(lse <= 1e-3 and row_ag >= 0.999 and col_ag >= 0.999, f"K2 {dt} disagrees")
+            f"row argmax agree {row_ag:.6f}, col argmax agree {col_ag:.6f} (>= 0.999), two launches "
+            f"bitwise equal {same}")
+        check(lse <= 1e-3 and row_ag >= 0.999 and col_ag >= 0.999 and same, f"K2 {dt} disagrees")
         if dt == "f32":
             worst = lse
         ms = time_ms(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype))
         pms = time_ms(lambda: rowcol_stats_plain(a0, a1, 1.0 / (0.08 + 1e-4)))
-        log(f"[2] K2 {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms (median of 20)")
+        rows, busy, _ = device_rows(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype), reps=5)
+        before = f" ({K2_PREVIOUS_MS} ms on the CUDA-core tile)" if dt == "bf16" else ""
+        log(f"[2] K2 {dt}: kernel {ms:.3f} ms{before}, plain {pms:.3f} ms (median of 20); device time by "
+            f"launch: {launch_names(rows)} ({busy / 5:.3f} ms a call, torch.profiler, 5 calls)")
+        if dt == "bf16":  # (the f32 wrapper scales its operands with a PyTorch launch first)
+            check(only_launches(rows, K2_TC_NAMES), f"K2 bf16 launches something besides {K2_TC_NAMES}")
         rec[dt] = (ms, pms)
-        del got, ref
+        del got, again, ref
     ms, pms = rec["bf16"]
+    check(ms < pms, f"K2's bf16 instance ({ms:.3f} ms) is not faster than its plain version ({pms:.3f} ms)")
     p, l, c = f0.shape[1], f1.shape[1], f0.shape[2]
     n_bytes = B * (p + l) * c * 4 + B * (p + l) * 4 * 4  # f32 features in; LSE, value, index rows/cols out
     b = bound(n_bytes, 2 * B * p * l * c, torch.bfloat16)  # one similarity product
-    log(f"[2] K2 bf16 bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call "
-        f"computes the dual-softmax statistics")
+    fb = bound(n_bytes, 2 * B * p * l * c, torch.float32)
+    n_exp = 2 * B * p * l  # the LSE pass: one exponential a row and one a column, per element
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[2] K2 bf16 bound {b['bound_ms']:.4f} ms ({b['bound_by']}; f32 instance {fb['bound_ms']:.4f} ms at "
+        f"67 TFLOP/s); its {n_exp / 1e9:.3f} G exponentials at 16 a clock per SM take "
+        f"{1e3 * n_exp / (16 * sm_count * 1.755e9):.4f} ms at 1.755 GHz; no single PyTorch call computes "
+        f"the dual-softmax statistics")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
 
 
@@ -464,9 +517,11 @@ def phase3() -> None:
         "descriptors3d": torch.from_numpy(rng.standard_normal((2, 7000, 128)).astype(np.float32)),
         "descriptors3d_coarse": torch.from_numpy(rng.standard_normal((2, 7000, 256)).astype(np.float32)),
     }
-    outs = {}
+    outs, coarse = {}, []
     for dev in ("cuda", "cpu"):
         model = _model(cfg, dev)
+        if dev == "cuda":  # the coarse transformer's outputs, for K2's bf16 instance below
+            model.loftr_coarse.register_forward_hook(lambda _m, _i, out: coarse.append(out))
         t0 = time.perf_counter()
         with torch.no_grad():
             out = model({k: v.to(dev) for k, v in batch.items()})
@@ -496,6 +551,26 @@ def phase3() -> None:
         f"{n_common} common matches")
     check(n_common > 0 and min(jacc) >= 0.98 and mk_err <= 1e-2 and mc_err <= 1e-4,
           "f32 slice on the GPU disagrees with the CPU")
+    # K2's bf16 instance on this forward's coarse features: the same mutual
+    # nearest neighbours as the plain bf16 version (the CPU path), thr 0
+    feat0, feat1 = coarse[0]
+    cm = cfg.coarse_matching
+    sel = dict(temperature=cm.temperature, grid_hw=(64, 64), thr=cm.thr, border_rm=cm.border_rm,
+               k=cm.max_matches, border_two_sided=cm.border_two_sided, feat_norm=cm.feat_norm_method,
+               dtype=torch.bfloat16)
+    before = kernels.launch_counts()["K2_rowcol_stats"]
+    kern = fused_select_topk_matches(feat0, feat1, **sel)
+    check(kernels.launch_counts()["K2_rowcol_stats"] == before + 1, "K2 did not launch")
+    plain = fused_select_topk_matches(feat0.cpu(), feat1.cpu(), **sel)
+    sets = [[set(zip(m.i_ids[f][m.mask[f]].tolist(), m.j_ids[f][m.mask[f]].tolist())) for f in range(2)]
+            for m in (kern, plain)]
+    conf_d = max((kern.mconf[f][kern.mask[f]].cpu().sort().values
+                  - plain.mconf[f][plain.mask[f]].sort().values).abs().max().item()
+                 if sets[0][f] == sets[1][f] and sets[0][f] else 0.0 for f in range(2))
+    log(f"[3] K2 bf16 (tensor cores) on this forward's coarse features {tuple(feat0.shape)} x "
+        f"{tuple(feat1.shape)}: matches {[len(x) for x in sets[0]]}, the plain bf16 version "
+        f"{[len(x) for x in sets[1]]}, same match set {sets[0] == sets[1]}, mconf max|d| {conf_d:.3e}")
+    check(sets[0] == sets[1] and all(sets[0]), "K2's bf16 instance changes the match set")
 
 
 def phase4() -> None:
@@ -604,8 +679,12 @@ def launch_names(rows) -> str:
 
 
 K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")  # bf16, tensor cores
-K1_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel") + K1_TC_NAMES  # f32 first
-K2_NAMES = ("lse_kernel", "col_lse_reduce", "argmax_kernel", "col_argmax_reduce")
+K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")  # f32, or bf16 at other widths
+K1_NAMES = K1_CC_NAMES + K1_TC_NAMES
+# K2's bf16 instance (tensor cores), its operand pack first; its f32 instance (CUDA cores)
+K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")
+K2_CC_NAMES = ("lse_kernel", "col_lse_reduce", "argmax_kernel", "col_argmax_reduce")
+K2_NAMES = K2_TC_NAMES + ("lse_kernel", "argmax_kernel")
 K3_NAMES = ("window_gather_kernel",)
 
 
@@ -646,6 +725,8 @@ def phase6(model, frames, anno, smi: str) -> None:
         f"{100 * (1 - busy / wall):.1f} % of the step wall, on {smi}")
     log(f"[6] device time: K1 {k1:.2f} ms, K2 {k2:.2f} ms, K3 {k3:.3f} ms, "
         f"everything else {busy - k1 - k2 - k3:.2f} ms")
+    k2_rows = [r for r in rows if _short(r[2]) in K2_NAMES]
+    log(f"[6] K2's launches in the step: {launch_names(k2_rows)} (the operand pack included)")
     copies = [r for r in rows if "copy_kernel" in r[2] or "Memcpy" in r[2]]
     log(f"[6] casts and copies in the step (every launch whose name holds copy_kernel or Memcpy): "
         f"{sum(r[0] for r in copies):.2f} ms in {sum(r[1] for r in copies)} launches")
@@ -668,6 +749,7 @@ def phase6(model, frames, anno, smi: str) -> None:
 
 
 K4_PREVIOUS_MS = 0.393  # f32, eight PyTorch launches before the one kernel (NVIDIA H100 80GB HBM3, 700.00 W)
+K5_PREVIOUS_MS = 31.504  # forward + backward on the CUDA-core tile (NVIDIA H100 80GB HBM3, 700.00 W)
 
 
 def phase7a(gen) -> dict:
@@ -741,11 +823,12 @@ def phase7b(gen) -> dict:
             return loss.detach(), mx, a0.grad.float(), a1.grad.float()
         return loss.detach(), mx
 
-    got, ref = run(coarse_focal_sums), run(coarse_focal_sums_plain)
+    got, again, ref = run(coarse_focal_sums), run(coarse_focal_sums), run(coarse_focal_sums_plain)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     loss_rel = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
     mx_rel = abs(got[1].item() - ref[1].item()) / abs(ref[1].item())
-    worst, ok = 0.0, loss_rel <= 2e-4 and mx_rel <= 2e-4
+    worst, ok = 0.0, loss_rel <= 2e-4 and mx_rel <= 2e-4 and same
     for name, g, r in (("df0", got[2], ref[2]), ("df1", got[3], ref[3])):
         scale = r.abs().max().item()
         err = (g - r).abs().max().item()
@@ -754,9 +837,9 @@ def phase7b(gen) -> dict:
         ok = ok and err < 2e-2 * scale and cos > 0.999
         worst = max(worst, err)
     log(f"[7b] K5 f0{tuple(f0.shape)} f1{tuple(f1.shape)}: loss {got[0].item():.6f} vs {ref[0].item():.6f} "
-        f"(rel {loss_rel:.2e} <= 2e-4), max_conf rel {mx_rel:.2e} (<= 2e-4)")
+        f"(rel {loss_rel:.2e} <= 2e-4), max_conf rel {mx_rel:.2e} (<= 2e-4), two launches bitwise equal {same}")
     check(ok, "K5 disagrees with its plain version")
-    del got, ref
+    del got, again, ref
     torch.cuda.empty_cache()
     fwd = time_ms(lambda: run(coarse_focal_sums, backward=False), reps=10)
     pfwd = time_ms(lambda: run(coarse_focal_sums_plain, backward=False), reps=5)
@@ -765,8 +848,16 @@ def phase7b(gen) -> dict:
     n_bytes = 2 * (f0.numel() + f1.numel()) * 2 + gt.numel() * 4  # bf16 features in, their gradients out, GT
     b = bound(n_bytes, 3 * 2 * TRAIN_B * TRAIN_P * 4096 * c, torch.bfloat16)  # similarity, df0, df1 products
     log(f"[7b] K5 forward: kernel {fwd:.3f} ms, plain {pfwd:.3f} ms; forward + backward: kernel "
-        f"{both:.3f} ms, plain {pboth:.3f} ms (medians of 10 / 5); forward + backward bound "
-        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch call computes the focal loss")
+        f"{both:.3f} ms ({K5_PREVIOUS_MS} ms on the CUDA-core tile), plain {pboth:.3f} ms (medians of "
+        f"10 / 5); forward + backward bound {b['bound_ms']:.4f} ms ({b['bound_by']}); no single PyTorch "
+        f"call computes the focal loss")
+    rows, busy, _ = device_rows(lambda: run(coarse_focal_sums), reps=5)
+    k5_rows = [r for r in rows if _short(r[2]) in K5_NAMES + K5_OLD_NAMES]
+    log(f"[7b] K5 forward + backward, device time by launch: {launch_names(k5_rows)} "
+        f"({sum(r[0] for r in k5_rows) / 5:.3f} ms a call; besides them the autograd wrapper's "
+        f"PyTorch launches: {launch_names([r for r in rows if r not in k5_rows])})")
+    check(only_launches(k5_rows, K5_NAMES), f"K5 does not launch exactly its kernels {K5_NAMES}")
+    check(both < pboth, f"K5 ({both:.3f} ms) is not faster than its plain version ({pboth:.3f} ms)")
     return {"max_abs_err": worst, "ms": both, "plain_ms": pboth, **b, "library_ms": None}
 
 
@@ -886,14 +977,15 @@ def phase7d(smi: str):
         f"{1e3 / step_ms:.2f} micro-batches/s, {TRAIN_B * 1e3 / step_ms:.2f} frames/s, peak memory "
         f"{peak:.2f} GiB, TF32 off, on {smi}")
     rows, busy, prof_wall = device_rows(lambda: train_step(model, opt, batch, gen, tc, sched))
-    # K5's forward runs K2's LSE pass on bf16 operands; the f32 config's
-    # selection (K2) runs it on float
+    # the f32 config's selection runs K2's CUDA-core instance; K5 packs its
+    # operands and runs K2's tensor-core LSE pass (col_lse_reduce serves both:
+    # counted under K2)
     pick = lambda pat: sum(r[0] for r in rows if re.search(pat, r[2]))  # noqa: E731
     split = {
-        "K2": pick(r"\b(lse_kernel<float>|col_lse_reduce|argmax_kernel|col_argmax_reduce)\b"),
+        "K2": group_ms(rows, K2_CC_NAMES),
         "K3": group_ms(rows, K3_NAMES),
         "K4": group_ms(rows, K4_NAMES),
-        "K5": pick(r"\blse_kernel<__nv_bfloat16>") + group_ms(rows, K5_NAMES),
+        "K5": group_ms(rows, tuple(n for n in K5_NAMES if n != "col_lse_reduce")),
         "conv backward (cuDNN dgrad/wgrad: the backbone)": pick(r"dgrad|wgrad|[Cc]onvolution[_ ]?[Bb]ackward"),
     }
     log(f"[7d] one micro-batch under the profiler: wall {prof_wall:.2f} ms, device time {busy:.2f} ms, "
@@ -1496,7 +1588,10 @@ def phase9e(tmp: str, smi: str) -> None:
 
 
 K4_NAMES = ("scatter_index_kernel", "window_scatter_kernel")
-K5_NAMES = ("loss_kernel", "gsum_kernel", "colg_reduce", "df0_kernel", "df1_kernel")
+# K5 on the tensor cores: the operand pack, K2's LSE pass, the loss, g sums and feature gradients
+K5_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "loss_tc_kernel", "gsum_tc_kernel",
+            "colg_reduce", "dfeat_tc_kernel")
+K5_OLD_NAMES = ("lse_kernel", "loss_kernel", "gsum_kernel", "df0_kernel", "df1_kernel")  # the CUDA-core design
 
 
 def main() -> int:

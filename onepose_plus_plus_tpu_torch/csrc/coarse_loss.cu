@@ -7,38 +7,44 @@
 //   log conf[p, l] = min(2 s - colLSE[l] - rowLSE[p], LOGCAP)
 // The row/column LSEs come from K2's LSE pass (matching.cu, opp_dual_lse_bf16),
 // as the TPU kernel shares pallas_matching._lse_kernel. Then:
-//   loss_kernel   per-row pos/neg focal sums (times alpha, 1 - alpha) and the
-//                 per-row max conf; the wrapper sums rows.
-//   gsum_kernel   g = dL/dlogconf per element (zero where the LOGCAP cap is
-//                 active), row sums kept in the block, column sums as
-//                 per-row-tile partials, merged in order by colg_reduce.
-//   df0_kernel    one block per row tile, looping over column tiles:
-//                 df0 += dsim @ f1
-//   df1_kernel    one block per column tile, looping over row tiles:
-//                 df1 += dsim^T @ f0
+//   loss_tc_kernel   per-row pos/neg focal sums (times alpha, 1 - alpha) and
+//                    the per-row max conf; the wrapper sums rows.
+//   gsum_tc_kernel   g = dL/dlogconf per element (zero where the LOGCAP cap is
+//                    active), row sums kept in the block, column sums as
+//                    per-row-tile partials, merged in order by colg_reduce.
+//   dfeat_tc_kernel  df0 = dsim f1, one block per row tile over the column
+//                    tiles, and df1 = dsim^T f0, one block per column tile over
+//                    the row tiles,
 // with dsim = (2 g - softmax_p * colsum_g - softmax_l * rowsum_g) * inv_temp
 // rounded to bf16 before both products (the TPU kernel's ds16), products in
 // f32. Every pass recomputes its similarity tiles (flash-attention style), so
 // no [P, L] tensor and no [B, n_row_tiles, L, C] partial is ever stored, and
 // no pass needs atomics: the result is the same bit for bit from run to run.
 //
-// Bound: FP32 FMA throughput of seven P*L*C similarity-sized passes (LSE,
-// loss, gsum, and two per feature gradient), then the exponentials. The
-// design reuses K2's 64x64 register-blocked similarity tile (sim_tile.cuh)
-// and contracts the staged dsim tile against 32-channel slices of the other
-// operand held in shared memory, each thread owning 4 rows x 2 channels of
-// every slice (at most C = 256 channels: 64 f32 accumulators a thread).
-// Tensor cores (wgmma) are later work.
-#include "sim_tile.cuh"
+// Bound: operations, seven P*L*C products (LSE, loss, gsum, and two for each
+// feature gradient), then ~14 transcendentals per similarity element over the
+// four passes. Design: every pass runs on the tensor-core similarity tile of
+// sim_tile_tc.cuh (operands packed once by the wrapper, one warpgroup a block,
+// the resident tile and a two-stage ring of streamed tiles, the reductions on
+// the accumulator fragment). The feature gradients need a second product per
+// tile: dsim is formed in the registers of the first product's accumulators,
+// packed to bf16 pairs, and fed as the A operand from registers to a second
+// wgmma whose B is the streamed tile itself, read MN-major (transposed): the
+// packed layout's core matrices are the same bytes either way, so one shared
+// copy serves both products. df1 computes the transposed tile s^T = f1 f0^T
+// directly, so dsim^T arises in registers the same way. The [64, C]
+// accumulators of the second product hold 128 registers a thread, in chunks
+// of 64, 32 or 16 columns (whichever divides the padded C), so C <= 256.
+#include "sim_tile_tc.cuh"
 
 namespace {
 
-using namespace opp;
+using namespace opp::tc;
 
 using bf16 = __nv_bfloat16;
-constexpr float LOGCAP = -1e-6f;  // log conf <= log(1 - ~1e-6): log1p stays finite
-constexpr int MAXC = 256;         // channels a thread's accumulators can hold
-constexpr int CH = MAXC / BK;     // 32-channel slices
+constexpr float LOGCAP = -1e-6f;       // log conf <= log(1 - ~1e-6): log1p stays finite
+constexpr float CONF_CAP = 0.999999f;  // exp(LOGCAP) rounded down
+constexpr int MAXC = 256;              // channels the feature-gradient accumulators hold
 
 struct Focal {
   float alpha, gamma;
@@ -63,130 +69,181 @@ struct Focal {
     }
     const float pg = pgm1 * om, ng = ngm1 * conf;
     dpos = gamma * conf * pgm1 * lc - pg;
-    dneg = gamma * ng * (-log1pf(-conf)) + ng * conf / om;
+    dneg = gamma * ng * (-log1pf(-conf)) + ng * __fdividef(conf, om);
   }
 };
 
-// g = dL/dlogconf of one element (class coefficients already carry the
-// cotangents); zero where the forward's cap is active, as the dense path's
-// autodiff through the min gives
-__device__ __forceinline__ float elem_g(float s, float rl, float cl, bool is_pos, float pos_coef,
+// g = dL/dlogconf of one element at raw = 2 s - colLSE - rowLSE and its
+// confidence (class coefficients already carry the cotangents); zero where the
+// forward's cap is active, as the dense path's autodiff through the min gives
+__device__ __forceinline__ float elem_g(float raw, float conf, bool is_pos, float pos_coef,
                                         float neg_coef, const Focal& f) {
-  const float raw = 2.f * s - cl - rl;
-  if (raw >= LOGCAP) return 0.f;
-  const float conf = expf(raw);
   float dpos, dneg;
-  f.dterms(conf, raw, dpos, dneg);
-  return is_pos ? pos_coef * dpos : neg_coef * dneg;
+  f.dterms(fminf(conf, CONF_CAP), raw, dpos, dneg);
+  const float ge = is_pos ? pos_coef * dpos : neg_coef * dneg;
+  return raw < LOGCAP ? ge : 0.f;
 }
 
-__device__ __forceinline__ void sum4(float& v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-}
+// The batch element's packed operands and the stats the passes share.
+struct Args {
+  const bf16* f0;  // packed [B, P_pad / 8, Cp / 8, 8, 8]
+  const bf16* f1;  // packed [B, L_pad / 8, Cp / 8, 8, 8]
+  const int* gt;
+  const float* row_lse;
+  const float* col_lse;
+  const float* coef;  // (dL/dpos_sum, dL/dneg_sum) on the device
+  const float* rowg;
+  const float* colg;
+  int P, L, C;
+  float inv_temp;
+  float grad_scale;  // df0 and df1 are written times this (the operands' scale)
+  Focal focal;
+};
 
-__device__ __forceinline__ void max4(float& v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
+// Block set-up of the row-tile passes (loss, gsum): f0's row tile resident, f1 streamed.
+struct RowPass {
+  int cp, p0, b, w, g, t;
+  __device__ RowPass(const Args& a)
+      : cp(pad_channels(a.C)), p0(blockIdx.x * TM), b(blockIdx.y), w(threadIdx.x >> 5),
+        g((threadIdx.x >> 2) & 7), t(threadIdx.x & 3) {}
+  __device__ int row(int h) const { return p0 + 16 * w + g + 8 * h; }
+  __device__ int col(int q) const { return 8 * (q >> 1) + 2 * t + (q & 1); }  // within a tile
+};
 
 // ---------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(NT)
-    loss_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
-                const int* __restrict__ gt, const float* __restrict__ row_lse,
-                const float* __restrict__ col_lse, float* __restrict__ pos_out,
-                float* __restrict__ neg_out, float* __restrict__ mx_out, int P, int L, int C,
-                float inv_temp, Focal focal) {
-  __shared__ TileSmem sm;
-  __shared__ float cl[BL];
-  const int b = blockIdx.y, p0 = blockIdx.x * BR;
-  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;  // row g, column quarter q
-  const bf16* f0b = f0 + (size_t)b * P * C;
-  const bf16* f1b = f1 + (size_t)b * L * C;
-  const int p = p0 + g;
-  const float rl = p < P ? row_lse[(size_t)b * P + p] : 0.f;
-  const int gtp = p < P ? gt[(size_t)b * P + p] : -2;
-
-  float pos = 0.f, neg = 0.f, mx = 0.f;
-  for (int l0 = 0; l0 < L; l0 += BL) {
-    if (threadIdx.x < BL) cl[threadIdx.x] = l0 + threadIdx.x < L ? col_lse[(size_t)b * L + l0 + threadIdx.x] : 0.f;
-    sim_tile<bf16>(f0b, f1b, nullptr, nullptr, p0, l0, P, L, C, inv_temp, sm);  // syncs
-    if (p < P) {
-      for (int j = 0; j < 16; ++j) {
-        const int c = q * 16 + j, l = l0 + c;
-        if (l >= L) break;
-        const float lc = fminf(2.f * sm.s[g][c] - cl[c] - rl, LOGCAP);
-        const float conf = expf(lc);
-        float tp, tn;
-        focal.terms(conf, lc, tp, tn);
-        if (gtp == l)
-          pos += tp;
-        else
-          neg += tn;
-        mx = fmaxf(mx, conf);
-      }
-    }
-    __syncthreads();
+__global__ void __launch_bounds__(NT, 2)
+    loss_tc_kernel(Args a, float* __restrict__ pos_out, float* __restrict__ neg_out,
+                float* __restrict__ mx_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowPass rp(a);
+  const int P = a.P, L = a.L, cp = rp.cp, b = rp.b;
+  const Tiles tl(smem, cp, a.f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  tl.start(a.f0 + ((size_t)b * pad_rows(P) + rp.p0) * cp);
+  const uint32_t a_addr = tl.resident();
+  float rl[2];
+  int gtp[2];
+  bool okr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = rp.row(h);
+    okr[h] = p < P;
+    rl[h] = okr[h] ? a.row_lse[(size_t)b * P + p] : 0.f;
+    gtp[h] = okr[h] ? a.gt[(size_t)b * P + p] : -2;
   }
-  sum4(pos);
-  sum4(neg);
-  max4(mx);
-  if (q == 0 && p < P) {
-    pos_out[(size_t)b * P + p] = focal.alpha * pos;
-    neg_out[(size_t)b * P + p] = (1.f - focal.alpha) * neg;
-    mx_out[(size_t)b * P + p] = mx;
+  float pos[2] = {0.f, 0.f}, neg[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f};
+
+#pragma unroll 1
+  for (int it = 0; it < tl.n_tiles; ++it) {
+    const int l0 = it * TM;
+    float acc[32];
+    sim_product(acc, a_addr, tl.wait(it), cp);
+    float cl[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int l = l0 + rp.col(q);
+      cl[q] = l < L ? a.col_lse[(size_t)b * L + l] : 0.f;
+    }
+    wg::wait<0>();
+    wg::fence_regs(acc);
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = l0 + rp.col(q);
+        const float s = acc[4 * (q >> 1) + 2 * h + (q & 1)] * a.inv_temp;
+        const float lc = fminf(2.f * s - cl[q] - rl[h], LOGCAP);
+        const float conf = exp_fast(lc);
+        float tp, tn;
+        a.focal.terms(conf, lc, tp, tn);
+        const bool ok = okr[h] && l < L, is_pos = gtp[h] == l;
+        pos[h] += ok && is_pos ? tp : 0.f;
+        neg[h] += ok && !is_pos ? tn : 0.f;
+        mx[h] = ok ? fmaxf(mx[h], conf) : mx[h];
+      }
+    __syncthreads();  // every warp's product has read the stage
+    tl.release(it);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float ps = quad_sum(pos[h]), ns = quad_sum(neg[h]), m = quad_max(mx[h]);
+    if (rp.t == 0 && okr[h]) {
+      const size_t o = (size_t)b * P + rp.row(h);
+      pos_out[o] = a.focal.alpha * ps;
+      neg_out[o] = (1.f - a.focal.alpha) * ns;
+      mx_out[o] = m;
+    }
   }
 }
 
 // ---------------------------------------------------------- backward: sums
 
-__global__ void __launch_bounds__(NT)
-    gsum_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
-                const int* __restrict__ gt, const float* __restrict__ row_lse,
-                const float* __restrict__ col_lse, const float* __restrict__ coef,
-                float* __restrict__ rowg_out, float* __restrict__ colpart, int P, int L, int C,
-                float inv_temp, Focal focal) {
-  __shared__ TileSmem sm;
-  __shared__ float cl[BL];
-  const int b = blockIdx.y, pt = blockIdx.x, n_pt = gridDim.x, p0 = pt * BR;
-  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const bf16* f0b = f0 + (size_t)b * P * C;
-  const bf16* f1b = f1 + (size_t)b * L * C;
-  float* cpart = colpart + ((size_t)b * n_pt + pt) * L;
-  const int p = p0 + g;
-  const float rl = p < P ? row_lse[(size_t)b * P + p] : 0.f;
-  const int gtp = p < P ? gt[(size_t)b * P + p] : -2;
-  const float pos_coef = coef[0] * focal.alpha, neg_coef = coef[1] * (1.f - focal.alpha);
-
-  float rowg = 0.f;
-  for (int l0 = 0; l0 < L; l0 += BL) {
-    if (threadIdx.x < BL) cl[threadIdx.x] = l0 + threadIdx.x < L ? col_lse[(size_t)b * L + l0 + threadIdx.x] : 0.f;
-    sim_tile<bf16>(f0b, f1b, nullptr, nullptr, p0, l0, P, L, C, inv_temp, sm);  // syncs
-    // g of row g, columns q*16 .. q*16+15, staged in place of the similarity
-    float ge[16];
+__global__ void __launch_bounds__(NT, 2)
+    gsum_tc_kernel(Args a, float* __restrict__ rowg_out, float* __restrict__ colpart) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RowPass rp(a);
+  const int P = a.P, L = a.L, cp = rp.cp, b = rp.b, tid = threadIdx.x;
+  const Tiles tl(smem, cp, a.f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  tl.start(a.f0 + ((size_t)b * pad_rows(P) + rp.p0) * cp);
+  const uint32_t a_addr = tl.resident();
+  float* cpart = colpart + ((size_t)b * gridDim.x + blockIdx.x) * L;
+  const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
+  float rl[2];
+  int gtp[2];
+  bool okr[2];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = q * 16 + j, l = l0 + c;
-      ge[j] = (p < P && l < L) ? elem_g(sm.s[g][c], rl, cl[c], gtp == l, pos_coef, neg_coef, focal)
-                               : 0.f;
-    }
-    __syncthreads();  // every thread has read its similarities
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      sm.s[g][q * 16 + j] = ge[j];
-      rowg += ge[j];
-    }
-    __syncthreads();
-    // column g over rows q*16 .. q*16+15, rows in order
-    float cs = 0.f;
-    for (int j = 0; j < 16; ++j) cs += sm.s[q * 16 + j][g];
-    sum4(cs);
-    if (q == 0 && l0 + g < L) cpart[l0 + g] = cs;
-    __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int p = rp.row(h);
+    okr[h] = p < P;
+    rl[h] = okr[h] ? a.row_lse[(size_t)b * P + p] : 0.f;
+    gtp[h] = okr[h] ? a.gt[(size_t)b * P + p] : -2;
   }
-  sum4(rowg);
-  if (q == 0 && p < P) rowg_out[(size_t)b * P + p] = rowg;
+  float rowg[2] = {0.f, 0.f};
+
+#pragma unroll 1
+  for (int it = 0; it < tl.n_tiles; ++it) {
+    const int l0 = it * TM;
+    float acc[32];
+    sim_product(acc, a_addr, tl.wait(it), cp);
+    float cl[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int l = l0 + rp.col(q);
+      cl[q] = l < L ? a.col_lse[(size_t)b * L + l] : 0.f;
+    }
+    wg::wait<0>();
+    wg::fence_regs(acc);
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * (q >> 1) + 2 * h + (q & 1), l = l0 + rp.col(q);
+        const float raw = 2.f * (acc[i] * a.inv_temp) - cl[q] - rl[h];
+        const float ge = elem_g(raw, exp_fast(raw), gtp[h] == l, pos_coef, neg_coef, a.focal);
+        acc[i] = okr[h] && l < L ? ge : 0.f;
+        rowg[h] += acc[i];
+      }
+    float* sc = tl.cols(it);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int i = 4 * (q >> 1) + (q & 1);
+      const float v = col_sum(acc[i] + acc[i + 2]);
+      if (rp.g == 0) sc[rp.w * TM + rp.col(q)] = v;
+    }
+    __syncthreads();
+    tl.release(it);
+    if (tid < TM && l0 + tid < L) {  // warps in order
+      float v = sc[tid];
+#pragma unroll
+      for (int u = 1; u < NWARP; ++u) v += sc[u * TM + tid];
+      cpart[l0 + tid] = v;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float v = quad_sum(rowg[h]);
+    if (rp.t == 0 && okr[h]) rowg_out[(size_t)b * P + rp.row(h)] = v;
+  }
 }
 
 __global__ void colg_reduce(const float* __restrict__ colpart, float* __restrict__ colg, int n_pt,
@@ -201,196 +258,228 @@ __global__ void colg_reduce(const float* __restrict__ colpart, float* __restrict
 
 // ------------------------------------------------- backward: feature grads
 
-// Overwrite the similarity tile sm.s with dsim rounded to bf16 (0 outside the
-// matrix). Row stats rl/rg/gts and column stats cl/cg are staged per tile.
-__device__ __forceinline__ void dsim_tile(TileSmem& sm, const float* rl, const float* rg,
-                                          const int* gts, const float* cl, const float* cg,
-                                          int p0, int l0, int P, int L, float inv_temp,
-                                          float pos_coef, float neg_coef, const Focal& focal) {
-  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const int p = p0 + g;
-  float ds[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = q * 16 + j, l = l0 + c;
-    float d = 0.f;
-    if (p < P && l < L) {
-      const float s = sm.s[g][c];
-      const float ge = elem_g(s, rl[g], cl[c], gts[g] == l, pos_coef, neg_coef, focal);
-      const float sm_p = expf(s - cl[c]);  // softmax over rows, given the column
-      const float sm_l = expf(s - rl[g]);  // softmax over columns, given the row
-      d = round_to<bf16>((2.f * ge - sm_p * cg[c] - sm_l * rg[g]) * inv_temp);
-    }
-    ds[j] = d;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 16; ++j) sm.s[g][q * 16 + j] = ds[j];
-  __syncthreads();
+// dsim of one element, before its rounding to bf16
+__device__ __forceinline__ float dsim(float s, float rl, float cl, float rg, float cg, bool is_pos,
+                                      float pos_coef, float neg_coef, float inv_temp,
+                                      const Focal& f) {
+  const float raw = 2.f * s - cl - rl;
+  const float sm_p = exp_fast(s - cl);  // softmax over rows, given the column
+  const float sm_l = exp_fast(s - rl);  // softmax over columns, given the row
+  const float ge = elem_g(raw, sm_p * sm_l, is_pos, pos_coef, neg_coef, f);
+  return (2.f * ge - sm_p * cg - sm_l * rg) * inv_temp;
 }
 
-// acc[ch][i][jj] += sum_m ds(own_i, m) * opnd[m][ch*32 + tx*2 + jj] over one
-// 64-long contraction tile; ds(i, m) = sm.s[i][m] (transpose = false, rows
-// own the output) or sm.s[m][i] (transpose = true, columns own the output).
-// opnd rows m0 .. m0+63 of a [M, C] bf16 matrix.
-template <bool TRANSPOSE>
-__device__ __forceinline__ void contract_tile(TileSmem& sm, const bf16* __restrict__ opnd, int m0,
-                                              int M, int C, float (&acc)[CH][4][2]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float(*slice)[BK + 1] = reinterpret_cast<float(*)[BK + 1]>(&sm.a[0][0]);  // [64][33]
-  static_assert(64 * (BK + 1) <= BK * (BR + 4), "slice must fit in sm.a");
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch) {
-    if (ch * BK < C) {
-      for (int i = threadIdx.x; i < 64 * BK; i += NT) {
-        const int m = i / BK, k = i % BK, col = ch * BK + k;
-        slice[m][k] = (m0 + m < M && col < C) ? __bfloat162float(opnd[(size_t)(m0 + m) * C + col]) : 0.f;
-      }
-      __syncthreads();
-      for (int m = 0; m < 64; ++m) {
-        const float o0 = slice[m][tx * 2], o1 = slice[m][tx * 2 + 1];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float d = TRANSPOSE ? sm.s[m][ty * 4 + i] : sm.s[ty * 4 + i][m];
-          acc[ch][i][0] = fmaf(d, o0, acc[ch][i][0]);
-          acc[ch][i][1] = fmaf(d, o1, acc[ch][i][1]);
-        }
-      }
-      __syncthreads();
-    }
-  }
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void store_acc(float* __restrict__ out, int r0, int R, int C,
-                                          const float (&acc)[CH][4][2]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty * 4 + i;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int col = ch * BK + tx * 2 + jj;
-        if (r < R && col < C) out[(size_t)r * C + col] = acc[ch][i][jj];
-      }
-    }
-  }
+// acc (+)= A[64, 16] B[16, NC], A the bf16 pairs in registers, B MN-major
+template <int NC>
+__device__ __forceinline__ void mma_rs(float (&acc)[NC / 2], const uint32_t (&af)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&acc)[32], const uint32_t (&af)[4], uint64_t b) {
+  wg::mma_rs_n64_tb(acc, af, b, 1);
+}
+template <>
+__device__ __forceinline__ void mma_rs<32>(float (&acc)[16], const uint32_t (&af)[4], uint64_t b) {
+  wg::mma_rs_n32_tb(acc, af, b, 1);
+}
+template <>
+__device__ __forceinline__ void mma_rs<16>(float (&acc)[8], const uint32_t (&af)[4], uint64_t b) {
+  wg::mma_rs_n16_tb(acc, af, b, 1);
 }
 
-struct BwdArgs {
-  const bf16* f0;
-  const bf16* f1;
-  const int* gt;
-  const float* row_lse;
-  const float* col_lse;
-  const float* coef;
-  const float* rowg;
-  const float* colg;
-  int P, L, C;
-  float inv_temp;
-  Focal focal;
-};
-
-__global__ void __launch_bounds__(NT) df0_kernel(BwdArgs a, float* __restrict__ df0) {
-  __shared__ TileSmem sm;
-  __shared__ float rl[BR], rg[BR], cl[BL], cg[BL];
-  __shared__ int gts[BR];
-  const int b = blockIdx.y, p0 = blockIdx.x * BR;
-  const bf16* f0b = a.f0 + (size_t)b * a.P * a.C;
-  const bf16* f1b = a.f1 + (size_t)b * a.L * a.C;
+// df0 (T1 = false): the block's resident tile is 64 rows p of f0, the streamed
+// tiles are f1's, out[b, p, :] = sum_l dsim[p, l] f1[l, :]. df1 (T1 = true):
+// resident 64 rows l of f1, streamed f0, out[b, l, :] = sum_p dsim[p, l] f0[p, :],
+// on the transposed tile s^T. NC: columns of C in one accumulator chunk.
+template <bool T1, int NC>
+__global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(a.C), p_pad = pad_rows(a.P), l_pad = pad_rows(a.L);
+  const int own_n = T1 ? a.L : a.P, oth_n = T1 ? a.P : a.L;
+  const int b = blockIdx.y, r0 = blockIdx.x * TM, tid = threadIdx.x;
+  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const bf16* own = T1 ? a.f1 + (size_t)b * l_pad * cp : a.f0 + (size_t)b * p_pad * cp;
+  const bf16* oth = T1 ? a.f0 + (size_t)b * p_pad * cp : a.f1 + (size_t)b * l_pad * cp;
+  const Tiles tl(smem, cp, oth, (T1 ? p_pad : l_pad) / TM);
+  const float* own_lse = T1 ? a.col_lse : a.row_lse;
+  const float* own_sum = T1 ? a.colg : a.rowg;
+  const float* oth_lse = T1 ? a.row_lse : a.col_lse;
+  const float* oth_sum = T1 ? a.rowg : a.colg;
+  // the streamed tiles' column stats (LSE, sum of g, GT column for df1), staged
+  // one tile ahead: [tile parity][3][64]
+  float* xst = tl.scratch;
+  const auto stage_stats = [&](int it) {
+    if (tid < TM) {
+      const int c = it * TM + tid;
+      const bool ok = c < oth_n;
+      float* x = xst + (it & 1) * 3 * TM;
+      x[tid] = ok ? oth_lse[(size_t)b * oth_n + c] : 0.f;
+      x[TM + tid] = ok ? oth_sum[(size_t)b * oth_n + c] : 0.f;
+      reinterpret_cast<int*>(x)[2 * TM + tid] = T1 && ok ? a.gt[(size_t)b * a.P + c] : -2;
+    }
+  };
+  stage_stats(0);
+  tl.start(own + (size_t)r0 * cp);  // its barrier publishes tile 0's stats
+  const uint32_t a_addr = tl.resident();
   const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
-  if (threadIdx.x < BR) {
-    const int p = p0 + threadIdx.x;
-    const bool ok = p < a.P;
-    rl[threadIdx.x] = ok ? a.row_lse[(size_t)b * a.P + p] : 0.f;
-    rg[threadIdx.x] = ok ? a.rowg[(size_t)b * a.P + p] : 0.f;
-    gts[threadIdx.x] = ok ? a.gt[(size_t)b * a.P + p] : -2;
+  float olse[2], osum[2];
+  int ogt[2], orow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 16 * w + g + 8 * h;
+    const bool ok = r < own_n;
+    orow[h] = r;
+    olse[h] = ok ? own_lse[(size_t)b * own_n + r] : 0.f;
+    osum[h] = ok ? own_sum[(size_t)b * own_n + r] : 0.f;
+    ogt[h] = !T1 && ok ? a.gt[(size_t)b * a.P + r] : -2;
   }
-  float acc[CH][4][2] = {};
-  for (int l0 = 0; l0 < a.L; l0 += BL) {
-    if (threadIdx.x < BL) {
-      const int l = l0 + threadIdx.x;
-      cl[threadIdx.x] = l < a.L ? a.col_lse[(size_t)b * a.L + l] : 0.f;
-      cg[threadIdx.x] = l < a.L ? a.colg[(size_t)b * a.L + l] : 0.f;
-    }
-    sim_tile<bf16>(f0b, f1b, nullptr, nullptr, p0, l0, a.P, a.L, a.C, a.inv_temp, sm);  // syncs
-    dsim_tile(sm, rl, rg, gts, cl, cg, p0, l0, a.P, a.L, a.inv_temp, pos_coef, neg_coef, a.focal);
-    contract_tile<false>(sm, f1b, l0, a.L, a.C, acc);
-  }
-  store_acc(df0 + (size_t)b * a.P * a.C, p0, a.P, a.C, acc);
-}
+  constexpr int NCH = MAXC / NC;
+  const int nch = cp / NC;
+  float acc2[NCH][NC / 2];
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc2[ch][i] = 0.f;
+  const uint32_t row_step = 2 * 16u * cp;  // 16 rows of the streamed tile: one k step
 
-__global__ void __launch_bounds__(NT) df1_kernel(BwdArgs a, float* __restrict__ df1) {
-  __shared__ TileSmem sm;
-  __shared__ float rl[BR], rg[BR], cl[BL], cg[BL];
-  __shared__ int gts[BR];
-  const int b = blockIdx.y, l0 = blockIdx.x * BL;
-  const bf16* f0b = a.f0 + (size_t)b * a.P * a.C;
-  const bf16* f1b = a.f1 + (size_t)b * a.L * a.C;
-  const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
-  if (threadIdx.x < BL) {
-    const int l = l0 + threadIdx.x;
-    cl[threadIdx.x] = l < a.L ? a.col_lse[(size_t)b * a.L + l] : 0.f;
-    cg[threadIdx.x] = l < a.L ? a.colg[(size_t)b * a.L + l] : 0.f;
-  }
-  float acc[CH][4][2] = {};
-  for (int p0 = 0; p0 < a.P; p0 += BR) {
-    if (threadIdx.x < BR) {
-      const int p = p0 + threadIdx.x;
-      const bool ok = p < a.P;
-      rl[threadIdx.x] = ok ? a.row_lse[(size_t)b * a.P + p] : 0.f;
-      rg[threadIdx.x] = ok ? a.rowg[(size_t)b * a.P + p] : 0.f;
-      gts[threadIdx.x] = ok ? a.gt[(size_t)b * a.P + p] : -2;
+#pragma unroll 1
+  for (int it = 0; it < tl.n_tiles; ++it) {
+    const int c0 = it * TM;
+    const uint32_t bs = tl.wait(it);
+    float acc[32];
+    sim_product(acc, a_addr, bs, cp);
+    if (it + 1 < tl.n_tiles) stage_stats(it + 1);
+    wg::wait<0>();
+    wg::fence_regs(acc);
+    const float* x = xst + (it & 1) * 3 * TM;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int cc = 8 * (q >> 1) + 2 * t + (q & 1), c = c0 + cc;
+      const float xl = x[cc], xs = x[TM + cc];
+      const int xg = reinterpret_cast<const int*>(x)[2 * TM + cc];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * (q >> 1) + 2 * h + (q & 1);
+        const float s = acc[i] * a.inv_temp;
+        const float d = T1 ? dsim(s, xl, olse[h], xs, osum[h], xg == orow[h], pos_coef, neg_coef,
+                                  a.inv_temp, a.focal)
+                           : dsim(s, olse[h], xl, osum[h], xs, ogt[h] == c, pos_coef, neg_coef,
+                                  a.inv_temp, a.focal);
+        acc[i] = orow[h] < own_n && c < oth_n ? d : 0.f;
+      }
     }
-    sim_tile<bf16>(f0b, f1b, nullptr, nullptr, p0, l0, a.P, a.L, a.C, a.inv_temp, sm);  // syncs
-    dsim_tile(sm, rl, rg, gts, cl, cg, p0, l0, a.P, a.L, a.inv_temp, pos_coef, neg_coef, a.focal);
-    contract_tile<true>(sm, f0b, p0, a.P, a.C, acc);
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        af[kk][q] = bf16_pair(acc[8 * kk + 2 * q], acc[8 * kk + 2 * q + 1]);
+    // out[own rows, :] += dsim [64, 64 streamed rows] x streamed tile [64 rows, Cp],
+    // the tile read MN-major (wgmma.cuh): LBO steps along its rows (the
+    // contraction), 16 Cp bytes a core matrix, SBO along its channels (the
+    // output columns), 128 bytes; probed on the card, the other assignment
+    // reads past the tile
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        if (ch < nch)
+          mma_rs<NC>(acc2[ch], af[kk],
+                     wg::desc(bs + kk * row_step + ch * (NC / 8) * LBO, 16u * cp, LBO));
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) wg::fence_regs(acc2[ch]);
+    __syncthreads();  // the stage is read, the next tile's stats are staged
+    tl.release(it);
   }
-  store_acc(df1 + (size_t)b * a.L * a.C, l0, a.L, a.C, acc);
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    if (ch >= nch) break;
+#pragma unroll
+    for (int jj = 0; jj < NC / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = ch * NC + 8 * jj + 2 * t;
+        if (orow[h] >= own_n) continue;
+        float* o = out + ((size_t)b * own_n + orow[h]) * a.C;
+        if (col < a.C) o[col] = acc2[ch][4 * jj + 2 * h] * a.grad_scale;
+        if (col + 1 < a.C) o[col + 1] = acc2[ch][4 * jj + 2 * h + 1] * a.grad_scale;
+      }
+  }
 }
 
 bool bad_shape(int B, int P, int L, int C) {
   return B <= 0 || P <= 0 || L <= 0 || C <= 0 || C > MAXC;
 }
 
+template <int NC>
+void launch_dfeat(const Args& a, float* df0, float* df1, int B, cudaStream_t st) {
+  const int cp = pad_channels(a.C);
+  static int have0[opp::MAX_DEVICES], have1[opp::MAX_DEVICES];
+  opp::raise_smem_limit(dfeat_tc_kernel<false, NC>, smem_bytes(cp), have0);
+  opp::raise_smem_limit(dfeat_tc_kernel<true, NC>, smem_bytes(cp), have1);
+  dfeat_tc_kernel<false, NC><<<dim3(pad_rows(a.P) / TM, B), NT, smem_bytes(cp), st>>>(a, df0);
+  dfeat_tc_kernel<true, NC><<<dim3(pad_rows(a.L) / TM, B), NT, smem_bytes(cp), st>>>(a, df1);
+}
+
+Args make_args(const void* f0, const void* f1, const int* gt, const float* row_lse,
+               const float* col_lse, const float* coef, const float* rowg, const float* colg,
+               int P, int L, int C, float inv_temp, float alpha, float gamma,
+               float grad_scale) {
+  return Args{static_cast<const bf16*>(f0), static_cast<const bf16*>(f1), gt, row_lse, col_lse,
+              coef, rowg, colg, P, L, C, inv_temp, grad_scale, Focal{alpha, gamma}};
+}
+
 }  // namespace
 
-// Forward after opp_dual_lse_bf16: per-row alpha * pos sums, (1 - alpha) * neg
-// sums and max conf, each [B, P].
+// Forward after opp_dual_lse_bf16, on the packed operands (opp_pack_operand_*):
+// per-row alpha * pos sums, (1 - alpha) * neg sums and max conf, each [B, P].
 extern "C" int opp_coarse_loss_fwd(const void* f0, const void* f1, const int* gt,
                                    const float* row_lse, const float* col_lse, float* pos,
                                    float* neg, float* mx, int B, int P, int L, int C,
                                    float inv_temp, float alpha, float gamma, void* stream) {
   if (bad_shape(B, P, L, C)) return (int)cudaErrorInvalidValue;
-  loss_kernel<<<dim3((P + BR - 1) / BR, B), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(f0), static_cast<const bf16*>(f1), gt, row_lse, col_lse, pos, neg,
-      mx, P, L, C, inv_temp, Focal{alpha, gamma});
+  const Args a = make_args(f0, f1, gt, row_lse, col_lse, nullptr, nullptr, nullptr, P, L, C,
+                           inv_temp, alpha, gamma, 1.f);
+  const int cp = pad_channels(C);
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(loss_tc_kernel, smem_bytes(cp), have);
+  loss_tc_kernel<<<dim3(pad_rows(P) / TM, B), NT, smem_bytes(cp),
+                   static_cast<cudaStream_t>(stream)>>>(a, pos, neg, mx);
   return (int)cudaGetLastError();
 }
 
-// Backward: coef = (dL/dpos_sum, dL/dneg_sum) on the device; rowg [B, P],
-// colg [B, L] and colpart [B, row tiles, L] are scratch; df0 [B, P, C] and
-// df1 [B, L, C] f32 outputs.
+// Backward on the packed operands: coef = (dL/dpos_sum, dL/dneg_sum) on the
+// device; rowg [B, P], colg [B, L] and colpart [B, row tiles, L] are scratch;
+// df0 [B, P, C] and df1 [B, L, C] f32 outputs, the gradients of the packed
+// operands times grad_scale (the pack's scale: the gradients of its input).
 extern "C" int opp_coarse_loss_bwd(const void* f0, const void* f1, const int* gt,
                                    const float* row_lse, const float* col_lse, const float* coef,
                                    float* rowg, float* colg, float* colpart, float* df0,
                                    float* df1, int B, int P, int L, int C, float inv_temp,
-                                   float alpha, float gamma, void* stream) {
+                                   float alpha, float gamma, float grad_scale, void* stream) {
   if (bad_shape(B, P, L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_pt = (P + BR - 1) / BR;
-  const Focal focal{alpha, gamma};
-  const bf16* a0 = static_cast<const bf16*>(f0);
-  const bf16* a1 = static_cast<const bf16*>(f1);
-  gsum_kernel<<<dim3(n_pt, B), NT, 0, st>>>(a0, a1, gt, row_lse, col_lse, coef, rowg, colpart, P,
-                                            L, C, inv_temp, focal);
+  const int cp = pad_channels(C), n_pt = pad_rows(P) / TM;
+  const Args a = make_args(f0, f1, gt, row_lse, col_lse, coef, rowg, colg, P, L, C, inv_temp,
+                           alpha, gamma, grad_scale);
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(gsum_tc_kernel, smem_bytes(cp), have);
+  gsum_tc_kernel<<<dim3(n_pt, B), NT, smem_bytes(cp), st>>>(a, rowg, colpart);
   colg_reduce<<<dim3((L + 255) / 256, B), 256, 0, st>>>(colpart, colg, n_pt, L);
-  const BwdArgs args{a0, a1, gt, row_lse, col_lse, coef, rowg, colg, P, L, C, inv_temp, focal};
-  df0_kernel<<<dim3(n_pt, B), NT, 0, st>>>(args, df0);
-  df1_kernel<<<dim3((L + BL - 1) / BL, B), NT, 0, st>>>(args, df1);
+  if (cp % 64 == 0)
+    launch_dfeat<64>(a, df0, df1, B, st);
+  else if (cp % 32 == 0)
+    launch_dfeat<32>(a, df0, df1, B, st);
+  else
+    launch_dfeat<16>(a, df0, df1, B, st);
   return (int)cudaGetLastError();
 }
 
 // Row tiles of the colpart scratch ([B, tiles, L]).
-extern "C" int opp_coarse_loss_row_tiles(int P) { return (P + BR - 1) / BR; }
+extern "C" int opp_coarse_loss_row_tiles(int P) { return pad_rows(P) / TM; }

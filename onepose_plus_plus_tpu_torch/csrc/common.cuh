@@ -52,6 +52,21 @@ __device__ __forceinline__ void mac_rows(const float* __restrict__ in, int ld, i
   }
 }
 
+// Raising a kernel's dynamic shared-memory limit is a call into the driver:
+// make it when a device first needs this many bytes for the kernel, not at
+// every launch (have: bytes already granted, by device; 0 at start).
+constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+void raise_smem_limit(Kernel kernel, size_t bytes, int* have) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const bool tracked = dev >= 0 && dev < MAX_DEVICES;
+  if (tracked && have[dev] >= (int)bytes) return;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) ==
+          cudaSuccess && tracked)
+    have[dev] = (int)bytes;
+}
+
 // Row-wise LayerNorm of buf [rows, C] in place (one warp per row), output
 // rounded to T.
 template <typename T>

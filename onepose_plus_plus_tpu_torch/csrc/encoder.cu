@@ -22,7 +22,7 @@
 // Bound: operations (20 C^2 per x row, 4 C^2 per source row; x in and y out
 // are a third of that time in bytes at the tensor cores' rate).
 //
-// Two instances.
+// Two designs, three entries.
 //
 // bf16 operands (C = 256, 8 heads: both coarse transformers): the tensor
 // cores, by wgmma (wgmma.cuh). One warpgroup per block and 64 rows per tile.
@@ -56,7 +56,9 @@
 // f32 operands (the demo, the f32 parity paths; any C that is a multiple of 32
 // up to 256): exact f32 FMAs on the CUDA cores, no TF32. One thread per
 // channel, operands staged in shared memory and read as float4 broadcasts so
-// one shared load feeds four FMAs.
+// one shared load feeds four FMAs. bf16 operands at any other width than the
+// tensor-core instance's (C = 256, 8 heads) run the same CUDA-core kernels with
+// bf16 weights, each product operand rounded to bf16 as it is staged.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -217,20 +219,8 @@ __global__ void apply_kernel(const float* __restrict__ x, const float* __restric
   for (int r = 0; r < rows; ++r) yb[(size_t)r * C + c] = xb[(size_t)r * C + c] + ms[r * C + c];
 }
 
-// Raising a kernel's dynamic shared-memory limit is a call into the driver:
-// make it when a device first needs this many bytes for the kernel, not at
-// every launch (have: bytes already granted, by device; 0 at start).
-constexpr int MAX_DEVICES = 64;
-template <typename Kernel>
-void raise_smem_limit(Kernel kernel, size_t bytes, int* have) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  const bool tracked = dev >= 0 && dev < MAX_DEVICES;
-  if (tracked && have[dev] >= (int)bytes) return;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) ==
-          cudaSuccess && tracked)
-    have[dev] = (int)bytes;
-}
+using opp::MAX_DEVICES;
+using opp::raise_smem_limit;
 
 template <typename T>
 int launch_encoder_layer(const float* x, const float* src, const void* wq, const void* wk,
@@ -794,6 +784,21 @@ extern "C" int opp_encoder_layer_f32(const float* x, const float* src, const voi
   return launch_encoder_layer<float>(x, src, wq, wk, wv, wm, w0, w1, ln1s, ln1b, ln2s, ln2b,
                                      qmask, smask, part, kv, y, B, L, S, C, nhead,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// bf16 operands on the CUDA cores, any C that is a multiple of 32 up to 256
+// (the widths the tensor-core instance does not take): the f32 entry's
+// arguments, weights [in, out] row-major bf16.
+extern "C" int opp_encoder_layer_bf16(const float* x, const float* src, const void* wq,
+                                      const void* wk, const void* wv, const void* wm,
+                                      const void* w0, const void* w1, const float* ln1s,
+                                      const float* ln1b, const float* ln2s, const float* ln2b,
+                                      const float* qmask, const float* smask, float* part,
+                                      float* kv, float* y, int B, int L, int S, int C, int nhead,
+                                      void* stream) {
+  return launch_encoder_layer<__nv_bfloat16>(x, src, wq, wk, wv, wm, w0, w1, ln1s, ln1b, ln2s,
+                                             ln2b, qmask, smask, part, kv, y, B, L, S, C, nhead,
+                                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int opp_encoder_source_tiles(int S) { return (S + TS - 1) / TS; }

@@ -6,25 +6,45 @@
 //   row_best_j[p] = argmax_l (2 s - col_lse[l]),  col_best_p[l] = argmax_p (2 s - row_lse[p])
 // with the lowest index kept on ties in both directions.
 //
-// Two passes, flash-style. Each block owns a BR-row tile of f0 and streams all
-// L columns in BL-wide tiles, recomputing the similarity tile each pass:
-//   1. lse_kernel: row LSE stays in the block (online max/sum); column
-//      statistics of the tile are written as per-row-tile partial LSEs
-//      [B, n_row_tiles, L] (a block cannot carry a sum across blocks), and
-//      col_lse_reduce merges them in a second launch.
-//   2. argmax_kernel: row argmax in the block; per-row-tile column argmax
-//      partials, merged by col_argmax_reduce (tiles in order, so the lowest
-//      row index wins ties).
-// Operands are T (float or bf16), accumulation f32.
+// Two passes, flash-style. Each block owns a 64-row tile of f0 and streams all
+// L columns in 64-wide tiles, recomputing the similarity tile each pass:
+//   1. lse: row LSE stays in the block (online max/sum); column statistics of
+//      the tile are written as per-row-tile partial LSEs [B, n_row_tiles, L]
+//      (a block cannot carry a sum across blocks), and col_lse_reduce merges
+//      them in a second launch, tiles in order.
+//   2. argmax: row argmax in the block; per-row-tile column argmax partials,
+//      merged by col_argmax_reduce (tiles in order, so the lowest row index
+//      wins ties).
+// No atomics: the result is the same bit for bit from run to run.
 //
-// Bound: FP32 FMA throughput (two P*L*C GEMM passes), then the 2 exp per
-// similarity element of pass 1. Design: a 64x64 register-blocked tile (4x4 per
-// thread) over 32-deep shared-memory slices of f0 and f1, then the tile is
-// staged in shared memory for the row and column reductions (4 lanes per row
-// or column, shuffle-merged). Tensor cores (wgmma) are later work.
+// Bound: two P*L*C products (operations), then the exponentials of pass 1:
+// 2 P L of them, which the special-function units issue at 16 a clock per SM
+// (0.25 ms at the query step's [16, 7000] x [16, 4096], beside 0.12 ms a
+// product at the tensor cores' peak). Two instances:
+//
+// bf16 operands (the bench, inference and SfM configurations): the tensor
+// cores (sim_tile_tc.cuh). The wrapper packs f0 and f1 once, scaled, rounded
+// and zero-padded (pack_operand_kernel, one launch each), so that every 64-row
+// tile is one bulk copy; one warpgroup a block keeps its f0 tile resident and
+// streams the f1 tiles through a two-stage ring; m64n64k16 products leave s
+// in registers, and both reductions run on the accumulator fragment: a row
+// over the 4 lanes of a quad (a running max and sum a thread, merged at the
+// end), a column over the 8 quads of a warp by shuffles and across the 4
+// warps through a 2 KB scratch, in a fixed order. The column argmax takes the
+// column's largest value first and then the lowest row holding it by an
+// integer min: half the time of shuffling (value, index) pairs. Exponentials
+// are ex2.approx (branch-free; a few ulp), with the max subtracted in natural
+// units so that the masks' -1e9 rounds as in the plain version. Two blocks
+// share an SM, so one block's exponentials overlap the other's products.
+//
+// f32 operands (the demo and the train config; exact, no TF32): a 64x64
+// register-blocked FMA tile on the CUDA cores (sim_tile.cuh), staged in shared
+// memory for the row and column reductions (4 lanes per row or column,
+// shuffle-merged).
 #include <climits>
 
 #include "sim_tile.cuh"
+#include "sim_tile_tc.cuh"
 
 namespace {
 
@@ -246,31 +266,337 @@ int launch_dual_lse(const void* f0, const void* f1, const float* radd, const flo
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ bf16: tensor cores
+
+namespace tcm {
+
+// (sim_tile.cuh's opp::NT and opp::NEG are the CUDA-core tile's)
+using opp::tc::col_max;
+using opp::tc::col_min;
+using opp::tc::col_sum;
+using opp::tc::exp_fast;
+using opp::tc::lanes_argmax;
+using opp::tc::LN2;
+using opp::tc::MAX_C;
+using opp::tc::NEG;
+using opp::tc::NT;
+using opp::tc::NWARP;
+using opp::tc::pad_channels;
+using opp::tc::pad_rows;
+using opp::tc::quad_max;
+using opp::tc::quad_sum;
+using opp::tc::sim_product;
+using opp::tc::smem_bytes;
+using opp::tc::Tiles;
+using opp::tc::TM;
+using bf16 = __nv_bfloat16;
+
+// dst [B, rows_pad / 8, Cp / 8, 8, 8] bf16 (sim_tile_tc.cuh's layout) of
+// src [B, rows, C] (T = float or bf16) times `scale`, rounded to bf16 as
+// torch's (x * scale).to(bfloat16); zeros past rows and C. One thread per 16
+// output bytes (8 channels of one row): output index i * 8, written in order.
+template <typename T>
+__global__ void pack_operand_kernel(const T* __restrict__ src, bf16* __restrict__ dst, int rows,
+                                    int rows_pad, int C, int cp, float scale, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r8 = (int)(i & 7);
+  long long rest = i >> 3;
+  const int kg = (int)(rest % (cp / 8));
+  rest /= cp / 8;
+  const int rg = (int)(rest % (rows_pad / 8));
+  const long long b = rest / (rows_pad / 8);
+  const int r = rg * 8 + r8, k0 = kg * 8;
+  __align__(16) bf16 out[8];
+  const T* row = src + ((size_t)b * rows + r) * C;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    out[k] = __float2bfloat16_rn(r < rows && k0 + k < C ? opp::to_f32(row[k0 + k]) * scale : 0.f);
+  *reinterpret_cast<uint4*>(dst + i * 8) = *reinterpret_cast<const uint4*>(out);
+}
+
+// Pass 1: row LSE and per-row-tile column partial LSEs (natural units).
+__global__ void __launch_bounds__(NT, 2)
+    lse_tc_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
+                  const float* __restrict__ radd, const float* __restrict__ cadd,
+                  float* __restrict__ row_lse, float* __restrict__ colpart, int P, int L, int C,
+                  float inv_temp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(C), pt = blockIdx.x, n_pt = gridDim.x, b = blockIdx.y;
+  const int p0 = pt * TM, tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const Tiles tl(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  tl.start(f0 + ((size_t)b * pad_rows(P) + p0) * cp);
+  const uint32_t a_addr = tl.resident();
+  float ra[2];  // row masks; rows past P drop out of the column statistics
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + 16 * w + g + 8 * h;
+    ra[h] = p < P ? (radd != nullptr ? radd[(size_t)b * P + p] : 0.f) : NEG;
+  }
+  float rm[2] = {NEG, NEG}, rs[2] = {0.f, 0.f};  // this thread's running row max / sum
+  float* cpart = colpart + ((size_t)b * n_pt + pt) * L;
+
+#pragma unroll 1
+  for (int it = 0; it < tl.n_tiles; ++it) {
+    const int l0 = it * TM;
+    float acc[32];
+    sim_product(acc, a_addr, tl.wait(it), cp);
+    float ca[16];  // column masks; columns past L drop out of the row statistics
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int l = l0 + 8 * (q >> 1) + 2 * t + (q & 1);
+      ca[q] = l < L ? (cadd != nullptr ? cadd[(size_t)b * L + l] : 0.f) : NEG;
+    }
+    wg::wait<0>();
+    wg::fence_regs(acc);
+    // s = dot * inv_temp + row mask + column mask, in the plain version's order
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = __fadd_rn(__fadd_rn(__fmul_rn(acc[i], inv_temp), ra[(i >> 1) & 1]),
+                         ca[2 * (i >> 2) + (i & 1)]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = rm[h];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m = fmaxf(m, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+      float sum = rs[h] * exp_fast(rm[h] - m);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += exp_fast(acc[4 * j + 2 * h] - m) + exp_fast(acc[4 * j + 2 * h + 1] - m);
+      rm[h] = m;
+      rs[h] = sum;
+    }
+    float* sc = tl.cols(it);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int i = 4 * (q >> 1) + (q & 1);  // rows g (acc[i]) and g + 8 (acc[i + 2])
+      const float cm = col_max(fmaxf(acc[i], acc[i + 2]));
+      const float cs = col_sum(exp_fast(acc[i] - cm) + exp_fast(acc[i + 2] - cm));
+      if (g == 0) {
+        const int col = 8 * (q >> 1) + 2 * t + (q & 1);
+        sc[w * TM + col] = cm;
+        sc[NWARP * TM + w * TM + col] = cs;
+      }
+    }
+    __syncthreads();
+    tl.release(it);
+    if (tid < TM && l0 + tid < L) {
+      float m = sc[tid];
+#pragma unroll
+      for (int v = 1; v < NWARP; ++v) m = fmaxf(m, sc[v * TM + tid]);
+      float sum = 0.f;
+#pragma unroll
+      for (int v = 0; v < NWARP; ++v)
+        sum += sc[NWARP * TM + v * TM + tid] * exp_fast(sc[v * TM + tid] - m);
+      cpart[l0 + tid] = m + log2f(sum) * LN2;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = quad_max(rm[h]);
+    const float sum = quad_sum(rs[h] * exp_fast(rm[h] - m));
+    const int p = p0 + 16 * w + g + 8 * h;
+    if (t == 0 && p < P) row_lse[(size_t)b * P + p] = m + log2f(sum) * LN2;
+  }
+}
+
+// Pass 2: row argmax of 2 s - col_lse and per-row-tile column argmax partials
+// of 2 s - row_lse, the lowest index on ties.
+__global__ void __launch_bounds__(NT, 2)
+    argmax_tc_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
+                     const float* __restrict__ radd, const float* __restrict__ cadd,
+                     const float* __restrict__ row_lse, const float* __restrict__ col_lse,
+                     float* __restrict__ row_val, int* __restrict__ row_j,
+                     float* __restrict__ cpart_val, int* __restrict__ cpart_idx, int P, int L,
+                     int C, float inv_temp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(C), pt = blockIdx.x, n_pt = gridDim.x, b = blockIdx.y;
+  const int p0 = pt * TM, tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const Tiles tl(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  tl.start(f0 + ((size_t)b * pad_rows(P) + p0) * cp);
+  const uint32_t a_addr = tl.resident();
+  float ra[2], rl[2];
+  int rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + 16 * w + g + 8 * h;
+    rows[h] = p;
+    ra[h] = p < P ? (radd != nullptr ? radd[(size_t)b * P + p] : 0.f) : NEG;
+    rl[h] = p < P ? row_lse[(size_t)b * P + p] : 0.f;
+  }
+  float bv[2] = {NEG, NEG};
+  int bj[2] = {0, 0};
+  const size_t cbase = ((size_t)b * n_pt + pt) * L;
+
+#pragma unroll 1
+  for (int it = 0; it < tl.n_tiles; ++it) {
+    const int l0 = it * TM;
+    float acc[32];
+    sim_product(acc, a_addr, tl.wait(it), cp);
+    float ca[16], cl[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int l = l0 + 8 * (q >> 1) + 2 * t + (q & 1);
+      ca[q] = l < L ? (cadd != nullptr ? cadd[(size_t)b * L + l] : 0.f) : NEG;
+      cl[q] = l < L ? col_lse[(size_t)b * L + l] : 0.f;
+    }
+    wg::wait<0>();
+    wg::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = __fadd_rn(__fadd_rn(__fmul_rn(acc[i], inv_temp), ra[(i >> 1) & 1]),
+                         ca[2 * (i >> 2) + (i & 1)]);
+    // rows: this thread's columns in ascending order, strict > keeps the first
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v = 2.f * acc[4 * (q >> 1) + 2 * h + (q & 1)] - cl[q];
+        const bool take = v > bv[h];
+        bv[h] = take ? v : bv[h];
+        bj[h] = take ? l0 + 8 * (q >> 1) + 2 * t + (q & 1) : bj[h];
+      }
+    // columns: the largest value over the warp's 16 rows, then the lowest row holding it
+    float* sc = tl.cols(it);
+    int* si = reinterpret_cast<int*>(sc + NWARP * TM);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int i = 4 * (q >> 1) + (q & 1);
+      const float v0 = 2.f * acc[i] - rl[0], v1 = 2.f * acc[i + 2] - rl[1];
+      const float v = col_max(fmaxf(v0, v1));
+      const int r = col_min(v0 == v ? rows[0] : v1 == v ? rows[1] : INT_MAX);
+      if (g == 0) {
+        const int col = 8 * (q >> 1) + 2 * t + (q & 1);
+        sc[w * TM + col] = v;
+        si[w * TM + col] = r;
+      }
+    }
+    __syncthreads();
+    tl.release(it);
+    if (tid < TM && l0 + tid < L) {  // warps in order: rows ascending, strict > keeps the lowest
+      float v = sc[tid];
+      int r = si[tid];
+#pragma unroll
+      for (int u = 1; u < NWARP; ++u) {
+        const bool take = sc[u * TM + tid] > v;
+        v = take ? sc[u * TM + tid] : v;
+        r = take ? si[u * TM + tid] : r;
+      }
+      cpart_val[cbase + l0 + tid] = v;
+      cpart_idx[cbase + l0 + tid] = r;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lanes_argmax<1, 2>(bv[h], bj[h]);
+    if (t == 0 && rows[h] < P) {
+      row_val[(size_t)b * P + rows[h]] = bv[h];
+      row_j[(size_t)b * P + rows[h]] = bj[h];
+    }
+  }
+}
+
+int launch_dual_lse_tc(const void* f0, const void* f1, const float* radd, const float* cadd,
+                       float* row_lse, float* col_lse, float* part, int B, int P, int L, int C,
+                       float inv_temp, cudaStream_t stream) {
+  if (B <= 0 || P <= 0 || L <= 0 || C <= 0 || C > MAX_C) return (int)cudaErrorInvalidValue;
+  const int cp = pad_channels(C), n_pt = pad_rows(P) / TM;
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(lse_tc_kernel, smem_bytes(cp), have);
+  lse_tc_kernel<<<dim3(n_pt, B), NT, smem_bytes(cp), stream>>>(
+      static_cast<const bf16*>(f0), static_cast<const bf16*>(f1), radd, cadd, row_lse, part, P, L,
+      C, inv_temp);
+  col_lse_reduce<<<dim3((L + 255) / 256, B), 256, 0, stream>>>(part, col_lse, n_pt, L);
+  return (int)cudaGetLastError();
+}
+
+int launch_rowcol_stats_tc(const void* f0, const void* f1, const float* radd, const float* cadd,
+                           float* row_lse, float* col_lse, float* row_val, int* row_j,
+                           float* col_val, int* col_p, float* part_val, int* part_idx, int B,
+                           int P, int L, int C, float inv_temp, cudaStream_t stream) {
+  const int rc = launch_dual_lse_tc(f0, f1, radd, cadd, row_lse, col_lse, part_val, B, P, L, C,
+                                    inv_temp, stream);
+  if (rc != 0) return rc;
+  const int cp = pad_channels(C), n_pt = pad_rows(P) / TM;
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(argmax_tc_kernel, smem_bytes(cp), have);
+  argmax_tc_kernel<<<dim3(n_pt, B), NT, smem_bytes(cp), stream>>>(
+      static_cast<const bf16*>(f0), static_cast<const bf16*>(f1), radd, cadd, row_lse, col_lse,
+      row_val, row_j, part_val, part_idx, P, L, C, inv_temp);
+  col_argmax_reduce<<<dim3((L + 255) / 256, B), 256, 0, stream>>>(part_val, part_idx, col_val,
+                                                                   col_p, n_pt, L);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_pack(const void* src, void* dst, int B, int rows, int C, float scale,
+                cudaStream_t stream) {
+  if (B <= 0 || rows <= 0 || C <= 0 || C > MAX_C) return (int)cudaErrorInvalidValue;
+  const int cp = pad_channels(C), rows_pad = pad_rows(rows);
+  const long long n = (long long)B * rows_pad * (cp / 8);
+  pack_operand_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<bf16*>(dst), rows, rows_pad, C, cp, scale, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tcm
+
 }  // namespace
 
-#define OPP_STATS_ENTRY(NAME, T)                                                             \
-  extern "C" int NAME(const void* f0, const void* f1, const float* radd, const float* cadd, \
-                      float* row_lse, float* col_lse, float* row_val, int* row_j,           \
-                      float* col_val, int* col_p, float* part_val, int* part_idx, int B,    \
-                      int P, int L, int C, float inv_temp, void* stream) {                  \
-    return launch_rowcol_stats<T>(f0, f1, radd, cadd, row_lse, col_lse, row_val, row_j,     \
-                                  col_val, col_p, part_val, part_idx, B, P, L, C, inv_temp, \
-                                  static_cast<cudaStream_t>(stream));                       \
-  }
+// f32 operands [B, P, C] / [B, L, C] (CUDA cores). part_val / part_idx are
+// [B, tiles, L] with tiles = opp_rowcol_row_tiles(P).
+extern "C" int opp_rowcol_stats_f32(const void* f0, const void* f1, const float* radd,
+                                    const float* cadd, float* row_lse, float* col_lse,
+                                    float* row_val, int* row_j, float* col_val, int* col_p,
+                                    float* part_val, int* part_idx, int B, int P, int L, int C,
+                                    float inv_temp, void* stream) {
+  return launch_rowcol_stats<float>(f0, f1, radd, cadd, row_lse, col_lse, row_val, row_j,
+                                    col_val, col_p, part_val, part_idx, B, P, L, C, inv_temp,
+                                    static_cast<cudaStream_t>(stream));
+}
 
-OPP_STATS_ENTRY(opp_rowcol_stats_f32, float)
-OPP_STATS_ENTRY(opp_rowcol_stats_bf16, __nv_bfloat16)
+// bf16 operands on the tensor cores: f0 and f1 packed by opp_pack_operand_*
+// (already scaled; C <= 576 channels before padding), the other arguments as
+// the f32 entry's.
+extern "C" int opp_rowcol_stats_bf16(const void* f0, const void* f1, const float* radd,
+                                     const float* cadd, float* row_lse, float* col_lse,
+                                     float* row_val, int* row_j, float* col_val, int* col_p,
+                                     float* part_val, int* part_idx, int B, int P, int L, int C,
+                                     float inv_temp, void* stream) {
+  return tcm::launch_rowcol_stats_tc(f0, f1, radd, cadd, row_lse, col_lse, row_val, row_j,
+                                     col_val, col_p, part_val, part_idx, B, P, L, C, inv_temp,
+                                     static_cast<cudaStream_t>(stream));
+}
 
 // Row tiles of the partial buffers: part_val / part_idx are [B, tiles, L].
 extern "C" int opp_rowcol_row_tiles(int P) { return (P + opp::BR - 1) / opp::BR; }
 
-#define OPP_LSE_ENTRY(NAME, T)                                                                \
-  extern "C" int NAME(const void* f0, const void* f1, const float* radd, const float* cadd,  \
-                      float* row_lse, float* col_lse, float* part, int B, int P, int L, int C, \
-                      float inv_temp, void* stream) {                                        \
-    return launch_dual_lse<T>(f0, f1, radd, cadd, row_lse, col_lse, part, B, P, L, C,        \
-                              inv_temp, static_cast<cudaStream_t>(stream));                  \
-  }
+// Pass 1 alone (row and column LSE), for K5's forward (coarse_loss.cu), as the
+// TPU kernel shares pallas_matching._lse_kernel with the fused focal loss.
+extern "C" int opp_dual_lse_f32(const void* f0, const void* f1, const float* radd,
+                                const float* cadd, float* row_lse, float* col_lse, float* part,
+                                int B, int P, int L, int C, float inv_temp, void* stream) {
+  return launch_dual_lse<float>(f0, f1, radd, cadd, row_lse, col_lse, part, B, P, L, C, inv_temp,
+                                static_cast<cudaStream_t>(stream));
+}
 
-OPP_LSE_ENTRY(opp_dual_lse_f32, float)
-OPP_LSE_ENTRY(opp_dual_lse_bf16, __nv_bfloat16)
+// bf16, packed operands (tensor cores).
+extern "C" int opp_dual_lse_bf16(const void* f0, const void* f1, const float* radd,
+                                 const float* cadd, float* row_lse, float* col_lse, float* part,
+                                 int B, int P, int L, int C, float inv_temp, void* stream) {
+  return tcm::launch_dual_lse_tc(f0, f1, radd, cadd, row_lse, col_lse, part, B, P, L, C,
+                                 inv_temp, static_cast<cudaStream_t>(stream));
+}
+
+// The operand layout of the tensor-core instances (K2 bf16, K5): dst
+// [B, rows_pad / 8, Cp / 8, 8, 8] bf16 of src [B, rows, C] times scale, with
+// Cp = C rounded up to 16 and rows_pad = rows rounded up to 64.
+extern "C" int opp_pack_operand_f32(const void* src, void* dst, int B, int rows, int C,
+                                    float scale, void* stream) {
+  return tcm::launch_pack<float>(src, dst, B, rows, C, scale, static_cast<cudaStream_t>(stream));
+}
+extern "C" int opp_pack_operand_bf16(const void* src, void* dst, int B, int rows, int C,
+                                     float scale, void* stream) {
+  return tcm::launch_pack<__nv_bfloat16>(src, dst, B, rows, C, scale,
+                                         static_cast<cudaStream_t>(stream));
+}

@@ -1,6 +1,6 @@
 // Hopper warpgroup matrix products (wgmma), mbarriers and bulk copies as
 // inline PTX: the tensor-core building blocks of K1's bf16 instance
-// (encoder.cu). Needs sm_90a.
+// (encoder.cu) and of K2's and K5's (sim_tile_tc.cuh). Needs sm_90a.
 //
 // Operand layout. Both operands are read from shared memory through a 64-bit
 // matrix descriptor, K-major without swizzle: the tile is cut into 8 x 8 core
@@ -197,6 +197,73 @@ __device__ __forceinline__ void mma_n8(float (&d)[4], uint64_t a, uint64_t b, in
       " %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// A from registers, B transposed. The A operand [64, 16] is four bf16 pairs a
+// thread, in the accumulator fragment's own layout, so the f32 accumulators of
+// one product become the next product's A once packed to bf16 pairs (the
+// attention kernels' P V step): a[0] holds row 16 w + g, columns 2 t and
+// 2 t + 1; a[1] row 16 w + g + 8, the same columns; a[2] and a[3] those rows
+// at columns 2 t + 8 and 2 t + 9; the lower half of each register is the lower
+// column. With accumulators d of a product [64, N], the A of its k step kk is
+//     {pack(d[8 kk], d[8 kk + 1]), pack(d[8 kk + 2], d[8 kk + 3]),
+//      pack(d[8 kk + 4], d[8 kk + 5]), pack(d[8 kk + 6], d[8 kk + 7])}.
+// B [16, N] is read MN-major (the transpose bit set): a core matrix holds 8 k
+// rows of 8 contiguous n values, i.e. a tile stored K-major for the first
+// product ([n rows, k channels]) serves as the MN-major B of a product that
+// contracts over its rows, core matrix for core matrix. In the descriptor of
+// an MN-major operand without swizzle, SBO is the byte step between core
+// matrices along N and LBO the step along K (the other way round from K-major).
+
+// D[64, 64] (+)= A[64, 16] * B[16, 64], A from registers, B MN-major.
+__device__ __forceinline__ void mma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// D[64, 32] (+)= A[64, 16] * B[16, 32], A from registers, B MN-major.
+__device__ __forceinline__ void mma_rs_n32_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// D[64, 16] (+)= A[64, 16] * B[16, 16], A from registers, B MN-major.
+__device__ __forceinline__ void mma_rs_n16_tb(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 }  // namespace wg

@@ -3,14 +3,16 @@
 Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 
 - K1 ``ops/cuda_encoder.py::fused_encoder_layer`` and ``fused_encoder_layer_packed``
-  (``csrc/encoder.cu``: tensor cores for bf16 operands, CUDA cores for f32)
-- K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``)
+  (``csrc/encoder.cu``: tensor cores for bf16 operands at C = 256 with 8 heads, CUDA
+  cores for f32 and for bf16 at other widths)
+- K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``: tensor
+  cores for bf16 operands, which ``pack_operand`` lays out first, CUDA cores for f32)
 - K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``)
 - K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP: an index
   launch (``scatter_index``) and the scatter launch
-- K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``),
-  counted once per forward (``K5_coarse_loss``) and once per backward
-  (``K5_coarse_loss_bwd``)
+- K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``, on
+  K2's tensor-core tile), counted once per forward (``K5_coarse_loss``) and once per
+  backward (``K5_coarse_loss_bwd``)
 - K6 ``ops/cuda_patch_gather.py::patch_gather`` (``csrc/patch_gather.cu``), the
   patch gather at any corner
 - K7 ``ops/cuda_short_encoder.py::fused_short_encoder_layer``

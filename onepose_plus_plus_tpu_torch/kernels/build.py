@@ -35,12 +35,15 @@ _F = ctypes.c_float
 # exported C functions: name -> argument types (all return int)
 _SIGNATURES = {
     "opp_encoder_layer_f32": [_P] * 17 + [_I] * 5 + [_P],
+    "opp_encoder_layer_bf16": [_P] * 17 + [_I] * 5 + [_P],
     "opp_encoder_layer_tc": [_P] * 13 + [_I] * 3 + [_P],
     "opp_encoder_source_tiles": [_I],
     "opp_encoder_tc_source_tiles": [_I],
     "opp_rowcol_stats_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_row_tiles": [_I],
+    "opp_pack_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
+    "opp_pack_operand_bf16": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_window_gather_f32": [_P] * 3 + [_I] * 9 + [_P],
     "opp_window_gather_bf16": [_P] * 3 + [_I] * 9 + [_P],
     "opp_dual_lse_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
@@ -49,7 +52,7 @@ _SIGNATURES = {
     "opp_window_scatter_f32": [_P] * 5 + [_I] * 9 + [_P],
     "opp_window_scatter_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "opp_coarse_loss_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-    "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P],
+    "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
     "opp_coarse_loss_row_tiles": [_I],
     "opp_patch_gather_f32": [_P] * 4 + [_I] * 6 + [_P],
     "opp_patch_gather_bf16": [_P] * 4 + [_I] * 6 + [_P],

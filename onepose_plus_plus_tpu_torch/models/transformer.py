@@ -8,7 +8,7 @@ Module and parameter names follow the reference state dict
 Two execution paths over the same parameters, chosen by the rule of the JAX
 package (transformer.py:168-181): out of training, long sequences with linear
 attention (the coarse stage, min(L, S) >= 256) run each layer as kernel K1
-(``ops/cuda_encoder.py``); everything else, such as the fine stage's 25-token
+(``ops/cuda_encoder.py``, :func:`routes_to_k1`); everything else, such as the fine stage's 25-token
 windows and every layer in train mode, runs the eager layer, which autograd
 differentiates (K1 has no backward).
 """
@@ -115,6 +115,17 @@ class LoFTREncoderLayer(nn.Module):
         return x + message.to(x.dtype)
 
 
+def routes_to_k1(cfg: TransformerConfig, training: bool, len0: int, len1: int) -> bool:
+    """Whether a layer stack runs each layer as kernel K1: ``cfg.fused_encoder``
+    where set, else the JAX package's rule (linear attention out of training,
+    both streams of at least 256 tokens), at any width. On the card a width
+    that no K1 instance takes (``ops/cuda_encoder.py::k1_instance``) raises in
+    the wrapper rather than running the eager layer."""
+    if cfg.fused_encoder is not None:
+        return cfg.fused_encoder
+    return not training and cfg.attention == "linear" and min(len0, len1) >= 256
+
+
 class LocalFeatureTransformer(nn.Module):
     """Alternating self/cross attention over two feature streams."""
 
@@ -135,10 +146,7 @@ class LocalFeatureTransformer(nn.Module):
         mask1: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """feat0 [N, L, C] (3D descriptors), feat1 [N, S, C] (query grid)."""
-        fused = self.cfg.fused_encoder
-        if fused is None:
-            fused = (not self.training and self.cfg.attention == "linear"
-                     and min(feat0.shape[1], feat1.shape[1]) >= 256)
+        fused = routes_to_k1(self.cfg, self.training, feat0.shape[1], feat1.shape[1])
         for layer, name in zip(self.layers, self.cfg.layer_sequence):
             if name == "self":
                 feat0, feat1 = (

@@ -15,14 +15,20 @@ g = dL/dlogconf (zero where the cap is active),
 ``dL/ds = 2 g - softmax_p * colsum(g) - softmax_l * rowsum(g)``, rounded to
 bf16 before the two products with the features (f32 accumulation).
 
-What bounds it on the card: FP32 FMA throughput of seven similarity-sized
-passes (2*B*P*L*C FLOP each, ~59 GFLOP at the train shapes), then the
-exponentials. Every pass recomputes its similarity tiles (flash-attention
-style): df0 runs one block per row tile over the column tiles, df1 one block
-per column tile over the row tiles, so neither needs atomics or a
+What bounds it on the card: seven similarity-sized products on the tensor
+cores (2*B*P*L*C FLOP each, ~59 GFLOP at the train shapes), then ~14
+transcendentals per similarity element. Every pass runs on the tensor-core
+tile of ``csrc/sim_tile_tc.cuh`` over operands packed once per forward
+(``ops/cuda_matching.py::pack_operand``, two launches that also scale and
+round the features, the backward scaling their gradients), recomputing its
+similarity tiles (flash-attention style). The feature gradients form dsim in
+the first product's registers and feed it to a second ``wgmma`` as the A
+operand, against the streamed tile read transposed: df0 runs one block per
+row tile over the column tiles, df1 one block per column tile over the row
+tiles on the transposed tile, so neither needs atomics or a
 [B, row tiles, L, C] partial, and the result is the same bit for bit from run
 to run. Column sums of g are per-row-tile partials merged in order, as K2's
-column statistics.
+column statistics. C <= 256 (the second product's accumulators).
 
 The count normalisation and ``max_conf`` live in the wrapper, as in JAX.
 """
@@ -32,7 +38,8 @@ from typing import Tuple
 
 import torch
 
-from ..kernels import LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+from .cuda_matching import pack_operand
 
 LOGCAP = -1e-6  # log conf <= log(1 - ~1e-6): the negative term's log1p stays finite
 
@@ -70,8 +77,8 @@ def coarse_focal_sums_plain(
 def _check(f0, f1, gt):
     b, p, c = f0.shape
     l = f1.shape[1]
-    if f0.dtype != torch.bfloat16 or f1.dtype != torch.bfloat16:
-        raise ValueError("coarse focal loss kernel: operands must be bfloat16")
+    if f0.dtype not in KERNEL_DTYPES or f1.dtype not in KERNEL_DTYPES:
+        raise ValueError("coarse focal loss kernel: operands must be float32 or bfloat16")
     if f1.shape != (b, l, c) or gt.shape != (b, p) or gt.dtype != torch.int32:
         raise ValueError(f"coarse focal loss kernel: f0 {tuple(f0.shape)}, f1 {tuple(f1.shape)}, "
                          f"gt {tuple(gt.shape)} {gt.dtype}")
@@ -81,10 +88,11 @@ def _check(f0, f1, gt):
 
 
 class _CoarseFocalSums(torch.autograd.Function):
-    """K5's core on CUDA tensors: forward LSE + loss passes, backward gsum + df passes."""
+    """K5's core on CUDA tensors: forward pack (scale, bf16) + LSE + loss
+    passes, backward gsum + df passes."""
 
     @staticmethod
-    def forward(ctx, f0, f1, gt, inv_temp, alpha, gamma):
+    def forward(ctx, f0, f1, gt, inv_temp, alpha, gamma, scale):
         device, b, p, l, c = _check(f0, f1, gt)
         lib = build()
         f32 = torch.float32
@@ -93,22 +101,23 @@ class _CoarseFocalSums(torch.autograd.Function):
         part = torch.empty((b, lib.lib.opp_rowcol_row_tiles(p), l), dtype=f32, device=device)
         pos, neg, mx = (torch.empty((b, p), dtype=f32, device=device) for _ in range(3))
         stream = stream_ptr(device)
-        lib.call("opp_dual_lse_bf16", ptr(f0), ptr(f1), None, None, ptr(row_lse), ptr(col_lse),
+        f0p, f1p = pack_operand(f0, scale), pack_operand(f1, scale)
+        lib.call("opp_dual_lse_bf16", ptr(f0p), ptr(f1p), None, None, ptr(row_lse), ptr(col_lse),
                  ptr(part), b, p, l, c, inv_temp, stream)
-        lib.call("opp_coarse_loss_fwd", ptr(f0), ptr(f1), ptr(gt), ptr(row_lse), ptr(col_lse),
+        lib.call("opp_coarse_loss_fwd", ptr(f0p), ptr(f1p), ptr(gt), ptr(row_lse), ptr(col_lse),
                  ptr(pos), ptr(neg), ptr(mx), b, p, l, c, inv_temp, alpha, gamma, stream)
         LAUNCHES["K5_coarse_loss"] += 1
-        ctx.save_for_backward(f0, f1, gt, row_lse, col_lse)
-        ctx.consts = (inv_temp, alpha, gamma)
+        ctx.save_for_backward(f0p, f1p, gt, row_lse, col_lse)
+        ctx.consts = (inv_temp, alpha, gamma, b, p, l, c, scale, f0.dtype, f1.dtype)
         mx = mx.max()
         ctx.mark_non_differentiable(mx)
         return pos.sum(), neg.sum(), mx
 
     @staticmethod
     def backward(ctx, g_pos, g_neg, _g_mx):
-        f0, f1, gt, row_lse, col_lse = ctx.saved_tensors
-        inv_temp, alpha, gamma = ctx.consts
-        device, b, p, l, c = _check(f0, f1, gt)
+        f0, f1, gt, row_lse, col_lse = ctx.saved_tensors  # f0, f1 packed
+        inv_temp, alpha, gamma, b, p, l, c, scale, dt0, dt1 = ctx.consts
+        device = f0.device
         lib = build()
         f32 = torch.float32
         coef = torch.stack([g_pos, g_neg]).to(f32).contiguous()
@@ -119,19 +128,30 @@ class _CoarseFocalSums(torch.autograd.Function):
         df1 = torch.empty((b, l, c), dtype=f32, device=device)
         lib.call("opp_coarse_loss_bwd", ptr(f0), ptr(f1), ptr(gt), ptr(row_lse), ptr(col_lse),
                  ptr(coef), ptr(rowg), ptr(colg), ptr(colpart), ptr(df0), ptr(df1),
-                 b, p, l, c, inv_temp, alpha, gamma, stream_ptr(device))
+                 b, p, l, c, inv_temp, alpha, gamma, scale, stream_ptr(device))
         LAUNCHES["K5_coarse_loss_bwd"] += 1
-        return df0.to(f0.dtype), df1.to(f1.dtype), None, None, None, None
+        return df0.to(dt0), df1.to(dt1), None, None, None, None, None
 
 
 def coarse_focal_sums(
-    f0: torch.Tensor, f1: torch.Tensor, gt: torch.Tensor, inv_temp: float, alpha: float, gamma: float
+    f0: torch.Tensor,
+    f1: torch.Tensor,
+    gt: torch.Tensor,
+    inv_temp: float,
+    alpha: float,
+    gamma: float,
+    scale: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5's core: (alpha * pos sum, (1 - alpha) * neg sum, max conf), differentiable
-    in the bf16 operands f0 [B, P, C], f1 [B, L, C]. CPU tensors run the plain version."""
+    """K5's core: (alpha * pos sum, (1 - alpha) * neg sum, max conf) of the
+    operands ``(f0 * scale)`` and ``(f1 * scale)`` rounded to bf16,
+    differentiable in f0 [B, P, C] and f1 [B, L, C] (float32 or bfloat16). On
+    the card the scale and the rounding happen in the operand pack. CPU tensors
+    run the plain version."""
     if f0.device.type == "cpu":
+        f0, f1 = ((f * scale if scale != 1.0 else f).to(torch.bfloat16) for f in (f0, f1))
         return coarse_focal_sums_plain(f0, f1, gt, inv_temp, alpha, gamma)
-    return _CoarseFocalSums.apply(f0, f1, gt.to(torch.int32).contiguous(), inv_temp, alpha, gamma)
+    return _CoarseFocalSums.apply(f0.contiguous(), f1.contiguous(), gt.to(torch.int32).contiguous(),
+                                  inv_temp, alpha, gamma, scale)
 
 
 def fused_coarse_focal_loss(
@@ -161,9 +181,8 @@ def fused_coarse_focal_loss(
         scale = 1.0
     else:
         raise ValueError(f"unknown feat_norm {feat_norm}")
-    f0 = (feat0 * scale).to(torch.bfloat16).contiguous()
-    f1 = (feat1 * scale).to(torch.bfloat16).contiguous()
-    pos_sum, neg_sum, mx = coarse_focal_sums(f0, f1, gt_cell, 1.0 / (temperature + 1e-4), alpha, gamma)
+    pos_sum, neg_sum, mx = coarse_focal_sums(feat0, feat1, gt_cell, 1.0 / (temperature + 1e-4), alpha,
+                                             gamma, scale)
     n_pos = (gt_cell >= 0).sum()
     n_neg = b * p * l - n_pos
     loss = pos_weight * pos_sum / n_pos.clamp(min=1) + neg_weight * neg_sum / n_neg.clamp(min=1)

@@ -11,17 +11,26 @@ partials and summed by a second small launch (deterministic, no atomics), then
 one block per x tile runs the whole rest of the layer in shared memory.
 
 What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
-row), every product computed in the kernel's own body. Routing by operand
-type, both counted as ``K1_encoder_layer``:
+row), every product computed in the kernel's own body. Three instances, chosen
+by :func:`k1_instance` from the operand type and the width, all counted as
+``K1_encoder_layer``:
 
-- **bfloat16 operands** (the bench, inference and SfM configurations) run on
-  the tensor cores through ``wgmma``: 64-row tiles, activations as bf16 tiles
-  in shared memory, accumulators and every epilogue (elu+1, masks, division,
+- ``"tc"``: **bfloat16 operands at C = 256 with 8 heads** (both coarse
+  transformers of the bench, inference and SfM configurations) run on the
+  tensor cores through ``wgmma``: 64-row tiles, activations as bf16 tiles in
+  shared memory, accumulators and every epilogue (elu+1, masks, division,
   LayerNorms, ReLU) in registers, the weights streamed from L2 by bulk copies
-  into a ring of a few stages. This instance takes C = 256 with 8 heads (both
-  coarse transformers) and raises ``ValueError`` for any other width.
-- **float32 operands** (the demo, the f32 parity paths) keep exact f32 FMAs on
-  the CUDA cores (no TF32) for any C that is a multiple of 32 up to 256.
+  into a ring of a few stages.
+- ``"bf16"``: **bfloat16 operands at any other width** (C a multiple of 32 up
+  to 256) run the CUDA-core kernels with bf16 weights, each product operand
+  rounded to bf16 as it is staged.
+- ``"f32"``: **float32 operands** (the demo, the f32 parity paths) keep exact
+  f32 FMAs on the CUDA cores (no TF32), at the same widths.
+
+A width outside these (C not a multiple of 32, above 256, or not divisible by
+the heads) has no instance: the wrapper raises ``ValueError`` on the card,
+where the model's router (``models/transformer.py::routes_to_k1``) sends it
+all the same.
 
 The weights reach the kernels packed (:func:`pack_encoder_weights`): for bf16
 as byte images of the shared-memory chunks the tensor cores read, in the order
@@ -47,6 +56,17 @@ _EPS = 1e-6
 _LN_EPS = 1e-5
 _TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instance's only width
 _CHUNK_K = 64  # input columns of one packed weight chunk
+
+
+def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
+    """The K1 instance that runs a layer of width ``c`` with ``nhead`` heads on
+    ``dtype`` operands: ``"tc"`` (tensor cores), ``"bf16"`` (CUDA cores, bf16
+    operands), ``"f32"`` (CUDA cores, exact), or None where no instance takes it."""
+    if dtype not in KERNEL_DTYPES or nhead <= 0 or c % 32 != 0 or not 0 < c <= 256 or c % nhead != 0:
+        return None
+    if dtype == torch.float32:
+        return "f32"
+    return "tc" if (c, nhead) == (_TC_WIDTH, _TC_HEADS) else "bf16"
 
 
 def _elu_p1(x: torch.Tensor) -> torch.Tensor:
@@ -113,11 +133,12 @@ class PackedEncoderWeights:
     """One layer's weights as K1 reads them, for one operand type and device.
 
     ``width``: C. ``loose``: wq, wk, wv, wmerge, wmlp0, wmlp1 cast to ``dtype``
-    in the [in, out] layout (what the plain version and the f32 instance read;
-    views where no copy was needed), empty where the tensor-core instance reads
-    the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and bias
-    in f32. ``stats`` / ``apply``: the bf16 chunk images of the tensor-core
-    instance (CUDA, bfloat16 only, else None).
+    in the [in, out] layout (what the plain version and the CUDA-core instances
+    read; views where no copy was needed), empty where the tensor-core instance
+    reads the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and
+    bias in f32. ``stats`` / ``apply``: the bf16 chunk images of the
+    tensor-core instance (else None). ``instance``: :func:`k1_instance`'s
+    choice (None on the CPU, where the plain version runs).
     """
 
     dtype: torch.dtype
@@ -127,6 +148,7 @@ class PackedEncoderWeights:
     ln: Tuple[torch.Tensor, ...]
     stats: Optional[torch.Tensor] = None
     apply: Optional[torch.Tensor] = None
+    instance: Optional[str] = None
 
 
 def pack_weight_chunks(w_out_in: torch.Tensor) -> torch.Tensor:
@@ -173,20 +195,20 @@ def pack_encoder_weights(
     loose = tuple(w.to(dtype) for w in (wq, wk, wv, wmerge, wmlp0, wmlp1))
     if wq.device.type == "cpu":
         return PackedEncoderWeights(dtype, nhead, c, loose, ln)
-    if dtype == torch.float32:
-        return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln)
-    if c != _TC_WIDTH or nhead != _TC_HEADS:
-        raise ValueError(
-            f"fused_encoder_layer: the bfloat16 (tensor-core) instance takes C = {_TC_WIDTH} with "
-            f"{_TC_HEADS} heads, got C = {c}, nhead = {nhead}; float32 operands take any multiple "
-            f"of 32 up to 256")
+    instance = k1_instance(c, nhead, dtype)
+    if instance is None:
+        raise ValueError(f"fused_encoder_layer: no K1 instance takes C = {c} with {nhead} heads "
+                         f"(C must be a multiple of 32 up to 256, divisible by the heads)")
+    if instance != "tc":
+        return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln,
+                                    instance=instance)
     q, k, v, m, w0, w1 = (w.t() for w in loose)  # torch Linear layout [out, in]
     stats = torch.cat([pack_weight_chunks(k), pack_weight_chunks(v)])
     # in the kernel's order: Q, merge, the FFN's first product by output half
     # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
     apply = torch.cat([pack_weight_chunks(q), pack_weight_chunks(m), pack_weight_chunks(w0[:c]),
                        pack_weight_chunks(w0[c:]), pack_weight_chunks(w1)])
-    return PackedEncoderWeights(dtype, nhead, c, (), ln, stats, apply)
+    return PackedEncoderWeights(dtype, nhead, c, (), ln, stats, apply, instance)
 
 
 def fused_encoder_layer_packed(
@@ -213,7 +235,7 @@ def fused_encoder_layer_packed(
     s = source.shape[1]
     if source.shape != (n, s, c):
         raise ValueError(f"fused_encoder_layer: source {tuple(source.shape)} vs x {tuple(x.shape)}")
-    if c % 32 != 0 or c > 256 or c % nhead != 0:
+    if k1_instance(c, nhead, dtype) is None:
         raise ValueError(f"fused_encoder_layer: unsupported C={c}, nhead={nhead}")
     if packed.width != c:
         raise ValueError(f"fused_encoder_layer: weights packed for C={packed.width}, x has C={c}")
@@ -221,22 +243,23 @@ def fused_encoder_layer_packed(
         raise ValueError("fused_encoder_layer: x_mask must be [N, L]")
     if masks[1] is not None and masks[1].shape != (n, s):
         raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
-    if dtype == torch.bfloat16:  # its bulk copies read 16-byte aligned rows
+    instance = packed.instance
+    if instance == "tc":  # its bulk copies read 16-byte aligned rows
         x = x if x.data_ptr() % 16 == 0 else x.clone()
         source = source if source.data_ptr() % 16 == 0 else source.clone()
-    weights = packed.loose if dtype == torch.float32 else (packed.stats, packed.apply)
+    weights = (packed.stats, packed.apply) if instance == "tc" else packed.loose
     operands = [x, source, *weights, *ln] + [m for m in masks if m is not None]
     device = check_cuda_operands("fused_encoder_layer", *operands)
 
     lib = build()
     hd = c // nhead
     y = torch.empty((n, l, c), dtype=torch.float32, device=device)
-    if dtype == torch.float32:
+    if instance != "tc":
         n_tiles = lib.lib.opp_encoder_source_tiles(s)
         part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
         kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
         lib.call(
-            "opp_encoder_layer_f32",
+            f"opp_encoder_layer_{instance}",
             ptr(x), ptr(source), *(ptr(w) for w in weights),
             ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
             ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
@@ -282,8 +305,9 @@ def fused_encoder_layer(
     dtype when it is bfloat16, else float32) is the product operand type: the
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
-    kernel does). It also routes: bfloat16 to the tensor-core instance (C = 256,
-    8 heads, else ``ValueError``), float32 to the exact CUDA-core instance.
+    kernel does). It also routes (:func:`k1_instance`): bfloat16 at C = 256
+    with 8 heads to the tensor-core instance, bfloat16 at another width to the
+    CUDA-core bf16 instance, float32 to the exact CUDA-core instance.
     Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
     weights at every call; a caller that keeps its weights packs them once
     (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.

@@ -14,10 +14,24 @@ statistics inside the block that owns a row tile and writes per-row-tile
 column partials [B, n_row_tiles, L], merged by a second launch; the argmax
 pass does the same for the argmaxes, keeping the lowest index on ties.
 
-What bounds it on the card: FP32 FMA throughput of the two P*L*C similarity
-passes, then the exponentials of the LSE pass. The design register-blocks a
-64x64 tile (4x4 per thread) over 32-deep shared-memory slices and reduces the
-staged tile with 4 lanes per row or column; tensor cores are later work.
+What bounds it on the card: the two P*L*C similarity products on the tensor
+cores, then the 2 P L exponentials of the LSE pass on the special-function
+units. Two instances:
+
+- **bfloat16 operands** (the bench, inference and SfM configurations): the
+  tensor cores, through ``wgmma`` (``csrc/sim_tile_tc.cuh``). The wrapper
+  packs each operand once (:func:`pack_operand`, one launch each): scaled,
+  rounded to bf16, channels zero-padded to a multiple of 16 and rows to a
+  multiple of 64, in the unswizzled K-major core-matrix layout, so that a
+  64-row tile is one bulk copy. One warpgroup a block keeps its f0 tile in
+  shared memory, streams the f1 tiles through a two-stage ring, and reduces
+  the accumulator fragments in registers (rows across a quad, columns across
+  the warp's quads and then the four warps), with branch-free ``ex2.approx``
+  exponentials. C up to 576 (three tiles fill a block's shared memory);
+  wider bf16 operands take the f32 instance on their bf16 values.
+- **float32 operands** (the demo and the train config): exact f32 FMAs on the
+  CUDA cores (``csrc/sim_tile.cuh``: a 64x64 register-blocked tile over
+  32-deep shared-memory slices, staged for the reductions), no TF32.
 """
 from __future__ import annotations
 
@@ -30,13 +44,63 @@ from .matching import CoarseMatches, _border_keep, topk_stable
 from .take import take_scalars
 
 
-def _scaled(feat0, feat1, feat_norm, dtype):
+TC_MAX_CHANNELS = 576  # the tensor-core instance's widest operand (csrc/sim_tile_tc.cuh)
+PACK_ROWS = 64  # packed rows are a multiple of a block's rows (csrc/sim_tile_tc.cuh: TM)
+
+
+def _scale(feat: torch.Tensor, feat_norm: str) -> float:
     if feat_norm == "sqrt_feat_dim":
-        scale = 1.0 / (feat0.shape[-1] ** 0.5)
-        feat0, feat1 = feat0 * scale, feat1 * scale
-    elif feat_norm not in ("none", None):
+        return 1.0 / (feat.shape[-1] ** 0.5)
+    if feat_norm not in ("none", None):
         raise ValueError(f"unknown feat_norm {feat_norm}")
+    return 1.0
+
+
+def _scaled(feat0, feat1, feat_norm, dtype):
+    scale = _scale(feat0, feat_norm)
+    if scale != 1.0:
+        feat0, feat1 = feat0 * scale, feat1 * scale
     return feat0.to(dtype).contiguous(), feat1.to(dtype).contiguous()
+
+
+def packed_shape(b: int, rows: int, c: int) -> Tuple[int, int, int, int, int]:
+    """[B, rows_pad / 8, Cp / 8, 8, 8]: rows padded to a multiple of 64, C to 16."""
+    rows_pad = -(-rows // PACK_ROWS) * PACK_ROWS
+    cp = -(-c // 16) * 16
+    return (b, rows_pad // 8, cp // 8, 8, 8)
+
+
+def pack_operand_plain(feat: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the operand pack: ``(feat * scale).to(bfloat16)``
+    with zero rows and channels appended, as [B, rows_pad / 8, Cp / 8, 8, 8]
+    (:func:`packed_shape`), so that element (r, k) of a batch element lies at
+    byte ``(r // 8) * 16 Cp + (k // 8) * 128 + (r % 8) * 16 + (k % 8) * 2``, the
+    unswizzled K-major layout ``csrc/wgmma.cuh`` describes."""
+    b, rows, c = feat.shape
+    shape = packed_shape(b, rows, c)
+    x = (feat * scale if scale != 1.0 else feat).to(torch.bfloat16)
+    out = x.new_zeros(b, shape[1] * 8, shape[2] * 8)
+    out[:, :rows, :c] = x
+    return out.view(b, shape[1], 8, shape[2], 8).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def pack_operand(feat: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """The operand layout of the tensor-core instances of K2 and K5 (see
+    :func:`pack_operand_plain`); on a CUDA tensor one launch of the pack kernel
+    (float32 or bfloat16 input). CPU tensors run the plain version."""
+    if feat.device.type == "cpu":
+        return pack_operand_plain(feat, scale)
+    if feat.dtype not in KERNEL_DTYPES:
+        feat = feat.float()
+    feat = feat.contiguous()
+    b, rows, c = feat.shape
+    if c > TC_MAX_CHANNELS:
+        raise ValueError(f"pack_operand: C={c} > {TC_MAX_CHANNELS}")
+    device = check_cuda_operands("pack_operand", feat)
+    out = torch.empty(packed_shape(b, rows, c), dtype=torch.bfloat16, device=device)
+    build().call(f"opp_pack_operand_{KERNEL_DTYPES[feat.dtype]}", ptr(feat), ptr(out), b, rows, c,
+                 scale, stream_ptr(device))
+    return out
 
 
 def rowcol_stats_plain(
@@ -92,17 +156,22 @@ def dual_softmax_rowcol_stats(
     """
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"dual_softmax_rowcol_stats: unsupported operand dtype {dtype}")
-    f0, f1 = _scaled(feat0, feat1, feat_norm, dtype)
     inv_temp = 1.0 / (temperature + 1e-4)
     radd = None if row_add is None else row_add.float().contiguous()
     cadd = None if col_add is None else col_add.float().contiguous()
-    if f0.device.type == "cpu":
-        return rowcol_stats_plain(f0, f1, inv_temp, radd, cadd)
+    if feat0.device.type == "cpu":
+        return rowcol_stats_plain(*_scaled(feat0, feat1, feat_norm, dtype), inv_temp, radd, cadd)
 
-    b, p, c = f0.shape
-    l = f1.shape[1]
-    if f1.shape != (b, l, c):
-        raise ValueError(f"dual_softmax_rowcol_stats: feat1 {tuple(f1.shape)} vs feat0 {tuple(f0.shape)}")
+    b, p, c = feat0.shape
+    l = feat1.shape[1]
+    if feat1.shape != (b, l, c):
+        raise ValueError(f"dual_softmax_rowcol_stats: feat1 {tuple(feat1.shape)} vs feat0 {tuple(feat0.shape)}")
+    if dtype == torch.bfloat16 and c <= TC_MAX_CHANNELS:
+        scale = _scale(feat0, feat_norm)
+        f0, f1, entry = pack_operand(feat0, scale), pack_operand(feat1, scale), "opp_rowcol_stats_bf16"
+    else:  # f32, or bf16 values too wide for the tensor-core tile: exact f32 products of them
+        f0, f1 = (f.float().contiguous() for f in _scaled(feat0, feat1, feat_norm, dtype))
+        entry = "opp_rowcol_stats_f32"
     if radd is not None and radd.shape != (b, p):
         raise ValueError("dual_softmax_rowcol_stats: row_add must be [B, P]")
     if cadd is not None and cadd.shape != (b, l):
@@ -124,7 +193,7 @@ def dual_softmax_rowcol_stats(
     part_val = torch.empty((b, n_pt, l), dtype=f32, device=device)
     part_idx = torch.empty((b, n_pt, l), dtype=i32, device=device)
     lib.call(
-        f"opp_rowcol_stats_{KERNEL_DTYPES[dtype]}",
+        entry,
         ptr(f0), ptr(f1), ptr(radd), ptr(cadd),
         ptr(out["row_lse"]), ptr(out["col_lse"]), ptr(out["row_best_val"]),
         ptr(out["row_best_j"]), ptr(out["col_best_val"]), ptr(out["col_best_p"]),

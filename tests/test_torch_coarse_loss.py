@@ -71,3 +71,27 @@ def test_k5_plain_matches_jax(b, p, l, gamma, frac_pos):
     np.testing.assert_allclose(loss, ref_loss, rtol=2e-4)
     np.testing.assert_allclose(mx, ref_mx, rtol=2e-4)
     _assert_grads_close(g, ref_g)
+
+
+@pytest.mark.parametrize("scale", [32 ** -0.5, 1.0])
+def test_k5_core_scales_and_rounds_its_operands_on_the_cpu(scale):
+    """coarse_focal_sums(f0, f1, ..., scale) on f32 features is the plain
+    version of (f0 * scale) and (f1 * scale) rounded to bf16, with the
+    gradients carried back through the scale and the rounding."""
+    from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
+
+    feat0, feat1, gt = _inputs(2, 96, 64, 32, seed=5)
+    gt = torch.from_numpy(gt)
+    runs = []
+    for fused in (True, False):
+        f0 = torch.from_numpy(feat0).requires_grad_()
+        f1 = torch.from_numpy(feat1).requires_grad_()
+        if fused:
+            pos, neg, mx = coarse_focal_sums(f0, f1, gt, 12.5, 0.5, 2.0, scale)
+        else:
+            pos, neg, mx = coarse_focal_sums_plain((f0 * scale).to(torch.bfloat16),
+                                                   (f1 * scale).to(torch.bfloat16), gt, 12.5, 0.5, 2.0)
+        (0.7 * pos + 1.3 * neg).backward()
+        runs.append((pos.detach(), neg.detach(), mx, f0.grad, f1.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -98,9 +98,11 @@ def test_dense_select_matches_jax(thr):
     got = select_topk_matches(conf_t, (12, 12), thr, 2, 64)
     assert _match_sets(got) == _match_sets(ref)
     assert sum(len(s) for s in _match_sets(got)) > 20
+    # both select from the same confidence tensor: measured max |d| 0; the
+    # bound is the one two f32 frameworks' confidences are held to
     for g, r in zip(_mconf_by_pair(got), _mconf_by_pair(ref)):
         for pair in r:
-            np.testing.assert_allclose(g[pair], r[pair], atol=1e-6)
+            np.testing.assert_allclose(g[pair], r[pair], rtol=1e-5, atol=1e-6)
 
 
 def test_fused_select_matches_jax_with_one_sided_border():
@@ -119,9 +121,11 @@ def test_fused_select_matches_jax_with_one_sided_border():
         assert {(9, 143), (12, 140)} <= s  # cells (11, 11), (11, 8): bottom/right border kept
         # cells (0, 0), (0, 5), (1, 1), (5, 0): top/left border removed
         assert not any(row in (0, 3, 6, 15) for row, _ in s)
+    # confidences near 1 from two frameworks' f32 exp and LSE: measured max
+    # |d| 9.5e-7 (95 % of a bare atol=1e-6, 9 % of this bound)
     for g, r in zip(_mconf_by_pair(got), _mconf_by_pair(ref)):
         for pair in r:
-            np.testing.assert_allclose(g[pair], r[pair], atol=1e-6)
+            np.testing.assert_allclose(g[pair], r[pair], rtol=1e-5, atol=1e-6)
 
 
 def test_fused_and_dense_select_agree():

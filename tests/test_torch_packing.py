@@ -1,17 +1,24 @@
 """What surrounds the redesigned kernels K1 and K4 and runs without a GPU: K4's
 plain index preparation against a numpy stable sort (and a numpy rendering of
-the index kernel's counting rule against both), K1's weight packing, and the
-packed-weights cache of ``LoFTREncoderLayer``.
+the index kernel's counting rule against both), K1's weight packing, the
+packed-weights cache of ``LoFTREncoderLayer``, and which K1 instance (if any)
+the model routes a layer to.
 """
 import numpy as np
 import pytest
 import torch
 
-from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
+from onepose_plus_plus_tpu_torch.config import TransformerConfig
+from onepose_plus_plus_tpu_torch.models.transformer import (
+    LocalFeatureTransformer,
+    LoFTREncoderLayer,
+    routes_to_k1,
+)
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     PackedEncoderWeights,
     fused_encoder_layer,
     fused_encoder_layer_packed,
+    k1_instance,
     pack_encoder_weights,
     pack_weight_chunks,
 )
@@ -266,3 +273,34 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
     w[6] = w[6][:, :-1]
     with pytest.raises(ValueError):
         pack_encoder_weights(*w, nhead=8)
+
+
+# ---------------------------------------------------------------- K1 routing
+
+
+@pytest.mark.parametrize("c,nhead,dtype,expected", [
+    (256, 8, "bfloat16", "tc"),     # both coarse transformers of the bf16 configurations
+    (64, 8, "bfloat16", "bf16"),    # the narrow test configurations: CUDA cores, bf16 operands
+    (256, 4, "bfloat16", "bf16"),   # the tensor-core instance's width with other heads
+    (224, 8, "bfloat16", "bf16"),
+    (64, 8, "float32", "f32"),
+    (256, 8, "float32", "f32"),
+    (48, 8, "bfloat16", None),      # not a multiple of 32
+    (288, 8, "float32", None),      # above 256
+    (96, 5, "bfloat16", None),      # heads do not divide C
+])
+def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, expected):
+    """k1_instance names the instance; the model turns K1 on by the JAX rule
+    alone (inference, linear attention, both streams >= 256 tokens) at every
+    width, so that a width no instance takes reaches the wrapper, which raises
+    on the card, and never runs the eager layer there."""
+    assert k1_instance(c, nhead, {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]) == expected
+    cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype=dtype, layer_iter_n=1)
+    assert routes_to_k1(cfg, False, 300, 256)
+    assert not routes_to_k1(cfg, True, 300, 256) and not routes_to_k1(cfg, False, 300, 255)
+    seen = []
+    monkeypatch.setattr(LoFTREncoderLayer, "forward",
+                        lambda self, x, source, xm=None, sm=None, fused=False: seen.append(fused) or x)
+    model = LocalFeatureTransformer(cfg).eval()
+    model(torch.zeros(1, 300, c), torch.zeros(1, 256, c))
+    assert seen == [True] * 4  # one (self, cross) pair over two streams
