@@ -13,7 +13,12 @@ exits non-zero):
      timed with packed weights and split by launch, and a bf16 layer at
      C = 64 through K1's CUDA-core bf16 instance; K2's bf16 (tensor-core)
      instance split by launch, its two launches bitwise equal, faster than its
-     plain version
+     plain version; the f32 instances of K1 and K2 (split TF32 on the tensor
+     cores) at [16, ...], at batch 1 (a tracking frame's shapes) and K2 at the
+     train shape [4, ...], each with its f32 bound and 3xTF32 floor, split by
+     launch name. Every phase that runs K1 or K2 in f32 at C = 256 (3, 7c, 7d,
+     8b, 8d, 9e) checks by the profiler's kernel names that the split-TF32
+     instances ran and no CUDA-core f32 kernel of K1 or K2
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
      of 512^2, a 7000-point cloud, 512 match slots, thr 0; then K2's bf16
@@ -426,8 +431,8 @@ def phase2_k2(gen) -> dict:
         before = f" ({K2_PREVIOUS_MS} ms on the CUDA-core tile)" if dt == "bf16" else ""
         log(f"[2] K2 {dt}: kernel {ms:.3f} ms{before}, plain {pms:.3f} ms (median of 20); device time by "
             f"launch: {launch_names(rows)} ({busy / 5:.3f} ms a call, torch.profiler, 5 calls)")
-        if dt == "bf16":  # (the f32 wrapper scales its operands with a PyTorch launch first)
-            check(only_launches(rows, K2_TC_NAMES), f"K2 bf16 launches something besides {K2_TC_NAMES}")
+        names = K2_TC_NAMES if dt == "bf16" else K2_TF32_NAMES
+        check(only_launches(rows, names), f"K2 {dt} launches something besides {names}")
         rec[dt] = (ms, pms)
         del got, again, ref
     ms, pms = rec["bf16"]
@@ -443,6 +448,80 @@ def phase2_k2(gen) -> dict:
         f"{1e3 * n_exp / (16 * sm_count * 1.755e9):.4f} ms at 1.755 GHz; no single PyTorch call computes "
         f"the dual-softmax statistics")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
+
+
+TF32_OPS_PER_S = 495e12  # dense TF32 tensor cores (NVIDIA's data sheet, H100 SXM)
+K1_F32_PREVIOUS_MS = 7.763  # self [16, 7000, 256] on the CUDA cores (NVIDIA H100 80GB HBM3, 700.00 W)
+K2_F32_PREVIOUS = {16: 24.320, 1: 3.32, 4: 7.68}  # ms by batch, CUDA-core tile (same card and limit)
+
+
+def k1_work(n: int, l: int, s: int, c: int = 256, nhead: int = 8, w_bytes: int = 4):
+    """(bytes, operations) of one K1 layer: x [n, l, c] attends to source
+    [n, s, c]; 6 projections and the FFN (16 l c^2 + 4 s c^2), K'^T[V|1] and
+    the attention products (2 (l + s) c (hd + 1)); x and source in, y out, the
+    weights and LayerNorms once."""
+    hd = c // nhead
+    ops = n * (16 * l * c * c + 4 * s * c * c + 2 * (l + s) * c * (hd + 1))
+    return 4 * n * (2 * l + s) * c + 10 * c * c * w_bytes + 4 * c * 4, ops
+
+
+def phase2_f32(gen) -> None:
+    """K1's and K2's f32 instances (split TF32 on the tensor cores) at the
+    main shape [16, ...], at batch 1 (a tracking frame) and K2 at the train
+    shape [4, ...]: time, launches by name, f32 bound and 3xTF32 floor."""
+    # K1: the query step's four layer shapes; a tracking frame runs each three times
+    k1_total = {}
+    for n in (B, 1):
+        for tag, l, s_ in (("self-7000", 7000, None), ("self-4096", 4096, None),
+                           ("cross-7000", 7000, 4096), ("cross-4096", 4096, 7000)):
+            if n == B and tag != "self-7000":
+                continue
+            x, src, w = _encoder_inputs(gen, l, s_, n=n)
+            packed = pack_encoder_weights(**w, nhead=8, dtype=torch.float32)
+            check(packed.instance == "tf32x3", f"K1 f32 at C = 256 takes instance {packed.instance}")
+            ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed))
+            pms = time_ms(lambda: encoder_layer_plain(x, src, **w, nhead=8), reps=5)
+            rows, _, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed), reps=5)
+            n_bytes, ops = k1_work(n, l, src.shape[1])
+            fb = bound(n_bytes, ops, torch.float32)
+            floor = 1e3 * 3 * ops / TF32_OPS_PER_S
+            prev = f" ({K1_F32_PREVIOUS_MS} ms on the CUDA cores)" if n == B else ""
+            log(f"[2] K1 f32 {tag} x[{n}, {l}, 256]: kernel {ms:.3f} ms{prev}, plain {pms:.3f} ms; f32 bound "
+                f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}, 67 TFLOP/s), 3xTF32 floor {floor:.4f} ms "
+                f"(495 TFLOP/s); launches {launch_names(rows)} ({sum(r[0] / r[1] for r in rows):.3f} ms a "
+                f"call, the mean launch of each name)")
+            # the profiler can miss a call's first launches: every launch it saw is K1's, the apply kernel among them
+            names = {_short(r[2]) for r in rows}
+            check(names <= set(K1_TF32_NAMES) and "apply_tf32x3_kernel" in names,
+                  f"K1 f32 launches something besides {K1_TF32_NAMES}: {sorted(names)}")
+            k1_total[(n, tag)] = ms
+    frame = 3 * sum(v for (n, _), v in k1_total.items() if n == 1)
+    log(f"[2] K1 f32 for a tracking frame (3 x the four batch-1 shapes, 12 launches): {frame:.3f} ms")
+    # K2: the query step's selection at batch 16 and 1, training's at batch 4
+    for n in (B, 1, TRAIN_B):
+        f0 = torch.randn(n, 7000, 256, generator=gen, device="cuda")
+        f1 = torch.randn(n, 4096, 256, generator=gen, device="cuda")
+        got = dual_softmax_rowcol_stats(f0, f1, 0.08)
+        again = dual_softmax_rowcol_stats(f0, f1, 0.08)
+        ref = rowcol_stats_plain(f0 / 16.0, f1 / 16.0, 1.0 / (0.08 + 1e-4))
+        torch.cuda.synchronize()
+        lse = max((got[k] - ref[k]).abs().max().item() for k in ("row_lse", "col_lse", "row_best_val",
+                                                                 "col_best_val"))
+        agree = min((got[k] == ref[k]).float().mean().item() for k in ("row_best_j", "col_best_p"))
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        ms = time_ms(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08))
+        pms = time_ms(lambda: rowcol_stats_plain(f0 / 16.0, f1 / 16.0, 1.0 / (0.08 + 1e-4)), reps=5)
+        rows, busy, _ = device_rows(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08), reps=3)
+        ops = 2 * n * 7000 * 4096 * 256
+        fb = bound(n * (7000 + 4096) * 256 * 4 + n * (7000 + 4096) * 16, ops, torch.float32)
+        log(f"[2] K2 f32 [{n},7000]x[{n},4096]x256: kernel {ms:.3f} ms ({K2_F32_PREVIOUS[n]} ms on the CUDA "
+            f"cores), plain {pms:.3f} ms; f32 bound {fb['bound_ms']:.4f} ms (67 TFLOP/s, one product), "
+            f"3xTF32 floor {1e3 * 3 * ops / TF32_OPS_PER_S:.4f} ms (one product; the two passes take two); "
+            f"LSE max|d| {lse:.3e} (<= 1e-3), argmax agree {agree:.6f} (>= 0.999), two launches bitwise "
+            f"equal {same}; launches {launch_names(rows)} ({busy / 3:.3f} ms a call)")
+        check(lse <= 1e-3 and agree >= 0.999 and same, f"K2 f32 at batch {n} disagrees")
+        check(only_launches(rows, K2_TF32_NAMES), f"K2 f32 launches something besides {K2_TF32_NAMES}")
+        del f0, f1, got, again, ref
 
 
 def phase2_k3(gen) -> dict:
@@ -529,6 +608,11 @@ def phase3() -> None:
             torch.cuda.synchronize()
         outs[dev] = {k: v.cpu() for k, v in out.items() if torch.is_tensor(v)}
         log(f"[3] f32 forward on {dev}: {time.perf_counter() - t0:.2f} s (first call)")
+        if dev == "cuda":
+            gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                rows, _, _ = device_rows(lambda: model(gpu_batch))
+            check_f32_instances(rows, "3")
     g, c = outs["cuda"], outs["cpu"]
     for k in ("mkpts_query_f", "expec_f", "mconf", "mkpts_3d"):
         check(bool(torch.isfinite(g[k]).all()), f"non-finite {k} on the GPU")
@@ -641,18 +725,23 @@ def device_rows(fn, reps: int = 1):
     """(device-time rows (ms, count, kernel name), total device ms, wall ms of
     the profiled calls) of `reps` calls of fn under torch.profiler. The
     profiler can miss the first launch after it starts: where every launch of
-    a short call matters, profile a few calls and read the names."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    a short call matters, profile a few calls and read the names. Late in a
+    long run it has also returned sessions with no device event at all: such a
+    session is profiled again, up to three times."""
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and e.device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                       if e.device_type.name == "CUDA" and e.device_time_total > 0), reverse=True)
+        busy = sum(r[0] for r in rows)
+        if busy > 0:
+            break
     check(busy > 0, "the profiler saw no device time")
     return rows, busy, wall
 
@@ -679,12 +768,29 @@ def launch_names(rows) -> str:
 
 
 K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")  # bf16, tensor cores
-K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")  # f32, or bf16 at other widths
-K1_NAMES = K1_CC_NAMES + K1_TC_NAMES
-# K2's bf16 instance (tensor cores), its operand pack first; its f32 instance (CUDA cores)
+K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")  # f32, C = 256
+K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")  # other widths, CUDA cores
+K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES
+# K2's bf16 instance (tensor cores), its operand pack first; its f32 instance in
+# split TF32 (tensor cores), its pack first; its CUDA-core instance (wider f32)
 K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")
+K2_TF32_NAMES = ("pack_tf32_operand_kernel", "lse_tf32x3_kernel", "col_lse_reduce", "argmax_tf32x3_kernel",
+                 "col_argmax_reduce")
 K2_CC_NAMES = ("lse_kernel", "col_lse_reduce", "argmax_kernel", "col_argmax_reduce")
-K2_NAMES = K2_TC_NAMES + ("lse_kernel", "argmax_kernel")
+K2_NAMES = tuple(dict.fromkeys(K2_TC_NAMES + K2_TF32_NAMES + K2_CC_NAMES))
+# the CUDA-core f32 kernels of K1 and K2, which no f32 path at C = 256 may launch
+F32_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel", "lse_kernel", "argmax_kernel")
+
+
+def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True) -> None:
+    """A profiled f32 path at C = 256 ran the split-TF32 instances of K1 and K2
+    (where it runs them) and none of their CUDA-core f32 kernels."""
+    names = {_short(r[2]) for r in rows}
+    want = (set(K1_TF32_NAMES) if k1 else set()) | ({"lse_tf32x3_kernel", "argmax_tf32x3_kernel"} if k2 else set())
+    log(f"[{where}] f32 instances by name: {sorted(want & names)} ran; CUDA-core f32 kernels of K1/K2: "
+        f"{sorted(set(F32_CC_NAMES) & names) or 'none'}")
+    check(want <= names and not set(F32_CC_NAMES) & names,
+          f"[{where}] the f32 path did not run K1/K2's split-TF32 instances alone: {sorted(names)}")
 K3_NAMES = ("window_gather_kernel",)
 
 
@@ -909,6 +1015,10 @@ def phase7c() -> None:
         res[dev] = ({k: float(v.detach()) for k, v in sc.items()},
                     {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
                     out["match_mask"].cpu(), out["i_ids"].cpu(), out["j_ids"].cpu())
+        if dev == "cuda":  # the fused route's selection: K2's split-TF32 instance (no K1 in training)
+            with torch.no_grad():
+                prof_rows, _, _ = device_rows(lambda: model(b, gt_pad_rows=rows.to(dev)), reps=2)
+            check_f32_instances(prof_rows, "7c", k1=False)
     (sg, gg, mg, ig, jg), (sc_, gc, mc, ic, jc) = res["cuda"], res["cpu"]
     same_slots = torch.equal(mg, mc) and torch.equal(ig[mg], ic[mc]) and torch.equal(jg[mg], jc[mc])
     rel = {k: abs(sg[k] - sc_[k]) / max(abs(sc_[k]), 1e-12) for k in sc_}
@@ -977,12 +1087,12 @@ def phase7d(smi: str):
         f"{1e3 / step_ms:.2f} micro-batches/s, {TRAIN_B * 1e3 / step_ms:.2f} frames/s, peak memory "
         f"{peak:.2f} GiB, TF32 off, on {smi}")
     rows, busy, prof_wall = device_rows(lambda: train_step(model, opt, batch, gen, tc, sched))
-    # the f32 config's selection runs K2's CUDA-core instance; K5 packs its
+    # the f32 config's selection runs K2's split-TF32 instance; K5 packs its
     # operands and runs K2's tensor-core LSE pass (col_lse_reduce serves both:
     # counted under K2)
     pick = lambda pat: sum(r[0] for r in rows if re.search(pat, r[2]))  # noqa: E731
     split = {
-        "K2": group_ms(rows, K2_CC_NAMES),
+        "K2": group_ms(rows, K2_TF32_NAMES),
         "K3": group_ms(rows, K3_NAMES),
         "K4": group_ms(rows, K4_NAMES),
         "K5": group_ms(rows, tuple(n for n in K5_NAMES if n != "col_lse_reduce")),
@@ -994,6 +1104,9 @@ def phase7d(smi: str):
         + f", everything else {busy - sum(split.values()):.2f} ms")
     for ms, count, key in rows[:25]:
         log(f"[7d]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    k2_rows = [r for r in rows if _short(r[2]) in K2_TF32_NAMES]
+    log(f"[7d] K2's launches in the micro-batch: {launch_names(k2_rows)}")
+    check_f32_instances(rows, "7d", k1=False)
     return counts
 
 
@@ -1073,6 +1186,10 @@ def phase8b() -> None:
         out[dev] = [{key: v.cpu() if torch.is_tensor(v) else v for key, v in r.items()} for r in res]
         log(f"[8b] LoFTR f32 on {dev}: match_coarse + match + refine in {time.perf_counter() - t0:.2f} s "
             f"(first calls)")
+        if dev == "cuda":
+            with torch.inference_mode():
+                rows, _, _ = device_rows(lambda: model.match_coarse(t(img0), t(img1)), reps=2)
+            check_f32_instances(rows, "8b")
     (gc, gm, gr), (cc, cm, cr) = out["cuda"], out["cpu"]
     sg, sc = _pair_sets(gc, 0), _pair_sets(cc, 0)
     common = set(sg) & set(sc)
@@ -1253,6 +1370,11 @@ def phase8d() -> None:
         matcher = build_loftr_matcher(dict(cfg.model), device=dev)
         matcher.load_state_dict(random_state_dict(matcher, seed=666))
         res[dev] = sfm_stages(images, Ks, poses, corners, sc, matcher, dev)
+        if dev == "cuda":  # the coarse matching stage's call on one pair of these frames
+            im = lambda i: torch.from_numpy(images[i][None, ..., None]).to(dev)  # noqa: E731
+            with torch.inference_mode():
+                rows, _, _ = device_rows(lambda: matcher.match_coarse(im(0), im(1)), reps=2)
+            check_f32_instances(rows, "8d")
         log(f"[8d] f32 stages on {dev}: " + ", ".join(f"{k} {v:.2f} s" for k, v in res[dev]["walls"].items()))
     g, c = res["cuda"], res["cpu"]
     jacc = []
@@ -1585,6 +1707,9 @@ def phase9e(tmp: str, smi: str) -> None:
         f"everything else {busy - k1 - k2 - k3:.2f} ms")
     for ms, count, key in rows[:15]:
         log(f"[9e]   {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    k12 = [r for r in rows if _short(r[2]) in K1_NAMES + K2_NAMES]
+    log(f"[9e] K1's and K2's launches in the frame: {launch_names(k12)}")
+    check_f32_instances(rows, "9e")
 
 
 K4_NAMES = ("scatter_index_kernel", "window_scatter_kernel")
@@ -1602,6 +1727,7 @@ def main() -> int:
     gen.manual_seed(0)
     records = {"K1_encoder_layer": phase2_k1(gen), "K2_rowcol_stats": phase2_k2(gen),
                "K3_window_gather": phase2_k3(gen)}
+    phase2_f32(gen)
     torch.cuda.empty_cache()
     phase3()
     phase4()

@@ -22,7 +22,7 @@
 // Bound: operations (20 C^2 per x row, 4 C^2 per source row; x in and y out
 // are a third of that time in bytes at the tensor cores' rate).
 //
-// Two designs, three entries.
+// Three designs, four entries.
 //
 // bf16 operands (C = 256, 8 heads: both coarse transformers): the tensor
 // cores, by wgmma (wgmma.cuh). One warpgroup per block and 64 rows per tile.
@@ -53,21 +53,44 @@
 // not overlap (one block per SM, 224 KB of shared memory), and the partials
 // make a round trip through device memory.
 //
-// f32 operands (the demo, the f32 parity paths; any C that is a multiple of 32
-// up to 256): exact f32 FMAs on the CUDA cores, no TF32. One thread per
-// channel, operands staged in shared memory and read as float4 broadcasts so
-// one shared load feeds four FMAs. bf16 operands at any other width than the
-// tensor-core instance's (C = 256, 8 heads) run the same CUDA-core kernels with
-// bf16 weights, each product operand rounded to bf16 as it is staged.
+// f32 operands at C = 256 with 8 heads (the demo, the f32 parity paths):
+// the tensor cores in split TF32 (namespace tf): every projection and FFN
+// product as three m64n256k8 TF32 products of hi / lo halves (wgmma.cuh,
+// tf32_split; ~2^-22 relative, so the f32 tolerances hold). The tc design's
+// bf16 tiles become f32 tiles twice their size, and TF32 halves of a weight
+// chunk four times: so activations stay f32 in shared memory (row-major,
+// rows padded to 260 floats, which the A fragments read without bank
+// conflicts) and are split into hi / lo A fragments in registers one chunk
+// ahead of the products; the weights are packed once into 16 KB chunks
+// [256 out, 8 in] holding their hi and lo images, streamed through a
+// five-stage ring. Two activation tiles and the ring fill 215 KB, so the FFN
+// hidden's first half waits in device memory (64 KB a tile) while the second
+// is computed, and x is fetched again where it is read again. The per-head
+// K'^T[V|1] and Q'_h [KV_h | sum K'_h] products (1.6 % of the layer's
+// operations) run in f32 FMAs on the CUDA cores: their TF32 halves would need
+// another 128 KB of B images. Bound: 3 x 20 C^2 operations an x row at the
+// TF32 rate, and the L2 traffic of the halves (5.2 MB a 64-row apply tile).
+//
+// f32 operands at other widths, any C that is a multiple of 32 up to 512
+// whose [C, hd + 1] table fits a block: exact f32 FMAs on the CUDA cores. One
+// thread per channel, operands staged in shared memory and read as float4
+// broadcasts so one shared load feeds four FMAs; an apply block takes 16 rows,
+// or fewer where the table leaves less room (8 at C = 384 and 512 with 8
+// heads). bf16 operands at any other width than the tensor-core instance's
+// (C = 256, 8 heads) run the same CUDA-core kernels with bf16 weights, each
+// product operand rounded to bf16 as it is staged.
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int TS = 32;  // source rows per stats block
-constexpr int TL = 16;  // x rows per apply block
+constexpr int MAX_CC_C = 512;  // the CUDA-core instances' widest layer (one thread per channel)
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block can have
 constexpr float EPS = 1e-6f;
 constexpr float LN_EPS = 1e-5f;
+using opp::MAX_DEVICES;
+using opp::raise_smem_limit;
 
 // acc[r] = sum_k in[r, k] * W[k, col] for the R rows staged in `in` (row
 // stride `ld`, K columns), W row-major [K, ldw].
@@ -81,7 +104,7 @@ __device__ __forceinline__ void matvec_rows(const float* __restrict__ in, int ld
 }
 
 template <typename T>
-__global__ void kv_partial_kernel(const float* __restrict__ src, const T* __restrict__ wk,
+__global__ void __launch_bounds__(MAX_CC_C) kv_partial_kernel(const float* __restrict__ src, const T* __restrict__ wk,
                                   const T* __restrict__ wv, const float* __restrict__ smask,
                                   float* __restrict__ part, int S, int C, int hd) {
   extern __shared__ __align__(16) float smem[];
@@ -124,8 +147,8 @@ __global__ void kv_partial_kernel(const float* __restrict__ src, const T* __rest
 }
 
 // kv[b, c, e] = sum over tiles of part[b, tile, e, c] (tiles in order).
-__global__ void kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
-                                 int n_tiles, int C, int hd) {
+__device__ __forceinline__ void kv_reduce(const float* __restrict__ part, float* __restrict__ kv,
+                                          int n_tiles, int C, int hd) {
   const int n_el = (hd + 1) * C;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y;
@@ -136,9 +159,13 @@ __global__ void kv_reduce_kernel(const float* __restrict__ part, float* __restri
   const int e = i / C, c = i % C;
   kv[(size_t)b * n_el + (size_t)c * (hd + 1) + e] = a;
 }
+__global__ void kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
+                                 int n_tiles, int C, int hd) {
+  kv_reduce(part, kv, n_tiles, C, hd);
+}
 
-template <typename T>
-__global__ void apply_kernel(const float* __restrict__ x, const float* __restrict__ kv,
+template <typename T, int TL>
+__global__ void __launch_bounds__(MAX_CC_C) apply_kernel(const float* __restrict__ x, const float* __restrict__ kv,
                              const T* __restrict__ wq, const T* __restrict__ wm,
                              const T* __restrict__ w0, const T* __restrict__ w1,
                              const float* __restrict__ ln1s, const float* __restrict__ ln1b,
@@ -219,8 +246,33 @@ __global__ void apply_kernel(const float* __restrict__ x, const float* __restric
   for (int r = 0; r < rows; ++r) yb[(size_t)r * C + c] = xb[(size_t)r * C + c] + ms[r * C + c];
 }
 
-using opp::MAX_DEVICES;
-using opp::raise_smem_limit;
+// Dynamic shared memory of the CUDA-core kernels: the stats block's three
+// [TS, C] tiles, and the apply block's five [TL, C] rows beside the [C, hd + 1]
+// K'^T[V|1] table (which grows as C^2 / nhead).
+size_t stats_smem(int C) { return (size_t)3 * TS * C * sizeof(float); }
+size_t apply_smem(int C, int hd, int tl) {
+  return ((size_t)tl * 5 * C + (size_t)C * (hd + 1)) * sizeof(float);
+}
+// The apply block's rows: the most of 16, 8, 4, 2, 1 whose shared memory fits
+// (16 up to C = 256 with 8 heads, 8 at C = 384 and 512); 0 if none does.
+int apply_rows(int C, int hd) {
+  for (int tl = 16; tl >= 1; tl /= 2)
+    if (apply_smem(C, hd, tl) <= SMEM_LIMIT) return tl;
+  return 0;
+}
+
+template <typename T, int TL>
+void launch_apply(const float* x, const float* kv, const void* wq, const void* wm, const void* w0,
+                  const void* w1, const float* ln1s, const float* ln1b, const float* ln2s,
+                  const float* ln2b, const float* qmask, float* y, int B, int L, int C, int hd,
+                  cudaStream_t stream) {
+  static int have[MAX_DEVICES];
+  const size_t smem = apply_smem(C, hd, TL);
+  raise_smem_limit(apply_kernel<T, TL>, smem, have);
+  apply_kernel<T, TL><<<dim3((L + TL - 1) / TL, B), C, smem, stream>>>(
+      x, kv, static_cast<const T*>(wq), static_cast<const T*>(wm), static_cast<const T*>(w0),
+      static_cast<const T*>(w1), ln1s, ln1b, ln2s, ln2b, qmask, y, L, C, hd);
+}
 
 template <typename T>
 int launch_encoder_layer(const float* x, const float* src, const void* wq, const void* wk,
@@ -229,24 +281,25 @@ int launch_encoder_layer(const float* x, const float* src, const void* wq, const
                          const float* ln2b, const float* qmask, const float* smask, float* part,
                          float* kv, float* y, int B, int L, int S, int C, int nhead,
                          cudaStream_t stream) {
-  if (C % 32 != 0 || C > 256 || nhead <= 0 || C % nhead != 0 || B <= 0 || L <= 0 || S <= 0)
+  if (C % 32 != 0 || C > MAX_CC_C || nhead <= 0 || C % nhead != 0 || B <= 0 || L <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
-  const int hd = C / nhead;
+  const int hd = C / nhead, tl = apply_rows(C, hd);
+  if (tl == 0 || stats_smem(C) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   const int n_s = (S + TS - 1) / TS;
-  const size_t smem_a = (size_t)3 * TS * C * sizeof(float);
-  const size_t smem_b = ((size_t)TL * 5 * C + (size_t)C * (hd + 1)) * sizeof(float);
-  static int have_a[MAX_DEVICES], have_b[MAX_DEVICES];
-  raise_smem_limit(kv_partial_kernel<T>, smem_a, have_a);
-  raise_smem_limit(apply_kernel<T>, smem_b, have_b);
-  kv_partial_kernel<T><<<dim3(n_s, B), C, smem_a, stream>>>(
+  static int have_a[MAX_DEVICES];
+  raise_smem_limit(kv_partial_kernel<T>, stats_smem(C), have_a);
+  kv_partial_kernel<T><<<dim3(n_s, B), C, stats_smem(C), stream>>>(
       src, static_cast<const T*>(wk), static_cast<const T*>(wv), smask,
       part, S, C, hd);
   const int n_el = (hd + 1) * C;
   kv_reduce_kernel<<<dim3((n_el + 255) / 256, B), 256, 0, stream>>>(part, kv, n_s, C, hd);
-  apply_kernel<T><<<dim3((L + TL - 1) / TL, B), C, smem_b, stream>>>(
-      x, kv, static_cast<const T*>(wq), static_cast<const T*>(wm),
-      static_cast<const T*>(w0), static_cast<const T*>(w1), ln1s, ln1b, ln2s, ln2b, qmask, y, L,
-      C, hd);
+  switch (tl) {
+    case 16: launch_apply<T, 16>(x, kv, wq, wm, w0, w1, ln1s, ln1b, ln2s, ln2b, qmask, y, B, L, C, hd, stream); break;
+    case 8: launch_apply<T, 8>(x, kv, wq, wm, w0, w1, ln1s, ln1b, ln2s, ln2b, qmask, y, B, L, C, hd, stream); break;
+    case 4: launch_apply<T, 4>(x, kv, wq, wm, w0, w1, ln1s, ln1b, ln2s, ln2b, qmask, y, B, L, C, hd, stream); break;
+    case 2: launch_apply<T, 2>(x, kv, wq, wm, w0, w1, ln1s, ln1b, ln2s, ln2b, qmask, y, B, L, C, hd, stream); break;
+    default: launch_apply<T, 1>(x, kv, wq, wm, w0, w1, ln1s, ln1b, ln2s, ln2b, qmask, y, B, L, C, hd, stream);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -297,7 +350,7 @@ __device__ __forceinline__ float elu_p1_fast(float x) {
 }
 
 // The ring of weight chunks: chunk c lands in stage c % NST; thread 0 starts the copies.
-template <int NST>
+template <int NST, uint32_t CHUNK = CHUNK_BYTES>
 struct Ring {
   uint32_t buf;              // shared address of stage 0
   unsigned char* buf_ptr;
@@ -308,9 +361,8 @@ struct Ring {
 
   __device__ __forceinline__ void fetch(int c) const {
     const int st = c % NST;
-    wg::mbar_expect_tx(full + st, CHUNK_BYTES);
-    wg::bulk_load(buf_ptr + (size_t)st * CHUNK_BYTES, src + (size_t)c * CHUNK_BYTES, CHUNK_BYTES,
-                  full + st);
+    wg::mbar_expect_tx(full + st, CHUNK);
+    wg::bulk_load(buf_ptr + (size_t)st * CHUNK, src + (size_t)c * CHUNK, CHUNK, full + st);
   }
   // thread 0, before the block's first barrier: arm the barriers
   __device__ __forceinline__ void init() const {
@@ -770,10 +822,382 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
 
 }  // namespace tc
 
+// ------------------------------------------------------- f32, split TF32 wgmma
+
+namespace tf {
+
+namespace wg = opp::wg;
+using tc::C;
+using tc::elu_p1_fast;
+using tc::HD;
+using tc::layernorm_frag;
+using tc::Ring;
+using tc::TM;
+
+constexpr int LD = C + 4;                        // row stride of an activation tile (floats)
+constexpr uint32_t BUF_BYTES = TM * LD * 4;      // 66560: a [64, 256] f32 tile, rows padded
+constexpr uint32_t W_LBO = 128, W_SBO = 256;     // weight chunk image [256 out, 8 in] f32
+constexpr uint32_t CHUNK_BYTES = 2 * C * 8 * 4;  // 16384: the hi image, then the lo image
+constexpr int NST = 5;                           // ring stages beside two activation tiles
+constexpr int STATS_CHUNKS = 64, APPLY_CHUNKS = 256;
+constexpr int N_PART = (HD + 1) * C;
+constexpr uint32_t KV_BYTES = C * (HD + 1) * 4;  // 33792: the f32 [C, hd + 1] K'^T[V|1] table
+constexpr size_t SMEM = 2 * BUF_BYTES + NST * CHUNK_BYTES + 64;
+static_assert(KV_BYTES <= BUF_BYTES, "the K'^T[V|1] table takes an activation tile's place");
+
+using WRing = Ring<NST, CHUNK_BYTES>;
+
+// acc (+)= A[64, K] W^T over the ring's next K / 8 chunks, in split TF32: A is
+// the f32 tile `a` (row stride LD; a warp reads 32 distinct banks), split into
+// hi / lo fragments in registers one chunk ahead; each chunk is three
+// m64n256k8 products (lo hi, hi lo, hi hi). A chunk's products stay in flight
+// while the next chunk's fragments are split; its stage is refilled once it
+// is done (wait<1>) and every warp has seen that. Ends with a block barrier
+// after the last read of `a`: the tile may then be overwritten.
+__device__ __forceinline__ void gemm(float (&acc)[128], const float* a, int K, WRing& ring,
+                                     bool accumulate) {
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const float* a0 = a + (16 * w + g) * LD + t;
+  const float* a1 = a0 + 8 * LD;
+  const int n = K / 8, first = ring.use;
+  uint32_t ah[2][4], al[2][4];
+  const auto split = [&](int kc, uint32_t(&h)[4], uint32_t(&l)[4]) {
+    const int k = 8 * kc;
+    wg::tf32_split(a0[k], h[0], l[0]);
+    wg::tf32_split(a1[k], h[1], l[1]);
+    wg::tf32_split(a0[k + 4], h[2], l[2]);
+    wg::tf32_split(a1[k + 4], h[3], l[3]);
+  };
+  const auto issue = [&](int kc, const uint32_t(&h)[4], const uint32_t(&l)[4]) {
+    const int c = first + kc, st = c % NST;
+    wg::mbar_wait(ring.full + st, (c / NST) & 1);
+    const uint32_t bh = ring.buf + st * CHUNK_BYTES, bl = bh + CHUNK_BYTES / 2;
+    const uint64_t dh = wg::desc(bh, W_LBO, W_SBO), dl = wg::desc(bl, W_LBO, W_SBO);
+    wg::fence();
+    wg::mma_rs_tf32_n256(acc, l, dh, (accumulate || kc > 0) ? 1 : 0);
+    wg::mma_rs_tf32_n256(acc, h, dl, 1);
+    wg::mma_rs_tf32_n256(acc, h, dh, 1);
+    wg::commit();
+  };
+  const auto refill = [&](int kc) {
+    __syncthreads();
+    if (tid == 0 && first + kc + NST < ring.n_chunks) ring.fetch(first + kc + NST);
+  };
+  split(0, ah[0], al[0]);
+#pragma unroll 1
+  for (int kc = 0; kc < n; kc += 2) {  // n is even: two register sets, alternating
+    issue(kc, ah[0], al[0]);
+    if (kc > 0) {
+      wg::wait<1>();
+      refill(kc - 1);
+    }
+    split(kc + 1, ah[1], al[1]);
+    issue(kc + 1, ah[1], al[1]);
+    wg::wait<1>();
+    refill(kc);
+    if (kc + 2 < n) split(kc + 2, ah[0], al[0]);
+  }
+  wg::wait<0>();
+  refill(n - 1);
+  wg::fence_regs(acc);
+  ring.use = first + n;
+}
+
+// Rows [row0, row0 + 64) of src [n_rows, 256] f32 into a padded tile, one
+// bulk copy a row (one thread calls this); `bar` completes when they are in.
+// zero_rows clears the rows past n_rows.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int row0, int n_rows,
+                                           float* tile, uint64_t* bar) {
+  const int rows = min(TM, n_rows - row0);
+  wg::mbar_expect_tx(bar, rows * C * 4);
+  for (int r = 0; r < rows; ++r)
+    wg::bulk_load(tile + r * LD, src + (size_t)(row0 + r) * C, C * 4, bar);
+}
+__device__ __forceinline__ void zero_rows(float* tile, int n_valid) {
+  for (int i = threadIdx.x + n_valid * C; i < TM * C; i += blockDim.x)
+    tile[(i / C) * LD + i % C] = 0.f;
+}
+
+// Accumulator fragments [64, 256] into a padded f32 tile as value(v, half)
+// (half 0: row 16 w + g, half 1: that row + 8).
+template <typename F>
+__device__ __forceinline__ void store_tile(const float (&acc)[128], float* tile, F value) {
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  float* p0 = tile + (16 * w + g) * LD + 2 * t;
+  float* p1 = p0 + 8 * LD;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    *reinterpret_cast<float2*>(p0 + 8 * j) =
+        make_float2(value(acc[4 * j], 0), value(acc[4 * j + 1], 0));
+    *reinterpret_cast<float2*>(p1 + 8 * j) =
+        make_float2(value(acc[4 * j + 2], 1), value(acc[4 * j + 3], 1));
+  }
+}
+
+// One block per (64-row source tile, batch element): K' = (elu(src Wk) + 1) *
+// mask and V = src Wv in split TF32, then this tile's [hd + 1, C] partial of
+// K'^T V (rows 0..hd-1) and sum K' (row hd) in f32 FMAs on the CUDA cores.
+__global__ void __launch_bounds__(128, 1)
+kv_partial_tf32x3_kernel(const float* __restrict__ src, const unsigned char* __restrict__ wkv,
+                         const float* __restrict__ smask, float* __restrict__ part, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* buf0 = reinterpret_cast<float*>(smem);              // source tile, then V
+  float* buf1 = reinterpret_cast<float*>(smem + BUF_BYTES);  // K'
+  unsigned char* ringb = smem + 2 * BUF_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ringb + NST * CHUNK_BYTES);
+  uint64_t* srcbar = bars + NST;
+  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int w = tid >> 5, g = (tid >> 2) & 7;
+  const int s0 = tile * TM, r0 = 16 * w + g, r1 = r0 + 8;
+
+  WRing ring{wg::smem_u32(ringb), ringb, bars, wkv, STATS_CHUNKS, 0};
+  if (tid == 0) {
+    ring.init();
+    wg::mbar_init(srcbar, 1);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    stage_rows(src + (size_t)b * S * C, s0, S, buf0, srcbar);
+    for (int c = 0; c < NST; ++c) ring.fetch(c);
+  }
+  zero_rows(buf0, min(TM, S - s0));
+  wg::mbar_wait(srcbar, 0);
+  __syncthreads();
+
+  float acc[128];
+  gemm(acc, buf0, C, ring, false);
+  {
+    float m[2] = {s0 + r0 < S ? 1.f : 0.f, s0 + r1 < S ? 1.f : 0.f};
+    if (smask != nullptr) {
+      if (s0 + r0 < S) m[0] = smask[(size_t)b * S + s0 + r0];
+      if (s0 + r1 < S) m[1] = smask[(size_t)b * S + s0 + r1];
+    }
+    store_tile(acc, buf1, [&](float v, int half) { return elu_p1_fast(v) * m[half]; });
+  }
+  gemm(acc, buf0, C, ring, false);  // ends with a barrier: the source tile is read
+  store_tile(acc, buf0, [](float v, int) { return v; });
+  __syncthreads();
+
+  // thread: channels d = tid, tid + 128 of K' against its head's 32 value
+  // columns of V (a warp's lanes share the head: V is read as broadcasts)
+  float* out = part + ((size_t)b * gridDim.x + tile) * N_PART;
+#pragma unroll 1
+  for (int d = tid; d < C; d += 128) {
+    const int h0 = (d / HD) * HD;
+    float kv[HD], ks = 0.f;
+#pragma unroll
+    for (int e = 0; e < HD; ++e) kv[e] = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < TM; ++r) {
+      const float k = buf1[r * LD + d];
+      const float4* v = reinterpret_cast<const float4*>(buf0 + r * LD + h0);
+      ks += k;
+#pragma unroll
+      for (int e4 = 0; e4 < HD / 4; ++e4) {
+        const float4 vv = v[e4];
+        kv[4 * e4] = fmaf(k, vv.x, kv[4 * e4]);
+        kv[4 * e4 + 1] = fmaf(k, vv.y, kv[4 * e4 + 1]);
+        kv[4 * e4 + 2] = fmaf(k, vv.z, kv[4 * e4 + 2]);
+        kv[4 * e4 + 3] = fmaf(k, vv.w, kv[4 * e4 + 3]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < HD; ++e) out[(size_t)e * C + d] = kv[e];
+    out[(size_t)HD * C + d] = ks;
+  }
+}
+
+// kv[b, c, e] = sum over tiles of part[b, tile, e, c] (tiles in order).
+__global__ void kv_reduce_tf32x3_kernel(const float* __restrict__ part, float* __restrict__ kv,
+                                        int n_tiles) {
+  kv_reduce(part, kv, n_tiles, C, HD);
+}
+
+// One block per (64-row x tile, batch element): the rest of the layer. Two
+// f32 tiles fit beside the weight ring, not three: the first half of the FFN
+// hidden goes to `hid` (device memory, [B, tiles, 64, 256]) while the second
+// half is computed, and x is fetched again where it is read again.
+__global__ void __launch_bounds__(128, 1)
+apply_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ kv,
+                    const unsigned char* __restrict__ wpack, const float* __restrict__ ln1s,
+                    const float* __restrict__ ln1b, const float* __restrict__ ln2s,
+                    const float* __restrict__ ln2b, const float* __restrict__ qmask,
+                    float* __restrict__ hid, float* __restrict__ y, int L) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* buf0 = reinterpret_cast<float*>(smem);              // x; K'^T[V|1]; x; hidden 256..511
+  float* buf1 = reinterpret_cast<float*>(smem + BUF_BYTES);  // Q'; msg; LN1 out; hidden 0..255; x
+  unsigned char* ringb = smem + 2 * BUF_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ringb + NST * CHUNK_BYTES);
+  uint64_t* kvbar = bars + NST;
+  uint64_t* xbar = kvbar + 1;
+  const int tile = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  const int l0 = tile * TM, r0 = 16 * w + g, r1 = r0 + 8;
+  const int rows = min(TM, L - l0);
+  const float* xb = x + (size_t)b * L * C;
+  float* hidt = hid + ((size_t)b * gridDim.x + tile) * TM * C;
+
+  WRing ring{wg::smem_u32(ringb), ringb, bars, wpack, APPLY_CHUNKS, 0};
+  if (tid == 0) {
+    ring.init();
+    wg::mbar_init(kvbar, 1);
+    wg::mbar_init(xbar, 1);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    stage_rows(xb, l0, L, buf0, xbar);
+    for (int c = 0; c < NST; ++c) ring.fetch(c);
+  }
+  zero_rows(buf0, rows);
+  wg::mbar_wait(xbar, 0);
+  __syncthreads();
+
+  float acc[128];
+  // Q' = (elu(x Wq) + 1) * mask
+  gemm(acc, buf0, C, ring, false);
+  {
+    float m[2] = {1.f, 1.f};
+    if (qmask != nullptr) {
+      m[0] = l0 + r0 < L ? qmask[(size_t)b * L + l0 + r0] : 0.f;
+      m[1] = l0 + r1 < L ? qmask[(size_t)b * L + l0 + r1] : 0.f;
+    }
+    store_tile(acc, buf1, [&](float v, int half) { return elu_p1_fast(v) * m[half]; });
+  }
+  // the x tile is read: the f32 K'^T[V|1] table takes its place
+  wg::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    wg::mbar_expect_tx(kvbar, KV_BYTES);
+    wg::bulk_load(buf0, kv + (size_t)b * C * (HD + 1), KV_BYTES, kvbar);
+  }
+  wg::mbar_wait(kvbar, 0);
+
+  // msg_h = Q'_h KV_h / (Q'_h sum K'_h + 1e-6) in f32 FMAs on the CUDA cores;
+  // thread: channels c = tid, tid + 128 (head c / 32, value column c % 32), 16
+  // rows at a time into registers, then written over those rows' Q'
+#pragma unroll 1
+  for (int rb = 0; rb < TM; rb += 16) {
+    float msg[2][16];
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci) {
+      const int c = tid + 128 * ci, h0 = (c / HD) * HD, e = c % HD;
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        const float4* q = reinterpret_cast<const float4*>(buf1 + (rb + rr) * LD + h0);
+        float num = 0.f, den = 0.f;
+#pragma unroll
+        for (int d4 = 0; d4 < HD / 4; ++d4) {
+          const float4 qq = q[d4];
+          const float* kr = buf0 + (h0 + 4 * d4) * (HD + 1);
+          num = fmaf(qq.x, kr[e], num);
+          den = fmaf(qq.x, kr[HD], den);
+          num = fmaf(qq.y, kr[(HD + 1) + e], num);
+          den = fmaf(qq.y, kr[(HD + 1) + HD], den);
+          num = fmaf(qq.z, kr[2 * (HD + 1) + e], num);
+          den = fmaf(qq.z, kr[2 * (HD + 1) + HD], den);
+          num = fmaf(qq.w, kr[3 * (HD + 1) + e], num);
+          den = fmaf(qq.w, kr[3 * (HD + 1) + HD], den);
+        }
+        msg[ci][rr] = __fdividef(num, den + EPS);  // den + 1e-6 >= 1e-6: in the fast path's range
+      }
+    }
+    __syncthreads();  // every thread has read these rows' Q'
+#pragma unroll
+    for (int ci = 0; ci < 2; ++ci)
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) buf1[(rb + rr) * LD + tid + 128 * ci] = msg[ci][rr];
+  }
+  // the table is read: the f32 x rows come again for the FFN
+  wg::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) stage_rows(xb, l0, L, buf0, xbar);
+  zero_rows(buf0, rows);
+
+  // merge + LayerNorm 1, over msg in place
+  gemm(acc, buf1, C, ring, false);
+  layernorm_frag(acc, ln1s, ln1b, t);
+  store_tile(acc, buf1, [](float v, int) { return v; });
+  wg::mbar_wait(xbar, 1);
+  __syncthreads();
+
+  // FFN hidden = relu(concat(x, h1) W0), 256 columns at a time: the first half
+  // to device memory, the second over the x tile once both inputs are read
+  gemm(acc, buf0, C, ring, false);
+  gemm(acc, buf1, C, ring, true);
+  {
+    float* h0p = hidt + r0 * C + 2 * t;
+    float* h1p = h0p + 8 * C;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      *reinterpret_cast<float2*>(h0p + 8 * j) =
+          make_float2(fmaxf(acc[4 * j], 0.f), fmaxf(acc[4 * j + 1], 0.f));
+      *reinterpret_cast<float2*>(h1p + 8 * j) =
+          make_float2(fmaxf(acc[4 * j + 2], 0.f), fmaxf(acc[4 * j + 3], 0.f));
+    }
+  }
+  gemm(acc, buf0, C, ring, false);
+  gemm(acc, buf1, C, ring, true);
+  store_tile(acc, buf0, [](float v, int) { return fmaxf(v, 0.f); });
+  __syncthreads();  // the block's stores of the first half are visible to the block
+  for (int i = tid; i < TM * C / 4; i += 128)
+    reinterpret_cast<float4*>(buf1 + (i / (C / 4)) * LD)[i % (C / 4)] =
+        __ldcg(reinterpret_cast<const float4*>(hidt) + i);
+  __syncthreads();
+
+  // FFN out + LayerNorm 2 + residual on the f32 x, which comes again into
+  // buf1 once the first half of the hidden is read
+  gemm(acc, buf1, C, ring, false);
+  wg::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) stage_rows(xb, l0, L, buf1, xbar);
+  gemm(acc, buf0, C, ring, true);
+  layernorm_frag(acc, ln2s, ln2b, t);
+  wg::mbar_wait(xbar, 0);
+  const bool ok0 = r0 < rows, ok1 = r1 < rows;
+  const float* x0 = buf1 + r0 * LD + 2 * t;
+  const float* x1 = buf1 + r1 * LD + 2 * t;
+  float* y0 = y + ((size_t)b * L + l0 + r0) * C + 2 * t;
+  float* y1 = y + ((size_t)b * L + l0 + r1) * C + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (ok0) {
+      const float2 xv = *reinterpret_cast<const float2*>(x0 + 8 * j);
+      *reinterpret_cast<float2*>(y0 + 8 * j) = make_float2(xv.x + acc[4 * j], xv.y + acc[4 * j + 1]);
+    }
+    if (ok1) {
+      const float2 xv = *reinterpret_cast<const float2*>(x1 + 8 * j);
+      *reinterpret_cast<float2*>(y1 + 8 * j) =
+          make_float2(xv.x + acc[4 * j + 2], xv.y + acc[4 * j + 3]);
+    }
+  }
+}
+
+int launch(const float* x, const float* src, const void* wkv, const void* wapply,
+           const float* ln1s, const float* ln1b, const float* ln2s, const float* ln2b,
+           const float* qmask, const float* smask, float* part, float* kv, float* hid, float* y,
+           int B, int L, int S, cudaStream_t stream) {
+  if (B <= 0 || L <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  const int n_s = (S + TM - 1) / TM;
+  static int have_stats[MAX_DEVICES], have_apply[MAX_DEVICES];
+  raise_smem_limit(kv_partial_tf32x3_kernel, SMEM, have_stats);
+  raise_smem_limit(apply_tf32x3_kernel, SMEM, have_apply);
+  kv_partial_tf32x3_kernel<<<dim3(n_s, B), 128, SMEM, stream>>>(
+      src, static_cast<const unsigned char*>(wkv), smask, part, S);
+  kv_reduce_tf32x3_kernel<<<dim3((N_PART + 255) / 256, B), 256, 0, stream>>>(part, kv, n_s);
+  apply_tf32x3_kernel<<<dim3((L + TM - 1) / TM, B), 128, SMEM, stream>>>(
+      x, kv, static_cast<const unsigned char*>(wapply), ln1s, ln1b, ln2s, ln2b, qmask, hid, y, L);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 }  // namespace
 
-// f32 operands: weights [in, out] row-major f32. part is [B, tiles, hd + 1, C]
-// with tiles = opp_encoder_source_tiles(S), kv [B, C, hd + 1].
+// f32 operands on the CUDA cores (the widths the split-TF32 instance does not
+// take): weights [in, out] row-major f32. part is [B, tiles, hd + 1, C] with
+// tiles = opp_encoder_source_tiles(S), kv [B, C, hd + 1].
 extern "C" int opp_encoder_layer_f32(const float* x, const float* src, const void* wq,
                                      const void* wk, const void* wv, const void* wm,
                                      const void* w0, const void* w1, const float* ln1s,
@@ -786,9 +1210,9 @@ extern "C" int opp_encoder_layer_f32(const float* x, const float* src, const voi
                                      static_cast<cudaStream_t>(stream));
 }
 
-// bf16 operands on the CUDA cores, any C that is a multiple of 32 up to 256
-// (the widths the tensor-core instance does not take): the f32 entry's
-// arguments, weights [in, out] row-major bf16.
+// bf16 operands on the CUDA cores, any C that is a multiple of 32 up to 512
+// whose K'^T[V|1] table fits a block (the widths the tensor-core instance does
+// not take): the f32 entry's arguments, weights [in, out] row-major bf16.
 extern "C" int opp_encoder_layer_bf16(const float* x, const float* src, const void* wq,
                                       const void* wk, const void* wv, const void* wm,
                                       const void* w0, const void* w1, const float* ln1s,
@@ -818,6 +1242,21 @@ extern "C" int opp_encoder_layer_tc(const float* x, const float* src, const void
 }
 
 extern "C" int opp_encoder_tc_source_tiles(int S) { return (S + tc::TM - 1) / tc::TM; }
+
+// f32 operands on the tensor cores in split TF32, C = 256 and 8 heads. wkv: 64
+// packed chunks (Wk, Wv), wapply: 256 (Wq, Wmerge, W0 by output half and input
+// half, W1), each chunk the hi and lo images [256 out, 8 in] f32 of 8 input
+// columns. part is [B, tiles, 33, 256] f32 with tiles =
+// opp_encoder_tc_source_tiles(S), kv [B, 256, 33] f32, hid [B, x tiles, 64, 256]
+// f32 with x tiles = opp_encoder_tc_source_tiles(L).
+extern "C" int opp_encoder_layer_tf32x3(const float* x, const float* src, const void* wkv,
+                                        const void* wapply, const float* ln1s, const float* ln1b,
+                                        const float* ln2s, const float* ln2b, const float* qmask,
+                                        const float* smask, float* part, float* kv, float* hid,
+                                        float* y, int B, int L, int S, void* stream) {
+  return tf::launch(x, src, wkv, wapply, ln1s, ln1b, ln2s, ln2b, qmask, smask, part, kv, hid, y,
+                    B, L, S, static_cast<cudaStream_t>(stream));
+}
 
 #ifdef OPP_K1_CLOCKS
 // The phase clocks of the last launch (32 values), to host memory.

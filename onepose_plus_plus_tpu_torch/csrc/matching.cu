@@ -20,7 +20,7 @@
 // Bound: two P*L*C products (operations), then the exponentials of pass 1:
 // 2 P L of them, which the special-function units issue at 16 a clock per SM
 // (0.25 ms at the query step's [16, 7000] x [16, 4096], beside 0.12 ms a
-// product at the tensor cores' peak). Two instances:
+// product at the tensor cores' peak). Three instances:
 //
 // bf16 operands (the bench, inference and SfM configurations): the tensor
 // cores (sim_tile_tc.cuh). The wrapper packs f0 and f1 once, scaled, rounded
@@ -37,14 +37,23 @@
 // units so that the masks' -1e9 rounds as in the plain version. Two blocks
 // share an SM, so one block's exponentials overlap the other's products.
 //
-// f32 operands (the demo and the train config; exact, no TF32): a 64x64
-// register-blocked FMA tile on the CUDA cores (sim_tile.cuh), staged in shared
-// memory for the row and column reductions (4 lanes per row or column,
-// shuffle-merged).
+// f32 operands up to C = 576 (the demo and the train config): the same passes
+// and epilogues on the tensor cores in split TF32 (sim_tile_tf32.cuh: three
+// TF32 products a product, f32 accuracy; lse_tf32x3_kernel,
+// argmax_tf32x3_kernel). The wrapper packs f0 and f1 as scaled f32 in 32-channel
+// chunks (pack_tf32_operand_kernel). Bound: the three products at the TF32
+// rate, 3 x 2 P L C / 495 TFLOP/s a pass, and the L2 rate of the streamed
+// f32 chunks (4 bytes a value, twice bf16's).
+//
+// f32 operands wider than 576 (and bf16 ones wider than the bf16 tile):
+// exact f32 FMAs on the CUDA cores, a 64x64 register-blocked tile
+// (sim_tile.cuh) staged in shared memory for the row and column reductions
+// (4 lanes per row or column, shuffle-merged).
 #include <climits>
 
 #include "sim_tile.cuh"
 #include "sim_tile_tc.cuh"
+#include "sim_tile_tf32.cuh"
 
 namespace {
 
@@ -251,21 +260,6 @@ int launch_rowcol_stats(const void* f0, const void* f1, const float* radd, const
   return (int)cudaGetLastError();
 }
 
-// Pass 1 alone (row and column LSE), for K5's forward (coarse_loss.cu), as the
-// TPU kernel shares pallas_matching._lse_kernel with the fused focal loss.
-template <typename T>
-int launch_dual_lse(const void* f0, const void* f1, const float* radd, const float* cadd,
-                    float* row_lse, float* col_lse, float* part, int B, int P, int L, int C,
-                    float inv_temp, cudaStream_t stream) {
-  if (B <= 0 || P <= 0 || L <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const int n_pt = (P + BR - 1) / BR;
-  lse_kernel<T><<<dim3(n_pt, B), NT, 0, stream>>>(static_cast<const T*>(f0),
-                                                  static_cast<const T*>(f1), radd, cadd, row_lse,
-                                                  part, P, L, C, inv_temp);
-  col_lse_reduce<<<dim3((L + 255) / 256, B), 256, 0, stream>>>(part, col_lse, n_pt, L);
-  return (int)cudaGetLastError();
-}
-
 // ------------------------------------------------------ bf16: tensor cores
 
 namespace tcm {
@@ -315,18 +309,38 @@ __global__ void pack_operand_kernel(const T* __restrict__ src, bf16* __restrict_
   *reinterpret_cast<uint4*>(dst + i * 8) = *reinterpret_cast<const uint4*>(out);
 }
 
-// Pass 1: row LSE and per-row-tile column partial LSEs (natural units).
-__global__ void __launch_bounds__(NT, 2)
-    lse_tc_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
-                  const float* __restrict__ radd, const float* __restrict__ cadd,
-                  float* __restrict__ row_lse, float* __restrict__ colpart, int P, int L, int C,
-                  float inv_temp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int cp = pad_channels(C), pt = blockIdx.x, n_pt = gridDim.x, b = blockIdx.y;
+// The bf16 similarity tile (sim_tile_tc.cuh) as the passes read it.
+struct Bf16Sim {
+  Tiles tl;
+  int cp;
+  uint32_t a_addr = 0;
+  __device__ Bf16Sim(unsigned char* smem, int cp_, const bf16* f1b, int n_tiles)
+      : tl(smem, cp_, f1b, n_tiles), cp(cp_) {}
+  __device__ __forceinline__ void start(const bf16* f0_tile) {
+    tl.start(f0_tile);
+    a_addr = tl.resident();
+  }
+  __device__ __forceinline__ int n_tiles() const { return tl.n_tiles; }
+  // issued and committed only: the caller waits
+  __device__ __forceinline__ void product(float (&acc)[32], int it) const {
+    sim_product(acc, a_addr, tl.wait(it), cp);
+  }
+  __device__ __forceinline__ float* cols(int it) const { return tl.cols(it); }
+  __device__ __forceinline__ void release(int it) const { tl.release(it); }
+};
+
+// The split-TF32 tile (sim_tile_tf32.cuh): products complete on return.
+using opp::tf::Tf32Sim;
+
+// Pass 1: row LSE and per-row-tile column partial LSEs (natural units), on
+// the block's similarity tiles.
+template <typename Sim>
+__device__ __forceinline__ void lse_pass(Sim& sim, const float* __restrict__ radd,
+                                         const float* __restrict__ cadd,
+                                         float* __restrict__ row_lse, float* __restrict__ colpart,
+                                         int P, int L, float inv_temp) {
+  const int pt = blockIdx.x, n_pt = gridDim.x, b = blockIdx.y;
   const int p0 = pt * TM, tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
-  const Tiles tl(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
-  tl.start(f0 + ((size_t)b * pad_rows(P) + p0) * cp);
-  const uint32_t a_addr = tl.resident();
   float ra[2];  // row masks; rows past P drop out of the column statistics
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -337,10 +351,10 @@ __global__ void __launch_bounds__(NT, 2)
   float* cpart = colpart + ((size_t)b * n_pt + pt) * L;
 
 #pragma unroll 1
-  for (int it = 0; it < tl.n_tiles; ++it) {
+  for (int it = 0; it < sim.n_tiles(); ++it) {
     const int l0 = it * TM;
     float acc[32];
-    sim_product(acc, a_addr, tl.wait(it), cp);
+    sim.product(acc, it);
     float ca[16];  // column masks; columns past L drop out of the row statistics
 #pragma unroll
     for (int q = 0; q < 16; ++q) {
@@ -366,7 +380,7 @@ __global__ void __launch_bounds__(NT, 2)
       rm[h] = m;
       rs[h] = sum;
     }
-    float* sc = tl.cols(it);
+    float* sc = sim.cols(it);
 #pragma unroll
     for (int q = 0; q < 16; ++q) {
       const int i = 4 * (q >> 1) + (q & 1);  // rows g (acc[i]) and g + 8 (acc[i + 2])
@@ -379,7 +393,7 @@ __global__ void __launch_bounds__(NT, 2)
       }
     }
     __syncthreads();
-    tl.release(it);
+    sim.release(it);
     if (tid < TM && l0 + tid < L) {
       float m = sc[tid];
 #pragma unroll
@@ -400,21 +414,43 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
+__global__ void __launch_bounds__(NT, 2)
+    lse_tc_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
+                  const float* __restrict__ radd, const float* __restrict__ cadd,
+                  float* __restrict__ row_lse, float* __restrict__ colpart, int P, int L, int C,
+                  float inv_temp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(C), b = blockIdx.y;
+  Bf16Sim sim(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  sim.start(f0 + ((size_t)b * pad_rows(P) + blockIdx.x * TM) * cp);
+  lse_pass(sim, radd, cadd, row_lse, colpart, P, L, inv_temp);
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    lse_tf32x3_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                      const float* __restrict__ radd, const float* __restrict__ cadd,
+                      float* __restrict__ row_lse, float* __restrict__ colpart, int P, int L,
+                      int C, float inv_temp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = opp::tf::pad_channels(C), b = blockIdx.y;
+  Tf32Sim sim(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  sim.start(f0 + ((size_t)b * pad_rows(P) + blockIdx.x * TM) * cp);
+  lse_pass(sim, radd, cadd, row_lse, colpart, P, L, inv_temp);
+}
+
 // Pass 2: row argmax of 2 s - col_lse and per-row-tile column argmax partials
 // of 2 s - row_lse, the lowest index on ties.
-__global__ void __launch_bounds__(NT, 2)
-    argmax_tc_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
-                     const float* __restrict__ radd, const float* __restrict__ cadd,
-                     const float* __restrict__ row_lse, const float* __restrict__ col_lse,
-                     float* __restrict__ row_val, int* __restrict__ row_j,
-                     float* __restrict__ cpart_val, int* __restrict__ cpart_idx, int P, int L,
-                     int C, float inv_temp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int cp = pad_channels(C), pt = blockIdx.x, n_pt = gridDim.x, b = blockIdx.y;
+template <typename Sim>
+__device__ __forceinline__ void argmax_pass(Sim& sim, const float* __restrict__ radd,
+                                            const float* __restrict__ cadd,
+                                            const float* __restrict__ row_lse,
+                                            const float* __restrict__ col_lse,
+                                            float* __restrict__ row_val, int* __restrict__ row_j,
+                                            float* __restrict__ cpart_val,
+                                            int* __restrict__ cpart_idx, int P, int L,
+                                            float inv_temp) {
+  const int pt = blockIdx.x, n_pt = gridDim.x, b = blockIdx.y;
   const int p0 = pt * TM, tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
-  const Tiles tl(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
-  tl.start(f0 + ((size_t)b * pad_rows(P) + p0) * cp);
-  const uint32_t a_addr = tl.resident();
   float ra[2], rl[2];
   int rows[2];
 #pragma unroll
@@ -429,10 +465,10 @@ __global__ void __launch_bounds__(NT, 2)
   const size_t cbase = ((size_t)b * n_pt + pt) * L;
 
 #pragma unroll 1
-  for (int it = 0; it < tl.n_tiles; ++it) {
+  for (int it = 0; it < sim.n_tiles(); ++it) {
     const int l0 = it * TM;
     float acc[32];
-    sim_product(acc, a_addr, tl.wait(it), cp);
+    sim.product(acc, it);
     float ca[16], cl[16];
 #pragma unroll
     for (int q = 0; q < 16; ++q) {
@@ -457,7 +493,7 @@ __global__ void __launch_bounds__(NT, 2)
         bj[h] = take ? l0 + 8 * (q >> 1) + 2 * t + (q & 1) : bj[h];
       }
     // columns: the largest value over the warp's 16 rows, then the lowest row holding it
-    float* sc = tl.cols(it);
+    float* sc = sim.cols(it);
     int* si = reinterpret_cast<int*>(sc + NWARP * TM);
 #pragma unroll
     for (int q = 0; q < 16; ++q) {
@@ -472,7 +508,7 @@ __global__ void __launch_bounds__(NT, 2)
       }
     }
     __syncthreads();
-    tl.release(it);
+    sim.release(it);
     if (tid < TM && l0 + tid < L) {  // warps in order: rows ascending, strict > keeps the lowest
       float v = sc[tid];
       int r = si[tid];
@@ -494,6 +530,36 @@ __global__ void __launch_bounds__(NT, 2)
       row_j[(size_t)b * P + rows[h]] = bj[h];
     }
   }
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    argmax_tc_kernel(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
+                     const float* __restrict__ radd, const float* __restrict__ cadd,
+                     const float* __restrict__ row_lse, const float* __restrict__ col_lse,
+                     float* __restrict__ row_val, int* __restrict__ row_j,
+                     float* __restrict__ cpart_val, int* __restrict__ cpart_idx, int P, int L,
+                     int C, float inv_temp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(C), b = blockIdx.y;
+  Bf16Sim sim(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  sim.start(f0 + ((size_t)b * pad_rows(P) + blockIdx.x * TM) * cp);
+  argmax_pass(sim, radd, cadd, row_lse, col_lse, row_val, row_j, cpart_val, cpart_idx, P, L,
+              inv_temp);
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    argmax_tf32x3_kernel(const float* __restrict__ f0, const float* __restrict__ f1,
+                         const float* __restrict__ radd, const float* __restrict__ cadd,
+                         const float* __restrict__ row_lse, const float* __restrict__ col_lse,
+                         float* __restrict__ row_val, int* __restrict__ row_j,
+                         float* __restrict__ cpart_val, int* __restrict__ cpart_idx, int P, int L,
+                         int C, float inv_temp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = opp::tf::pad_channels(C), b = blockIdx.y;
+  Tf32Sim sim(smem, cp, f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
+  sim.start(f0 + ((size_t)b * pad_rows(P) + blockIdx.x * TM) * cp);
+  argmax_pass(sim, radd, cadd, row_lse, col_lse, row_val, row_j, cpart_val, cpart_idx, P, L,
+              inv_temp);
 }
 
 int launch_dual_lse_tc(const void* f0, const void* f1, const float* radd, const float* cadd,
@@ -528,6 +594,65 @@ int launch_rowcol_stats_tc(const void* f0, const void* f1, const float* radd, co
   return (int)cudaGetLastError();
 }
 
+// Both passes on the split-TF32 tile (f32 operands packed by launch_pack_tf32).
+int launch_rowcol_stats_tf32x3(const void* f0, const void* f1, const float* radd,
+                               const float* cadd, float* row_lse, float* col_lse, float* row_val,
+                               int* row_j, float* col_val, int* col_p, float* part_val,
+                               int* part_idx, int B, int P, int L, int C, float inv_temp,
+                               cudaStream_t stream) {
+  if (B <= 0 || P <= 0 || L <= 0 || C <= 0 || C > opp::tf::MAX_C) return (int)cudaErrorInvalidValue;
+  const int cp = opp::tf::pad_channels(C), n_pt = pad_rows(P) / TM;
+  const size_t smem = opp::tf::smem_bytes(cp);
+  const float* a = static_cast<const float*>(f0);
+  const float* b = static_cast<const float*>(f1);
+  static int have_lse[opp::MAX_DEVICES], have_arg[opp::MAX_DEVICES];
+  opp::raise_smem_limit(lse_tf32x3_kernel, smem, have_lse);
+  opp::raise_smem_limit(argmax_tf32x3_kernel, smem, have_arg);
+  lse_tf32x3_kernel<<<dim3(n_pt, B), NT, smem, stream>>>(a, b, radd, cadd, row_lse, part_val, P,
+                                                         L, C, inv_temp);
+  col_lse_reduce<<<dim3((L + 255) / 256, B), 256, 0, stream>>>(part_val, col_lse, n_pt, L);
+  argmax_tf32x3_kernel<<<dim3(n_pt, B), NT, smem, stream>>>(a, b, radd, cadd, row_lse, col_lse,
+                                                            row_val, row_j, part_val, part_idx, P,
+                                                            L, C, inv_temp);
+  col_argmax_reduce<<<dim3((L + 255) / 256, B), 256, 0, stream>>>(part_val, part_idx, col_val,
+                                                                   col_p, n_pt, L);
+  return (int)cudaGetLastError();
+}
+
+// dst [B, rows_pad / 64, Cp / 32, 8, 8, 8, 4] f32 (sim_tile_tf32.cuh's layout)
+// of src [B, rows, C] f32 times `scale`; zeros past rows and C. One thread per 16 output bytes
+// (4 channels of one row): output index i * 4, written in order.
+__global__ void pack_tf32_operand_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                         int rows, int rows_pad, int C, int cp, float scale,
+                                         long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // i = ((((b * tiles + tile) * chunks + chunk) * 8 + rg) * 8 + kq) * 8 + r8
+  const int r8 = (int)(i & 7), kq = (int)((i >> 3) & 7), rg = (int)((i >> 6) & 7);
+  long long rest = i >> 9;
+  const int chunk = (int)(rest % (cp / 32));
+  rest /= cp / 32;
+  const int tile = (int)(rest % (rows_pad / TM));
+  const long long b = rest / (rows_pad / TM);
+  const int r = tile * TM + rg * 8 + r8, k0 = chunk * 32 + kq * 4;
+  float4 out;
+  float* o = &out.x;
+  const float* row = src + ((size_t)b * rows + r) * C;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = r < rows && k0 + k < C ? row[k0 + k] * scale : 0.f;
+  reinterpret_cast<float4*>(dst)[i] = out;
+}
+
+int launch_pack_tf32(const void* src, void* dst, int B, int rows, int C, float scale,
+                     cudaStream_t stream) {
+  if (B <= 0 || rows <= 0 || C <= 0 || C > opp::tf::MAX_C) return (int)cudaErrorInvalidValue;
+  const int cp = opp::tf::pad_channels(C), rows_pad = pad_rows(rows);
+  const long long n = (long long)B * rows_pad * (cp / 4);
+  pack_tf32_operand_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), rows, rows_pad, C, cp, scale, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_pack(const void* src, void* dst, int B, int rows, int C, float scale,
                 cudaStream_t stream) {
@@ -543,8 +668,9 @@ int launch_pack(const void* src, void* dst, int B, int rows, int C, float scale,
 
 }  // namespace
 
-// f32 operands [B, P, C] / [B, L, C] (CUDA cores). part_val / part_idx are
-// [B, tiles, L] with tiles = opp_rowcol_row_tiles(P).
+// f32 operands [B, P, C] / [B, L, C] (CUDA cores; the widths the split-TF32
+// instance does not take). part_val / part_idx are [B, tiles, L] with
+// tiles = opp_rowcol_row_tiles(P).
 extern "C" int opp_rowcol_stats_f32(const void* f0, const void* f1, const float* radd,
                                     const float* cadd, float* row_lse, float* col_lse,
                                     float* row_val, int* row_j, float* col_val, int* col_p,
@@ -571,16 +697,21 @@ extern "C" int opp_rowcol_stats_bf16(const void* f0, const void* f1, const float
 // Row tiles of the partial buffers: part_val / part_idx are [B, tiles, L].
 extern "C" int opp_rowcol_row_tiles(int P) { return (P + opp::BR - 1) / opp::BR; }
 
-// Pass 1 alone (row and column LSE), for K5's forward (coarse_loss.cu), as the
-// TPU kernel shares pallas_matching._lse_kernel with the fused focal loss.
-extern "C" int opp_dual_lse_f32(const void* f0, const void* f1, const float* radd,
-                                const float* cadd, float* row_lse, float* col_lse, float* part,
-                                int B, int P, int L, int C, float inv_temp, void* stream) {
-  return launch_dual_lse<float>(f0, f1, radd, cadd, row_lse, col_lse, part, B, P, L, C, inv_temp,
-                                static_cast<cudaStream_t>(stream));
+// f32 operands on the tensor cores in split TF32: f0 and f1 packed by
+// opp_pack_tf32_operand_f32 (already scaled; C <= 576 channels before padding),
+// the other arguments as the f32 entry's.
+extern "C" int opp_rowcol_stats_tf32x3(const void* f0, const void* f1, const float* radd,
+                                       const float* cadd, float* row_lse, float* col_lse,
+                                       float* row_val, int* row_j, float* col_val, int* col_p,
+                                       float* part_val, int* part_idx, int B, int P, int L, int C,
+                                       float inv_temp, void* stream) {
+  return tcm::launch_rowcol_stats_tf32x3(f0, f1, radd, cadd, row_lse, col_lse, row_val, row_j,
+                                         col_val, col_p, part_val, part_idx, B, P, L, C, inv_temp,
+                                         static_cast<cudaStream_t>(stream));
 }
 
-// bf16, packed operands (tensor cores).
+// Pass 1 alone (row and column LSE), for K5's forward (coarse_loss.cu), as the
+// TPU kernel shares pallas_matching._lse_kernel with the fused focal loss:
 extern "C" int opp_dual_lse_bf16(const void* f0, const void* f1, const float* radd,
                                  const float* cadd, float* row_lse, float* col_lse, float* part,
                                  int B, int P, int L, int C, float inv_temp, void* stream) {
@@ -599,4 +730,12 @@ extern "C" int opp_pack_operand_bf16(const void* src, void* dst, int B, int rows
                                      float scale, void* stream) {
   return tcm::launch_pack<__nv_bfloat16>(src, dst, B, rows, C, scale,
                                          static_cast<cudaStream_t>(stream));
+}
+
+// The operand layout of the split-TF32 instance (K2 f32): dst
+// [B, rows_pad / 64, Cp / 32, 8, 8, 8, 4] f32 of src [B, rows, C] times scale,
+// with Cp = C rounded up to 32 and rows_pad = rows rounded up to 64.
+extern "C" int opp_pack_tf32_operand_f32(const void* src, void* dst, int B, int rows, int C,
+                                         float scale, void* stream) {
+  return tcm::launch_pack_tf32(src, dst, B, rows, C, scale, static_cast<cudaStream_t>(stream));
 }

@@ -3,10 +3,11 @@
 Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 
 - K1 ``ops/cuda_encoder.py::fused_encoder_layer`` and ``fused_encoder_layer_packed``
-  (``csrc/encoder.cu``: tensor cores for bf16 operands at C = 256 with 8 heads, CUDA
-  cores for f32 and for bf16 at other widths)
+  (``csrc/encoder.cu``: tensor cores at C = 256 with 8 heads, bf16 operands or f32 ones
+  in split TF32; CUDA cores at the other widths)
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``: tensor
-  cores for bf16 operands, which ``pack_operand`` lays out first, CUDA cores for f32)
+  cores for bf16 operands (``pack_operand``) and, in split TF32, for f32 ones up to
+  C = 576 (``pack_tf32_operand``); CUDA cores for wider f32)
 - K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``)
 - K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP: an index
   launch (``scatter_index``) and the scatter launch
@@ -77,3 +78,18 @@ def stream_ptr(device: torch.device) -> int:
 
 
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (float32) rounded to TF32 as the kernels' ``cvt.rna.tf32.f32`` does: to
+    nearest, ties away from zero, in an f32 container with the low 13 bits zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): the split-TF32 halves of x that the kernels' ``tf32_split``
+    (``csrc/wgmma.cuh``) computes, hi = tf32(x), lo = tf32(x - hi); hi + lo
+    holds x to ~2^-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)

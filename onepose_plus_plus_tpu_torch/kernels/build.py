@@ -37,16 +37,18 @@ _SIGNATURES = {
     "opp_encoder_layer_f32": [_P] * 17 + [_I] * 5 + [_P],
     "opp_encoder_layer_bf16": [_P] * 17 + [_I] * 5 + [_P],
     "opp_encoder_layer_tc": [_P] * 13 + [_I] * 3 + [_P],
+    "opp_encoder_layer_tf32x3": [_P] * 14 + [_I] * 3 + [_P],
     "opp_encoder_source_tiles": [_I],
     "opp_encoder_tc_source_tiles": [_I],
     "opp_rowcol_stats_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "opp_rowcol_stats_tf32x3": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_row_tiles": [_I],
     "opp_pack_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_pack_operand_bf16": [_P] * 2 + [_I] * 3 + [_F, _P],
+    "opp_pack_tf32_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_window_gather_f32": [_P] * 3 + [_I] * 9 + [_P],
     "opp_window_gather_bf16": [_P] * 3 + [_I] * 9 + [_P],
-    "opp_dual_lse_f32": [_P] * 7 + [_I] * 4 + [_F, _P],
     "opp_dual_lse_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     "opp_window_scatter_index": [_P] * 3 + [_I] * 3 + [_P],
     "opp_window_scatter_f32": [_P] * 5 + [_I] * 9 + [_P],

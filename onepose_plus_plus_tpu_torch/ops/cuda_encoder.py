@@ -11,7 +11,7 @@ partials and summed by a second small launch (deterministic, no atomics), then
 one block per x tile runs the whole rest of the layer in shared memory.
 
 What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
-row), every product computed in the kernel's own body. Three instances, chosen
+row), every product computed in the kernel's own body. Four instances, chosen
 by :func:`k1_instance` from the operand type and the width, all counted as
 ``K1_encoder_layer``:
 
@@ -21,20 +21,31 @@ by :func:`k1_instance` from the operand type and the width, all counted as
   shared memory, accumulators and every epilogue (elu+1, masks, division,
   LayerNorms, ReLU) in registers, the weights streamed from L2 by bulk copies
   into a ring of a few stages.
-- ``"bf16"``: **bfloat16 operands at any other width** (C a multiple of 32 up
-  to 256) run the CUDA-core kernels with bf16 weights, each product operand
-  rounded to bf16 as it is staged.
-- ``"f32"``: **float32 operands** (the demo, the f32 parity paths) keep exact
-  f32 FMAs on the CUDA cores (no TF32), at the same widths.
+- ``"tf32x3"``: **float32 operands at C = 256 with 8 heads** (the demo, the
+  f32 parity paths) run the same layer on the tensor cores in split TF32:
+  each projection and FFN product as three TF32 products of hi / lo halves
+  (~2^-22 relative, f32 accuracy), activations as f32 tiles split into A
+  fragments in registers, the weights packed once as hi and lo images; the
+  per-head K'^T[V|1] and attention products in f32 FMAs on the CUDA cores.
+- ``"bf16"``: **bfloat16 operands at any other width** run the CUDA-core
+  kernels with bf16 weights, each product operand rounded to bf16 as it is
+  staged.
+- ``"f32"``: **float32 operands at any other width** keep exact f32 FMAs on
+  the CUDA cores (no TF32).
 
-A width outside these (C not a multiple of 32, above 256, or not divisible by
-the heads) has no instance: the wrapper raises ``ValueError`` on the card,
-where the model's router (``models/transformer.py::routes_to_k1``) sends it
-all the same.
+The CUDA-core instances take C a multiple of 32 up to 512, divisible by the
+heads, where the apply block's [C, hd + 1] K'^T[V|1] table fits its shared
+memory (:func:`k1_instance`): every width the JAX kernel takes up to 512
+(C % 128 == 0, head width a multiple of 8) with head widths up to 107 at
+C = 512 (8 heads or more), 145 at C = 384, 221 at C = 256. A width outside
+these has no instance: the wrapper raises ``ValueError`` on the card, where
+the model's router (``models/transformer.py::routes_to_k1``) sends it all the
+same.
 
-The weights reach the kernels packed (:func:`pack_encoder_weights`): for bf16
-as byte images of the shared-memory chunks the tensor cores read, in the order
-the kernel consumes them, for f32 as contiguous [in, out] matrices. A model
+The weights reach the kernels packed (:func:`pack_encoder_weights`): for the
+tensor-core instances as byte images of the shared-memory chunks they read,
+in the order the kernel consumes them (bf16, or the TF32 hi and lo halves),
+for the CUDA-core instances as contiguous [in, out] matrices. A model
 packs each layer once (``LoFTREncoderLayer.packed_weights``); the loose-tensor
 entry :func:`fused_encoder_layer` packs at every call.
 
@@ -50,23 +61,36 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr, tf32_split
 
 _EPS = 1e-6
 _LN_EPS = 1e-5
-_TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instance's only width
-_CHUNK_K = 64  # input columns of one packed weight chunk
+_TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instances' only width
+_CHUNK_K = 64  # input columns of one packed bf16 weight chunk
+_TF32_CHUNK_K = 8  # input columns of one packed split-TF32 weight chunk
+_CC_MAX_WIDTH = 512  # the CUDA-core instances: one thread per channel (csrc/encoder.cu)
+_SMEM_LIMIT = 232448  # dynamic shared memory of a block on the card
+
+
+def _cc_fits(c: int, hd: int) -> bool:
+    """Whether the CUDA-core apply block fits its shared memory with at least
+    one row beside the [C, hd + 1] table (``csrc/encoder.cu::apply_rows``)."""
+    return (5 * c + c * (hd + 1)) * 4 <= _SMEM_LIMIT
 
 
 def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
     """The K1 instance that runs a layer of width ``c`` with ``nhead`` heads on
-    ``dtype`` operands: ``"tc"`` (tensor cores), ``"bf16"`` (CUDA cores, bf16
-    operands), ``"f32"`` (CUDA cores, exact), or None where no instance takes it."""
-    if dtype not in KERNEL_DTYPES or nhead <= 0 or c % 32 != 0 or not 0 < c <= 256 or c % nhead != 0:
+    ``dtype`` operands: ``"tc"`` (tensor cores, bf16), ``"tf32x3"`` (tensor
+    cores, f32 in split TF32), ``"bf16"`` (CUDA cores, bf16 operands), ``"f32"``
+    (CUDA cores, exact), or None where no instance takes it."""
+    if (dtype not in KERNEL_DTYPES or nhead <= 0 or c % 32 != 0 or not 0 < c <= _CC_MAX_WIDTH
+            or c % nhead != 0):
         return None
-    if dtype == torch.float32:
-        return "f32"
-    return "tc" if (c, nhead) == (_TC_WIDTH, _TC_HEADS) else "bf16"
+    if (c, nhead) == (_TC_WIDTH, _TC_HEADS):
+        return "tc" if dtype == torch.bfloat16 else "tf32x3"
+    if not _cc_fits(c, c // nhead):
+        return None
+    return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
 def _elu_p1(x: torch.Tensor) -> torch.Tensor:
@@ -134,10 +158,10 @@ class PackedEncoderWeights:
 
     ``width``: C. ``loose``: wq, wk, wv, wmerge, wmlp0, wmlp1 cast to ``dtype``
     in the [in, out] layout (what the plain version and the CUDA-core instances
-    read; views where no copy was needed), empty where the tensor-core instance
+    read; views where no copy was needed), empty where a tensor-core instance
     reads the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and
-    bias in f32. ``stats`` / ``apply``: the bf16 chunk images of the
-    tensor-core instance (else None). ``instance``: :func:`k1_instance`'s
+    bias in f32. ``stats`` / ``apply``: the chunk images of a tensor-core
+    instance (bf16, or f32 TF32 halves; else None). ``instance``: :func:`k1_instance`'s
     choice (None on the CPU, where the plain version runs).
     """
 
@@ -163,6 +187,23 @@ def pack_weight_chunks(w_out_in: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pack_weight_chunks: shape {(n, k)} needs N % 8 == 0 and K % 64 == 0")
     t = w_out_in.reshape(n // 8, 8, k // _CHUNK_K, 8, 8)  # [ng, nr, chunk, kg, kc]
     return t.permute(2, 0, 3, 1, 4).contiguous()
+
+
+def pack_weight_chunks_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
+    """A float32 weight [N, K] in torch's Linear layout ([out, in]) as the chunks
+    the split-TF32 instance copies into shared memory: [K / 8, 2, N / 8, 2, 8, 4]
+    indexed (chunk, half, out group, in group, out % 8, in % 4), half 0 the TF32
+    hi part and half 1 the lo part (:func:`kernels.tf32_split`), so that element
+    (n, k) of a chunk's half lies at byte ``(n // 8) * 256 + ((k % 8) // 4) * 128
+    + (n % 8) * 16 + (k % 4) * 4``: the ``wgmma`` K-major layout of 4-byte values."""
+    n, k = w_out_in.shape
+    if n % 8 != 0 or k % _TF32_CHUNK_K != 0:
+        raise ValueError(f"pack_weight_chunks_tf32: shape {(n, k)} needs N % 8 == 0 and K % 8 == 0")
+    halves = []
+    for half in tf32_split(w_out_in.float()):
+        t = half.reshape(n // 8, 8, k // 8, 2, 4)  # [ng, nr, chunk, kg, kc]
+        halves.append(t.permute(2, 0, 3, 1, 4))
+    return torch.stack(halves, dim=1).contiguous()
 
 
 def pack_encoder_weights(
@@ -198,16 +239,17 @@ def pack_encoder_weights(
     instance = k1_instance(c, nhead, dtype)
     if instance is None:
         raise ValueError(f"fused_encoder_layer: no K1 instance takes C = {c} with {nhead} heads "
-                         f"(C must be a multiple of 32 up to 256, divisible by the heads)")
-    if instance != "tc":
+                         f"(C must be a multiple of 32 up to 512, divisible by the heads, with a "
+                         f"[C, C / heads + 1] table that fits a block's shared memory)")
+    if instance not in ("tc", "tf32x3"):
         return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln,
                                     instance=instance)
+    pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
     q, k, v, m, w0, w1 = (w.t() for w in loose)  # torch Linear layout [out, in]
-    stats = torch.cat([pack_weight_chunks(k), pack_weight_chunks(v)])
+    stats = torch.cat([pack(k), pack(v)])
     # in the kernel's order: Q, merge, the FFN's first product by output half
     # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
-    apply = torch.cat([pack_weight_chunks(q), pack_weight_chunks(m), pack_weight_chunks(w0[:c]),
-                       pack_weight_chunks(w0[c:]), pack_weight_chunks(w1)])
+    apply = torch.cat([pack(q), pack(m), pack(w0[:c]), pack(w0[c:]), pack(w1)])
     return PackedEncoderWeights(dtype, nhead, c, (), ln, stats, apply, instance)
 
 
@@ -244,17 +286,18 @@ def fused_encoder_layer_packed(
     if masks[1] is not None and masks[1].shape != (n, s):
         raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
     instance = packed.instance
-    if instance == "tc":  # its bulk copies read 16-byte aligned rows
+    tensor_cores = instance in ("tc", "tf32x3")
+    if tensor_cores:  # their bulk copies read 16-byte aligned rows
         x = x if x.data_ptr() % 16 == 0 else x.clone()
         source = source if source.data_ptr() % 16 == 0 else source.clone()
-    weights = (packed.stats, packed.apply) if instance == "tc" else packed.loose
+    weights = (packed.stats, packed.apply) if tensor_cores else packed.loose
     operands = [x, source, *weights, *ln] + [m for m in masks if m is not None]
     device = check_cuda_operands("fused_encoder_layer", *operands)
 
     lib = build()
     hd = c // nhead
     y = torch.empty((n, l, c), dtype=torch.float32, device=device)
-    if instance != "tc":
+    if not tensor_cores:
         n_tiles = lib.lib.opp_encoder_source_tiles(s)
         part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
         kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
@@ -263,6 +306,18 @@ def fused_encoder_layer_packed(
             ptr(x), ptr(source), *(ptr(w) for w in weights),
             ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
             ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
+        )
+    elif instance == "tf32x3":
+        n_tiles = lib.lib.opp_encoder_tc_source_tiles(s)
+        part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
+        kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
+        hid = torch.empty((n, lib.lib.opp_encoder_tc_source_tiles(l), 64, c), dtype=torch.float32,
+                          device=device)
+        lib.call(
+            "opp_encoder_layer_tf32x3",
+            ptr(x), ptr(source), ptr(packed.stats), ptr(packed.apply),
+            ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
+            ptr(part), ptr(kv), ptr(hid), ptr(y), n, l, s, stream_ptr(device),
         )
     else:
         n_tiles = lib.lib.opp_encoder_tc_source_tiles(s)
@@ -305,9 +360,9 @@ def fused_encoder_layer(
     dtype when it is bfloat16, else float32) is the product operand type: the
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
-    kernel does). It also routes (:func:`k1_instance`): bfloat16 at C = 256
-    with 8 heads to the tensor-core instance, bfloat16 at another width to the
-    CUDA-core bf16 instance, float32 to the exact CUDA-core instance.
+    kernel does). It also routes (:func:`k1_instance`): C = 256 with 8 heads
+    to the tensor cores (bfloat16, or float32 in split TF32), another width to
+    the CUDA-core instance of the operand type.
     Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
     weights at every call; a caller that keeps its weights packs them once
     (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.

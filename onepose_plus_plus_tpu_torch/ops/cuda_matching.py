@@ -28,10 +28,18 @@ units. Two instances:
   the accumulator fragments in registers (rows across a quad, columns across
   the warp's quads and then the four warps), with branch-free ``ex2.approx``
   exponentials. C up to 576 (three tiles fill a block's shared memory);
-  wider bf16 operands take the f32 instance on their bf16 values.
-- **float32 operands** (the demo and the train config): exact f32 FMAs on the
-  CUDA cores (``csrc/sim_tile.cuh``: a 64x64 register-blocked tile over
-  32-deep shared-memory slices, staged for the reductions), no TF32.
+  wider bf16 operands take the f32 CUDA-core instance on their bf16 values.
+- **float32 operands up to C = 576** (the demo and the train config): the
+  same passes on the tensor cores in split TF32 (``csrc/sim_tile_tf32.cuh``):
+  each product as three TF32 products of hi/lo halves (``x_lo y_hi + x_hi y_lo
+  + x_hi y_hi``, ~2^-22 relative), so the f32 tolerances hold. The wrapper
+  packs each operand once (:func:`pack_tf32_operand`): scaled f32 in
+  32-channel chunks of 64-row tiles; the kernel keeps the f0 tile f32 and
+  splits its A fragments in registers, and splits each streamed f1 chunk into
+  hi and lo images in shared memory.
+- **float32 operands wider than 576**: exact f32 FMAs on the CUDA cores
+  (``csrc/sim_tile.cuh``: a 64x64 register-blocked tile over 32-deep
+  shared-memory slices, staged for the reductions).
 """
 from __future__ import annotations
 
@@ -44,8 +52,9 @@ from .matching import CoarseMatches, _border_keep, topk_stable
 from .take import take_scalars
 
 
-TC_MAX_CHANNELS = 576  # the tensor-core instance's widest operand (csrc/sim_tile_tc.cuh)
+TC_MAX_CHANNELS = 576  # the tensor-core instances' widest operand (csrc/sim_tile_tc.cuh, sim_tile_tf32.cuh)
 PACK_ROWS = 64  # packed rows are a multiple of a block's rows (csrc/sim_tile_tc.cuh: TM)
+TF32_CHUNK = 32  # channels of a streamed chunk of the split-TF32 instance (csrc/sim_tile_tf32.cuh: KC)
 
 
 def _scale(feat: torch.Tensor, feat_norm: str) -> float:
@@ -100,6 +109,49 @@ def pack_operand(feat: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     out = torch.empty(packed_shape(b, rows, c), dtype=torch.bfloat16, device=device)
     build().call(f"opp_pack_operand_{KERNEL_DTYPES[feat.dtype]}", ptr(feat), ptr(out), b, rows, c,
                  scale, stream_ptr(device))
+    return out
+
+
+def tf32_packed_shape(b: int, rows: int, c: int) -> Tuple[int, ...]:
+    """[B, rows_pad / 64, Cp / 32, 8, 8, 8, 4]: rows padded to a multiple of 64, C to 32."""
+    rows_pad = -(-rows // PACK_ROWS) * PACK_ROWS
+    cp = -(-c // TF32_CHUNK) * TF32_CHUNK
+    return (b, rows_pad // PACK_ROWS, cp // TF32_CHUNK, 8, 8, 8, 4)
+
+
+def pack_tf32_operand_plain(feat: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the split-TF32 instance's operand pack:
+    ``feat.float() * scale`` with zero rows and channels appended, as
+    [B, rows_pad / 64, Cp / 32, 8, 8, 8, 4] (:func:`tf32_packed_shape`), so that
+    element (r, k) of a 64-row tile lies at byte ``(k // 32) * 8192 +
+    ((r % 64) // 8) * 1024 + ((k % 32) // 4) * 128 + (r % 8) * 16 + (k % 4) * 4``:
+    each 32-channel chunk the unswizzled K-major layout ``csrc/wgmma.cuh``
+    describes for 4-byte values, contiguous."""
+    b, rows, c = feat.shape
+    shape = tf32_packed_shape(b, rows, c)
+    x = feat.float() * scale if scale != 1.0 else feat.float()
+    out = x.new_zeros(b, shape[1] * PACK_ROWS, shape[2] * TF32_CHUNK)
+    out[:, :rows, :c] = x
+    # [b, tile, rg, r8, chunk, kq, kc] -> [b, tile, chunk, rg, kq, r8, kc]
+    t = out.view(b, shape[1], 8, 8, shape[2], 8, 4)
+    return t.permute(0, 1, 4, 2, 5, 3, 6).contiguous()
+
+
+def pack_tf32_operand(feat: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """The operand layout of K2's split-TF32 instance (see
+    :func:`pack_tf32_operand_plain`); on a CUDA float32 tensor one launch of
+    the pack kernel. CPU tensors run the plain version."""
+    if feat.device.type == "cpu":
+        return pack_tf32_operand_plain(feat, scale)
+    if feat.dtype != torch.float32:
+        raise ValueError(f"pack_tf32_operand: float32 features only, got {feat.dtype}")
+    feat = feat.contiguous()
+    b, rows, c = feat.shape
+    if c > TC_MAX_CHANNELS:
+        raise ValueError(f"pack_tf32_operand: C={c} > {TC_MAX_CHANNELS}")
+    device = check_cuda_operands("pack_tf32_operand", feat)
+    out = torch.empty(tf32_packed_shape(b, rows, c), dtype=torch.float32, device=device)
+    build().call("opp_pack_tf32_operand_f32", ptr(feat), ptr(out), b, rows, c, scale, stream_ptr(device))
     return out
 
 
@@ -169,7 +221,13 @@ def dual_softmax_rowcol_stats(
     if dtype == torch.bfloat16 and c <= TC_MAX_CHANNELS:
         scale = _scale(feat0, feat_norm)
         f0, f1, entry = pack_operand(feat0, scale), pack_operand(feat1, scale), "opp_rowcol_stats_bf16"
-    else:  # f32, or bf16 values too wide for the tensor-core tile: exact f32 products of them
+    elif c <= TC_MAX_CHANNELS:  # f32 on the tensor cores in split TF32
+        scale = _scale(feat0, feat_norm)
+        if feat0.dtype != torch.float32:  # scaled in the features' own type, as the plain version
+            (feat0, feat1), scale = _scaled(feat0, feat1, feat_norm, torch.float32), 1.0
+        f0, f1 = pack_tf32_operand(feat0, scale), pack_tf32_operand(feat1, scale)
+        entry = "opp_rowcol_stats_tf32x3"
+    else:  # wider f32, or bf16 values too wide for the tensor-core tile: exact f32 products of them
         f0, f1 = (f.float().contiguous() for f in _scaled(feat0, feat1, feat_norm, dtype))
         entry = "opp_rowcol_stats_f32"
     if radd is not None and radd.shape != (b, p):

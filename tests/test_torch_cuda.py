@@ -7,6 +7,8 @@ machine with an NVIDIA Hopper GPU and the CUDA toolkit, and skip elsewhere:
 
 ``chip_smoke.py`` makes the same comparisons at the main path's shapes.
 """
+import re
+
 import pytest
 import torch
 
@@ -82,7 +84,9 @@ def test_k1_matches_plain(gen, dtype, l, s, masks):
     assert bool(torch.isfinite(got).all())
     d = (got - ref).abs()
     if dtype == torch.float32:
-        assert d.max().item() < 1e-3  # f32 FMAs in another order than cuBLAS
+        # split TF32 on the tensor cores (~2^-22 relative a product), summed in
+        # another order than cuBLAS
+        assert d.max().item() < 1e-3
     else:
         # the tensor cores sum a product in another order than the plain
         # version, so an operand that is rounded to bf16 (Q', K', msg, the LN1
@@ -122,6 +126,59 @@ def test_k1_packed_weights_equal_loose_and_repeat_bitwise(gen, dtype):
     c = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _names(fn):
+    """fn()'s result and the names of the kernels three calls of it launch
+    (without namespaces, templates and arguments)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):  # the profiler can miss a first launch
+            out = fn()
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.key_averages():
+        m = re.search(r"(\w+)(?:<[^(]*>)?\(", e.key)
+        names.add(m.group(1) if m else e.key)
+    return out, names
+
+
+K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")
+K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")
+
+
+@pytest.mark.parametrize("l,s,masks", [(300, 450, True), (64, None, False)])
+def test_k1_f32_runs_the_split_tf32_instance_and_repeats_bitwise(gen, l, s, masks):
+    """f32 operands at C = 256 with 8 heads run K1's split-TF32 kernels, by name,
+    and none of its CUDA-core kernels; two launches agree bit for bit."""
+    x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.float32)
+    packed = pack_encoder_weights(*w, nhead=8, dtype=torch.float32)
+    assert packed.instance == "tf32x3"
+    got, names = _names(lambda: fused_encoder_layer_packed(x, src, packed, xm, sm))
+    again = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8)
+    torch.cuda.synchronize()
+    assert set(K1_TF32_NAMES) <= names and not set(K1_CC_NAMES) & names, names
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [384, 512])
+def test_k1_runs_the_jax_kernels_widths_above_256(gen, dtype, c):
+    """C = 384 and 512 with 8 heads (widths the JAX kernel takes) run K1's
+    CUDA-core instances, whose apply block takes 8 rows there."""
+    x, src, w, xm, sm = _k1_args(gen, 2, 97, 130, True, dtype, c=c)
+    before = kernels.launch_counts()["K1_encoder_layer"]
+    got = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
+    assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8, dtype=dtype)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert d.max().item() < 1e-3
+    else:
+        assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
 
 
 def test_k1_tensor_core_instance_names_its_width(gen):
@@ -199,6 +256,36 @@ def test_k2_bf16_tensor_cores_match_plain_and_repeat_bitwise(gen, b, p, l, c):
     ref = rowcol_stats_plain((f0 * scale).to(torch.bfloat16), (f1 * scale).to(torch.bfloat16),
                              1 / (0.08 + 1e-4), None, col_add)
     torch.cuda.synchronize()
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+    for k in ("row_lse", "col_lse", "row_best_val", "col_best_val"):
+        assert (got[k] - ref[k]).abs().max().item() < 1e-3, k
+    for k in ("row_best_j", "col_best_p"):
+        assert (got[k] == ref[k]).float().mean().item() >= 0.999, k
+
+
+@pytest.mark.parametrize("b,p,l,c", [
+    (2, 333, 200, 32), (2, 333, 200, 64), (2, 333, 200, 256), (1, 7000, 4096, 256),
+    (1, 333, 4096, 96), (2, 130, 70, 576),
+])
+def test_k2_f32_split_tf32_matches_plain_and_repeats_bitwise(gen, b, p, l, c):
+    """K2's f32 instance on the tensor cores in split TF32 at ragged shapes (P
+    and L not multiples of the 64-row tile, C padded to 32 channels, up to the
+    widest it takes), with a column mask: LSEs within 1e-3 of the plain f32
+    version, argmaxes agreeing on >= 99.9 %, two launches equal bit for bit,
+    and its kernels by name, not the CUDA-core tile's."""
+    f0 = torch.randn(b, p, c, generator=gen, device="cuda")
+    f1 = torch.randn(b, l, c, generator=gen, device="cuda")
+    col_add = torch.where(torch.rand(b, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
+    before = kernels.launch_counts()["K2_rowcol_stats"]
+    got, names = _names(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add))
+    again = dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add)
+    assert kernels.launch_counts()["K2_rowcol_stats"] == before + 4
+    scale = c ** -0.5
+    ref = rowcol_stats_plain(f0 * scale, f1 * scale, 1 / (0.08 + 1e-4), None, col_add)
+    torch.cuda.synchronize()
+    assert {"pack_tf32_operand_kernel", "lse_tf32x3_kernel", "argmax_tf32x3_kernel"} <= names, names
+    assert not {"lse_kernel", "argmax_kernel"} & names, names
     for k in got:
         assert torch.equal(got[k], again[k]), k
     for k in ("row_lse", "col_lse", "row_best_val", "col_best_val"):

@@ -170,3 +170,22 @@ def test_local_feature_transformer(l0, l1, routed_to_k1):
     assert (min(l0, l1) >= 256) == routed_to_k1
     np.testing.assert_allclose(o0.numpy(), np.asarray(r0), atol=1e-4)
     np.testing.assert_allclose(o1.numpy(), np.asarray(r1), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-2), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("c", [384, 512])
+def test_k1_plain_matches_pallas_kernel_above_256(c, dtype, atol):
+    """At the JAX kernel's widths above 256 (C % 128 == 0, 8 heads), a port
+    layer loaded through ``state_dict_from_jax`` runs K1 (its plain version on
+    the CPU) and agrees with the TPU kernel in interpret mode, which rounds its
+    product operands to bf16: the f32 operands to 3e-2, bf16 operands (the same
+    rounding) to 2e-3."""
+    x, src, xm, sm = _inputs(6, l=24, s=40, c=c, masks=True)
+    _, p = _jax_layer(x, src, xm, sm, c=c)
+    ref = _pallas_layer(x, src, xm, sm, p)
+    port = LoFTREncoderLayer(c, NHEAD, dtype=dtype).eval()
+    port.load_state_dict(state_dict_from_jax({"params": p}))
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=atol)

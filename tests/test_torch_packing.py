@@ -284,9 +284,13 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
     (256, 4, "bfloat16", "bf16"),   # the tensor-core instance's width with other heads
     (224, 8, "bfloat16", "bf16"),
     (64, 8, "float32", "f32"),
-    (256, 8, "float32", "f32"),
+    (256, 8, "float32", "tf32x3"),  # the demo's coarse width: tensor cores in split TF32
     (48, 8, "bfloat16", None),      # not a multiple of 32
-    (288, 8, "float32", None),      # above 256
+    (288, 8, "float32", "f32"),     # above 256: the CUDA-core instances reach 512
+    (384, 8, "bfloat16", "bf16"),   # the JAX kernel's widths above 256
+    (512, 8, "float32", "f32"),
+    (544, 8, "float32", None),      # above 512
+    (512, 4, "float32", None),      # a [C, C / heads + 1] table that no block holds
     (96, 5, "bfloat16", None),      # heads do not divide C
 ])
 def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, expected):
@@ -304,3 +308,27 @@ def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, 
     model = LocalFeatureTransformer(cfg).eval()
     model(torch.zeros(1, 300, c), torch.zeros(1, 256, c))
     assert seen == [True] * 4  # one (self, cross) pair over two streams
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
+    """The JAX kernel takes C % 128 == 0 with a head width that is a multiple of
+    8 (``pallas_encoder.py::fused_encoder_layer``). Up to C = 512, K1 has an
+    instance for each such width with 8 heads (the model's), and for every head
+    count whose [C, C / heads + 1] K'^T[V|1] table fits a block's shared memory
+    beside one row; the rest (head widths of 128 and more at C = 512, of 192 at
+    C = 384, 256 at C = 256) is the one width fault left."""
+    seen = []
+    for c in range(128, 513, 128):
+        for nhead in range(1, c + 1):
+            if c % nhead or (c // nhead) % 8:
+                continue
+            hd = c // nhead
+            fits = (5 * c + c * (hd + 1)) * 4 <= 232448
+            got = k1_instance(c, nhead, dtype)
+            assert (got is not None) == fits, (c, nhead, got)
+            if nhead == 8:
+                assert got is not None
+            seen.append((c, nhead, got))
+    assert ("tc" if dtype == torch.bfloat16 else "tf32x3") in {g for c, n, g in seen if (c, n) == (256, 8)}
+    assert [(c, n) for c, n, g in seen if g is None] == [(256, 1), (384, 1), (384, 2), (512, 1), (512, 2), (512, 4)]
