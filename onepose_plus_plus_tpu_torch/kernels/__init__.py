@@ -4,7 +4,7 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 
 - K1 ``ops/cuda_encoder.py::fused_encoder_layer`` and ``fused_encoder_layer_packed``
   (``csrc/encoder.cu``: tensor cores at C = 256 with 8 heads, bf16 operands or f32 ones
-  in split TF32; CUDA cores at the other widths)
+  in split TF32; CUDA cores at the other widths up to 4096)
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``: tensor
   cores for bf16 operands (``pack_operand``) and, in split TF32, for f32 ones up to
   C = 576 (``pack_tf32_operand``); CUDA cores for wider f32)
@@ -16,8 +16,10 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
   backward (``K5_coarse_loss_bwd``)
 - K6 ``ops/cuda_patch_gather.py::patch_gather`` (``csrc/patch_gather.cu``), the
   patch gather at any corner
-- K7 ``ops/cuda_short_encoder.py::fused_short_encoder_layer``
-  (``csrc/short_encoder.cu``), the encoder layer over many short sequences
+- K7 ``ops/cuda_short_encoder.py::fused_short_encoder_layer`` and
+  ``fused_short_encoder_layer_packed`` (``csrc/short_encoder.cu``), the encoder
+  layer over many short sequences: tensor cores for bf16 operands at C = 128
+  with 8 heads, CUDA cores otherwise
 
 A wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. Each wrapper adds one to its entry of

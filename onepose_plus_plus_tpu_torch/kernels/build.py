@@ -38,7 +38,7 @@ _SIGNATURES = {
     "opp_encoder_layer_bf16": [_P] * 17 + [_I] * 5 + [_P],
     "opp_encoder_layer_tc": [_P] * 13 + [_I] * 3 + [_P],
     "opp_encoder_layer_tf32x3": [_P] * 14 + [_I] * 3 + [_P],
-    "opp_encoder_source_tiles": [_I],
+    "opp_encoder_source_tiles": [_I, _I],
     "opp_encoder_tc_source_tiles": [_I],
     "opp_rowcol_stats_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
@@ -61,6 +61,7 @@ _SIGNATURES = {
     "opp_short_encoder_f32": [_P] * 13 + [_I] * 5 + [_P],
     "opp_short_encoder_bf16": [_P] * 13 + [_I] * 5 + [_P],
     "opp_short_encoder_smem_bytes": [_I] * 4,
+    "opp_short_encoder_tc": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 

@@ -27,6 +27,7 @@ from ..ops.cuda_encoder import (
     fused_encoder_layer_packed,
     pack_encoder_weights,
 )
+from ..ops.cuda_short_encoder import PackedShortEncoderWeights, pack_short_encoder_weights
 from ..utils.dtypes import torch_dtype
 
 
@@ -47,6 +48,7 @@ class LoFTREncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model)
         self.norm2 = nn.LayerNorm(d_model)
         self._packed: Optional[Tuple[tuple, PackedEncoderWeights]] = None  # (key, weights) of K1
+        self._short_packed: Optional[Tuple[tuple, PackedShortEncoderWeights]] = None  # of K7
 
     def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), layer.weight.to(self.dtype))
@@ -60,22 +62,33 @@ class LoFTREncoderLayer(nn.Module):
                 self.mlp[0].weight.t(), self.mlp[2].weight.t(),
                 self.norm2.weight, self.norm2.bias)
 
-    def packed_weights(self) -> PackedEncoderWeights:
-        """The layer's weights packed for K1 (``ops/cuda_encoder.py``) in the
-        layer's operand dtype, on the weights' device. Packed once and kept
-        until a weight changes: the key holds every parameter's version
-        counter (in-place updates: an optimizer step, ``load_state_dict``),
-        storage address, dtype and device (``.to()``). In train mode nothing
-        is kept: the weights change at every step."""
+    def _cached_pack(self, attr: str, pack):
+        """``pack(*kernel_weights(), nhead=, dtype=)`` kept in ``attr`` until a
+        weight changes: the key holds every parameter's version counter
+        (in-place updates: an optimizer step, ``load_state_dict``), storage
+        address, dtype and device (``.to()``). In train mode nothing is kept:
+        the weights change at every step."""
         weights = self.kernel_weights()
         if self.training:
-            return pack_encoder_weights(*weights, nhead=self.nhead, dtype=self.dtype)
+            return pack(*weights, nhead=self.nhead, dtype=self.dtype)
         key = (self.dtype,) + tuple((w._version, w.data_ptr(), w.dtype, w.device) for w in weights)
-        if self._packed is None or self._packed[0] != key:
+        cached = getattr(self, attr)
+        if cached is None or cached[0] != key:
             with torch.no_grad():
-                packed = pack_encoder_weights(*weights, nhead=self.nhead, dtype=self.dtype)
-            self._packed = (key, packed)
-        return self._packed[1]
+                cached = (key, pack(*weights, nhead=self.nhead, dtype=self.dtype))
+            setattr(self, attr, cached)
+        return cached[1]
+
+    def packed_weights(self) -> PackedEncoderWeights:
+        """The layer's weights packed for K1 (``ops/cuda_encoder.py``) in the
+        layer's operand dtype, on the weights' device, packed once and kept
+        until a weight changes (:meth:`_cached_pack`)."""
+        return self._cached_pack("_packed", pack_encoder_weights)
+
+    def short_packed_weights(self) -> PackedShortEncoderWeights:
+        """The layer's weights packed for K7 (``ops/cuda_short_encoder.py``),
+        under the same rules as :meth:`packed_weights`."""
+        return self._cached_pack("_short_packed", pack_short_encoder_weights)
 
     def forward(
         self,

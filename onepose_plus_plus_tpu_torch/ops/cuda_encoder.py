@@ -33,14 +33,15 @@ by :func:`k1_instance` from the operand type and the width, all counted as
 - ``"f32"``: **float32 operands at any other width** keep exact f32 FMAs on
   the CUDA cores (no TF32).
 
-The CUDA-core instances take C a multiple of 32 up to 512, divisible by the
-heads, where the apply block's [C, hd + 1] K'^T[V|1] table fits its shared
-memory (:func:`k1_instance`): every width the JAX kernel takes up to 512
-(C % 128 == 0, head width a multiple of 8) with head widths up to 107 at
-C = 512 (8 heads or more), 145 at C = 384, 221 at C = 256. A width outside
-these has no instance: the wrapper raises ``ValueError`` on the card, where
-the model's router (``models/transformer.py::routes_to_k1``) sends it all the
-same.
+The CUDA-core instances take C a multiple of 32 up to 4096, divisible by the
+heads (:func:`k1_instance`): every width the JAX kernel takes (C % 128 == 0,
+head width a multiple of 8) up to there, with any head count. A block's
+threads loop over the channels; where the apply block's [C, hd + 1]
+K'^T[V|1] table does not fit its shared memory beside one row (C above 512
+with 8 heads, wide heads below), the table is read from device memory through
+L2 instead. A width outside these has no instance: the wrapper raises
+``ValueError`` on the card, where the model's router
+(``models/transformer.py::routes_to_k1``) sends it all the same.
 
 The weights reach the kernels packed (:func:`pack_encoder_weights`): for the
 tensor-core instances as byte images of the shared-memory chunks they read,
@@ -68,14 +69,7 @@ _LN_EPS = 1e-5
 _TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instances' only width
 _CHUNK_K = 64  # input columns of one packed bf16 weight chunk
 _TF32_CHUNK_K = 8  # input columns of one packed split-TF32 weight chunk
-_CC_MAX_WIDTH = 512  # the CUDA-core instances: one thread per channel (csrc/encoder.cu)
-_SMEM_LIMIT = 232448  # dynamic shared memory of a block on the card
-
-
-def _cc_fits(c: int, hd: int) -> bool:
-    """Whether the CUDA-core apply block fits its shared memory with at least
-    one row beside the [C, hd + 1] table (``csrc/encoder.cu::apply_rows``)."""
-    return (5 * c + c * (hd + 1)) * 4 <= _SMEM_LIMIT
+_CC_MAX_WIDTH = 4096  # the CUDA-core instances' widest layer (csrc/encoder.cu::MAX_CC_C)
 
 
 def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
@@ -88,8 +82,6 @@ def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
         return None
     if (c, nhead) == (_TC_WIDTH, _TC_HEADS):
         return "tc" if dtype == torch.bfloat16 else "tf32x3"
-    if not _cc_fits(c, c // nhead):
-        return None
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
@@ -239,8 +231,7 @@ def pack_encoder_weights(
     instance = k1_instance(c, nhead, dtype)
     if instance is None:
         raise ValueError(f"fused_encoder_layer: no K1 instance takes C = {c} with {nhead} heads "
-                         f"(C must be a multiple of 32 up to 512, divisible by the heads, with a "
-                         f"[C, C / heads + 1] table that fits a block's shared memory)")
+                         f"(C must be a multiple of 32 up to {_CC_MAX_WIDTH}, divisible by the heads)")
     if instance not in ("tc", "tf32x3"):
         return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln,
                                     instance=instance)
@@ -298,7 +289,7 @@ def fused_encoder_layer_packed(
     hd = c // nhead
     y = torch.empty((n, l, c), dtype=torch.float32, device=device)
     if not tensor_cores:
-        n_tiles = lib.lib.opp_encoder_source_tiles(s)
+        n_tiles = lib.lib.opp_encoder_source_tiles(s, c)
         part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
         kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
         lib.call(

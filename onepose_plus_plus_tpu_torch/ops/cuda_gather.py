@@ -14,9 +14,13 @@ the NHWC map into ``[B, K, W*W, C]``. Taps outside the map, and every tap of an
 out-of-range cell id (a padded match slot), are zero.
 
 What bounds K3 on the card: device-memory bandwidth (the output and the taps it
-reads; a few tens of MB at the main-path shapes). The design gives each window
-one block and copies 16-byte vectors, neighbouring threads on neighbouring
-addresses, so loads and stores coalesce.
+reads; 105 MB in bf16 at the query step's shapes). The design gives each
+window one warp, which copies it as 16-byte vectors with 13 loads a lane in
+flight, all issued before the lane's stores; neighbouring lanes move
+neighbouring vectors, so loads and stores coalesce. A vector's tap and the
+tap's window row come from a shift and a multiply, not a division
+(:func:`window_vector_sources` is that arithmetic in PyTorch, held to the plain
+version by the CPU tests).
 
 K4 is K3's transpose: window gradients summed back onto the map. Windows
 overlap and GT-padded slots repeat cells, so collisions are the norm; the sum
@@ -63,6 +67,39 @@ def _window_taps(
     return flat.reshape(n, k * window * window), valid.reshape(n, k * window * window)
 
 
+MAGIC_SHIFT, MAX_WINDOW = 20, 63  # csrc/gather.cu: tap // window as (tap * magic) >> 20
+
+
+def window_vector_sources(
+    cell_ids: torch.Tensor, hw: Tuple[int, int], grid_hw: Tuple[int, int], stride: int, window: int,
+    nv: int,
+) -> torch.Tensor:
+    """The source of every 16-byte vector K3 writes, by the kernel's own
+    arithmetic: [N, K, W*W*nv] flat vector indices into one image's
+    [H*W*nv] vectors (nv vectors a pixel), -1 where the vector is zero. Vector
+    i of a window is vector i % nv of tap t = i // nv (a shift where nv is a
+    power of two), and the tap's window row is (t * magic) >> 20 with magic =
+    ceil(2^20 / window)."""
+    if not 0 < window <= MAX_WINDOW:
+        raise ValueError(f"window_gather: window {window} outside 1..{MAX_WINDOW}")
+    h, w = hw
+    h_c, w_c = grid_hw
+    ids = cell_ids.long()
+    ok = (ids >= 0) & (ids < h_c * w_c)
+    ci = torch.where(ok, ids // w_c, 0)
+    cj = torch.where(ok, ids - ci * w_c, 0)
+    i = torch.arange(window * window * nv, device=cell_ids.device)
+    t = i >> (nv.bit_length() - 1) if nv & (nv - 1) == 0 else i // nv
+    v = i - t * nv
+    magic = ((1 << MAGIC_SHIFT) + window - 1) // window
+    dr = (t * magic) >> MAGIC_SHIFT
+    dc = t - dr * window
+    r = (ci * stride - window // 2)[..., None] + dr
+    c = (cj * stride - window // 2)[..., None] + dc
+    inside = ok[..., None] & (r >= 0) & (r < h) & (c >= 0) & (c < w)
+    return torch.where(inside, (r * w + c) * nv + v, -1)
+
+
 def window_gather_plain(
     feat: torch.Tensor,
     cell_ids: torch.Tensor,
@@ -102,7 +139,9 @@ def window_gather(
         raise ValueError(f"window_gather: cell_ids {tuple(cell_ids.shape)} vs feat {tuple(feat.shape)}")
     if (c * feat.element_size()) % 16 != 0:
         raise ValueError(f"window_gather: C * itemsize must be a multiple of 16 bytes, C={c}")
-    ids = cell_ids.to(torch.int32).contiguous()
+    if not 0 < window <= MAX_WINDOW:
+        raise ValueError(f"window_gather: window {window} outside 1..{MAX_WINDOW}")
+    ids = cell_ids.to(torch.int32).contiguous()  # no launch for the model's int32 ids
     device = check_cuda_operands("window_gather", feat, ids)
     k = ids.shape[1]
     out = torch.empty((n, k, window * window, c), dtype=feat.dtype, device=device)

@@ -39,6 +39,8 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     fused_short_encoder_layer,
+    fused_short_encoder_layer_packed,
+    pack_short_encoder_weights,
     short_encoder_layer_plain,
 )
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows, gather_windows_aligned
@@ -172,6 +174,26 @@ def test_k1_runs_the_jax_kernels_widths_above_256(gen, dtype, c):
     got = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
     assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
     ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8, dtype=dtype)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert d.max().item() < 1e-3
+    else:
+        assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1)])
+def test_k1_runs_the_jax_kernels_widths_above_512_and_wide_heads(gen, dtype, c, nhead):
+    """Above 512 the CUDA-core instances' threads loop over the channels and
+    the stats block takes fewer rows (16 at 640-1024, 8 at 2048); a table no
+    block holds (every width here) is read through L2. Ragged rows, masks."""
+    x, src, w, xm, sm = _k1_args(gen, 2, 37, 70, True, dtype, c=c)
+    before = kernels.launch_counts()["K1_encoder_layer"]
+    got = fused_encoder_layer(x, src, *w, xm, sm, nhead=nhead, dtype=dtype)
+    assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=dtype)
     torch.cuda.synchronize()
     d = (got - ref).abs()
     assert bool(torch.isfinite(got).all())
@@ -327,6 +349,24 @@ def test_k3_matches_plain(gen, dtype):
     got = window_gather(feat, ids, (12, 16), 4, 5)
     torch.cuda.synchronize()
     assert torch.equal(got, window_gather_plain(feat, ids, (12, 16), 4, 5))
+
+
+@pytest.mark.parametrize("dtype,c,window", [(torch.float32, 128, 5), (torch.bfloat16, 128, 5),
+                                            (torch.bfloat16, 96, 5), (torch.float32, 8, 9)])
+def test_k3_exact_at_corners_and_ragged_shapes(gen, dtype, c, window):
+    """One warp a window: ragged window counts (not a multiple of the block's
+    eight), windows at the grid's corners reaching off the map, out-of-range
+    ids, a pixel of 12 vectors (division, not a shift) and of 2 (f32, C = 8)."""
+    feat = torch.randn(3, 40, 36, c, generator=gen, device="cuda").to(dtype)
+    ids = torch.randint(-4, 10 * 9 + 4, (3, 61), generator=gen, device="cuda", dtype=torch.int32)
+    ids[:, :4] = torch.tensor([0, 8, 81, 89], dtype=torch.int32)
+    before = kernels.launch_counts()["K3_window_gather"]
+    got = window_gather(feat, ids, (10, 9), 4, window)
+    assert kernels.launch_counts()["K3_window_gather"] == before + 1
+    ref = window_gather_plain(feat, ids, (10, 9), 4, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert bool((got[:, :4].reshape(3, 4, window, window, c)[:, 0, : window // 2] == 0).all())
 
 
 def test_wrapper_raises_for_unsupported_operands(gen):
@@ -579,3 +619,39 @@ def test_k7_matches_plain(gen, dtype, l, s):
     with pytest.raises(ValueError):  # C not a multiple of 32
         fused_short_encoder_layer(rn(2, l, 48), rn(2, s, 48), *[rn(48, 48) for _ in range(4)],
                                   rn(48), rn(48), rn(96, 96), rn(96, 48), rn(48), rn(48), nhead=8)
+
+
+@pytest.mark.parametrize("l,s", [(1, 1), (25, 25), (1, 25), (25, 1)])
+def test_k7_bf16_tensor_cores_match_plain_and_repeat_bitwise(gen, l, s):
+    """bf16 operands at C = 128 run the tensor-core instance (by kernel name;
+    no CUDA-core K7 kernel), within phase 9a's tolerance of the plain version,
+    two launches bitwise equal, a self layer (source is x, one tile for both)
+    bitwise equal to the same layer given a copy of x as its source; M ragged
+    (not a multiple of the tile's sequences)."""
+    c, m = 128, 1003
+    rn = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen, device="cuda") * scale)  # noqa: E731
+    w = [rn(c, c, scale=c ** -0.5) for _ in range(4)] + [1 + rn(c, scale=0.1), rn(c, scale=0.1),
+                                                         rn(2 * c, 2 * c, scale=(2 * c) ** -0.5),
+                                                         rn(2 * c, c, scale=(2 * c) ** -0.5),
+                                                         1 + rn(c, scale=0.1), rn(c, scale=0.1)]
+    x = rn(m, l, c)
+    src = x if l == s else rn(m, s, c)
+    packed = pack_short_encoder_weights(*w, nhead=8, dtype=torch.bfloat16)
+    assert packed.chunks is not None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            got = fused_short_encoder_layer_packed(x, src, packed)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+    assert any("short_encoder_tc_kernel" in n for n in names), names
+    assert not any(re.search(r"\bshort_encoder_kernel", n) for n in names), names
+    again = fused_short_encoder_layer_packed(x, src, packed)
+    ref = short_encoder_layer_plain(x, src, *w, nhead=8, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    d = (got - ref).abs()
+    assert got.shape == (m, l, c) and bool(torch.isfinite(got).all())
+    assert d.max().item() < 5e-2 and d.mean().item() < 5e-4
+    if l == s:
+        assert torch.equal(fused_short_encoder_layer_packed(x, x.clone(), packed), got)
+

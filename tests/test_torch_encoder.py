@@ -20,7 +20,7 @@ from onepose_plus_plus_tpu_torch.models.transformer import (
     LoFTREncoderLayer,
     LocalFeatureTransformer,
 )
-from onepose_plus_plus_tpu_torch.ops.cuda_encoder import fused_encoder_layer
+from onepose_plus_plus_tpu_torch.ops.cuda_encoder import fused_encoder_layer, k1_instance
 from onepose_plus_plus_tpu_torch.utils.weights import state_dict_from_jax
 
 torch.set_num_threads(2)
@@ -43,8 +43,8 @@ def _inputs(seed, n=N, l=L, s=S, c=C, masks=False):
     return x, src, xm, sm
 
 
-def _jax_layer(x, src, xm, sm, c=C):
-    layer = JaxLayer(c, NHEAD, "linear", dtype=jnp.float32)
+def _jax_layer(x, src, xm, sm, c=C, nhead=NHEAD):
+    layer = JaxLayer(c, nhead, "linear", dtype=jnp.float32)
     params = layer.init(jax.random.PRNGKey(0), x, src, xm, sm)["params"]
     return layer, _np(params)
 
@@ -61,12 +61,12 @@ def _opt(a):
     return None if a is None else torch.from_numpy(a)
 
 
-def _pallas_layer(x, src, xm, sm, p):
+def _pallas_layer(x, src, xm, sm, p, nhead=NHEAD):
     """The TPU kernel in interpret mode (bf16 product operands, f32 residual)."""
     return np.asarray(jax_fused_layer(
         x, src, *[p[k]["kernel"] for k in ("q_proj", "k_proj", "v_proj", "merge")],
         p["norm1"]["scale"], p["norm1"]["bias"], p["mlp_0"]["kernel"], p["mlp_1"]["kernel"],
-        p["norm2"]["scale"], p["norm2"]["bias"], x_mask=xm, source_mask=sm, nhead=NHEAD,
+        p["norm2"]["scale"], p["norm2"]["bias"], x_mask=xm, source_mask=sm, nhead=nhead,
         interpret=True,
     ))
 
@@ -185,6 +185,26 @@ def test_k1_plain_matches_pallas_kernel_above_256(c, dtype, atol):
     ref = _pallas_layer(x, src, xm, sm, p)
     port = LoFTREncoderLayer(c, NHEAD, dtype=dtype).eval()
     port.load_state_dict(state_dict_from_jax({"params": p}))
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-2), (torch.bfloat16, 2e-3)])
+@pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (512, 1)])
+def test_k1_plain_matches_pallas_kernel_above_512_and_wide_heads(c, nhead, dtype, atol):
+    """Widths above 512 and a head as wide as the layer, which the JAX kernel
+    takes and K1's CUDA-core instances now run (the threads loop over the
+    channels; the [C, hd + 1] table that no block holds is read through L2):
+    the port's layer through K1 (its plain version on the CPU) agrees with the
+    TPU kernel in interpret mode, at the tolerances of the widths up to 512."""
+    x, src, xm, sm = _inputs(7, n=1, l=12, s=20, c=c, masks=True)
+    _, p = _jax_layer(x, src, xm, sm, c=c, nhead=nhead)
+    ref = _pallas_layer(x, src, xm, sm, p, nhead=nhead)
+    port = LoFTREncoderLayer(c, nhead, dtype=dtype).eval()
+    port.load_state_dict(state_dict_from_jax({"params": p}))
+    assert k1_instance(c, nhead, dtype) == ("bf16" if dtype == torch.bfloat16 else "f32")
     with torch.no_grad():
         out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
     assert out.dtype == torch.float32

@@ -286,11 +286,12 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
     (64, 8, "float32", "f32"),
     (256, 8, "float32", "tf32x3"),  # the demo's coarse width: tensor cores in split TF32
     (48, 8, "bfloat16", None),      # not a multiple of 32
-    (288, 8, "float32", "f32"),     # above 256: the CUDA-core instances reach 512
+    (288, 8, "float32", "f32"),     # above 256: the CUDA-core instances reach 4096
     (384, 8, "bfloat16", "bf16"),   # the JAX kernel's widths above 256
     (512, 8, "float32", "f32"),
-    (544, 8, "float32", None),      # above 512
-    (512, 4, "float32", None),      # a [C, C / heads + 1] table that no block holds
+    (544, 8, "float32", "f32"),     # above 512: the threads loop over the channels
+    (512, 4, "float32", "f32"),     # a [C, C / heads + 1] table that no block holds: read through L2
+    (4128, 8, "float32", None),     # above 4096
     (96, 5, "bfloat16", None),      # heads do not divide C
 ])
 def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, expected):
@@ -310,25 +311,35 @@ def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, 
     assert seen == [True] * 4  # one (self, cross) pair over two streams
 
 
+def _jax_widths(c_max):
+    """Every (C, nhead) the JAX kernel takes up to C = c_max: C % 128 == 0 and a
+    head width C / nhead that is a multiple of 8 (``pallas_encoder.py::fused_encoder_layer``)."""
+    return [(c, nhead) for c in range(128, c_max + 1, 128) for nhead in range(1, c + 1)
+            if c % nhead == 0 and (c // nhead) % 8 == 0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
-    """The JAX kernel takes C % 128 == 0 with a head width that is a multiple of
-    8 (``pallas_encoder.py::fused_encoder_layer``). Up to C = 512, K1 has an
-    instance for each such width with 8 heads (the model's), and for every head
-    count whose [C, C / heads + 1] K'^T[V|1] table fits a block's shared memory
-    beside one row; the rest (head widths of 128 and more at C = 512, of 192 at
-    C = 384, 256 at C = 256) is the one width fault left."""
-    seen = []
-    for c in range(128, 513, 128):
-        for nhead in range(1, c + 1):
-            if c % nhead or (c // nhead) % 8:
-                continue
-            hd = c // nhead
-            fits = (5 * c + c * (hd + 1)) * 4 <= 232448
-            got = k1_instance(c, nhead, dtype)
-            assert (got is not None) == fits, (c, nhead, got)
-            if nhead == 8:
-                assert got is not None
-            seen.append((c, nhead, got))
+    """Up to C = 512, K1 has an instance for every (C, nhead) the JAX kernel
+    takes, the wide heads whose [C, C / heads + 1] K'^T[V|1] table no block
+    holds (head widths of 128 and more at C = 512, 192 at C = 384, 256 at
+    C = 256) included: their apply block reads the table through L2."""
+    seen = [(c, nhead, k1_instance(c, nhead, dtype)) for c, nhead in _jax_widths(512)]
+    assert all(got is not None for _, _, got in seen), [(c, n) for c, n, g in seen if g is None]
     assert ("tc" if dtype == torch.bfloat16 else "tf32x3") in {g for c, n, g in seen if (c, n) == (256, 8)}
-    assert [(c, n) for c, n, g in seen if g is None] == [(256, 1), (384, 1), (384, 2), (512, 1), (512, 2), (512, 4)]
+    assert {g for c, n, g in seen if (c, n) != (256, 8)} == {"bf16" if dtype == torch.bfloat16 else "f32"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
+    """Above 512 too: every (C, nhead) the JAX kernel takes up to C = 2048 (170
+    pairs) has a CUDA-core instance, and the model routes each to K1 by the JAX
+    rule, so that no such width reaches a wrapper that raises."""
+    widths = _jax_widths(2048)
+    assert len(widths) == 170
+    tc, cc = ("tc", "bf16") if dtype == torch.bfloat16 else ("tf32x3", "f32")
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    for c, nhead in widths:
+        assert k1_instance(c, nhead, dtype) == (tc if (c, nhead) == (256, 8) else cc), (c, nhead)
+        cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype=name, layer_iter_n=1)
+        assert routes_to_k1(cfg, False, 256, 300) and not routes_to_k1(cfg, True, 256, 300)
