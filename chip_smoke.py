@@ -83,6 +83,8 @@ numpy seed.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -90,6 +92,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -98,7 +101,10 @@ import torch
 from onepose_plus_plus_tpu_torch import bench, demo, kernels
 from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, LoFTRConfig, OnePosePlusConfig
 from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
+from onepose_plus_plus_tpu_torch.eval.trajectory import absolute_trajectory_error, camera_centers_from_poses
 from onepose_plus_plus_tpu_torch.geometry.levenberg_marquardt import lm_solve_scalar
+from onepose_plus_plus_tpu_torch.geometry.residuals import depth_residual_and_derivative, depth_residual_track
+from onepose_plus_plus_tpu_torch.geometry.rotations import matrix_to_angle_axis
 from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
 from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
@@ -142,7 +148,8 @@ from onepose_plus_plus_tpu_torch.data.colmap_model import model_stats
 from onepose_plus_plus_tpu_torch.data.preprocessing import save_3d_annotation
 from onepose_plus_plus_tpu_torch.sfm.annotation import build_annotations
 from onepose_plus_plus_tpu_torch.sfm.cli import CONFIGS_DIR, sfm_config
-from onepose_plus_plus_tpu_torch.sfm.coarse_match import merge_keypoints, run_pairs
+from onepose_plus_plus_tpu_torch.sfm.coarse_match import PairMatches, merge_keypoints, run_pairs
+from onepose_plus_plus_tpu_torch.sfm.incremental import incremental_sfm
 from onepose_plus_plus_tpu_torch.sfm.filtering import (
     filter_by_3d_box,
     filter_track_length,
@@ -160,6 +167,8 @@ from onepose_plus_plus_tpu_torch.sfm.post_optimization import (
 )
 from onepose_plus_plus_tpu_torch.sfm.runner import extract_keypoint_descriptors
 from onepose_plus_plus_tpu_torch.sfm.triangulate import triangulate_scene
+from onepose_plus_plus_tpu_torch.train import callbacks as train_callbacks
+from onepose_plus_plus_tpu_torch.train import cli as train_cli
 from onepose_plus_plus_tpu_torch.train.losses import LossConfig, compute_losses
 from onepose_plus_plus_tpu_torch.utils.config_loader import load_config
 from onepose_plus_plus_tpu_torch.train.train_step import TrainConfig, make_optimizer, train_step
@@ -278,20 +287,65 @@ def phase0() -> str:
     return smi
 
 
-def phase1() -> None:
+def phase1(smi: str) -> None:
     lib = kernels.build(verbose=True)
     log(f"[1] built {lib.path.name} in {lib.build_seconds:.2f} s")
     for line in lib.compiler_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log(f"[1]   {line.strip()}")
-    # the process's first forward-mode derivative (the SfM depth solver's) pays
-    # a one-time set-up; time it here, before anything else has paid it
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lm_solve_scalar(lambda d: (d * d - 2.0)[:, None], torch.ones(8, device="cuda"))
-    torch.cuda.synchronize()
-    log(f"[1] first forward-mode derivative of the process (a trivial LM solve): "
-        f"{time.perf_counter() - t0:.3f} s")
+    phase1_depth_derivative(smi)
+
+
+def _depth_problems(rng, n: int, v: int, device: str):
+    """n SfM depth problems (a keyframe observation and v related views each)
+    of a synthetic ring scene, 0.3 px noise, depths 15 % off: the arguments of
+    ``depth_residual_track`` and the initial depths, on ``device``."""
+    K, pts, Ts = _scene(rng, v + 1, n)
+    aa = matrix_to_angle_axis(torch.from_numpy(Ts[:, :3, :3])).numpy()
+    proj = [(pts @ T[:3, :3].T + T[:3, 3]) for T in Ts]
+    uv = [p[:, :2] / p[:, 2:3] @ K[:2, :2].T + K[:2, 2] for p in proj]
+    uv1 = np.stack(uv[1:], axis=1) + rng.normal(0, 0.3, (n, v, 2))
+    valid = np.ones((n, v), bool)
+    valid[::4, -1] = False
+    args = (uv[0], uv1, np.broadcast_to(K, (n, 3, 3)), np.broadcast_to(K, (n, v, 3, 3)),
+            np.broadcast_to(aa[0], (n, 3)), np.broadcast_to(Ts[0][:3, 3], (n, 3)),
+            np.broadcast_to(aa[1:], (n, v, 3)), np.broadcast_to(Ts[1:, :3, 3], (n, v, 3)), valid)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, bool if a.dtype == bool else np.float32)).to(device)  # noqa: E731
+    d0 = proj[0][:, 2] * rng.uniform(0.85, 1.15, n)
+    return tuple(map(t, args)), t(d0), proj[0][:, 2]
+
+
+def phase1_depth_derivative(smi: str) -> None:
+    """The SfM depth solver's first call in the process: with the residual's
+    closed-form derivative (the solver's route now), then through forward
+    mode (its route before: the first torch.func.jvp of a process pays a
+    set-up of seconds); the two derivatives and solutions agree."""
+    n_tracks, n_views = 20000, 4
+    args, d0, depth = _depth_problems(np.random.default_rng(11), n_tracks, n_views, "cuda")
+    torch.ones(1, device="cuda").sum().item()  # the CUDA context exists before either clock starts
+
+    def forward_mode(d, *a):  # the same residual without its closed form
+        return depth_residual_track(d, *a)
+
+    walls = {}
+    for tag, fn in (("closed form", depth_residual_track), ("forward mode (torch.func.jvp)", forward_mode)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walls[tag] = lm_solve_scalar(fn, d0, args)[0]
+        torch.cuda.synchronize()
+        log(f"[1] depth solver's first call, derivative by {tag}: {time.perf_counter() - t0:.3f} s "
+            f"({n_tracks} tracks, {n_views} views, 20 LM iterations) on {smi}")
+    (r, dr), (r_f, dr_f) = depth_residual_and_derivative(d0, *args), torch.func.jvp(
+        lambda d: depth_residual_track(d, *args), (d0,), (torch.ones_like(d0),))
+    rel = float((dr - dr_f).abs().max() / dr_f.abs().max())
+    d_closed, d_fwd = walls.values()
+    sol = float(((d_closed - d_fwd).abs() / d_fwd.abs()).max())
+    err = float(np.abs(d_closed.cpu().numpy() - depth).max())
+    log(f"[1] closed-form derivative against forward mode: max |d| {rel:.2e} of the largest entry "
+        f"(tolerance 1e-5, float32), residuals equal {bool(torch.equal(r, r_f))}; solved depths agree to "
+        f"{sol:.2e} relative (tolerance 1e-4), within {err:.4f} of the truth")
+    check(rel <= 1e-5 and torch.equal(r, r_f) and sol <= 1e-4 and err < 0.05,
+          "the closed-form depth derivative disagrees with forward mode")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -1179,7 +1233,101 @@ def phase7d(smi: str):
     k2_rows = [r for r in rows if _short(r[2]) in K2_TF32_NAMES]
     log(f"[7d] K2's launches in the micro-batch: {launch_names(k2_rows)}")
     check_f32_instances(rows, "7d", k1=False)
-    return counts
+    return counts, step_ms
+
+
+def _train_capture(root: str, n_frames: int) -> str:
+    """A training manifest of the train config's shapes: n_frames textured
+    512^2 frames of a ring scene and its 7000-point annotation (random
+    descriptors, GT from the poses)."""
+    import cv2
+
+    rng = np.random.default_rng(75)
+    K, pts, Ts = _scene(rng, n_frames, TRAIN_P, img=float(TRAIN_IMG))
+    anno = os.path.join(root, "anno_3d_average.npz")
+    save_3d_annotation(anno, pts.astype(np.float32), rng.standard_normal((TRAIN_P, 128)).astype(np.float32),
+                       np.ones(TRAIN_P, np.float32))
+    save_3d_annotation(os.path.join(root, "anno_3d_average_coarse.npz"), pts.astype(np.float32),
+                       rng.standard_normal((TRAIN_P, 256)).astype(np.float32), np.ones(TRAIN_P, np.float32))
+    os.makedirs(os.path.join(root, "color"))
+    manifest = []
+    for i, img in enumerate(_textured_images(rng, n_frames, TRAIN_IMG)):
+        path = os.path.join(root, "color", f"{i:04d}.png")
+        cv2.imwrite(path, (img * 255).astype(np.uint8))
+        manifest.append({"img_file": path, "pose": Ts[i].tolist(), "K": K.tolist(), "avg_anno3d_file": anno,
+                         "assign_pairs": np.stack([np.arange(TRAIN_P)] * 2).tolist()})
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(manifest, f)
+    return path
+
+
+def phase7e(tmp: str, step_ms_7d: float, smi: str) -> None:
+    """The training CLI (``python -m onepose_plus_plus_tpu_torch.train``'s
+    ``main``) at world 1 over NCCL through DDP, at the train config (f32, 4
+    frames of 512^2 a micro-batch, 7000 points, grad_accum 2): four
+    micro-batches with every callback on, batches pinned and copied on a side
+    stream two ahead. The figure callback's forward must leave every buffer as
+    it was; K2-K5 must launch as the steps imply."""
+    manifest = _train_capture(tmp, 4 * TRAIN_B)
+    argv = ["+experiment=train.yaml", f"dataset.train_anno_file={manifest}", "dataset.val_anno_file=null",
+            f"dataset.img_resize={TRAIN_IMG}", f"dataset.shape3d_train={TRAIN_P}", "dataset.image_warp_adapt=false",
+            "trainer.device=cuda", "trainer.n_devices=1", f"trainer.batch_size={TRAIN_B}", "trainer.epochs=1",
+            "trainer.log_every_n_steps=2", "trainer.enable_plotting=true",
+            "trainer.callbacks=[grad_stats,lr,checkpoint_artifacts]",
+            f"ckpt_dir={os.path.join(tmp, 'ckpts')}", f"log_dir={os.path.join(tmp, 'logs')}"]
+    figure_forwards, side_stream = [], []
+    forward = train_callbacks.TrainMatchFigureCallback.forward
+    put = train_cli.shard_batch
+
+    def checked_forward(self):
+        before = [b.clone() for b in self.model.buffers()]
+        out = forward(self)
+        figure_forwards.append(all(torch.equal(a, b) for a, b in zip(before, self.model.buffers())))
+        return out
+
+    def recorded_put(batch, mesh):
+        out = put(batch, mesh)
+        side_stream.append(out.event is not None and all(v.is_cuda for v in out.values()))
+        return out
+
+    train_callbacks.TrainMatchFigureCallback.forward = checked_forward
+    train_cli.shard_batch = recorded_put
+    stdout = io.StringIO()
+    kernels.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(stdout), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            train_cli.main(argv)
+    finally:
+        train_callbacks.TrainMatchFigureCallback.forward = forward
+        train_cli.shard_batch = put
+    counts = kernels.launch_counts()
+    out = stdout.getvalue()
+    for line in out.splitlines():
+        log(f"[7e] | {line}")
+    for w in caught:
+        if "figure" in str(w.message):
+            log(f"[7e] warning: {w.message}")
+    # four micro-batches and two figure forwards (steps 2 and 4; the figure's
+    # forward selects matches (K2) and gathers windows (K3), computes no loss)
+    expected = {"K1_encoder_layer": 0, "K2_rowcol_stats": 6, "K3_window_gather": 6, "K4_window_scatter": 4,
+                "K5_coarse_loss": 4, "K5_coarse_loss_bwd": 4, "K6_patch_gather": 0, "K7_short_encoder": 0}
+    log(f"[7e] launches: {counts} (expected {expected})")
+    check(counts == expected, "the training CLI did not launch K2-K5 as its steps imply")
+    check("ranks=1 (nccl)" in out, "the CLI did not train over an NCCL process group")
+    log(f"[7e] figure forwards {len(figure_forwards)}, every buffer bitwise unchanged after each: "
+        f"{all(figure_forwards)}; batches copied on a side stream: {sum(side_stream)} of {len(side_stream)}")
+    check(len(figure_forwards) == 2 and all(figure_forwards), "the figure callback changed a buffer")
+    check(len(side_stream) == 4 and all(side_stream), "the batches did not go through the pinned prefetch")
+    losses = [float(m.group(1)) for m in re.finditer(r"step \d+ loss ([-\d.naif]+)", out)]
+    per = [float(m.group(1)) for m in re.finditer(r"([\d.]+) ms/micro-batch", out)]
+    check(len(losses) == 3 and bool(np.isfinite(losses).all()), f"training losses {losses}")  # steps 1, 2, 4
+    art = os.path.join(tmp, "ckpts", "onepose_plus_train", "artifacts", "epoch_0")
+    check(os.path.exists(os.path.join(art, "last.pt")), "no checkpoint artifact")
+    log(f"[7e] wall per micro-batch in the CLI's loop (steps 3-4: loader, pinned prefetch, DDP step, "
+        f"synchronised at the log line) {per[-1]:.2f} ms, against 7d's {step_ms_7d:.2f} ms (train_step on a "
+        f"batch already on the card), on {smi}")
 
 
 # ----------------------------------------------------------------- phase 8
@@ -1469,6 +1617,55 @@ def phase8d() -> None:
 
 
 # ----------------------------------------------------------------- phase 9
+
+def phase8e(smi: str) -> None:
+    """The incremental SfM (unknown poses) on a synthetic ring scene with
+    simulated matches, on the card and on the CPU: every view registered, both
+    trajectories within 0.02 of the truth (ATE) and of each other."""
+    n_views = 6
+    K, pts, Ts = _scene(np.random.default_rng(3), n_views, 60)
+    rng = np.random.default_rng(3)  # the matches of tests/test_torch_incremental_sfm.py's scene
+    raw = []
+    for i in range(n_views):
+        for j in range(i + 1, n_views):
+            keep = rng.random(len(pts)) >= 0.1
+            uv = [(p[:, :2] / p[:, 2:3]) @ K[:2, :2].T + K[:2, 2]
+                  for p in (pts @ Ts[k][:3, :3].T + Ts[k][:3, 3] for k in (i, j))]
+            raw.append(PairMatches((i, j), uv[0][keep] + rng.normal(0, 0.3, (keep.sum(), 2)),
+                                   uv[1][keep] + rng.normal(0, 0.3, (keep.sum(), 2)),
+                                   rng.uniform(0.5, 1.0, keep.sum())))
+    scene = merge_keypoints(raw)
+    Ks = {i: K for i in range(n_views)}
+    # the first cuSOLVER calls of a process load and set it up; phases 3-8
+    # have made them already, so these read the calls alone
+    eye = torch.eye(9, device="cuda").expand(4, 9, 9).contiguous()
+    first = {}
+    for name, fn in (("eigh", torch.linalg.eigh), ("svd", torch.linalg.svd), ("solve_ex", lambda a: torch.linalg.solve_ex(a, a))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(eye)
+        torch.cuda.synchronize()
+        first[name] = time.perf_counter() - t0
+    log("[8e] batched " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in first.items()) + " on [4, 9, 9] here")
+    out, walls = {}, {}
+    for tag, dev in (("card", "cuda"), ("card, second call", "cuda"), ("cpu", "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[tag] = incremental_sfm(scene, Ks, min_seed_matches=30, device=dev)
+        walls[tag] = time.perf_counter() - t0
+    centers = {k: camera_centers_from_poses(np.stack([o["poses"][i] for i in range(n_views)]))
+               for k, o in out.items() if len(o["registered"]) == n_views}
+    check(len(centers) == 3, f"a view was not registered: {[o['registered'] for o in out.values()]}")
+    gt = camera_centers_from_poses(Ts)
+    ate = {k: absolute_trajectory_error(c, gt)["ate_rmse"] for k, c in centers.items()}
+    between = absolute_trajectory_error(centers["card"], centers["cpu"])["ate_rmse"]
+    log(f"[8e] incremental SfM, {n_views} views, {len(out['card']['points'])} points on the card "
+        f"({len(out['cpu']['points'])} on the CPU): registration order {out['card']['registered']}; ATE to the "
+        f"truth card {ate['card']:.4f}, CPU {ate['cpu']:.4f}, card to CPU {between:.4f} (threshold 0.02)")
+    log(f"[8e] walls: first call on the card {walls['card']:.3f} s (RANSAC, PnP, LM on closed-form "
+        f"Jacobians), second {walls['card, second call']:.3f} s, CPU {walls['cpu']:.3f} s, on {smi}")
+    check(max(ate.values()) < 0.02 and between < 0.02, "the incremental SfM's trajectory is off")
+
 
 FINE_SHAPES = ((1, 1), (25, 25), (1, 25), (25, 1))  # (L, S) of the fine transformer's layer applications
 
@@ -1815,7 +2012,7 @@ K5_OLD_NAMES = ("lse_kernel", "loss_kernel", "gsum_kernel", "df0_kernel", "df1_k
 
 def main() -> int:
     smi = phase0()
-    phase1()
+    phase1(smi)
     no_tf32()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1836,8 +2033,11 @@ def main() -> int:
     records["K5_coarse_loss"] = phase7b(gen)
     torch.cuda.empty_cache()
     phase7c()
-    train_counts = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
+    train_counts, step_ms = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
     counts.update({k: v for k, v in train_counts.items() if k.startswith(("K4", "K5"))})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase7e(tmp, step_ms, smi)
     torch.cuda.empty_cache()
     records["K6_patch_gather"] = phase8a(gen)
     torch.cuda.empty_cache()
@@ -1847,6 +2047,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase8d()
     torch.cuda.empty_cache()
+    phase8e(smi)
     counts["K7_short_encoder"] = phase9b(gen, smi)  # K7's harness: the fine transformer
     torch.cuda.empty_cache()
     # the CLIs as a fresh process runs them: PyTorch's default TF32 settings

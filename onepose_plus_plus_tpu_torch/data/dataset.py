@@ -356,6 +356,11 @@ class TrainLoader:
     Variable-size collation never happens because every example is
     fixed-shape. Determinism: the batch order and every example's rng depend
     only on (seed, epoch, index), not on worker scheduling.
+
+    Data-parallel ranks (``rank`` of ``world``) share one order of global
+    batches of ``batch_size * world`` samples (``drop_last`` on the global
+    batch, as the JAX package's loader over its mesh) and each loads its own
+    ``batch_size`` of every global batch.
     """
 
     def __init__(
@@ -366,6 +371,8 @@ class TrainLoader:
         drop_last=True,
         num_workers: int = 4,
         prefetch: int = 2,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -373,11 +380,14 @@ class TrainLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
+        self.rank = rank
+        self.world = world
 
     def _batch_starts(self, order: np.ndarray):
-        n = len(order)
-        end = n - (n % self.batch_size) if self.drop_last else n
-        return range(0, end, self.batch_size)
+        """Start of this rank's shard in each global batch."""
+        n, step = len(order), self.batch_size * self.world
+        end = n - (n % step) if self.drop_last else n
+        return range(self.rank * self.batch_size, end, step)
 
     def epoch(self, epoch_idx: int) -> Iterator[Dict[str, np.ndarray]]:
         if hasattr(self.dataset, "set_epoch"):

@@ -1,18 +1,22 @@
-"""Batched solvers of the SfM depth refinement (port of
-``onepose_plus_plus_tpu/geometry/levenberg_marquardt.py``: ``lm_solve_scalar``
-and ``first_order_solve``).
+"""Batched least-squares solvers (port of
+``onepose_plus_plus_tpu/geometry/levenberg_marquardt.py``): the SfM depth
+refinement's ``lm_solve_scalar`` and ``first_order_solve``, and the
+D-parameter ``lm_solve`` of the extrinsics refinement (``bundle_adjust.py``).
 
 The reference refines one scalar depth per track with poses fixed (DeepLM,
 ``optimize_procedure=["depth"]``), so the problem splits into thousands of
 independent one-parameter least squares, solved here all at once.
 ``residual_fn(x [B], *args) -> [B, R]`` is batched over problems; each
-problem's residuals depend on its own x only, so one forward-mode product
-with a tangent of ones (``torch.func.jvp``) gives every problem's exact
-derivative dr/dx, where the JAX package vmaps ``jax.jacfwd``.
+problem's residuals depend on its own x only, so the derivative dr/dx of
+every problem comes in one pass: from the residual's closed form where it
+carries one (``residual_fn.with_derivative(x, *args) -> (r, dr/dx)``, as
+``residuals.depth_residual_track`` does), else from one forward-mode product
+with a tangent of ones (``torch.func.jvp``), where the JAX package vmaps
+``jax.jacfwd``. (The first ``jvp`` of a process pays a set-up of seconds.)
 
-``lm_solve`` (the D-parameter LM) and ``bundle_adjust.py`` serve only the
-JAX package's incremental SfM, which ``run_sfm`` does not call; they are not
-ported yet.
+``lm_solve`` solves B problems of D parameters the same way, with Jacobians
+[B, R, D] from the residual's closed form where it carries one, else D
+forward-mode products (one a parameter, tangents e_d for every problem).
 """
 from __future__ import annotations
 
@@ -24,7 +28,10 @@ _EPS = 1e-12
 
 
 def _residual_and_jacobian(residual_fn: Callable, x: torch.Tensor, args: Sequence):
-    """(r [B, R], dr/dx [B, R]) in one forward-mode pass."""
+    """(r [B, R], dr/dx [B, R]) in one pass: closed form, else forward mode."""
+    closed_form = getattr(residual_fn, "with_derivative", None)
+    if closed_form is not None:
+        return closed_form(x, *args)
     return torch.func.jvp(lambda d: residual_fn(d, *args), (x,), (torch.ones_like(x),))
 
 
@@ -61,6 +68,63 @@ def lm_solve_scalar(
         improved = (new_cost < cost) & ~done
         x = torch.where(improved, x_new, x)
         rel = (cost - new_cost).abs() / (cost + _EPS)
+        cost = torch.where(improved, new_cost, cost)
+        lam = torch.where(improved, lam * 0.33, lam * 3.0).clamp(1e-10, 1e10)
+        done = done | (improved & (rel < rel_tol))
+    return x, cost
+
+
+def _residual_and_jacobian_nd(residual_fn: Callable, x: torch.Tensor, args: Sequence):
+    """(r [B, R], J [B, R, D]): closed form, else one forward-mode pass a parameter."""
+    closed_form = getattr(residual_fn, "with_derivative", None)
+    if closed_form is not None:
+        return closed_form(x, *args)
+    cols = []
+    for d in range(x.shape[1]):
+        tangent = torch.zeros_like(x)
+        tangent[:, d] = 1.0
+        r, col = torch.func.jvp(lambda v: residual_fn(v, *args), (x,), (tangent,))
+        cols.append(col)
+    return r, torch.stack(cols, dim=-1)
+
+
+def lm_solve(
+    residual_fn: Callable,
+    x0: torch.Tensor,
+    args: Sequence = (),
+    max_iters: int = 20,
+    lam0: float = 1e-3,
+    rel_tol: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Levenberg-Marquardt: x0 [B, D], residual_fn(x [B, D], *args) ->
+    [B, R] -> (x [B, D], cost [B]).
+
+    The JAX solver's step per problem: A = JtJ + lam diag(max(diag JtJ,
+    1e-12)) + 1e-12 I, delta = -A^-1 Jt r (one batched solve), accepted where
+    it lowers the cost (lam x0.33), else lam x3, clipped to [1e-10, 1e10]. JAX
+    stops a problem's while loop once an accepted step changes its cost by
+    less than ``rel_tol``; here every problem runs ``max_iters`` iterations
+    and a finished one stays frozen, which gives the same result.
+    """
+    b, d = x0.shape
+    eye = torch.eye(d, dtype=x0.dtype, device=x0.device)
+    x = x0
+    cost = _cost(residual_fn, x, args)
+    lam = torch.full((b,), lam0, dtype=x0.dtype, device=x0.device)
+    done = torch.zeros(b, dtype=torch.bool, device=x0.device)
+    for _ in range(max_iters):
+        r, J = _residual_and_jacobian_nd(residual_fn, x, args)
+        jtj = J.transpose(-1, -2) @ J
+        g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
+        damp = torch.diag_embed(jtj.diagonal(dim1=-2, dim2=-1).clamp_min(_EPS))
+        A = jtj + lam[:, None, None] * damp + 1e-12 * eye
+        # solve_ex: a singular system gives non-finite steps (rejected below), no host sync
+        delta = -torch.linalg.solve_ex(A, g)[0]
+        x_new = x + delta
+        new_cost = _cost(residual_fn, x_new, args)
+        improved = (new_cost < cost) & ~done
+        rel = (cost - new_cost).abs() / (cost + _EPS)
+        x = torch.where(improved[:, None], x_new, x)
         cost = torch.where(improved, new_cost, cost)
         lam = torch.where(improved, lam * 0.33, lam * 3.0).clamp(1e-10, 1e10)
         done = done | (improved & (rel < rel_tol))

@@ -11,7 +11,14 @@ and returns the compute dtype (as flax's BatchNorm does). In train mode
 (``module.train()``) BatchNorm follows flax's rules, not torch's: batch
 statistics with the biased variance ``E[x^2] - E[x]^2``, and running
 statistics updated with momentum 0.9 from that same biased variance
-(``F.batch_norm`` would update with the unbiased one).
+(``F.batch_norm`` would update with the unbiased one). Train mode sums each
+sample's statistics first and adds the samples in a fixed pairwise order,
+forward and backward (``_BatchNormTrain``). In data-parallel training
+(``parallel.comm.global_batch``) the statistics are the global batch's, as
+under the JAX package's sharded step: the sums, and in the backward the sums
+of the gradient terms, are all-reduced over the ranks (SyncBatchNorm's rule
+with flax's variance), and ranks with equal power-of-two shards compute what
+one process computes on the whole batch, to the bit.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ResNetFPNConfig
+from ..parallel import comm
 
 
 class _Conv(nn.Conv2d):
@@ -33,6 +41,38 @@ class _Conv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm of an f32 [N, C, H, W] map over the global batch:
+    per-sample sums added by ``comm.batch_sum_samples`` in the forward (the
+    statistics) and in the backward (the terms of dx). Returns (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, xf, weight, bias, eps):
+        n, c, h, w = xf.shape
+        per_sample = torch.cat([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3)),
+                                xf.new_full((n, 1), float(h * w))], dim=1)
+        sums = comm.batch_sum_samples(per_sample)
+        count = sums[2 * c]
+        mean = sums[:c] / count
+        var = (sums[c:2 * c] / count - mean * mean).clamp_min(0.0)  # biased
+        inv = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * inv[:, None, None]
+        ctx.save_for_backward(xhat, inv * weight)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight[:, None, None] + bias[:, None, None], mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, mul = ctx.saved_tensors
+        c = xhat.shape[1]
+        local = comm._pairwise_sum(torch.cat([gy.sum(dim=(2, 3)), (gy * xhat).sum(dim=(2, 3))], dim=1))
+        total = comm.batch_sum(local) / ctx.count
+        gx = mul[:, None, None] * (gy - total[:c, None, None] - xhat * total[c:, None, None])
+        # parameter gradients are this rank's share: DDP averages them
+        return gx, local[c:], local[:c], None
 
 
 class _BN(nn.BatchNorm2d):
@@ -47,15 +87,10 @@ class _BN(nn.BatchNorm2d):
             y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                              self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
-        xf = x.float()
-        dims = (0, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)  # biased
+        y, mean, var = _BatchNormTrain.apply(x.float(), self.weight, self.bias, self.eps)
         with torch.no_grad():
             self.running_mean.mul_(self.MOMENTUM).add_(mean, alpha=1.0 - self.MOMENTUM)
             self.running_var.mul_(self.MOMENTUM).add_(var, alpha=1.0 - self.MOMENTUM)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
 

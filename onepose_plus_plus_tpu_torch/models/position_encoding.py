@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.comm import batch_first_shard
+
 
 @functools.lru_cache(maxsize=8)
 def _sine_pe_table(d_model: int, h: int, w: int, temp_bug_fix: bool) -> np.ndarray:
@@ -46,8 +48,9 @@ def sine_position_encoding(x: torch.Tensor, temp_bug_fix: bool = False) -> torch
 
 
 def normalize_3d_keypoints(kpts: torch.Tensor) -> torch.Tensor:
-    """[N, L, 3] -> (kpts - per-sample mean) / (0.6 * max extent of sample 0)."""
-    extent = kpts[0].amax(dim=0) - kpts[0].amin(dim=0)
+    """[N, L, 3] -> (kpts - per-sample mean) / (0.6 * max extent of sample 0)
+    (of the global batch's sample 0 in data-parallel training)."""
+    extent = batch_first_shard(kpts[0].amax(dim=0) - kpts[0].amin(dim=0))
     center = kpts.mean(dim=-2, keepdim=True)
     return (kpts - center) / (extent.max() * 0.6)
 

@@ -30,7 +30,9 @@ tiles on the transposed tile, so neither needs atomics or a
 to run. Column sums of g are per-row-tile partials merged in order, as K2's
 column statistics. C <= 256 (the second product's accumulators).
 
-The count normalisation and ``max_conf`` live in the wrapper, as in JAX.
+The count normalisation and ``max_conf`` live in the wrapper, as in JAX; in
+data-parallel training their sums, counts and maximum are the global
+batch's (``parallel.comm``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from typing import Tuple
 import torch
 
 from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+from ..parallel.comm import batch_max, batch_sum
 from .cuda_matching import pack_operand
 
 LOGCAP = -1e-6  # log conf <= log(1 - ~1e-6): the negative term's log1p stays finite
@@ -183,7 +186,9 @@ def fused_coarse_focal_loss(
         raise ValueError(f"unknown feat_norm {feat_norm}")
     pos_sum, neg_sum, mx = coarse_focal_sums(feat0, feat1, gt_cell, 1.0 / (temperature + 1e-4), alpha,
                                              gamma, scale)
-    n_pos = (gt_cell >= 0).sum()
-    n_neg = b * p * l - n_pos
-    loss = pos_weight * pos_sum / n_pos.clamp(min=1) + neg_weight * neg_sum / n_neg.clamp(min=1)
-    return loss, mx.detach()
+    local_pos = (gt_cell >= 0).sum()
+    n_pos = batch_sum(local_pos)
+    n_neg = batch_sum(b * p * l - local_pos)
+    loss = (pos_weight * batch_sum(pos_sum) / n_pos.clamp(min=1)
+            + neg_weight * batch_sum(neg_sum) / n_neg.clamp(min=1))
+    return loss, batch_max(mx.detach())

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..parallel.comm import batch_shard
+
 
 class CoarseMatches(NamedTuple):
     """K fixed match slots per batch element."""
@@ -149,8 +151,16 @@ def select_topk_matches(
 def sample_gt_rows(gt_cell: torch.Tensor, num: int, generator: torch.Generator) -> torch.Tensor:
     """Rows for the GT slots: Gumbel top-``num`` over the rows with a GT cell
     (sampling without replacement), [N, num]. Rows without GT get -inf and come
-    last; the assembly wraps around when there are fewer GT rows than slots."""
-    u = torch.rand(gt_cell.shape, generator=generator, device=gt_cell.device)
+    last; the assembly wraps around when there are fewer GT rows than slots.
+
+    In data-parallel training each sample's draw depends on its index in the
+    global batch: every rank draws the global batch's uniforms from the same
+    generator and keeps its own shard's rows, which is what one process
+    draws on the concatenated batch."""
+    shard, shards = batch_shard()
+    n = gt_cell.shape[0]
+    u = torch.rand((shards * n, *gt_cell.shape[1:]), generator=generator,
+                   device=gt_cell.device)[shard * n:(shard + 1) * n]
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     scores = torch.where(gt_cell >= 0, gumbel, torch.full_like(gumbel, float("-inf")))
     return topk_stable(scores, num)[1]

@@ -7,7 +7,10 @@ Port of ``onepose_plus_plus_tpu/train/losses.py`` (reference
 ``gt_fine_xy [N, L, 2]``; the dense semantics come back through index
 comparisons, and boolean indexing becomes masked sums over the K slots.
 ``LossConfig`` is defined here because its JAX module loads JAX; a test holds
-its fields and defaults equal to JAX's.
+its fields and defaults equal to JAX's. Every normaliser is a count over the
+batch; in data-parallel training (``parallel.comm.global_batch``) the sums
+and counts are the global batch's (``batch_sum``), so that each rank's loss
+is the global loss, as under the JAX package's sharded step.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.cuda_coarse_loss import fused_coarse_focal_loss
+from ..parallel.comm import batch_max, batch_sum, batch_sum_samples
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +80,12 @@ def coarse_focal_loss(
     if c_weight is not None:
         loss_pos = loss_pos * c_weight
         loss_neg = loss_neg * c_weight
-    n_pos = pos.sum()
-    n_neg = pos.numel() - n_pos
+    local_pos = pos.sum()
+    n_pos = batch_sum(local_pos)
+    n_neg = batch_sum(pos.numel() - local_pos)
     pos_f = pos.to(conf.dtype)
-    mean_pos = (loss_pos * pos_f).sum() / n_pos.clamp(min=1)
-    mean_neg = (loss_neg * (1.0 - pos_f)).sum() / n_neg.clamp(min=1)
+    mean_pos = batch_sum((loss_pos * pos_f).sum()) / n_pos.clamp(min=1)
+    mean_neg = batch_sum((loss_neg * (1.0 - pos_f)).sum()) / n_neg.clamp(min=1)
     return cfg.pos_weight * mean_pos + cfg.neg_weight * mean_neg
 
 
@@ -126,16 +131,20 @@ def fine_l2_std_loss(
 ) -> torch.Tensor:
     """Std-weighted L2 on normalised fine offsets (reference ``losses.py:66-103``);
     the weight (inverse std over its mean across valid slots) is detached."""
+    n = expec_f.shape[0]
     x = expec_f.reshape(-1, 3)
     gt = expec_f_gt.reshape(-1, 2)
     m = slot_mask.reshape(-1).bool()
     correct = (gt.abs().amax(dim=1) < cfg.fine_correct_thr) & m
     inv_std = 1.0 / x[:, 2].clamp_min(1e-10)
-    mean_inv = torch.where(m, inv_std, torch.zeros_like(inv_std)).sum() / m.sum().clamp(min=1)
+    # sums over the batch go sample by sample (batch_sum_samples): the same to
+    # the bit in one process and over data-parallel shards
+    inv_sum = batch_sum_samples(torch.where(m, inv_std, torch.zeros_like(inv_std)).reshape(n, -1).sum(1))
+    mean_inv = inv_sum.detach() / batch_sum(m.sum()).clamp(min=1)
     weight = (inv_std / mean_inv.clamp_min(1e-10)).detach()
     offset_l2 = ((gt - x[:, :2]) ** 2).sum(dim=1)
-    loss = torch.where(correct, offset_l2 * weight, torch.zeros_like(offset_l2)).sum()
-    return loss / correct.sum().clamp(min=1)
+    per_sample = torch.where(correct, offset_l2 * weight, torch.zeros_like(offset_l2)).reshape(n, -1).sum(1)
+    return batch_sum_samples(per_sample) / batch_sum(correct.sum()).clamp(min=1)
 
 
 def compute_losses(
@@ -152,7 +161,7 @@ def compute_losses(
     if "conf_matrix" in out:
         loss_c = coarse_focal_loss(out["conf_matrix"], batch["gt_cell"], cfg,
                                    c_weight=batch.get("c_weight"), log_conf=out.get("log_conf_matrix"))
-        max_conf = out["conf_matrix"].detach().max()
+        max_conf = batch_max(out["conf_matrix"].detach().max())
     else:
         # fused route: K5 on the coarse features, never building [L, S]
         if batch.get("c_weight") is not None:

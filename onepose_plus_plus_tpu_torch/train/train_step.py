@@ -15,16 +15,27 @@ update at every micro-batch (in the forward).
 The accumulation state is kept where a torch checkpoint already carries it:
 the running mean in each parameter's ``.grad`` and the micro-batch count in
 the optimizer's param group (``"mini_step"``, ``"grad_accum"``,
-``"grad_clip"``).
+``"grad_clip"``). Micro-batch k (0-based) scales ``.grad`` by k / (k + 1)
+and back-propagates loss / (k + 1) into it, so ``.grad`` holds the running
+mean after each backward.
+
+The model may be wrapped in ``DistributedDataParallel``
+(``parallel.mesh.replicate``). The step then runs inside
+``parallel.comm.global_batch``, so BatchNorm statistics, loss normalisers
+and GT-padding draws are the global batch's, and each rank's loss is the
+global loss; micro-batches before an update run under ``no_sync``, so DDP
+averages the accumulated running mean over the ranks once per update. The
+parameters then move as the JAX package's sharded step moves them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.onepose_plus import OnePosePlusModel
+from ..parallel.comm import global_batch
 from .losses import LossConfig, compute_losses
 
 
@@ -81,27 +92,35 @@ def make_optimizer(
     return opt, sched
 
 
-def accumulate_and_step(
+def _scale_running_mean(params: Sequence[torch.Tensor], n_acc: int) -> None:
+    """Ready ``.grad`` for micro-batch ``n_acc``: adding g / (n_acc + 1) to
+    it then gives the running mean over n_acc + 1 micro-batches."""
+    for p in params:
+        if n_acc == 0:
+            p.grad = None
+        elif p.grad is not None:
+            p.grad.mul_(n_acc / (n_acc + 1))
+
+
+def _finish_micro_batch(
     optimizer: torch.optim.Optimizer,
-    grads,
-    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler],
+    on_update: Optional[Callable[[List[torch.Tensor]], None]] = None,
 ) -> bool:
-    """Fold one micro-batch's gradients (one per parameter, None = zero) into
-    the running mean; on every ``grad_accum``-th call clip, step, advance the
-    schedule and clear. Returns whether the parameters moved."""
+    """Count the micro-batch; on every ``grad_accum``-th one clip, step,
+    advance the schedule and clear. Returns whether the parameters moved."""
     group = optimizer.param_groups[0]
     params = group["params"]
     n_acc = group["mini_step"]
+    if n_acc + 1 < group["grad_accum"]:
+        group["mini_step"] = n_acc + 1
+        return False
     with torch.no_grad():
-        for p, g in zip(params, grads):
-            g = torch.zeros_like(p) if g is None else g
-            if n_acc == 0 or p.grad is None:
-                p.grad = g.clone()
-            else:
-                p.grad.add_((g - p.grad) / (n_acc + 1))  # optax.MultiSteps' mean
-        if n_acc + 1 < group["grad_accum"]:
-            group["mini_step"] = n_acc + 1
-            return False
+        for p in params:  # an unused parameter's gradient is zero (optax decays it all the same)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if on_update is not None:
+            on_update([p.grad for p in params])
         clip = group["grad_clip"]
         if clip:
             norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
@@ -117,26 +136,54 @@ def accumulate_and_step(
     return True
 
 
+def accumulate_and_step(
+    optimizer: torch.optim.Optimizer,
+    grads,
+    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+) -> bool:
+    """Fold one micro-batch's given gradients (one per parameter, None =
+    zero) into the running mean, and update on every ``grad_accum``-th call.
+    Returns whether the parameters moved."""
+    group = optimizer.param_groups[0]
+    n_acc = group["mini_step"]
+    _scale_running_mean(group["params"], n_acc)
+    with torch.no_grad():
+        for p, g in zip(group["params"], grads):
+            if g is not None:
+                g = g / (n_acc + 1)
+                p.grad = g if p.grad is None else p.grad.add_(g)
+    return _finish_micro_batch(optimizer, scheduler)
+
+
 def train_step(
-    model: OnePosePlusModel,
+    model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
     batch: Dict[str, torch.Tensor],
     generator: Optional[torch.Generator],
     cfg: TrainConfig,
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
     gt_pad_rows: Optional[torch.Tensor] = None,
+    on_update: Optional[Callable[[List[torch.Tensor]], None]] = None,
 ) -> Dict[str, torch.Tensor]:
     """One micro-batch: train-mode forward, losses, gradients into the
     accumulator, and an optimizer update every ``grad_accum`` micro-batches.
 
-    ``generator`` draws the GT-padding rows (``gt_pad_rows`` injects them).
-    Returns the scalars ``loss``, ``loss_c``, ``loss_f``, ``max_conf`` as
+    ``model`` is a ``OnePosePlusModel`` or its DDP wrapper. ``generator``
+    draws the GT-padding rows (``gt_pad_rows`` injects them). ``on_update``
+    sees the (averaged) gradients just before an update. Returns the scalars
+    ``loss``, ``loss_c``, ``loss_f``, ``max_conf`` (the global batch's) as
     detached 0-d tensors on the model's device (reading them synchronises).
     """
-    model.train()
-    out = model(batch, generator=generator, gt_pad_rows=gt_pad_rows)
-    loss, scalars = compute_losses(out, batch, cfg.loss, model.cfg.fine.window_size)
-    params = optimizer.param_groups[0]["params"]
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    accumulate_and_step(optimizer, grads, scheduler)
+    ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
+    net = model.module if ddp else model
+    net.train()
+    group = optimizer.param_groups[0]
+    n_acc = group["mini_step"]
+    _scale_running_mean(group["params"], n_acc)
+    sync = not ddp or n_acc + 1 >= group["grad_accum"]
+    with (contextlib.nullcontext() if sync else model.no_sync()), global_batch():
+        out = model(batch, generator=generator, gt_pad_rows=gt_pad_rows)
+        loss, scalars = compute_losses(out, batch, cfg.loss, net.cfg.fine.window_size)
+        (loss / (n_acc + 1)).backward()
+    _finish_micro_batch(optimizer, scheduler, on_update)
     return {k: v.detach() for k, v in scalars.items()}

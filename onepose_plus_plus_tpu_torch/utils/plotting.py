@@ -1,6 +1,6 @@
-"""Match figures of the SfM gallery (the port's own copies of
-``plot_image_pair_matches`` and ``figure_to_array`` from
-``onepose_plus_plus_tpu/utils/plotting.py``). matplotlib is imported when a
+"""Match figures of the SfM gallery and the training callbacks (the port's
+own copies of ``plot_image_pair_matches``, ``plot_reprojection_comparison``
+and ``figure_to_array`` from ``onepose_plus_plus_tpu/utils/plotting.py``). matplotlib is imported when a
 figure is drawn, not with the module."""
 from __future__ import annotations
 
@@ -16,6 +16,42 @@ def _require_plt():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_reprojection_comparison(
+    image: np.ndarray,
+    mkpts_pred: np.ndarray,
+    mkpts_gt_proj: np.ndarray,
+    title: str = "",
+    max_points: int = 200,
+):
+    """Predicted matches vs GT-pose projections with error whiskers
+    (the reference's reprojection-pair TB figure)."""
+    plt = _require_plt()
+    fig, ax = plt.subplots(1, 1, figsize=(6, 6), dpi=100)
+    ax.imshow(np.asarray(image).squeeze(), cmap="gray")
+    n = min(len(mkpts_pred), max_points)
+    for i in range(n):
+        ax.plot(
+            [mkpts_pred[i, 0], mkpts_gt_proj[i, 0]],
+            [mkpts_pred[i, 1], mkpts_gt_proj[i, 1]],
+            "-", color="yellow", linewidth=0.5,
+        )
+    if n:
+        ax.scatter(mkpts_pred[:n, 0], mkpts_pred[:n, 1], s=4, c="lime", label="pred")
+        ax.scatter(
+            mkpts_gt_proj[:n, 0], mkpts_gt_proj[:n, 1], s=4, c="red", label="GT proj"
+        )
+        ax.legend(loc="upper right", fontsize=7)
+    err = (
+        float(np.mean(np.linalg.norm(mkpts_pred[:n] - mkpts_gt_proj[:n], axis=1)))
+        if n
+        else float("nan")
+    )
+    ax.set_title(f"{title} mean reproj err {err:.2f}px")
+    ax.axis("off")
+    fig.tight_layout()
+    return fig
 
 
 def plot_image_pair_matches(

@@ -3,8 +3,9 @@
 The port imports nothing of the JAX package, so it keeps copies of the host
 code it needs: ``config.py``, ``data/`` (preprocessing, image_io, homography,
 dataset, augment, colmap_model), ``utils/config_loader.py``, the numpy
-functions of ``eval/`` (metrics, cad, trajectory) and
-``utils/visualization.py``. Each copy must behave as its original on the same
+functions of ``eval/`` (metrics, cad, trajectory),
+``utils/visualization.py``, ``utils/template_utils.py`` and
+``data/colmap_database.py``. Each copy must behave as its original on the same
 inputs: exactly, since both are the same numpy code.
 """
 import dataclasses
@@ -17,20 +18,24 @@ import pytest
 
 from onepose_plus_plus_tpu import config as jax_config
 from onepose_plus_plus_tpu.data import augment as jax_augment
+from onepose_plus_plus_tpu.data import colmap_database as jax_colmap_db
 from onepose_plus_plus_tpu.data import colmap_model as jax_colmap
 from onepose_plus_plus_tpu.data import dataset as jax_dataset
 from onepose_plus_plus_tpu.data import preprocessing as jax_pre
 from onepose_plus_plus_tpu import eval as jax_eval
 from onepose_plus_plus_tpu.eval.metrics import aggregate_metrics as jax_aggregate
+from onepose_plus_plus_tpu.utils import template_utils as jax_template
 from onepose_plus_plus_tpu.utils import visualization as jax_vis
 from onepose_plus_plus_tpu.utils.config_loader import load_config as jax_load_config
 from onepose_plus_plus_tpu_torch import config as port_config
 from onepose_plus_plus_tpu_torch.data import augment as port_augment
+from onepose_plus_plus_tpu_torch.data import colmap_database as port_colmap_db
 from onepose_plus_plus_tpu_torch.data import colmap_model as port_colmap
 from onepose_plus_plus_tpu_torch.data import dataset as port_dataset
 from onepose_plus_plus_tpu_torch.data import preprocessing as port_pre
 from onepose_plus_plus_tpu_torch import eval as port_eval
 from onepose_plus_plus_tpu_torch.eval.metrics import aggregate_metrics
+from onepose_plus_plus_tpu_torch.utils import template_utils as port_template
 from onepose_plus_plus_tpu_torch.utils import visualization as port_vis
 from onepose_plus_plus_tpu_torch.utils.config_loader import load_config
 from port_helpers import to_port_config
@@ -301,3 +306,76 @@ def test_visualization_line_fallback_without_cv2(monkeypatch):
     a, b = port_vis.draw_3d_box(image, uv), jax_vis.draw_3d_box(image, uv)
     np.testing.assert_array_equal(a, b)
     assert a.any()
+
+
+# ------------------------------------ colmap_database and template_utils
+
+
+def _db_rows(path):
+    """Every row of every table of a sqlite file, in key order."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    tables = sorted(r[0] for r in conn.execute("SELECT name FROM sqlite_master WHERE type='table'"))
+    rows = {t: conn.execute(f"SELECT * FROM {t} ORDER BY 1").fetchall() for t in tables}
+    conn.close()
+    return rows
+
+
+def test_colmap_database_export_matches(tmp_path):
+    """The same matched scene written by both copies: equal tables row by row,
+    and each copy reads back the other's keypoints and matches."""
+    rng = np.random.default_rng(4)
+    kpts = {i: rng.uniform(0, 500, (20 + i, 2)).astype(np.float32) for i in range(3)}
+    matches = {(0, 1): rng.integers(0, 20, (7, 2)), (2, 1): rng.integers(0, 20, (5, 2))}
+    Ks = {i: np.array([[500.0 + i, 0, 256], [0, 501.0, 240], [0, 0, 1]]) for i in range(3)}
+    sizes = {i: (480, 512) for i in range(3)}
+    names = {i: f"frame_{i}.png" for i in range(3)}
+    for mod, tag in ((jax_colmap_db, "jax"), (port_colmap_db, "port")):
+        mod.export_scene_to_database(str(tmp_path / f"{tag}.db"), kpts, matches, Ks, sizes, image_names=names)
+    ref, got = _db_rows(str(tmp_path / "jax.db")), _db_rows(str(tmp_path / "port.db"))
+    assert got == ref and len(ref["matches"]) == 2 and len(ref["keypoints"]) == 3
+    for reader, path in ((port_colmap_db, "jax.db"), (jax_colmap_db, "port.db")):
+        db = reader.COLMAPDatabase(str(tmp_path / path))
+        assert db.read_images() == {1: "frame_0.png", 2: "frame_1.png", 3: "frame_2.png"}
+        np.testing.assert_array_equal(db.read_keypoints(3), kpts[2] + 0.5)
+        np.testing.assert_array_equal(db.read_matches(3, 2), matches[(2, 1)])
+        db.close()
+
+
+@pytest.mark.parametrize("ids", [(1, 2), (7, 3), (2**31 - 2, 5)])
+def test_colmap_pair_ids_match(ids):
+    pid = port_colmap_db.pair_id_from_image_ids(*ids)
+    assert pid == jax_colmap_db.pair_id_from_image_ids(*ids)
+    assert port_colmap_db.image_ids_from_pair_id(pid) == jax_colmap_db.image_ids_from_pair_id(pid)
+
+
+def test_template_utils_match(capsys):
+    cfg = {"trainer": {"epochs": 3, "milestones": [3, 6]}, "seed": 1, "model": {"fine": {"thr": None}},
+           "name": "x"}
+    assert port_template.format_config(cfg) == jax_template.format_config(cfg)
+    assert port_template.flatten_config(cfg) == jax_template.flatten_config(cfg)
+    port_template.print_config(cfg)
+    a = capsys.readouterr().out
+    jax_template.print_config(cfg)
+    assert a == capsys.readouterr().out
+
+    class Writer:
+        def __init__(self):
+            self.calls = []
+
+        def add_hparams(self, hp, metrics):
+            self.calls.append(("hparams", hp))
+
+        def add_text(self, tag, text):
+            self.calls.append((tag, text))
+
+    class Refusing(Writer):
+        def add_hparams(self, hp, metrics):
+            raise TypeError("no hparams")
+
+    for cls in (Writer, Refusing):
+        w_port, w_jax = cls(), cls()
+        port_template.log_hparams(cfg, w_port)
+        jax_template.log_hparams(cfg, w_jax)
+        assert w_port.calls == w_jax.calls and w_port.calls

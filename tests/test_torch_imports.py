@@ -99,3 +99,25 @@ def test_serving_entry_points_are_checked(module):
     assert not [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
     if module == "utils.profiling":
         assert "torch.profiler" in path.read_text()
+
+
+PARALLEL_SFM_DATA_PREP = ("parallel", "parallel.comm", "parallel.mesh", "train.callbacks",
+                          "geometry.projection", "geometry.bundle_adjust", "sfm.incremental",
+                          "data.colmap_database", "utils.template_utils", "merge", "parse_scanned_data",
+                          "parse_lm_real_data")
+
+
+@pytest.mark.parametrize("module", PARALLEL_SFM_DATA_PREP)
+def test_parallel_sfm_and_data_prep_modules_are_checked(module):
+    """Data-parallel training, the callbacks, the projection helpers, the
+    incremental SfM, the host copies and the data-preparation entry points
+    are port modules: the static check reads them, the fresh interpreter
+    imports them, and none imports JAX or the JAX package."""
+    name = f"{PORT.name}.{module}"
+    assert name in _module_names()
+    path = PORT.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    names = list(_imports(path))
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN or n.split(".")[0] == JAX_PACKAGE]
+    if module in ("merge", "parse_scanned_data", "parse_lm_real_data"):
+        assert "def main(argv=None)" in path.read_text() and '__name__ == "__main__"' in path.read_text()
