@@ -4,7 +4,8 @@
     python3 chip_smoke.py    # needs one CUDA GPU
 
 Phases, all run every time (each prints its own lines; any failure raises and
-exits non-zero), in this order but for 9a, which runs right after phase 2:
+exits non-zero), in this order but for 9a, which runs right after phase 2,
+and phase 10, which runs right after phase 6:
   0  device: GPU name and power limit, torch and CUDA versions
   1  build the CUDA kernels from csrc/ (nvcc, -Xptxas -v report)
   2  each kernel against its plain PyTorch version at main-path shapes
@@ -72,6 +73,20 @@ exits non-zero), in this order but for 9a, which runs right after phase 2:
      the detect/track sequence implies, per-frame latency of each mode, poses
      against GT. 9c-9e run with PyTorch's default TF32 settings, as a fresh
      CLI process does
+ 10  the options that are off by default: 10a K6's 8-byte instance (bf16, 196
+     channels: the sparse fine FPN's pin map [16, 256, 256, 196], K 512, W 9,
+     invalid slots) and its 4-byte one (C = 130) bitwise against the plain
+     version, timed beside the bound and index_select; 10b the sparse query
+     step at the bench shapes (16 frames of 512^2, bf16) against the dense
+     step on the same weights: the same match set, windows within one bf16
+     step, one K6 and no K3 launch (its own run, counts from 0), both steps'
+     wall and device time in turns; the f32 forwards with mkpts_query_f within
+     1e-2 px; 10c the int8 backbone: each quantized conv's
+     int32 sums bitwise against the CPU, the 16-frame bf16 step with
+     quant_int8 against the float step (JAX's bounds on the backbone's maps,
+     the match sets' Jaccard) and the backbone's time int8 against bf16; 10d
+     ResNetFPN_16_4 (default widths), ResNet18_C at stages 2 and 3 (both block
+     types) and the LayerNorm keypoint encoder, the card against the CPU
 
 Every kernel's record carries its time, its plain version's, the time of one
 PyTorch call that computes the same function where there is one, and its
@@ -84,6 +99,7 @@ numpy seed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -99,7 +115,7 @@ import numpy as np
 import torch
 
 from onepose_plus_plus_tpu_torch import bench, demo, kernels
-from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, LoFTRConfig, OnePosePlusConfig
+from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, LoFTRConfig, OnePosePlusConfig, ResNetFPNConfig
 from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
 from onepose_plus_plus_tpu_torch.eval.trajectory import absolute_trajectory_error, camera_centers_from_poses
 from onepose_plus_plus_tpu_torch.geometry.levenberg_marquardt import lm_solve_scalar
@@ -108,11 +124,12 @@ from onepose_plus_plus_tpu_torch.geometry.rotations import matrix_to_angle_axis
 from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
 from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
+from onepose_plus_plus_tpu_torch.models.backbone import build_backbone
 from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, build_onepose_model, make_loftr_fns
 from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
-from onepose_plus_plus_tpu_torch.models.position_encoding import sine_position_encoding
+from onepose_plus_plus_tpu_torch.models.position_encoding import KeypointEncoder, sine_position_encoding
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     encoder_layer_plain,
@@ -134,7 +151,8 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     fused_select_topk_matches,
     rowcol_stats_plain,
 )
-from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps
+from onepose_plus_plus_tpu_torch.ops import quant
+from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps, vector_bytes
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     fine_transformer_short,
     fused_short_encoder_layer,
@@ -143,6 +161,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     short_encoder_layer_plain,
 )
 from onepose_plus_plus_tpu_torch.ops.matching import sample_gt_rows
+from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows_aligned
 from onepose_plus_plus_tpu_torch.data import colmap_model
 from onepose_plus_plus_tpu_torch.data.colmap_model import model_stats
 from onepose_plus_plus_tpu_torch.data.preprocessing import save_3d_annotation
@@ -910,9 +929,10 @@ def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True) -> N
 K3_NAMES = ("window_gather_kernel",)
 
 
-def phase6(model, frames, anno, smi: str) -> None:
-    """Where the time goes in one bf16 step of phase 5 (the first 16 frames)."""
-    dev = "cuda"
+def _step_batch(frames, anno, dev="cuda"):
+    """(step batch, GT poses, the forward's batch) of the first B frames: uint8
+    frames and the unbatched cloud, as the step takes them, and what the step
+    hands the model."""
     chunk = frames[:B]
     batch = {
         "query_image": torch.from_numpy(np.stack([f["image"][..., None] for f in chunk])).to(dev),
@@ -920,21 +940,35 @@ def phase6(model, frames, anno, smi: str) -> None:
         **{k: torch.from_numpy(v).to(dev) for k, v in anno.items()},
     }
     gt = torch.from_numpy(np.stack([f["pose_gt"] for f in chunk])).to(dev)
-    step = make_query_step(model)
-    gen = torch.Generator(device=dev)
+    fwd = {**batch, "query_image": batch["query_image"].float() / 255.0,
+           **{k: batch[k][None].expand(B, *batch[k].shape) for k in anno}}
+    return batch, gt, fwd
+
+
+def _step_wall(step, batch, gt) -> float:
+    """Median wall ms of 5 synchronised steps after 3 warm-ups."""
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     walls = []
-    for i in range(8):  # 3 warm-ups, then 5 timed steps
+    for i in range(8):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(batch, gen, gt)
         torch.cuda.synchronize()
         if i >= 3:
             walls.append(1e3 * (time.perf_counter() - t0))
-    wall = float(np.median(walls))
+    return float(np.median(walls))
+
+
+def phase6(model, frames, anno, smi: str) -> None:
+    """Where the time goes in one bf16 step of phase 5 (the first 16 frames)."""
+    dev = "cuda"
+    batch, gt, fwd_batch = _step_batch(frames, anno)
+    step = make_query_step(model)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    wall = _step_wall(step, batch, gt)
     # the model forward alone, on the inputs the step hands it
-    fwd_batch = {**batch, "query_image": batch["query_image"].float() / 255.0,
-                 **{k: batch[k][None].expand(B, *batch[k].shape) for k in anno}}
     with torch.no_grad():
         fwd = time_ms(lambda: model(fwd_batch), reps=5, warmup=1)
     rows, busy, _ = device_rows(lambda: step(batch, gen, gt))
@@ -2003,6 +2037,223 @@ def phase9e(tmp: str, smi: str) -> None:
     check_f32_instances(rows, "9e")
 
 
+# ----------------------------------------------------------------- phase 10
+
+K6_NAMES = ("patch_gather_kernel",)
+
+
+def phase10a(gen, smi: str) -> None:
+    """K6's narrower vector instances at the sparse fine FPN's shapes: the pin
+    map [16, 256, 256, 196] bf16 (392 bytes a pixel: 8-byte vectors), K 512,
+    W 9 (a 5x5 window and its 2-pixel halo), with invalid slots; and C = 130
+    (260 bytes: 4-byte vectors)."""
+    n, h, w, k, win = B, 256, 256, 512, 9
+    for c, vec in ((196, 8), (130, 4)):
+        f = torch.randn(n, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+        r0 = torch.randint(-win - 4, h + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+        c0 = torch.randint(-win - 4, w + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+        r0[:, -16:] = -10 * win  # invalid slots: all-zero patches
+        picked = vector_bytes(c * 2, f.data_ptr())
+        got = patch_gather(f, r0, c0, win)
+        ref = patch_gather_plain(f, r0, c0, win)
+        flat, valid = patch_taps(r0, c0, (h, w), win)
+        table, idx = index_select_table(f, flat, valid)
+        lib = torch.index_select(table, 0, idx).view_as(got)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref) and torch.equal(lib, ref)
+        zero = bool((got[:, -16:] == 0).all())
+        log(f"[10a] K6 bf16 C = {c} ({c * 2} bytes a pixel, {picked}-byte vectors) feat{tuple(f.shape)} -> "
+            f"{tuple(got.shape)}: bitwise equal to the plain version and the yardstick {equal}, invalid "
+            f"slots zero {zero}")
+        check(picked == vec and equal and zero, f"K6's {vec}-byte instance disagrees at C = {c}")
+        ms = time_ms(lambda: patch_gather(f, r0, c0, win))
+        pms = time_ms(lambda: patch_gather_plain(f, r0, c0, win))
+        lms = time_ms(lambda: torch.index_select(table, 0, idx))
+        rows, busy, _ = device_rows(lambda: patch_gather(f, r0, c0, win), reps=5)
+        check(only_launches(rows, K6_NAMES), f"K6 launched {launch_names(rows)}")
+        dev_ms = busy / sum(r[1] for r in rows)  # a launch, over those the profiler kept
+        b = bound(gather_bytes(flat, valid, h * w, c * 2, got, 2 * r0.numel() * 4), 0, torch.bfloat16)
+        log(f"[10a] K6 C = {c}: kernel {ms:.4f} ms, device {dev_ms:.4f} ms a launch ({launch_names(rows)}), "
+            f"plain {pms:.3f} ms, index_select with precomputed indices {lms:.4f} ms (medians of 20); bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {100 * b['bound_ms'] / dev_ms:.0f} % of it by device "
+            f"time, on {smi}")
+        del f, got, ref, lib, table, idx, flat, valid
+        torch.cuda.empty_cache()
+
+
+def _sparse_models(dtype: str):
+    base = OnePosePlusConfig(compute_dtype=dtype, coarse_matching=CoarseMatchingConfig(thr=0.0, max_matches=512))
+    return {"dense": _model(base, "cuda"),
+            "sparse": _model(dataclasses.replace(base, fine=dataclasses.replace(base.fine, sparse_fpn=True)), "cuda")}
+
+
+def phase10b(frames, anno, smi: str) -> int:
+    """The sparse query step at the bench shapes (16 frames of 512^2, 7000
+    points, 512 slots, bf16, random weights) against the dense step on the same
+    weights: the same match set, one K6 and no K3 launch a step, windows within
+    one bf16 step, both steps' wall and device time; and the f32 forwards,
+    where mkpts_query_f must agree within 1e-2 px (in bf16 one step of expec_f
+    is already 2^-8 x 4 px = 0.0156 px there). Returns the sparse step's K6
+    launches."""
+    batch, gt, fwd = _step_batch(frames, anno)
+    models = _sparse_models("bfloat16")
+    outs = {}
+    for name, model in models.items():
+        with torch.no_grad():
+            model(fwd)  # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            outs[name] = {k: v for k, v in model(fwd).items() if torch.is_tensor(v)}
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {"K1_encoder_layer": 12, "K2_rowcol_stats": 1, "K3_window_gather": int(name == "dense"),
+                "K6_patch_gather": int(name == "sparse")}
+        log(f"[10b] {name} bf16 forward launches: {counts}")
+        check(all(counts[kk] == v for kk, v in want.items()), f"the {name} forward's launches are not {want}")
+        if name == "sparse":
+            sparse_k6 = counts["K6_patch_gather"]
+    d, s = outs["dense"], outs["sparse"]
+    same = all(torch.equal(d[k], s[k]) for k in ("i_ids", "j_ids", "match_mask"))
+    m = d["match_mask"].bool()
+    mk = (d["mkpts_query_f"].float() - s["mkpts_query_f"].float())[m].abs().amax(-1)
+    ex_err = (d["expec_f"].float() - s["expec_f"].float())[m].abs().max().item()
+    bb = models["sparse"].backbone  # the windows: convs on patches against the dense map's windows
+    with torch.no_grad():
+        _, ctx = bb.coarse_and_ctx(fwd["query_image"])
+        win_s = bb.fine_windows(ctx, d["j_ids"], (64, 64), 4, 5).float()
+        win_d = gather_windows_aligned(bb(fwd["query_image"])[1], d["j_ids"], (64, 64), 4, 5).float()
+    w_err, scale = (win_s - win_d).abs(), win_d.abs().max().item()
+    log(f"[10b] sparse vs dense bf16 forward, {B} frames: same slots and match set {same} ({int(m.sum())} "
+        f"matches); windows max|d| {w_err.max().item():.3e} at scale {scale:.2f} (<= 2^-7 of it), "
+        f"{100 * (w_err > 0).float().mean().item():.3f} % of window values differ; mkpts_query_f max|d| "
+        f"{mk.max().item():.3e} px, median {mk.median().item():.3e}, {100 * (mk <= 1e-2).float().mean().item():.1f} % "
+        f"within 1e-2 px; expec_f max|d| {ex_err:.3e}")
+    check(same and w_err.max().item() <= 2 ** -7 * scale, "the sparse bf16 step does not reproduce the dense step")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for name in ("dense", "sparse", "sparse", "dense"):  # in turns
+        step = make_query_step(models[name])
+        wall = _step_wall(step, batch, gt)
+        busy = device_rows(lambda: step(batch, gen, gt))[1]
+        log(f"[10b] {name} bf16 query step: wall {wall:.2f} ms (median of 5), device {busy:.2f} ms "
+            f"(torch.profiler, one step), on {smi}")
+    del models, outs, win_s, win_d, w_err
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        d, s = ({k: v for k, v in model(fwd).items() if torch.is_tensor(v)}
+                for model in _sparse_models("float32").values())
+    same = all(torch.equal(d[k], s[k]) for k in ("i_ids", "j_ids", "match_mask"))
+    m = d["match_mask"].bool()
+    mk_err = (d["mkpts_query_f"] - s["mkpts_query_f"])[m].abs().max().item()
+    ex_err = (d["expec_f"] - s["expec_f"])[m].abs().max().item()
+    log(f"[10b] sparse vs dense f32 forward, {B} frames: same slots and match set {same} ({int(m.sum())} "
+        f"matches), mkpts_query_f max|d| {mk_err:.3e} px (<= 1e-2), expec_f max|d| {ex_err:.3e}")
+    check(same and mk_err <= 1e-2, "the sparse f32 forward does not reproduce the dense forward")
+    torch.cuda.empty_cache()
+    return sparse_k6
+
+
+def _conv_cases():
+    """Quantized convs of the bench backbone at 512^2: (name, frames, cin, size,
+    cout, kernel, stride, pad); the sparse FPN's first conv over 2048 patches."""
+    return (("stem 7x7/2", B, 1, 512, 128, 7, 2, 3), ("layer1 3x3", 4, 128, 256, 128, 3, 1, 1),
+            ("layer2.0 downsample 1x1/2", 4, 128, 256, 196, 1, 2, 0), ("layer2 3x3", 4, 196, 128, 196, 3, 1, 1),
+            ("outconv2 valid 3x3 (sparse patches)", 2048, 196, 9, 196, 3, 1, 0))
+
+
+def phase10c(frames, anno, smi: str) -> None:
+    """The int8 backbone on the card: each quantized conv's int32 sums bitwise
+    against the CPU on the same int8 operands (one frame) and its output equal
+    to those sums times the scales; the 16-frame bf16 query step with
+    quant_int8 against the float step (JAX's bounds on the backbone's maps, the
+    match sets' Jaccard printed); the backbone int8 against bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    for name, n, cin, size, cout, k, s, p in _conv_cases():
+        x = torch.randn(n, cin, size, size, generator=gen, device="cuda").to(memory_format=torch.channels_last)
+        wt = torch.randn(cout, cin, k, k, generator=gen, device="cuda") * 0.1
+        xq, sx = quant.quantize_activation(x)
+        wq, sw = quant.quantize_weight(wt)
+        acc = quant.int8_conv_accumulate(xq, wq, s, p)
+        out = quant.quant_conv(x, wt, s, p)
+        acc_cpu = quant.int8_conv_accumulate(xq[:1].cpu(), wq.cpu(), s, p)
+        torch.cuda.synchronize()
+        eq_acc = torch.equal(acc[:1].cpu(), acc_cpu)
+        eq_out = torch.equal(out[:1].cpu(), acc_cpu.float() * (sx * sw).cpu()[:, None, None])
+        ms = time_ms(lambda: quant.quant_conv(x, wt, s, p), reps=5, warmup=1)
+        log(f"[10c] int8 conv {name} [{n}, {cin}, {size}, {size}] -> {tuple(acc.shape)}: int32 sums of frame 0 "
+            f"bitwise equal to the CPU's {eq_acc}, output = sums x scales {eq_out} (max|sum| "
+            f"{acc.abs().max().item()}), whole call {ms:.3f} ms")
+        check(eq_acc and eq_out, f"int8 conv {name} differs from the CPU")
+        del x, xq, acc, out
+    torch.cuda.empty_cache()
+    base = OnePosePlusConfig(compute_dtype="bfloat16", coarse_matching=CoarseMatchingConfig(thr=0.0, max_matches=512))
+    qcfg = dataclasses.replace(base, backbone=dataclasses.replace(base.backbone, quant_int8=True))
+    models = {"bf16": _model(base, "cuda"), "int8": _model(qcfg, "cuda")}
+    _, _, fwd = _step_batch(frames, anno)
+    img = fwd["query_image"]
+    maps, outs, times = {}, {}, {}
+    with torch.no_grad():
+        for name, model in models.items():
+            maps[name] = [t.double().flatten() for t in model.backbone(img)]
+            outs[name] = model(fwd)
+            times[name] = time_ms(lambda: model.backbone(img), reps=10, warmup=2)
+    for level, tag in enumerate(("coarse", "fine")):
+        g, w_ = maps["int8"][level], maps["bf16"][level]
+        cos = (g @ w_ / (g.norm() * w_.norm())).item()
+        rel = ((g - w_).norm() / w_.norm()).item()
+        log(f"[10c] int8 backbone vs bf16, {tag} map: cosine {cos:.5f} (> 0.995), relative error {rel:.4f} (< 0.12)")
+        check(cos > 0.995 and rel < 0.12, f"the int8 backbone's {tag} map misses JAX's bounds")
+    jacc = []
+    for f in range(B):
+        sets = [set(zip(o["i_ids"][f][o["match_mask"][f]].tolist(), o["j_ids"][f][o["match_mask"][f]].tolist()))
+                for o in (outs["int8"], outs["bf16"])]
+        jacc.append(len(sets[0] & sets[1]) / max(len(sets[0] | sets[1]), 1))
+    check(all(bool(torch.isfinite(outs["int8"][k].float()).all()) for k in ("mkpts_query_f", "mconf")),
+          "non-finite outputs of the int8 step")
+    log(f"[10c] int8 step vs bf16 step, {B} frames: match-set Jaccard median {np.median(jacc):.3f}, min "
+        f"{min(jacc):.3f}; matches {int(outs['int8']['match_mask'].sum())} vs {int(outs['bf16']['match_mask'].sum())}")
+    log(f"[10c] backbone [{B}, 512, 512]: int8 {times['int8']:.2f} ms, bf16 {times['bf16']:.2f} ms "
+        f"(CUDA-event medians of 10), on {smi}")
+    del models
+    torch.cuda.empty_cache()
+
+
+def phase10d() -> None:
+    """The other backbones and the LayerNorm keypoint encoder, one f32 forward
+    each on the card against the CPU (TF32 off): ResNetFPN_16_4 at its default
+    widths, ResNet18_C at stages 2 and 3 with both block types."""
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(_textured_images(rng, 2, 256)[..., None])
+    cases = [("ResNetFPN_16_4", ResNetFPNConfig(block_dims=(128, 196, 256, 512))),
+             ("ResNetFPN_16_4", ResNetFPNConfig(block_dims=(128, 196, 256, 512), block_type="bottleneck"))]
+    cases += [(f"ResNet18C{s}", ResNetFPNConfig(block_type=bt)) for s in (2, 3) for bt in ("basic", "bottleneck")]
+    for name, cfg in cases:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_backbone(name, cfg)
+            model.load_state_dict(random_state_dict(model, seed=3))
+            model.eval().to(dev)
+            with torch.no_grad():
+                out = model(img.to(dev))
+            outs[dev] = [t.cpu() for t in (out if isinstance(out, tuple) else (out,))]
+        errs = [((g - c).abs().max() / c.abs().max()).item() for g, c in zip(outs["cuda"], outs["cpu"])]
+        log(f"[10d] {name} ({cfg.block_type}, {cfg.block_dims}) on {tuple(img.shape)}: outputs "
+            f"{[tuple(t.shape) for t in outs['cuda']]}, max|d| / max {max(errs):.2e} (<= 1e-4)")
+        check(max(errs) <= 1e-4, f"{name} on the card differs from the CPU")
+    kp = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 7000, 3)).astype(np.float32))
+    desc = torch.from_numpy(rng.standard_normal((2, 7000, 256)).astype(np.float32))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        enc = KeypointEncoder(norm_method="layernorm")
+        enc.load_state_dict(random_state_dict(enc, seed=4))
+        with torch.no_grad():
+            outs[dev] = enc.to(dev)(kp.to(dev), desc.to(dev)).cpu()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    log(f"[10d] LayerNorm keypoint encoder [2, 7000, 3] -> {tuple(outs['cuda'].shape)}: max|d| {err:.2e} (<= 1e-4)")
+    check(err <= 1e-4, "the LayerNorm keypoint encoder on the card differs from the CPU")
+
+
 K4_NAMES = ("scatter_index_kernel", "window_scatter_kernel")
 # K5 on the tensor cores: the operand pack, K2's LSE pass, the loss, g sums and feature gradients
 K5_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "loss_tc_kernel", "gsum_tc_kernel",
@@ -2029,6 +2280,12 @@ def main() -> int:
     phase6(model, frames, anno, smi)
     del model
     torch.cuda.empty_cache()
+    # the off-by-default options (slice 10); early, where torch.profiler keeps its device events
+    phase10a(gen, smi)
+    sparse_k6 = phase10b(frames, anno, smi)  # the sparse query step's own run
+    phase10c(frames, anno, smi)
+    phase10d()
+    torch.cuda.empty_cache()
     records["K4_window_scatter"] = phase7a(gen)
     records["K5_coarse_loss"] = phase7b(gen)
     torch.cuda.empty_cache()
@@ -2043,7 +2300,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase8b()
     sfm_counts = phase8c(smi)  # the SfM path's own run: K6's launches come from it
-    counts["K6_patch_gather"] = sfm_counts["K6_patch_gather"]
+    counts["K6_patch_gather"] = sfm_counts["K6_patch_gather"] + sparse_k6
     torch.cuda.empty_cache()
     phase8d()
     torch.cuda.empty_cache()

@@ -10,19 +10,27 @@ step's input perturbed by its index and every output copied back to the host.
 Prints ONE JSON line: ``{"metric", "value", "unit", "vs_baseline"}``.
 
 ``main()`` takes the shapes and the device as arguments (the defaults are the
-command line's), so that a test can run it small on the CPU.
+command line's), so that a test can run it small on the CPU, and ``model_cfg``,
+a ``model`` block in the YAML key names of ``models/build.py`` over the bench's
+own (bf16). The command line takes the same overrides as the evaluation CLI,
+e.g. ``python -m onepose_plus_plus_tpu_torch.bench model.loftr_fine.sparse_fpn=true
+model.loftr_backbone.quant_int8=true``.
 """
 from __future__ import annotations
 
 import json
+import sys
 import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from .config import CoarseMatchingConfig, OnePosePlusConfig
+from .inference.cli import CONFIGS_DIR
 from .inference.pipeline import make_query_step
+from .models.build import onepose_config_from_dict
 from .models.onepose_plus import OnePosePlusModel
+from .utils.config_loader import load_config
 from .utils.weights import random_state_dict
 
 # The denominator of vs_baseline, as in the repository's bench.py: the derived
@@ -34,7 +42,7 @@ REFERENCE_FPS = 41.0
 
 
 def main(batch: int = 48, img: int = 512, n_points: int = 7000, steps: int = 32,
-         device: str = "cuda") -> dict:
+         device: str = "cuda", model_cfg: Optional[Dict[str, Any]] = None) -> dict:
     """Time the query step; print and return the JSON record."""
     rng = np.random.default_rng(0)
     inputs = {
@@ -45,8 +53,7 @@ def main(batch: int = 48, img: int = 512, n_points: int = 7000, steps: int = 32,
         "intrinsics": np.tile(np.eye(3, dtype=np.float32) * 500.0, (batch, 1, 1)),
     }
     inputs = {k: torch.from_numpy(v).to(device) for k, v in inputs.items()}
-    model = OnePosePlusModel(OnePosePlusConfig(compute_dtype="bfloat16",
-                                               coarse_matching=CoarseMatchingConfig(max_matches=512)))
+    model = OnePosePlusModel(onepose_config_from_dict({"compute_dtype": "bfloat16", **(model_cfg or {})}))
     model.load_state_dict(random_state_dict(model, seed=0))
     model.eval().to(device)
     step = make_query_step(model, num_hypotheses=512)
@@ -75,4 +82,4 @@ def main(batch: int = 48, img: int = 512, n_points: int = 7000, steps: int = 32,
 
 
 if __name__ == "__main__":
-    main()
+    main(model_cfg=load_config(str(CONFIGS_DIR), sys.argv[1:]).get("model"))

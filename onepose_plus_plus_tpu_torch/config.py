@@ -8,9 +8,12 @@ the image-pair LoFTR) as frozen dataclasses.
 The port's own copy of ``onepose_plus_plus_tpu/config.py``: the same classes,
 fields and defaults (``tests/test_torch_host_copies.py`` holds the two
 equal). The comments on TPU options describe the JAX package; the port reads
-``compute_dtype``, the widths, the matching settings and ``fused_encoder`` /
-``use_fused_kernel`` (``None``: kernels on), and raises on ``quant_int8`` and
-``fine.sparse_fpn``, which it has not ported.
+every field: ``compute_dtype``, the widths and block type, the matching
+settings, ``fused_encoder`` / ``use_fused_kernel`` (``None``: kernels on), and
+the options that are off by default, ``quant_int8`` (int8 backbone convs at
+inference), ``fine.sparse_fpn`` (on only when ``True``; the halo patches go
+through K6) and ``keypoints_encoding.norm_method``. ``stem_s2d`` changes
+nothing in the port: its stem is the direct conv, equal in output.
 """
 from __future__ import annotations
 

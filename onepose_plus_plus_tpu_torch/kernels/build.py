@@ -56,8 +56,8 @@ _SIGNATURES = {
     "opp_coarse_loss_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
     "opp_coarse_loss_row_tiles": [_I],
-    "opp_patch_gather_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "opp_patch_gather_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "opp_patch_gather_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "opp_patch_gather_bf16": [_P] * 4 + [_I] * 7 + [_P],
     "opp_short_encoder_f32": [_P] * 13 + [_I] * 5 + [_P],
     "opp_short_encoder_bf16": [_P] * 13 + [_I] * 5 + [_P],
     "opp_short_encoder_smem_bytes": [_I] * 4,

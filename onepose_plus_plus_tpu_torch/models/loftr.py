@@ -62,8 +62,6 @@ def bilinear_sample(feat: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
 class LoFTRMatcher(nn.Module):
     def __init__(self, cfg: LoFTRConfig = LoFTRConfig()):
         super().__init__()
-        if cfg.backbone.quant_int8:
-            raise NotImplementedError("quant_int8 is not ported")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.compute_dtype)
         self.backbone = ResNetFPN_8_2(cfg.backbone, dtype=self.dtype)

@@ -7,6 +7,11 @@
     slots (K2) [-> GT padding in training] -> fine 5x5 window gather (K3,
     gradient K4) -> fine transformer -> heatmap soft-argmax.
 
+Off-by-default options, as in the JAX model: ``backbone.quant_int8`` (int8
+backbone convs at inference), ``keypoints_encoding.norm_method`` and
+``fine.sparse_fpn is True`` (inference only: the 1/2-level FPN convs run on
+each match's halo patch, gathered by K6, in place of the dense map and K3).
+
 ``model.train()`` is the JAX model's ``train=True``: BatchNorm on batch
 statistics, the eager coarse transformer, ``train_max_matches`` slots of
 which the last ``train_pad_num_gt_min`` are GT-padded, and, on the fused
@@ -60,10 +65,6 @@ from .transformer import LocalFeatureTransformer
 class OnePosePlusModel(nn.Module):
     def __init__(self, cfg: OnePosePlusConfig = OnePosePlusConfig()):
         super().__init__()
-        if cfg.backbone.quant_int8:
-            raise NotImplementedError("quant_int8 is not ported")
-        if cfg.fine.enable and cfg.fine.sparse_fpn:
-            raise NotImplementedError("fine.sparse_fpn is not ported")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.compute_dtype)
         self.backbone = ResNetFPN_8_2(cfg.backbone, dtype=self.dtype)
@@ -93,10 +94,16 @@ class OnePosePlusModel(nn.Module):
         img = batch["query_image"]
         n, h_i, w_i, _ = img.shape
 
-        # 1. backbone
-        feat_c_map, feat_f_map = self.backbone(img)
+        # 1. backbone; the sparse fine FPN (inference only) defers the
+        # 1/2-level convs until the matched cells are known
+        sparse_fine = cfg.fine.enable and not train and cfg.fine.sparse_fpn is True
+        if sparse_fine:
+            feat_c_map, fine_ctx = self.backbone.coarse_and_ctx(img)
+            h_f, w_f = fine_ctx[0].shape[2:4]
+        else:
+            feat_c_map, feat_f_map = self.backbone(img)
+            h_f, w_f = feat_f_map.shape[1:3]
         h_c, w_c = feat_c_map.shape[1:3]
-        h_f, w_f = feat_f_map.shape[1:3]
 
         # 2. positional encodings
         if cfg.positional_encoding:
@@ -175,11 +182,15 @@ class OnePosePlusModel(nn.Module):
             out["mkpts_query_f"] = mkpts_query_c
             return out
 
-        # 4. fine-level refinement
+        # 4. fine-level refinement: windows of the dense map (K3), or the sparse
+        # FPN's convs on halo patches (K6)
         w_win = cfg.fine.window_size
-        windows = gather_windows_aligned(
-            feat_f_map, matches.j_ids, (h_c, w_c), h_f // h_c, w_win
-        )  # [N, K, W*W, Cf]
+        if sparse_fine:
+            windows = self.backbone.fine_windows(fine_ctx, matches.j_ids, (h_c, w_c), h_f // h_c, w_win)
+        else:
+            windows = gather_windows_aligned(
+                feat_f_map, matches.j_ids, (h_c, w_c), h_f // h_c, w_win
+            )  # [N, K, W*W, Cf]
         desc3d_fine = batch["descriptors3d"]
         c_f = windows.shape[-1]
         if desc3d_fine.shape[-1] != c_f:

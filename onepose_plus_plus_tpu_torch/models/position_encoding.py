@@ -6,8 +6,9 @@ reference ``utils/position_encoding.py``).
   released weights were trained with.
 - ``normalize_3d_keypoints``: tight-box normalisation; the extent comes from
   batch element 0 (reference quirk, ``normalize.py:20``).
-- ``KeypointEncoder``: the MLP over xyz with torch ``InstanceNorm1d`` applied
-  to [B, L, C], which normalises each keypoint over its channels.
+- ``KeypointEncoder``: the MLP over xyz, normalised between its Linear layers
+  by torch ``InstanceNorm1d`` applied to [B, L, C] (which normalises each
+  keypoint over its channels; the default), a ``LayerNorm`` or nothing.
 """
 from __future__ import annotations
 
@@ -64,24 +65,34 @@ class _QuirkInstanceNorm(nn.Module):
         return (x - mean) / torch.sqrt(var + 1e-5)
 
 
+def _norm(method: str, width: int) -> nn.Module:
+    if method == "instancenorm":
+        return _QuirkInstanceNorm()
+    if method == "layernorm":
+        return nn.LayerNorm(width, eps=1e-5)
+    if method == "none":
+        return nn.Identity()
+    raise ValueError(method)
+
+
 class KeypointEncoder(nn.Module):
     """MLP encoding of normalised 3D keypoints added to the descriptors.
 
     ``encoder`` holds Linear layers at indices 0, 3, 6, 9, as the reference
-    ``KeypointEncoding_linear`` does.
+    ``KeypointEncoding_linear`` does, in every ``norm_method``: the norm
+    (``instancenorm``, ``layernorm`` with flax's eps 1e-5, scale and bias) or
+    an ``nn.Identity`` (``none``) sits at 1, 4, 7.
     """
 
     def __init__(self, layers: Sequence[int] = (32, 64, 128), feature_dim: int = 256,
                  norm_method: str = "instancenorm"):
         super().__init__()
-        if norm_method != "instancenorm":
-            raise NotImplementedError(f"the port has the instancenorm encoder only, not {norm_method}")
         widths = [3, *layers, feature_dim]
         mods = []
         for i in range(len(widths) - 1):
             mods.append(nn.Linear(widths[i], widths[i + 1]))
             if i < len(widths) - 2:
-                mods += [_QuirkInstanceNorm(), nn.ReLU()]
+                mods += [_norm(norm_method, widths[i + 1]), nn.ReLU()]
         self.encoder = nn.Sequential(*mods)
 
     def forward(self, kpts: torch.Tensor, descriptors: torch.Tensor) -> torch.Tensor:

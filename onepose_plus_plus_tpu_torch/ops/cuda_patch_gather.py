@@ -2,18 +2,23 @@
 
 Replaces ``onepose_plus_plus_tpu/ops/pallas_patch_gather.py::gather_patches_dma``
 (the function that reaches ``pl.pallas_call`` at :130); source
-``csrc/patch_gather.cu``. Its caller is ``ops/window_gather.py::gather_windows``,
+``csrc/patch_gather.cu``. Its callers are ``ops/window_gather.py::gather_windows``,
 which the LoFTR ``refine`` mode runs (SfM fine refinement and descriptor
-extraction).
+extraction), and ``models/backbone.py::ResNetFPN_8_2.fine_windows``, the
+sparse fine FPN of the query step (``fine.sparse_fpn``), which gathers halo
+patches of the 196-channel pin map.
 
 The TPU kernel copied an (8, 128)-aligned superset block per patch out of a map
 padded by W on every side, then sliced the true window out with XLA gathers
 over the residues: Mosaic cannot prove an arbitrary DMA offset aligned. The
 card has no such rule, so the kernel reads each tap straight from the unpadded
 NHWC map and writes zeros for the taps outside it; there is no padded copy of
-the map and no second slicing pass. One block per patch, 16-byte vector copies
-with neighbouring threads on neighbouring addresses. Bound: device-memory
-bandwidth (one write of the output, one read of the pixels the patches cover).
+the map and no second slicing pass. One block per patch, vector copies with
+neighbouring threads on neighbouring addresses: 16-byte vectors where a
+pixel's bytes and both base pointers are multiples of 16, else 8 (a bf16
+pixel of 196 channels is 392 bytes), else 4 (:func:`vector_bytes`). Bound:
+device-memory bandwidth (one write of the output, one read of the pixels the
+patches cover).
 There is no gradient: the TPU kernel has none either, and ``refine`` runs only
 at inference.
 """
@@ -50,6 +55,15 @@ def patch_gather_plain(
     return torch.where(valid, out, torch.zeros_like(out))
 
 
+def vector_bytes(row_bytes: int, *pointers: int) -> int:
+    """The widest vector (16, 8 or 4 bytes) that divides a pixel's bytes and
+    every pointer; 0 when none does."""
+    for width in (16, 8, 4):
+        if row_bytes % width == 0 and all(p % width == 0 for p in pointers):
+            return width
+    return 0
+
+
 def patch_gather(
     feat: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor, window: int
 ) -> torch.Tensor:
@@ -67,16 +81,19 @@ def patch_gather(
     if row0.shape != col0.shape or row0.dim() != 2 or row0.shape[0] != n:
         raise ValueError(f"patch_gather: corners {tuple(row0.shape)} / {tuple(col0.shape)} "
                          f"vs feat {tuple(feat.shape)}")
-    if (c * feat.element_size()) % 16 != 0:
-        raise ValueError(f"patch_gather: C * itemsize must be a multiple of 16 bytes, C={c}")
     r0 = row0.to(torch.int32).contiguous()
     c0 = col0.to(torch.int32).contiguous()
     device = check_cuda_operands("patch_gather", feat, r0, c0)
     k = r0.shape[1]
     out = torch.empty((n, k, window * window, c), dtype=feat.dtype, device=device)
+    vec = vector_bytes(c * feat.element_size(), feat.data_ptr(), out.data_ptr())
+    if vec == 0:
+        raise ValueError(f"patch_gather: C * itemsize and the map's address must be multiples of "
+                         f"4 bytes (16, 8 or 4-byte vectors), C={c}, {feat.dtype}, address "
+                         f"{feat.data_ptr():#x}")
     build().call(
         f"opp_patch_gather_{KERNEL_DTYPES[feat.dtype]}",
-        ptr(feat), ptr(r0), ptr(c0), ptr(out), n, h, w, c, k, window, stream_ptr(device),
+        ptr(feat), ptr(r0), ptr(c0), ptr(out), n, h, w, c, k, window, vec, stream_ptr(device),
     )
     LAUNCHES["K6_patch_gather"] += 1
     return out

@@ -46,6 +46,8 @@ def _torch_name(path: Tuple[str, ...]) -> str:
             parts += p.split("_")
         elif re.fullmatch(r"dense_\d+", p):  # keypoint MLP: Linear at 0, 3, 6, 9
             parts += ["encoder", str(3 * int(p.split("_")[1]))]
+        elif re.fullmatch(r"LayerNorm_\d+", p):  # ... and its LayerNorms at 1, 4, 7
+            parts += ["encoder", str(3 * int(p.split("_")[1]) + 1)]
         elif re.fullmatch(r"layer\d+_outconv2", parent) and p in _OUTCONV2:
             parts.append(_OUTCONV2[p])
         elif p in ("mlp_0", "mlp_1"):

@@ -36,7 +36,10 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
     rowcol_stats_plain,
 )
-from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain
+from onepose_plus_plus_tpu_torch.config import ResNetFPNConfig
+from onepose_plus_plus_tpu_torch.models.backbone import ResNetFPN_8_2
+from onepose_plus_plus_tpu_torch.ops import quant
+from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, vector_bytes
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     fused_short_encoder_layer,
     fused_short_encoder_layer_packed,
@@ -44,6 +47,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     short_encoder_layer_plain,
 )
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows, gather_windows_aligned
+from onepose_plus_plus_tpu_torch.utils.weights import random_state_dict
 
 pytestmark = pytest.mark.cuda
 
@@ -558,11 +562,77 @@ def test_k6_gather_windows_and_operand_checks(gen):
     ref = gather_windows(feat.cpu(), centers.cpu(), 9)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
-    with pytest.raises(ValueError):  # 3 channels of f32 are 12 bytes, not a 16-byte vector
-        patch_gather(torch.zeros(1, 8, 8, 3, device="cuda"), centers[..., 0], centers[..., 1], 5)
+    # 3 channels of f32 are 12 bytes: the 4-byte instance
+    f3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda")
+    assert torch.equal(patch_gather(f3, centers[..., 0], centers[..., 1], 5),
+                       patch_gather_plain(f3, centers[..., 0], centers[..., 1], 5))
     with pytest.raises(ValueError):
         patch_gather(torch.zeros(1, 8, 8, 4, device="cuda", dtype=torch.float16),
                      centers[..., 0], centers[..., 1], 5)
+    with pytest.raises(ValueError, match="multiples of 4 bytes"):  # 3 bf16 values are 6 bytes
+        patch_gather(torch.zeros(1, 8, 8, 3, device="cuda", dtype=torch.bfloat16),
+                     centers[..., 0], centers[..., 1], 5)
+    misaligned = torch.zeros(1 + 8 * 8 * 4, device="cuda", dtype=torch.bfloat16)[1:].view(1, 8, 8, 4)
+    with pytest.raises(ValueError, match="multiples of 4 bytes"):  # starts 2 bytes past an alignment
+        patch_gather(misaligned, centers[..., 0], centers[..., 1], 5)
+
+
+@pytest.mark.parametrize("dtype,c,offset,vec", [
+    (torch.bfloat16, 196, 0, 8), (torch.bfloat16, 130, 0, 4), (torch.bfloat16, 256, 4, 8),
+    (torch.bfloat16, 256, 2, 4), (torch.float32, 98, 0, 8), (torch.float32, 5, 0, 4)])
+def test_k6_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
+    """K6's 8- and 4-byte instances (a pixel's bytes or the map's address not a
+    multiple of 16) are exact copies too; ``offset`` elements shift the map off
+    the allocator's alignment."""
+    n, h, w, k, window = 2, 20, 24, 45, 9
+    base = torch.randn(offset + n * h * w * c, generator=gen, device="cuda").to(dtype)
+    feat = base[offset:].view(n, h, w, c)
+    assert vector_bytes(c * feat.element_size(), feat.data_ptr()) == vec
+    r0 = torch.randint(-window - 3, h + 3, (n, k), generator=gen, device="cuda")
+    c0 = torch.randint(-window - 3, w + 3, (n, k), generator=gen, device="cuda")
+    r0[:, :4] = -10 * window
+    before = kernels.launch_counts()["K6_patch_gather"]
+    got = patch_gather(feat, r0, c0, window)
+    ref = patch_gather_plain(feat, r0, c0, window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["K6_patch_gather"] == before + 1
+    assert torch.equal(got, ref) and bool((got[:, :4] == 0).all())
+
+
+@pytest.mark.parametrize("cin,cout,kernel,stride,pad", [(1, 32, 7, 2, 3), (48, 40, 3, 1, 1), (196, 196, 3, 2, 1),
+                                                        (24, 40, 1, 2, 0), (16, 8, 3, 1, 0)])
+def test_int8_conv_sums_on_the_card_equal_the_cpu(gen, cin, cout, kernel, stride, pad):
+    """The int8 conv (``ops/quant.py``, ``torch._int_mm`` on cuBLASLt) sums
+    exactly: its int32 accumulators and its output equal the CPU's to the bit."""
+    x = torch.randn(3, cin, 20, 20, generator=gen, device="cuda").to(memory_format=torch.channels_last)
+    wt = torch.randn(cout, cin, kernel, kernel, generator=gen, device="cuda") * 0.1
+    xq, _ = quant.quantize_activation(x)
+    wq, _ = quant.quantize_weight(wt)
+    acc = quant.int8_conv_accumulate(xq, wq, stride, pad)
+    assert torch.equal(acc.cpu(), quant.int8_conv_accumulate(xq.cpu(), wq.cpu(), stride, pad))
+    assert torch.equal(quant.quant_conv(x, wt, stride, pad).cpu(), quant.quant_conv(x.cpu(), wt.cpu(), stride, pad))
+
+
+def test_sparse_fine_windows_on_the_card_match_the_cpu(gen):
+    """``fine_windows`` through K6 on a 196-channel pin map: bf16 takes the
+    8-byte instance, and the windows match the CPU's (f32, TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ResNetFPNConfig(initial_dim=32, block_dims=(32, 196, 64))
+    img = torch.rand(2, 64, 64, 1, generator=gen, device="cuda")
+    ids = torch.randint(-2, 70, (2, 20), generator=gen, device="cuda")
+    outs = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32), ("cuda", torch.bfloat16)):
+        bb = ResNetFPN_8_2(cfg, dtype=dtype)
+        bb.load_state_dict(random_state_dict(bb, seed=1))
+        bb.eval().to(dev)
+        before = kernels.launch_counts()["K6_patch_gather"]
+        with torch.no_grad():
+            _, ctx = bb.coarse_and_ctx(img.to(dev))
+            outs[(dev, dtype)] = bb.fine_windows(ctx, ids.to(dev), (8, 8), 4, 5).float().cpu()
+        assert kernels.launch_counts()["K6_patch_gather"] == before + (dev == "cuda")
+    ref = outs[("cpu", torch.float32)]
+    assert (outs[("cuda", torch.float32)] - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert (outs[("cuda", torch.bfloat16)] - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
 
 
 def test_triangulation_eigh_in_chunks_on_the_card(gen):

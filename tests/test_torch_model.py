@@ -104,6 +104,53 @@ def test_keypoint_encoder():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("norm_method", ["instancenorm", "layernorm", "none"])
+def test_keypoint_encoder_norm_methods(norm_method):
+    """Every ``norm_method`` of the JAX encoder at f32 (layernorm: flax's
+    LayerNorm, eps 1e-5, scale and bias); the Linear layers stay at 0, 3, 6, 9
+    and the norm (or an Identity) sits at 1, 4, 7, so the weights load strictly."""
+    rng = np.random.default_rng(11)
+    kpts = rng.uniform(-0.5, 0.5, (2, 40, 3)).astype(np.float32)
+    desc = rng.standard_normal((2, 40, 64)).astype(np.float32)
+    enc = JaxKeypointEncoder(feature_dim=64, norm_method=norm_method)
+    variables = _perturbed(enc.init(jax.random.PRNGKey(5), kpts, desc), seed=2)
+    ref = enc.apply(variables, kpts, desc)
+    port = KeypointEncoder(feature_dim=64, norm_method=norm_method)
+    from_jax = state_dict_from_jax(variables)
+    assert port.load_state_dict(from_jax, strict=True)
+    assert sorted({k.split(".")[1] for k in from_jax}) == (
+        ["0", "1", "3", "4", "6", "7", "9"] if norm_method == "layernorm" else ["0", "3", "6", "9"])
+    with torch.no_grad():
+        out = port(torch.from_numpy(kpts), torch.from_numpy(desc))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    with pytest.raises(ValueError):
+        KeypointEncoder(norm_method="batchnorm")
+
+
+def test_layernorm_keypoint_encoder_through_the_model_and_the_jax_converter_fault():
+    """The port's bridge carries ``kpt_encoder/LayerNorm_i`` to
+    ``kpt_3d_pos_encoding.encoder.{3i+1}`` inside the whole model; the JAX
+    package's ``convert_torch_state_dict`` maps ``encoder.N`` to
+    ``dense_{N // 3}`` and so sends the LayerNorm at ``encoder.1`` onto
+    ``dense_0`` (a fault of the JAX package, recorded, not repaired)."""
+    cfg = dataclasses.replace(
+        NARROW, keypoints_encoding=dataclasses.replace(NARROW.keypoints_encoding, norm_method="layernorm"))
+    batch = _forward_inputs(False, n=1, size=64, points=64)
+    variables = _perturbed(jax.jit(lambda k, b: JaxModel(cfg).init(k, b, train=False))(jax.random.PRNGKey(0), batch))
+    port = OnePosePlusModel(cfg).eval()
+    load_jax_variables(port, variables)
+    ln = variables["params"]["kpt_encoder"]["LayerNorm_1"]
+    np.testing.assert_array_equal(port.kpt_3d_pos_encoding.encoder[4].weight.detach().numpy(), ln["scale"])
+    np.testing.assert_array_equal(port.kpt_3d_pos_encoding.encoder[4].bias.detach().numpy(), ln["bias"])
+    with pytest.raises(ValueError, match="kpt_3d_pos_encoding.encoder.1.weight"):
+        convert_torch_state_dict(port.state_dict(), variables, strict=True)
+    back, report = convert_torch_state_dict(port.state_dict(), variables, strict=False)
+    assert "params/kpt_encoder/LayerNorm_0/scale" in report["missing"]
+    # the LayerNorm's bias (same shape) overwrites the first Linear's
+    np.testing.assert_array_equal(np.asarray(back["params"]["kpt_encoder"]["dense_0"]["bias"]),
+                                  variables["params"]["kpt_encoder"]["LayerNorm_0"]["bias"])
+
+
 def _forward_inputs(masked: bool, n=2, size=128, points=256, seed=4):
     rng = np.random.default_rng(seed)
     batch = {
