@@ -23,7 +23,12 @@ and phase 10, which runs right after phase 6:
      train shape [4, ...], each with its f32 bound and 3xTF32 floor, split by
      launch name. Every phase that runs K1 or K2 in f32 at C = 256 (3, 7c, 7d,
      8b, 8d, 9e) checks by the profiler's kernel names that the split-TF32
-     instances ran and no CUDA-core f32 kernel of K1 or K2
+     instances ran and no CUDA-core f32 kernel of K1 or K2; 2n K3, K4 and K6
+     at pixels no 16-byte vector divides (bf16 C = 196, 130, 33; f32 C = 130,
+     33: their 8-, 4- and 2-byte instances) at the query, train and sparse-FPN
+     shapes, K3 and K6 bitwise equal to their plain versions, K4 within 7a's
+     tolerances and bitwise repeatable, each beside its bound and index_select
+     or zero_ + index_add_
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
      of 512^2, a 7000-point cloud, 512 match slots, thr 0; then K2's bf16
@@ -42,8 +47,14 @@ and phase 10, which runs right after phase 6:
      index launch exactly equal to the plain index preparation and its two
      launches timed apart, K5's launches split by kernel, bitwise repeatable and
      faster than its plain version;
+     7f K5 at the coarse widths above 256 at the train shapes: C = 384 and 512
+     (tensor cores, feature gradients in 256-channel chunks), 640 and 1024
+     (CUDA cores), forward and backward within 7b's tolerances, bitwise
+     repeatable, split by launch;
      7c one f32 micro-batch on the GPU (kernels) against the same micro-batch
-     on the CPU (plain versions), loss and every gradient; 7d the train config
+     on the CPU (plain versions), loss and every gradient, at the train
+     config's coarse width (256) and at 512 (K5 once forward, once backward,
+     in two chunks); 7d the train config
      at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
      optimizer updates on one batch: falling loss, launch counts, step time,
      peak memory and a torch.profiler split of one micro-batch
@@ -115,7 +126,14 @@ import numpy as np
 import torch
 
 from onepose_plus_plus_tpu_torch import bench, demo, kernels
-from onepose_plus_plus_tpu_torch.config import CoarseMatchingConfig, LoFTRConfig, OnePosePlusConfig, ResNetFPNConfig
+from onepose_plus_plus_tpu_torch.config import (
+    CoarseMatchingConfig,
+    KeypointEncodingConfig,
+    LoFTRConfig,
+    OnePosePlusConfig,
+    ResNetFPNConfig,
+    TransformerConfig,
+)
 from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
 from onepose_plus_plus_tpu_torch.eval.trajectory import absolute_trajectory_error, camera_centers_from_poses
 from onepose_plus_plus_tpu_torch.geometry.levenberg_marquardt import lm_solve_scalar
@@ -130,7 +148,7 @@ from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
 from onepose_plus_plus_tpu_torch.models.position_encoding import KeypointEncoder, sine_position_encoding
-from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain
+from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain, k5_instance
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     encoder_layer_plain,
     fused_encoder_layer,
@@ -686,6 +704,100 @@ def phase2_k3(gen) -> dict:
     return {"max_abs_err": 0.0, **rec[("query", "bf16")]}
 
 
+# pixels that are not a multiple of 16 bytes: (dtype, C); bf16 C = 196 is the sparse FPN's pin map
+NARROW_PIXELS = ((torch.bfloat16, 196), (torch.bfloat16, 130), (torch.bfloat16, 33),
+                 (torch.float32, 130), (torch.float32, 33))
+
+
+def phase2_narrow(gen, smi: str) -> None:
+    """K3, K4 and K6 at pixels that no 16-byte vector divides: bf16 C = 196,
+    130, 33 and f32 C = 130, 33, through their 8-, 4- and 2-byte instances, at
+    the main path's shapes (K3 the query step's [16, 256, 256, C] with 512
+    windows; K4 the train step's 1228 slots onto [4, 256, 256, C]; K6 the
+    sparse FPN's 512 patches of 9 x 9). K3 and K6 bitwise equal to their plain
+    versions; K4 within 7a's tolerances of its plain version (index_add_ sums in
+    another order) and its two launches bitwise equal; whole-call times, and
+    device times from one profiler session a width (the three kernels' own
+    launches), beside the bound (bytes) and index_select / zero_ + index_add_."""
+    h = w = 256
+    hc, win, n4, k4 = h // 4, 9, TRAIN_B, 1228
+    for dtype, c in NARROW_PIXELS:
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        size = c * torch.tensor([], dtype=dtype).element_size()
+        feat = torch.randn(B, h, w, c, generator=gen, device="cuda").to(dtype)
+        ids = torch.randint(0, hc * hc, (B, 512), generator=gen, device="cuda", dtype=torch.int32)
+        ids[:, :8] = torch.tensor([-1, -7, 4096, 5000, 0, 63, 4032, 4095], dtype=torch.int32)
+        r0 = torch.randint(-win - 4, h + 4, (B, 512), generator=gen, device="cuda", dtype=torch.int32)
+        c0 = torch.randint(-win - 4, w + 4, (B, 512), generator=gen, device="cuda", dtype=torch.int32)
+        r0[:, -16:] = -10 * win
+        sids = torch.randint(0, hc * hc, (n4, k4), generator=gen, device="cuda", dtype=torch.int32)
+        sids[:, 1028:] = sids[:, :200]
+        sids[:, 1000:1028] = -1
+        grad = torch.randn(n4, k4, 25, c, generator=gen, device="cuda").to(dtype)
+        calls = {
+            "K3": (lambda: window_gather(feat, ids, (hc, hc), 4, 5), K3_NAMES),
+            "K6": (lambda: patch_gather(feat, r0, c0, win), K6_NAMES),
+            "K4": (lambda: window_scatter(grad, sids, (hc, hc), 4, 5, (h, w)), K4_NAMES),
+        }
+        res = {}
+        # K3 and K6: exact against the plain version and index_select on precomputed indices
+        for tag, (fn, _), taps, plain in (
+                ("K3", calls["K3"], _window_taps(ids, (h, w), (hc, hc), 4, 5),
+                 lambda: window_gather_plain(feat, ids, (hc, hc), 4, 5)),
+                ("K6", calls["K6"], patch_taps(r0, c0, (h, w), win),
+                 lambda: patch_gather_plain(feat, r0, c0, win))):
+            got, ref = fn(), plain()
+            table, idx = index_select_table(feat, *taps)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, ref) and torch.equal(torch.index_select(table, 0, idx).view_as(got), ref)
+            check(equal, f"{tag} {dt} C = {c} disagrees with its plain version")
+            n_idx = ids.numel() if tag == "K3" else 2 * r0.numel()
+            res[tag] = {"shape": f"feat{tuple(feat.shape)} -> {tuple(got.shape)}",
+                        "check": f"bitwise equal to the plain version {equal}",
+                        "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                        "library": f"index_select {time_ms(lambda: torch.index_select(table, 0, idx)):.4f} ms",
+                        **bound(gather_bytes(*taps, h * w, size, got, n_idx * 4), 0, dtype)}
+            del got, ref, table, idx
+        # K4: 7a's tolerances, two launches bitwise equal, zero_ + index_add_ on precomputed rows
+        fn = calls["K4"][0]
+        got, again = fn(), fn()
+        ref = window_scatter_plain(grad, sids, (hc, hc), 4, 5, (h, w))
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        same = torch.equal(got, again)
+        tol = 1e-4 if dtype == torch.float32 else 6e-2  # 7a's: f32 summation order / one bf16 rounding
+        check(err <= tol and same, f"K4 {dt} C = {c} disagrees or is not deterministic")
+        flat, valid = _window_taps(sids, (h, w), (hc, hc), 4, 5)
+        rows = (flat + (h * w) * torch.arange(n4, device="cuda")[:, None])[valid]
+        src = grad.reshape(n4, k4 * 25, c)[valid]
+        acc = torch.zeros(n4 * h * w, c, dtype=dtype, device="cuda")
+        res["K4"] = {"shape": f"grad{tuple(grad.shape)} -> map{tuple(got.shape)}",
+                     "check": f"max|d| {err:.3e} (<= {tol:g}), two launches bitwise equal {same}",
+                     "ms": time_ms(fn), "plain_ms": time_ms(lambda: window_scatter_plain(grad, sids, (hc, hc), 4, 5, (h, w))),
+                     "library": f"zero_ + index_add_ {time_ms(lambda: acc.zero_().index_add_(0, rows, src)):.4f} ms",
+                     **bound(src.numel() * src.element_size() + rows.numel() * 4 + got.numel() * got.element_size(),
+                             src.numel(), dtype)}
+        del got, again, ref, acc, src, rows, flat, valid
+        # device time: one profiler session over the three calls, split by kernel name
+        prof_rows, _, _ = device_rows(lambda: [f() for f, _ in calls.values()], reps=5)
+        every = set(K3_NAMES + K4_NAMES + K6_NAMES)
+        check({_short(r[2]) for r in prof_rows} <= every, f"2n launches {launch_names(prof_rows)}")
+        for tag, (_, names) in calls.items():
+            mine = [r for r in prof_rows if _short(r[2]) in names]
+            n_calls = sum(r[1] for r in mine if _short(r[2]) == names[-1])  # one last launch a call
+            check(n_calls > 0, f"the profiler kept no launch of {tag}")
+            dev = sum(r[0] for r in mine) / n_calls
+            r = res[tag]
+            log(f"[2n] {tag} {dt} C = {c} ({size} bytes a pixel, {vector_bytes(size, feat.data_ptr())}-byte "
+                f"vectors) {r['shape']}: {r['check']}; kernel {r['ms']:.4f} ms whole call, device {dev:.4f} ms "
+                f"a call ({launch_names(mine)}), plain {r['plain_ms']:.3f} ms, {r['library']} (medians of 20); "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {100 * r['bound_ms'] / dev:.0f} % of it by "
+                f"device time")
+        del feat, grad
+        torch.cuda.empty_cache()
+    log(f"[2n] on {smi}")
+
+
 # --------------------------------------------------------------- phase 3-5
 
 
@@ -860,9 +972,12 @@ def device_rows(fn, reps: int = 1):
     the profiled calls) of `reps` calls of fn under torch.profiler. The
     profiler can miss the first launch after it starts: where every launch of
     a short call matters, profile a few calls and read the names. Late in a
-    long run it has also returned sessions with no device event at all: such a
-    session is profiled again, up to three times."""
-    for _ in range(3):
+    long run it has also returned sessions with no device event at all, and
+    sessions in a row: such a session is profiled again after a pause, up to
+    five times."""
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1127,7 +1242,72 @@ def phase7b(gen) -> dict:
     return {"max_abs_err": worst, "ms": both, "plain_ms": pboth, **b, "library_ms": None}
 
 
-def _train_batch(rng, n, img, n_pts, dev):
+K5_CC_NAMES = ("lse_kernel", "col_lse_reduce", "loss_cc_kernel", "gsum_cc_kernel", "colg_reduce",
+               "dfeat_cc_kernel")  # K5 above 576 channels: the CUDA cores on unpacked bf16 operands
+
+
+def phase7f(gen, smi: str) -> None:
+    """K5 at the coarse widths above 256 that K1 takes, at the train shapes
+    [4, 7000] x [4, 4096]: C = 384 and 512 on the tensor cores (feature
+    gradients in 256-channel chunks), 640 and 1024 on the CUDA cores; forward
+    and backward against the plain version with 7b's tolerances, two launches
+    bitwise equal, whole call and device time by launch beside the bound
+    (three products at the bf16 peak, as 7b's)."""
+    l = 4096
+    inv_temp = 1.0 / (0.08 + 1e-4)
+    for c in (384, 512, 640, 1024):
+        instance, chunks = k5_instance(c)
+        names = K5_NAMES if instance == "tc" else K5_CC_NAMES
+        f0 = (torch.randn(TRAIN_B, TRAIN_P, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
+        f1 = (torch.randn(TRAIN_B, l, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
+        gt = torch.randint(0, l, (TRAIN_B, TRAIN_P), generator=gen, device="cuda", dtype=torch.int32)
+        gt = torch.where(torch.rand(TRAIN_B, TRAIN_P, generator=gen, device="cuda") < 0.5, gt, -1)
+        n_pos = int((gt >= 0).sum())
+        coefs = (1.0 / n_pos, 1.0 / (TRAIN_B * TRAIN_P * l - n_pos))
+
+        def run(fn, backward=True):
+            a0, a1 = f0.clone().requires_grad_(backward), f1.clone().requires_grad_(backward)
+            pos, neg, mx = fn(a0, a1, gt, inv_temp, 0.5, 2.0)
+            loss = coefs[0] * pos + coefs[1] * neg
+            if backward:
+                loss.backward()
+                return loss.detach(), mx, a0.grad.float(), a1.grad.float()
+            return loss.detach(), mx
+
+        got, again, ref = run(coarse_focal_sums), run(coarse_focal_sums), run(coarse_focal_sums_plain)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        loss_rel = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+        mx_rel = abs(got[1].item() - ref[1].item()) / abs(ref[1].item())
+        ok, grads = loss_rel <= 2e-4 and mx_rel <= 2e-4 and same, []
+        for name, g, r in (("df0", got[2], ref[2]), ("df1", got[3], ref[3])):
+            scale = r.abs().max().item()
+            err = (g - r).abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item()
+            grads.append(f"{name} max|d| {err / scale:.2e} of max|grad| (< 2e-2), cosine {cos:.6f} (> 0.999)")
+            ok = ok and err < 2e-2 * scale and cos > 0.999
+        log(f"[7f] K5 C = {c} ({instance}, {chunks} chunk(s)) f0{tuple(f0.shape)} f1{tuple(f1.shape)}: loss rel "
+            f"{loss_rel:.2e} (<= 2e-4), max_conf rel {mx_rel:.2e} (<= 2e-4), {'; '.join(grads)}; two launches "
+            f"bitwise equal {same}")
+        check(ok, f"K5 at C = {c} disagrees with its plain version")
+        del got, again, ref
+        torch.cuda.empty_cache()
+        both = time_ms(lambda: run(coarse_focal_sums), reps=5, warmup=1)
+        pboth = time_ms(lambda: run(coarse_focal_sums_plain), reps=3, warmup=1)
+        rows, busy, _ = device_rows(lambda: run(coarse_focal_sums), reps=2)
+        k5_rows = [r for r in rows if _short(r[2]) in names]
+        check(only_launches(k5_rows, names), f"K5 at C = {c} does not launch exactly {names}: {launch_names(rows)}")
+        n_bytes = 2 * (f0.numel() + f1.numel()) * 2 + gt.numel() * 4
+        b = bound(n_bytes, 3 * 2 * TRAIN_B * TRAIN_P * l * c, torch.bfloat16)
+        log(f"[7f] K5 C = {c}: forward + backward kernel {both:.3f} ms whole call, plain {pboth:.3f} ms "
+            f"(medians of 5 / 3); device time by launch: {launch_names(k5_rows)} "
+            f"({sum(r[0] for r in k5_rows) / 2:.3f} ms a call); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}); no single PyTorch call computes the focal loss; on {smi}")
+        del f0, f1, gt
+        torch.cuda.empty_cache()
+
+
+def _train_batch(rng, n, img, n_pts, dev, coarse_dim=256):
     """Textured frames of a synthetic scene; GT cells and fine locations from
     projecting its points with the GT poses."""
     K, pts, Ts = _scene(rng, n, n_pts, img=float(img))
@@ -1145,7 +1325,7 @@ def _train_batch(rng, n, img, n_pts, dev):
         "query_image": _textured_images(rng, n, img)[..., None],
         "keypoints3d": np.broadcast_to(pts, (n, n_pts, 3)).astype(np.float32),
         "descriptors3d": rng.standard_normal((n, n_pts, 128)).astype(np.float32),
-        "descriptors3d_coarse": rng.standard_normal((n, n_pts, 256)).astype(np.float32),
+        "descriptors3d_coarse": rng.standard_normal((n, n_pts, coarse_dim)).astype(np.float32),
         "gt_cell": gt_cell,
         "gt_fine_xy": gt_fine,
     }
@@ -1158,20 +1338,37 @@ def _train_model(cfg, dev):
     return model.to(dev).train()
 
 
-def phase7c() -> None:
-    """One f32 micro-batch, fused route: GPU (kernels) against CPU (plain versions)."""
+def wide_train_config(d_model: int) -> OnePosePlusConfig:
+    """The train config with a coarse stage of ``d_model`` channels (the
+    backbone's coarse level, the keypoint encoding and the coarse transformer)."""
+    base = OnePosePlusConfig()
+    return dataclasses.replace(
+        base, backbone=dataclasses.replace(base.backbone, block_dims=(*base.backbone.block_dims[:2], d_model)),
+        keypoints_encoding=KeypointEncodingConfig(descriptor_dim=d_model),
+        coarse=dataclasses.replace(base.coarse, d_model=d_model))
+
+
+def phase7c(d_model: int = 256) -> None:
+    """One f32 micro-batch, fused route: GPU (kernels) against CPU (plain
+    versions), at the train config's coarse width or a wider one."""
     rng = np.random.default_rng(7)
-    cfg = OnePosePlusConfig()
-    batch = _train_batch(rng, 2, 128, 500, "cpu")
+    cfg = wide_train_config(d_model)
+    batch = _train_batch(rng, 2, 128, 500, "cpu", coarse_dim=d_model)
     rows = sample_gt_rows(batch["gt_cell"], cfg.coarse_matching.train_pad_num_gt_min,
                           torch.Generator().manual_seed(0))  # the same GT slots on both devices
     res = {}
     for dev in ("cuda", "cpu"):
         model = _train_model(cfg, dev)
         b = {k: v.to(dev) for k, v in batch.items()}
+        before = kernels.launch_counts()
         out = model(b, gt_pad_rows=rows.to(dev))
         loss, sc = compute_losses(out, b, LossConfig(), cfg.fine.window_size)
         loss.backward()
+        if dev == "cuda":  # the fused route: K5 once forward, once backward
+            after = kernels.launch_counts()
+            k5 = (after["K5_coarse_loss"] - before["K5_coarse_loss"],
+                  after["K5_coarse_loss_bwd"] - before["K5_coarse_loss_bwd"])
+            check(k5 == (1, 1), f"the fused micro-batch at d_model {d_model} launched K5 {k5}")
         res[dev] = ({k: float(v.detach()) for k, v in sc.items()},
                     {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
                     out["match_mask"].cpu(), out["i_ids"].cpu(), out["j_ids"].cpu())
@@ -1182,7 +1379,8 @@ def phase7c() -> None:
     (sg, gg, mg, ig, jg), (sc_, gc, mc, ic, jc) = res["cuda"], res["cpu"]
     same_slots = torch.equal(mg, mc) and torch.equal(ig[mg], ic[mc]) and torch.equal(jg[mg], jc[mc])
     rel = {k: abs(sg[k] - sc_[k]) / max(abs(sc_[k]), 1e-12) for k in sc_}
-    log(f"[7c] f32 micro-batch, 2 frames of 128^2, 500 points, fused route: GPU {sg} vs CPU {sc_}; "
+    log(f"[7c] f32 micro-batch, coarse d_model {d_model} (K5 {k5_instance(d_model)[0]}), 2 frames of 128^2, "
+        f"500 points, fused route (K5 launched once forward, once backward): GPU {sg} vs CPU {sc_}; "
         f"same match slots {same_slots} ({int(mg.sum())} valid)")
     worst_norm, worst_max, bad = 0.0, 0.0, []
     for name, r in gc.items():
@@ -2269,6 +2467,8 @@ def main() -> int:
     gen.manual_seed(0)
     records = {"K1_encoder_layer": phase2_k1(gen), "K2_rowcol_stats": phase2_k2(gen),
                "K3_window_gather": phase2_k3(gen)}
+    phase2_narrow(gen, smi)  # K3, K4, K6 at pixels of any width
+    torch.cuda.empty_cache()
     phase2_f32(gen)
     # K7's kernel checks run here, early: late in this long process torch.profiler
     # has returned sessions without device events, and 9a checks kernel names
@@ -2289,7 +2489,10 @@ def main() -> int:
     records["K4_window_scatter"] = phase7a(gen)
     records["K5_coarse_loss"] = phase7b(gen)
     torch.cuda.empty_cache()
+    phase7f(gen, smi)  # K5 at the coarse widths above 256
+    torch.cuda.empty_cache()
     phase7c()
+    phase7c(512)  # a train config with a 512-channel coarse stage: K5 in two chunks
     train_counts, step_ms = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
     counts.update({k: v for k, v in train_counts.items() if k.startswith(("K4", "K5"))})
     torch.cuda.empty_cache()

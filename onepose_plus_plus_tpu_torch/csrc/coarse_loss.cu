@@ -5,14 +5,15 @@
 // (_loss_kernel, _gsum_kernel, _dfeat_kernel). With s = f0 f1^T * inv_temp over
 // f0, f1 already scaled by 1/sqrt(C) and rounded to bf16 (f32 accumulation):
 //   log conf[p, l] = min(2 s - colLSE[l] - rowLSE[p], LOGCAP)
-// The row/column LSEs come from K2's LSE pass (matching.cu, opp_dual_lse_bf16),
-// as the TPU kernel shares pallas_matching._lse_kernel. Then:
-//   loss_tc_kernel   per-row pos/neg focal sums (times alpha, 1 - alpha) and
+// The row/column LSEs come from K2's LSE pass (matching.cu: opp_dual_lse_bf16
+// on the tensor cores, opp_dual_lse_cc_bf16 on the CUDA cores), as the TPU
+// kernel shares pallas_matching._lse_kernel. Then:
+//   loss_*_kernel    per-row pos/neg focal sums (times alpha, 1 - alpha) and
 //                    the per-row max conf; the wrapper sums rows.
-//   gsum_tc_kernel   g = dL/dlogconf per element (zero where the LOGCAP cap is
+//   gsum_*_kernel    g = dL/dlogconf per element (zero where the LOGCAP cap is
 //                    active), row sums kept in the block, column sums as
 //                    per-row-tile partials, merged in order by colg_reduce.
-//   dfeat_tc_kernel  df0 = dsim f1, one block per row tile over the column
+//   dfeat_*_kernel   df0 = dsim f1, one block per row tile over the column
 //                    tiles, and df1 = dsim^T f0, one block per column tile over
 //                    the row tiles,
 // with dsim = (2 g - softmax_p * colsum_g - softmax_l * rowsum_g) * inv_temp
@@ -23,18 +24,28 @@
 //
 // Bound: operations, seven P*L*C products (LSE, loss, gsum, and two for each
 // feature gradient), then ~14 transcendentals per similarity element over the
-// four passes. Design: every pass runs on the tensor-core similarity tile of
-// sim_tile_tc.cuh (operands packed once by the wrapper, one warpgroup a block,
-// the resident tile and a two-stage ring of streamed tiles, the reductions on
-// the accumulator fragment). The feature gradients need a second product per
-// tile: dsim is formed in the registers of the first product's accumulators,
-// packed to bf16 pairs, and fed as the A operand from registers to a second
-// wgmma whose B is the streamed tile itself, read MN-major (transposed): the
-// packed layout's core matrices are the same bytes either way, so one shared
-// copy serves both products. df1 computes the transposed tile s^T = f1 f0^T
-// directly, so dsim^T arises in registers the same way. The [64, C]
-// accumulators of the second product hold 128 registers a thread, in chunks
-// of 64, 32 or 16 columns (whichever divides the padded C), so C <= 256.
+// four passes. Two instances, by width (ops/cuda_coarse_loss.py::k5_instance):
+//
+// C <= 576 (three 64-row tiles fit a block's shared memory): every pass runs
+// on the tensor-core similarity tile of sim_tile_tc.cuh (operands packed once
+// by the wrapper, one warpgroup a block, the resident tile and a two-stage
+// ring of streamed tiles, the reductions on the accumulator fragment). The
+// feature gradients need a second product per tile: dsim is formed in the
+// registers of the first product's accumulators, packed to bf16 pairs, and fed
+// as the A operand from registers to a second wgmma whose B is the streamed
+// tile itself, read MN-major (transposed): the packed layout's core matrices
+// are the same bytes either way, so one shared copy serves both products. df1
+// computes the transposed tile s^T = f1 f0^T directly, so dsim^T arises in
+// registers the same way. The second product's accumulators hold one
+// 256-channel chunk of the output (128 registers a thread, in pieces of 64, 32
+// or 16 columns, whichever divides the padded C); above 256 channels each
+// chunk is a block of its own (blockIdx.z) that recomputes the similarity
+// tiles, so a chunk costs one more first product and nothing else changes.
+//
+// 576 < C <= 4096 (as wide as K1 goes): the same passes on the CUDA cores over
+// unpacked bf16 operands, on sim_tile.cuh's register-blocked f32 tile staged
+// in shared memory. A correctness instance, not tuned (see cc:: below).
+#include "sim_tile.cuh"
 #include "sim_tile_tc.cuh"
 
 namespace {
@@ -44,7 +55,8 @@ using namespace opp::tc;
 using bf16 = __nv_bfloat16;
 constexpr float LOGCAP = -1e-6f;       // log conf <= log(1 - ~1e-6): log1p stays finite
 constexpr float CONF_CAP = 0.999999f;  // exp(LOGCAP) rounded down
-constexpr int MAXC = 256;              // channels the feature-gradient accumulators hold
+constexpr int MAXC = 256;              // channels the feature-gradient accumulators hold (a chunk)
+constexpr int MAXC_CC = 4096;          // the CUDA-core instance's widest operand (K1's widest)
 
 struct Focal {
   float alpha, gamma;
@@ -293,8 +305,11 @@ __device__ __forceinline__ void mma_rs<16>(float (&acc)[8], const uint32_t (&af)
 // df0 (T1 = false): the block's resident tile is 64 rows p of f0, the streamed
 // tiles are f1's, out[b, p, :] = sum_l dsim[p, l] f1[l, :]. df1 (T1 = true):
 // resident 64 rows l of f1, streamed f0, out[b, l, :] = sum_p dsim[p, l] f0[p, :],
-// on the transposed tile s^T. NC: columns of C in one accumulator chunk.
-template <bool T1, int NC>
+// on the transposed tile s^T. NC: columns of one accumulator piece. CHUNKED
+// (padded C > 256): the block writes output channels [256 z, 256 z + 256),
+// z = blockIdx.z; otherwise all of them, with the chunk arithmetic compiled
+// out (the train config's C = 256 instance).
+template <bool T1, int NC, bool CHUNKED>
 __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int cp = pad_channels(a.C), p_pad = pad_rows(a.P), l_pad = pad_rows(a.L);
@@ -337,7 +352,8 @@ __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restri
     ogt[h] = !T1 && ok ? a.gt[(size_t)b * a.P + r] : -2;
   }
   constexpr int NCH = MAXC / NC;
-  const int nch = cp / NC;
+  const int ch0 = CHUNKED ? blockIdx.z * MAXC : 0;  // the block's first output channel
+  const int nch = (CHUNKED ? min(cp - ch0, MAXC) : cp) / NC;
   float acc2[NCH][NC / 2];
 #pragma unroll
   for (int ch = 0; ch < NCH; ++ch)
@@ -389,7 +405,7 @@ __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restri
       for (int ch = 0; ch < NCH; ++ch)
         if (ch < nch)
           mma_rs<NC>(acc2[ch], af[kk],
-                     wg::desc(bs + kk * row_step + ch * (NC / 8) * LBO, 16u * cp, LBO));
+                     wg::desc(bs + kk * row_step + (ch0 + ch * NC) / 8 * LBO, 16u * cp, LBO));
     wg::commit();
     wg::wait<0>();
 #pragma unroll
@@ -404,7 +420,7 @@ __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restri
     for (int jj = 0; jj < NC / 8; ++jj)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = ch * NC + 8 * jj + 2 * t;
+        const int col = ch0 + ch * NC + 8 * jj + 2 * t;
         if (orow[h] >= own_n) continue;
         float* o = out + ((size_t)b * own_n + orow[h]) * a.C;
         if (col < a.C) o[col] = acc2[ch][4 * jj + 2 * h] * a.grad_scale;
@@ -413,18 +429,206 @@ __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restri
   }
 }
 
-bool bad_shape(int B, int P, int L, int C) {
-  return B <= 0 || P <= 0 || L <= 0 || C <= 0 || C > MAXC;
+// ------------------------------------------ CUDA-core instance (C > 576)
+//
+// The four passes on unpacked bf16 operands [B, rows, C] (the wrapper scales
+// and rounds them), for widths whose tiles do not fit the tensor-core block's
+// shared memory. Each pass is one block per 64-row tile of its own operand,
+// streaming the other's 64-row tiles: opp::sim_tile (sim_tile.cuh, 256
+// threads, f32 FMAs) leaves the similarity tile in shared memory, and thread
+// (g, q) reads row g, columns 16 q .. 16 q + 15 of it, as K2's CUDA-core LSE
+// pass. Row sums merge over the quad's four lanes, column sums over the
+// quad's rows 16 q .. 16 q + 15 and then its lanes, in a fixed order.
+//
+// The feature gradients keep no [64, C] accumulators (C goes to 4096): after
+// each streamed tile, dsim (rounded to bf16) replaces the tile in shared
+// memory and a thread per output channel multiplies it with the streamed
+// rows into 64 row sums, then adds them into the block's own rows of the f32
+// output (read, add, write; the block owns those rows, the tiles come in
+// order), so the result is the same bit for bit from run to run. Bound: the
+// similarity products on the CUDA cores at f32 rate; this instance is right
+// first and not tuned.
+namespace cc {
+
+using opp::BL;
+using opp::BR;
+
+// The per-row stats a pass needs of its own operand's row g.
+struct OwnRow {
+  bool ok;
+  float lse;
+  int gt;
+};
+
+__device__ __forceinline__ OwnRow own_row(const float* lse, const int* gt, int b, int n, int r) {
+  const bool ok = r < n;
+  return OwnRow{ok, ok ? lse[(size_t)b * n + r] : 0.f, ok && gt != nullptr ? gt[(size_t)b * n + r] : -2};
 }
 
-template <int NC>
+__global__ void __launch_bounds__(opp::NT)
+    loss_cc_kernel(Args a, float* __restrict__ pos_out, float* __restrict__ neg_out,
+                   float* __restrict__ mx_out) {
+  __shared__ opp::TileSmem sm;
+  const int P = a.P, L = a.L, C = a.C, b = blockIdx.y, p0 = blockIdx.x * BR;
+  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const bf16* f0 = a.f0 + (size_t)b * P * C;
+  const bf16* f1 = a.f1 + (size_t)b * L * C;
+  const OwnRow row = own_row(a.row_lse, a.gt, b, P, p0 + g);
+  float pos = 0.f, neg = 0.f, mx = 0.f;
+  for (int l0 = 0; l0 < L; l0 += BL) {
+    opp::sim_tile<bf16>(f0, f1, nullptr, nullptr, p0, l0, P, L, C, a.inv_temp, sm);
+    for (int j = 0; j < 16; ++j) {
+      const int l = l0 + 16 * q + j;
+      if (!row.ok || l >= L) continue;
+      const float lc = fminf(2.f * sm.s[g][16 * q + j] - a.col_lse[(size_t)b * L + l] - row.lse,
+                             LOGCAP);
+      const float conf = expf(lc);
+      float tp, tn;
+      a.focal.terms(conf, lc, tp, tn);
+      if (row.gt == l)
+        pos += tp;
+      else
+        neg += tn;
+      mx = fmaxf(mx, conf);
+    }
+    __syncthreads();
+  }
+  pos = quad_sum(pos);
+  neg = quad_sum(neg);
+  mx = quad_max(mx);
+  if (q == 0 && row.ok) {
+    const size_t o = (size_t)b * P + p0 + g;
+    pos_out[o] = a.focal.alpha * pos;
+    neg_out[o] = (1.f - a.focal.alpha) * neg;
+    mx_out[o] = mx;
+  }
+}
+
+__global__ void __launch_bounds__(opp::NT)
+    gsum_cc_kernel(Args a, float* __restrict__ rowg_out, float* __restrict__ colpart) {
+  __shared__ opp::TileSmem sm;
+  const int P = a.P, L = a.L, C = a.C, b = blockIdx.y, p0 = blockIdx.x * BR;
+  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const bf16* f0 = a.f0 + (size_t)b * P * C;
+  const bf16* f1 = a.f1 + (size_t)b * L * C;
+  float* cpart = colpart + ((size_t)b * gridDim.x + blockIdx.x) * L;
+  const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
+  const OwnRow row = own_row(a.row_lse, a.gt, b, P, p0 + g);
+  float rowg = 0.f;
+  for (int l0 = 0; l0 < L; l0 += BL) {
+    opp::sim_tile<bf16>(f0, f1, nullptr, nullptr, p0, l0, P, L, C, a.inv_temp, sm);
+    float ge[16];
+    for (int j = 0; j < 16; ++j) {
+      const int l = l0 + 16 * q + j;
+      ge[j] = 0.f;
+      if (row.ok && l < L) {
+        const float raw = 2.f * sm.s[g][16 * q + j] - a.col_lse[(size_t)b * L + l] - row.lse;
+        ge[j] = elem_g(raw, expf(raw), row.gt == l, pos_coef, neg_coef, a.focal);
+      }
+      rowg += ge[j];
+    }
+    __syncthreads();  // every similarity is read
+    for (int j = 0; j < 16; ++j) sm.s[g][16 * q + j] = ge[j];
+    __syncthreads();
+    float cs = 0.f;  // column g over rows 16 q .. 16 q + 15, then the quad's lanes
+    for (int j = 0; j < 16; ++j) cs += sm.s[16 * q + j][g];
+    cs = quad_sum(cs);
+    if (q == 0 && l0 + g < L) cpart[l0 + g] = cs;
+    __syncthreads();
+  }
+  rowg = quad_sum(rowg);
+  if (q == 0 && row.ok) rowg_out[(size_t)b * P + p0 + g] = rowg;
+}
+
+// df0 (T1 = false): rows p of f0 own the block, f1's tiles stream,
+// out[b, p, :] = sum_l dsim[p, l] f1[l, :]. df1 (T1 = true): rows l of f1 own
+// it, f0's tiles stream, out[b, l, :] = sum_p dsim[p, l] f0[p, :], on s^T.
+template <bool T1>
+__global__ void __launch_bounds__(opp::NT) dfeat_cc_kernel(Args a, float* __restrict__ out) {
+  __shared__ opp::TileSmem sm;
+  const int C = a.C, b = blockIdx.y, r0 = blockIdx.x * BR;
+  const int own_n = T1 ? a.L : a.P, oth_n = T1 ? a.P : a.L;
+  const int g = threadIdx.x >> 2, q = threadIdx.x & 3, r = r0 + g;
+  const bf16* own = (T1 ? a.f1 : a.f0) + (size_t)b * own_n * C;
+  const bf16* oth = (T1 ? a.f0 : a.f1) + (size_t)b * oth_n * C;
+  const float* own_sum = T1 ? a.colg : a.rowg;
+  const float* oth_lse = T1 ? a.row_lse : a.col_lse;
+  const float* oth_sum = T1 ? a.rowg : a.colg;
+  const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
+  const OwnRow row = own_row(T1 ? a.col_lse : a.row_lse, T1 ? nullptr : a.gt, b, own_n, r);
+  const float osum = row.ok ? own_sum[(size_t)b * own_n + r] : 0.f;
+  const int rows = min(BR, own_n - r0);
+  float* o = out + ((size_t)b * own_n + r0) * C;  // the block's own rows
+  for (int c0 = 0; c0 < oth_n; c0 += BL) {
+    opp::sim_tile<bf16>(own, oth, nullptr, nullptr, r0, c0, own_n, oth_n, C, a.inv_temp, sm);
+    float d[16];
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 16 * q + j;
+      d[j] = 0.f;
+      if (row.ok && c < oth_n) {
+        const float s = sm.s[g][16 * q + j];
+        const float xl = oth_lse[(size_t)b * oth_n + c], xs = oth_sum[(size_t)b * oth_n + c];
+        const float v =
+            T1 ? dsim(s, xl, row.lse, xs, osum, a.gt[(size_t)b * a.P + c] == r, pos_coef,
+                      neg_coef, a.inv_temp, a.focal)
+               : dsim(s, row.lse, xl, osum, xs, row.gt == c, pos_coef, neg_coef, a.inv_temp,
+                      a.focal);
+        d[j] = opp::round_to<bf16>(v);
+      }
+    }
+    __syncthreads();  // every similarity is read
+    for (int j = 0; j < 16; ++j) sm.s[g][16 * q + j] = d[j];
+    __syncthreads();
+    const int nj = min(BL, oth_n - c0);
+    const bool first = c0 == 0, last = c0 + BL >= oth_n;
+    for (int k = threadIdx.x; k < C; k += opp::NT) {
+      float acc[BR];
+#pragma unroll
+      for (int i = 0; i < BR; ++i) acc[i] = 0.f;
+      for (int j = 0; j < nj; ++j) {
+        const float v = __bfloat162float(oth[(size_t)(c0 + j) * C + k]);
+#pragma unroll
+        for (int i = 0; i < BR; ++i) acc[i] = fmaf(sm.s[i][j], v, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < BR; ++i) {
+        if (i >= rows) break;
+        float* dst = o + (size_t)i * C + k;
+        const float v = (first ? 0.f : *dst) + acc[i];
+        *dst = last ? v * a.grad_scale : v;
+      }
+    }
+    __syncthreads();  // the dsim tile is read
+  }
+}
+
+}  // namespace cc
+
+bool bad_shape(int B, int P, int L, int C, int max_c) {
+  return B <= 0 || B > 65535 || P <= 0 || L <= 0 || C <= 0 || C > max_c;
+}
+
+template <int NC, bool CHUNKED>
 void launch_dfeat(const Args& a, float* df0, float* df1, int B, cudaStream_t st) {
-  const int cp = pad_channels(a.C);
+  const int cp = pad_channels(a.C), chunks = (cp + MAXC - 1) / MAXC;
   static int have0[opp::MAX_DEVICES], have1[opp::MAX_DEVICES];
-  opp::raise_smem_limit(dfeat_tc_kernel<false, NC>, smem_bytes(cp), have0);
-  opp::raise_smem_limit(dfeat_tc_kernel<true, NC>, smem_bytes(cp), have1);
-  dfeat_tc_kernel<false, NC><<<dim3(pad_rows(a.P) / TM, B), NT, smem_bytes(cp), st>>>(a, df0);
-  dfeat_tc_kernel<true, NC><<<dim3(pad_rows(a.L) / TM, B), NT, smem_bytes(cp), st>>>(a, df1);
+  opp::raise_smem_limit(dfeat_tc_kernel<false, NC, CHUNKED>, smem_bytes(cp), have0);
+  opp::raise_smem_limit(dfeat_tc_kernel<true, NC, CHUNKED>, smem_bytes(cp), have1);
+  dfeat_tc_kernel<false, NC, CHUNKED>
+      <<<dim3(pad_rows(a.P) / TM, B, chunks), NT, smem_bytes(cp), st>>>(a, df0);
+  dfeat_tc_kernel<true, NC, CHUNKED>
+      <<<dim3(pad_rows(a.L) / TM, B, chunks), NT, smem_bytes(cp), st>>>(a, df1);
+}
+
+template <bool CHUNKED>
+void launch_dfeat_pieces(const Args& a, float* df0, float* df1, int B, cudaStream_t st) {
+  const int cp = pad_channels(a.C);
+  if (cp % 64 == 0)
+    launch_dfeat<64, CHUNKED>(a, df0, df1, B, st);
+  else if (cp % 32 == 0)
+    launch_dfeat<32, CHUNKED>(a, df0, df1, B, st);
+  else
+    launch_dfeat<16, CHUNKED>(a, df0, df1, B, st);
 }
 
 Args make_args(const void* f0, const void* f1, const int* gt, const float* row_lse,
@@ -443,7 +647,7 @@ extern "C" int opp_coarse_loss_fwd(const void* f0, const void* f1, const int* gt
                                    const float* row_lse, const float* col_lse, float* pos,
                                    float* neg, float* mx, int B, int P, int L, int C,
                                    float inv_temp, float alpha, float gamma, void* stream) {
-  if (bad_shape(B, P, L, C)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, P, L, C, MAX_C)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(f0, f1, gt, row_lse, col_lse, nullptr, nullptr, nullptr, P, L, C,
                            inv_temp, alpha, gamma, 1.f);
   const int cp = pad_channels(C);
@@ -463,7 +667,7 @@ extern "C" int opp_coarse_loss_bwd(const void* f0, const void* f1, const int* gt
                                    float* rowg, float* colg, float* colpart, float* df0,
                                    float* df1, int B, int P, int L, int C, float inv_temp,
                                    float alpha, float gamma, float grad_scale, void* stream) {
-  if (bad_shape(B, P, L, C)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, P, L, C, MAX_C)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cp = pad_channels(C), n_pt = pad_rows(P) / TM;
   const Args a = make_args(f0, f1, gt, row_lse, col_lse, coef, rowg, colg, P, L, C, inv_temp,
@@ -472,14 +676,47 @@ extern "C" int opp_coarse_loss_bwd(const void* f0, const void* f1, const int* gt
   opp::raise_smem_limit(gsum_tc_kernel, smem_bytes(cp), have);
   gsum_tc_kernel<<<dim3(n_pt, B), NT, smem_bytes(cp), st>>>(a, rowg, colpart);
   colg_reduce<<<dim3((L + 255) / 256, B), 256, 0, st>>>(colpart, colg, n_pt, L);
-  if (cp % 64 == 0)
-    launch_dfeat<64>(a, df0, df1, B, st);
-  else if (cp % 32 == 0)
-    launch_dfeat<32>(a, df0, df1, B, st);
+  if (cp > MAXC)
+    launch_dfeat_pieces<true>(a, df0, df1, B, st);
   else
-    launch_dfeat<16>(a, df0, df1, B, st);
+    launch_dfeat_pieces<false>(a, df0, df1, B, st);
   return (int)cudaGetLastError();
 }
 
-// Row tiles of the colpart scratch ([B, tiles, L]).
+// The CUDA-core instance (576 < C <= 4096): f0 [B, P, C] and f1 [B, L, C]
+// bf16, already scaled and rounded, unpacked; the row and column LSEs from
+// opp_dual_lse_cc_bf16; the other arguments as opp_coarse_loss_fwd's.
+extern "C" int opp_coarse_loss_fwd_cc(const void* f0, const void* f1, const int* gt,
+                                      const float* row_lse, const float* col_lse, float* pos,
+                                      float* neg, float* mx, int B, int P, int L, int C,
+                                      float inv_temp, float alpha, float gamma, void* stream) {
+  if (bad_shape(B, P, L, C, MAXC_CC)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(f0, f1, gt, row_lse, col_lse, nullptr, nullptr, nullptr, P, L, C,
+                           inv_temp, alpha, gamma, 1.f);
+  cc::loss_cc_kernel<<<dim3((P + opp::BR - 1) / opp::BR, B), opp::NT, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a, pos, neg, mx);
+  return (int)cudaGetLastError();
+}
+
+// Backward of the CUDA-core instance, the arguments as opp_coarse_loss_bwd's
+// on the unpacked operands of opp_coarse_loss_fwd_cc.
+extern "C" int opp_coarse_loss_bwd_cc(const void* f0, const void* f1, const int* gt,
+                                      const float* row_lse, const float* col_lse,
+                                      const float* coef, float* rowg, float* colg,
+                                      float* colpart, float* df0, float* df1, int B, int P,
+                                      int L, int C, float inv_temp, float alpha, float gamma,
+                                      float grad_scale, void* stream) {
+  if (bad_shape(B, P, L, C, MAXC_CC)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_pt = (P + opp::BR - 1) / opp::BR;
+  const Args a = make_args(f0, f1, gt, row_lse, col_lse, coef, rowg, colg, P, L, C, inv_temp,
+                           alpha, gamma, grad_scale);
+  cc::gsum_cc_kernel<<<dim3(n_pt, B), opp::NT, 0, st>>>(a, rowg, colpart);
+  colg_reduce<<<dim3((L + 255) / 256, B), 256, 0, st>>>(colpart, colg, n_pt, L);
+  cc::dfeat_cc_kernel<false><<<dim3(n_pt, B), opp::NT, 0, st>>>(a, df0);
+  cc::dfeat_cc_kernel<true><<<dim3((L + opp::BR - 1) / opp::BR, B), opp::NT, 0, st>>>(a, df1);
+  return (int)cudaGetLastError();
+}
+
+// Row tiles of the colpart scratch ([B, tiles, L]), both instances.
 extern "C" int opp_coarse_loss_row_tiles(int P) { return pad_rows(P) / TM; }

@@ -694,6 +694,24 @@ extern "C" int opp_rowcol_stats_bf16(const void* f0, const void* f1, const float
                                      static_cast<cudaStream_t>(stream));
 }
 
+// The LSE pass alone on the CUDA cores, over bf16 operands [B, P, C] /
+// [B, L, C] (already scaled and rounded; any width): row_lse [B, P], col_lse
+// [B, L], part [B, tiles, L] scratch. K5's wide instance (coarse_loss.cu)
+// takes its row and column LSEs from here, as its tensor-core instance takes
+// them from opp_dual_lse_bf16.
+extern "C" int opp_dual_lse_cc_bf16(const void* f0, const void* f1, const float* radd,
+                                    const float* cadd, float* row_lse, float* col_lse, float* part,
+                                    int B, int P, int L, int C, float inv_temp, void* stream) {
+  if (B <= 0 || B > 65535 || P <= 0 || L <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_pt = (P + opp::BR - 1) / opp::BR;
+  lse_kernel<__nv_bfloat16><<<dim3(n_pt, B), opp::NT, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(f0), static_cast<const __nv_bfloat16*>(f1), radd, cadd,
+      row_lse, part, P, L, C, inv_temp);
+  col_lse_reduce<<<dim3((L + 255) / 256, B), 256, 0, st>>>(part, col_lse, n_pt, L);
+  return (int)cudaGetLastError();
+}
+
 // Row tiles of the partial buffers: part_val / part_idx are [B, tiles, L].
 extern "C" int opp_rowcol_row_tiles(int P) { return (P + opp::BR - 1) / opp::BR; }
 

@@ -25,7 +25,9 @@
 // stores coalesce along the C * itemsize bytes of each tap. The copy does not
 // look at the element type, only at the vector: 16 bytes where the pixel's
 // bytes and both base pointers allow it, else 8 (a bf16 pixel of 196
-// channels is 392 = 49 x 8 bytes), else 4; the wrapper picks the widest.
+// channels is 392 = 49 x 8 bytes), else 4, else 2 (a bf16 pixel of an odd
+// number of channels, or a bf16 map 2 bytes past an alignment); the wrapper
+// picks the widest.
 #include <cstdint>
 
 #include "common.cuh"
@@ -78,6 +80,9 @@ int launch_patch_gather(const void* feat, const int* row0, const int* col0, void
     case 4:
       return launch_vec<unsigned int>(feat, row0, col0, out, B, H, W, row_bytes, K, window,
                                       stream);
+    case 2:
+      return launch_vec<unsigned short>(feat, row0, col0, out, B, H, W, row_bytes, K, window,
+                                        stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,56 +24,44 @@
 //   2. window_scatter_kernel: one block per (map row, batch element). The
 //      block loads the cell_start entries of the one or two cell rows whose
 //      windows reach its map row into shared memory, and each pixel column's
-//      cell-column range once; a thread owns one 16-byte channel vector and
-//      walks the row's pixels, so no division is left in its loop. It visits
-//      the at most ceil(W/stride)^2 cells of its pixel in (row, column) order
-//      and each cell's slots in ascending slot order, accumulates in f32 and
+//      cell-column range once; a thread owns one channel vector and walks the
+//      row's pixels, so no division is left in its loop. It visits the at
+//      most ceil(W/stride)^2 cells of its pixel in (row, column) order and
+//      each cell's slots in ascending slot order, accumulates in f32 and
 //      writes once in the map's dtype; a pixel under no window costs two
-//      shared-memory reads and a 16-byte store of zeros.
+//      shared-memory reads and a store of zeros.
 //
 // Bound: device-memory bandwidth (one write of the map, one read of every
 // gradient tap; the index arrays are a few KB). Neighbouring threads own
-// neighbouring 16-byte vectors of a pixel, so loads and stores coalesce.
+// neighbouring vectors of a pixel, so loads and stores coalesce. The vector
+// is the widest of 16, 8, 4 or 2 bytes that divides a pixel's bytes and both
+// base pointers (the wrapper picks it), so any C runs: the main path's f32
+// pixels of 128 channels take 16-byte vectors, a bf16 pixel of 33 channels
+// 2-byte ones. Whatever the vector, the sums are f32 in the same order.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
-struct Vec;
+__device__ __forceinline__ void from_f32(float x, float& y) { y = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16& y) { y = __float2bfloat16_rn(x); }
 
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void add(const uint4& u, float* acc) {
-    const float4 v = *reinterpret_cast<const float4*>(&u);
-    acc[0] += v.x;
-    acc[1] += v.y;
-    acc[2] += v.z;
-    acc[3] += v.w;
-  }
-  __device__ static uint4 pack(const float* acc) {
-    float4 v = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    return *reinterpret_cast<const uint4*>(&v);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void add(const uint4& u, float* acc) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// N elements of T in one vector V (uint4, uint2, unsigned int or unsigned short).
+template <typename T, typename V>
+struct Vec {
+  static constexpr int N = (int)(sizeof(V) / sizeof(T));
+  static_assert(N >= 1 && sizeof(V) % sizeof(T) == 0, "a vector holds whole elements");
+  __device__ static void add(const V& u, float* acc) {
+    const T* x = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      acc[2 * i] += f.x;
-      acc[2 * i + 1] += f.y;
-    }
+    for (int e = 0; e < N; ++e) acc[e] += opp::to_f32(x[e]);
   }
-  __device__ static uint4 pack(const float* acc) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+  __device__ static V pack(const float* acc) {
+    V u;
+    T* x = reinterpret_cast<T*>(&u);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
+    for (int e = 0; e < N; ++e) from_f32(acc[e], x[e]);
     return u;
   }
 };
@@ -135,20 +123,22 @@ __global__ void scatter_index_kernel(const int* __restrict__ ids, int* __restric
   else if (is_cell) cell_start[(size_t)b * (n_cells + 1) + my_key] = count;
 }
 
-template <typename T>
+// MANY: a pixel has more vectors than the block has threads (nv > 1024), so
+// a thread loops over several; otherwise it owns exactly one.
+template <typename T, typename V, bool MANY>
 __global__ void window_scatter_kernel(const T* __restrict__ grad, const int* __restrict__ order,
                                       const int* __restrict__ cell_start, T* __restrict__ out,
                                       int H, int W, int C, int hc, int wc, int K, int stride,
                                       int window) {
-  constexpr int VEC = Vec<T>::N;
+  constexpr int VEC = Vec<T, V>::N;
   extern __shared__ int sm[];
   const int nv = C / VEC;
   const int r = blockIdx.x, b = blockIdx.y;
   const int half = window / 2, taps = window * window;
   const int* starts = cell_start + (size_t)b * (hc * wc + 1);
   const int* ord = order + (size_t)b * K;
-  const uint4* g = reinterpret_cast<const uint4*>(grad + (size_t)b * K * taps * C);
-  uint4* o = reinterpret_cast<uint4*>(out + ((size_t)b * H + r) * W * C);
+  const V* g = reinterpret_cast<const V*>(grad + (size_t)b * K * taps * C);
+  V* o = reinterpret_cast<V*>(out + ((size_t)b * H + r) * W * C);
 
   int ci_lo, ci_hi;
   cell_range(r, half, stride, hc, ci_lo, ci_hi);
@@ -166,27 +156,36 @@ __global__ void window_scatter_kernel(const T* __restrict__ grad, const int* __r
   }
   __syncthreads();
 
-  // blockDim.x is a multiple of nv: this thread owns channel vector v of
-  // every (blockDim.x / nv)-th pixel of the row
-  const int v = threadIdx.x % nv;
-  const int step = blockDim.x / nv;
-  for (int c = threadIdx.x / nv; c < W; c += step) {
-    float acc[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  // blockDim.x is a multiple of nl = min(nv, blockDim.x): this thread owns
+  // channel vector v0 (and v0 + nl, ... where MANY) of every
+  // (blockDim.x / nl)-th pixel of the row
+  const int nl = MANY ? (int)blockDim.x : nv;
+  const int v0 = threadIdx.x % nl;
+  const int step = blockDim.x / nl;
+  for (int c = threadIdx.x / nl; c < W; c += step) {
     const int2 cj = cols[c];
-    for (int a = 0; a < n_ci; ++a) {
-      const int tr = r - (stride * (ci_lo + a) - half);
-      const int* row = st + a * (wc + 1);
-      for (int j = cj.x; j <= cj.y; ++j) {
-        const int t = tr * window + (c - (stride * j - half));
-        for (int s = row[j]; s < row[j + 1]; ++s) {
-          const int slot = ord[s];
-          Vec<T>::add(g[((size_t)slot * taps + t) * nv + v], acc);
+    const auto sum_vector = [&](int v) {
+      float acc[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+      for (int a = 0; a < n_ci; ++a) {
+        const int tr = r - (stride * (ci_lo + a) - half);
+        const int* row = st + a * (wc + 1);
+        for (int j = cj.x; j <= cj.y; ++j) {
+          const int t = tr * window + (c - (stride * j - half));
+          for (int s = row[j]; s < row[j + 1]; ++s) {
+            const int slot = ord[s];
+            Vec<T, V>::add(g[((size_t)slot * taps + t) * nv + v], acc);
+          }
         }
       }
+      o[(size_t)c * nv + v] = Vec<T, V>::pack(acc);
+    };
+    if constexpr (MANY) {
+      for (int v = v0; v < nv; v += nl) sum_vector(v);
+    } else {
+      sum_vector(v0);
     }
-    o[(size_t)c * nv + v] = Vec<T>::pack(acc);
   }
 }
 
@@ -199,26 +198,56 @@ int launch_scatter_index(const int* ids, int* order, int* cell_start, int B, int
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename V>
+int launch_scatter_vec(const void* grad, const int* order, const int* cell_start, void* out,
+                       int B, int H, int W, int C, int hc, int wc, int K, int stride, int window,
+                       cudaStream_t stream) {
+  constexpr int VEC = Vec<T, V>::N;
+  if (C % VEC != 0 || reinterpret_cast<uintptr_t>(grad) % sizeof(V) != 0 ||
+      reinterpret_cast<uintptr_t>(out) % sizeof(V) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int nv = C / VEC;
+  const int rows_in_reach = 2 * (window / 2) / stride + 1;
+  const size_t smem = ((size_t)2 * W + (size_t)rows_in_reach * (wc + 1)) * sizeof(int);
+  const auto launch = [&](auto kernel, int threads) {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    kernel<<<dim3(H, B), threads, smem, stream>>>(static_cast<const T*>(grad), order, cell_start,
+                                                  static_cast<T*>(out), H, W, C, hc, wc, K,
+                                                  stride, window);
+  };
+  if (nv > 1024)
+    launch(window_scatter_kernel<T, V, true>, 1024);
+  else
+    launch(window_scatter_kernel<T, V, false>, nv * (nv >= 256 ? 1 : 256 / nv));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_window_scatter(const void* grad, const int* ids, int* order, int* cell_start,
                           void* out, int B, int H, int W, int C, int hc, int wc, int K,
-                          int stride, int window, cudaStream_t stream) {
-  constexpr int VEC = Vec<T>::N;
-  if (B <= 0 || K <= 0 || C % VEC != 0 || C / VEC > 1024 || window <= 0 || stride <= 0)
+                          int stride, int window, int vec_bytes, cudaStream_t stream) {
+  if (B <= 0 || K <= 0 || C <= 0 || window <= 0 || stride <= 0) return (int)cudaErrorInvalidValue;
+  if (vec_bytes != 16 && vec_bytes != 8 && vec_bytes != 4 && (vec_bytes != 2 || sizeof(T) > 2))
     return (int)cudaErrorInvalidValue;
   const int rc = launch_scatter_index(ids, order, cell_start, B, K, hc * wc, stream);
   if (rc != 0) return rc;
-  const int nv = C / VEC;
-  const int threads = nv * (nv >= 256 ? 1 : 256 / nv);
-  const int rows_in_reach = 2 * (window / 2) / stride + 1;
-  const size_t smem = ((size_t)2 * W + (size_t)rows_in_reach * (wc + 1)) * sizeof(int);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(window_scatter_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  window_scatter_kernel<T><<<dim3(H, B), threads, smem, stream>>>(
-      static_cast<const T*>(grad), order, cell_start, static_cast<T*>(out), H, W, C, hc, wc, K,
-      stride, window);
-  return (int)cudaGetLastError();
+  switch (vec_bytes) {
+    case 16:
+      return launch_scatter_vec<T, uint4>(grad, order, cell_start, out, B, H, W, C, hc, wc, K,
+                                          stride, window, stream);
+    case 8:
+      return launch_scatter_vec<T, uint2>(grad, order, cell_start, out, B, H, W, C, hc, wc, K,
+                                          stride, window, stream);
+    case 4:
+      return launch_scatter_vec<T, unsigned int>(grad, order, cell_start, out, B, H, W, C, hc,
+                                                 wc, K, stride, window, stream);
+    default:  // 2 bytes: bf16 only
+      if constexpr (sizeof(T) <= 2)
+        return launch_scatter_vec<T, unsigned short>(grad, order, cell_start, out, B, H, W, C, hc,
+                                                     wc, K, stride, window, stream);
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -231,12 +260,15 @@ extern "C" int opp_window_scatter_index(const int* ids, int* order, int* cell_st
 }
 
 // Both launches; order and cell_start are scratch the caller allocates.
-#define OPP_SCATTER_ENTRY(NAME, T)                                                          \
-  extern "C" int NAME(const void* grad, const int* ids, int* order, int* cell_start,        \
-                      void* out, int B, int H, int W, int C, int hc, int wc, int K,         \
-                      int stride, int window, void* stream) {                               \
-    return launch_window_scatter<T>(grad, ids, order, cell_start, out, B, H, W, C, hc, wc, \
-                                    K, stride, window, static_cast<cudaStream_t>(stream)); \
+// vec_bytes: 16, 8, 4 or 2, dividing C * sizeof(T) and both data pointers
+// (ops/cuda_gather.py picks the widest).
+#define OPP_SCATTER_ENTRY(NAME, T)                                                            \
+  extern "C" int NAME(const void* grad, const int* ids, int* order, int* cell_start,          \
+                      void* out, int B, int H, int W, int C, int hc, int wc, int K,           \
+                      int stride, int window, int vec_bytes, void* stream) {                  \
+    return launch_window_scatter<T>(grad, ids, order, cell_start, out, B, H, W, C, hc, wc,   \
+                                    K, stride, window, vec_bytes,                           \
+                                    static_cast<cudaStream_t>(stream));                     \
   }
 
 OPP_SCATTER_ENTRY(opp_window_scatter_f32, float)

@@ -82,6 +82,16 @@ def stream_ptr(device: torch.device) -> int:
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+def vector_bytes(row_bytes: int, *pointers: int) -> int:
+    """The widest vector (16, 8, 4 or 2 bytes) that divides a pixel's bytes and
+    every pointer, for the copies of K3, K4 and K6; 0 when none does (no
+    kernel dtype gives that)."""
+    for width in (16, 8, 4, 2):
+        if row_bytes % width == 0 and all(p % width == 0 for p in pointers):
+            return width
+    return 0
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """x (float32) rounded to TF32 as the kernels' ``cvt.rna.tf32.f32`` does: to
     nearest, ties away from zero, in an f32 container with the low 13 bits zero."""

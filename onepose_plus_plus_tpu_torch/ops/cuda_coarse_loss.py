@@ -17,18 +17,30 @@ bf16 before the two products with the features (f32 accumulation).
 
 What bounds it on the card: seven similarity-sized products on the tensor
 cores (2*B*P*L*C FLOP each, ~59 GFLOP at the train shapes), then ~14
-transcendentals per similarity element. Every pass runs on the tensor-core
-tile of ``csrc/sim_tile_tc.cuh`` over operands packed once per forward
-(``ops/cuda_matching.py::pack_operand``, two launches that also scale and
-round the features, the backward scaling their gradients), recomputing its
-similarity tiles (flash-attention style). The feature gradients form dsim in
-the first product's registers and feed it to a second ``wgmma`` as the A
-operand, against the streamed tile read transposed: df0 runs one block per
-row tile over the column tiles, df1 one block per column tile over the row
-tiles on the transposed tile, so neither needs atomics or a
-[B, row tiles, L, C] partial, and the result is the same bit for bit from run
-to run. Column sums of g are per-row-tile partials merged in order, as K2's
-column statistics. C <= 256 (the second product's accumulators).
+transcendentals per similarity element. Two instances by width
+(:func:`k5_instance`), as K1 and K2 have:
+
+- **C <= 576, the tensor cores.** Every pass runs on the tile of
+  ``csrc/sim_tile_tc.cuh`` over operands packed once per forward
+  (``ops/cuda_matching.py::pack_operand``, two launches that also scale and
+  round the features, the backward scaling their gradients), recomputing its
+  similarity tiles (flash-attention style). The feature gradients form dsim in
+  the first product's registers and feed it to a second ``wgmma`` as the A
+  operand, against the streamed tile read transposed: df0 runs one block per
+  row tile over the column tiles, df1 one block per column tile over the row
+  tiles on the transposed tile, so neither needs atomics or a
+  [B, row tiles, L, C] partial, and the result is the same bit for bit from run
+  to run. Column sums of g are per-row-tile partials merged in order, as K2's
+  column statistics. The second product's accumulators hold 256 output
+  channels; above that each 256-channel chunk is a block of its own that
+  recomputes its similarity tiles (one more first product a chunk).
+- **576 < C <= 4096 (K1's widest), the CUDA cores.** The wrapper scales and
+  rounds the features to bf16 in PyTorch (no pack: the tiles do not fit the
+  tensor-core block), the LSEs come from K2's CUDA-core LSE pass
+  (``opp_dual_lse_cc_bf16``), and the loss, g sums and feature gradients run
+  on ``csrc/sim_tile.cuh``'s f32 tile; the feature gradients add each
+  streamed tile's product into the block's own output rows, in order. Right
+  first, not tuned.
 
 The count normalisation and ``max_conf`` live in the wrapper, as in JAX; in
 data-parallel training their sums, counts and maximum are the global
@@ -42,9 +54,28 @@ import torch
 
 from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
 from ..parallel.comm import batch_max, batch_sum
-from .cuda_matching import pack_operand
+from .cuda_matching import TC_MAX_CHANNELS, pack_operand
 
 LOGCAP = -1e-6  # log conf <= log(1 - ~1e-6): the negative term's log1p stays finite
+TC_CHUNK = 256  # output channels of one tensor-core feature-gradient block (csrc/coarse_loss.cu: MAXC)
+CC_MAX_CHANNELS = 4096  # the CUDA-core instance's widest operand, K1's widest (csrc/coarse_loss.cu: MAXC_CC)
+
+
+def k5_instance(c: int) -> Tuple[str, int]:
+    """The instance K5 runs at C channels on the card, and how many 256-channel
+    chunks its feature gradients take: ``("tc", ceil(Cp / 256))`` on the
+    tensor cores up to 576 channels (Cp: C padded to 16), ``("cuda_cores", 1)``
+    up to 4096. Wider raises: K1 stops at 4096 too, so no model past it can run
+    its coarse transformer on the card."""
+    if c <= 0:
+        raise ValueError(f"coarse focal loss kernel: C={c}")
+    if c <= TC_MAX_CHANNELS:
+        cp = -(-c // 16) * 16
+        return "tc", -(-cp // TC_CHUNK)
+    if c <= CC_MAX_CHANNELS:
+        return "cuda_cores", 1
+    raise ValueError(f"coarse focal loss kernel: C={c} > {CC_MAX_CHANNELS}, the widest coarse layer "
+                     f"K1 runs (ops/cuda_encoder.py); no model this wide runs on the card")
 
 
 def _focal_terms(conf: torch.Tensor, log_conf: torch.Tensor, gamma: float):
@@ -85,18 +116,33 @@ def _check(f0, f1, gt):
     if f1.shape != (b, l, c) or gt.shape != (b, p) or gt.dtype != torch.int32:
         raise ValueError(f"coarse focal loss kernel: f0 {tuple(f0.shape)}, f1 {tuple(f1.shape)}, "
                          f"gt {tuple(gt.shape)} {gt.dtype}")
-    if c > 256:
-        raise ValueError(f"coarse focal loss kernel: C={c} > 256")
-    return check_cuda_operands("coarse focal loss", f0, f1, gt), b, p, l, c
+    instance, _ = k5_instance(c)
+    return check_cuda_operands("coarse focal loss", f0, f1, gt), b, p, l, c, instance
+
+
+def _operands(f0, f1, scale, instance):
+    """The kernels' operands: packed for the tensor cores (the pack scales and
+    rounds), else (f * scale) rounded to bf16 as the plain version rounds."""
+    if instance == "tc":
+        return pack_operand(f0, scale), pack_operand(f1, scale)
+    return tuple((f * scale if scale != 1.0 else f).to(torch.bfloat16).contiguous() for f in (f0, f1))
+
+
+# C entries of each instance: (LSE pass, forward, backward)
+_ENTRIES = {
+    "tc": ("opp_dual_lse_bf16", "opp_coarse_loss_fwd", "opp_coarse_loss_bwd"),
+    "cuda_cores": ("opp_dual_lse_cc_bf16", "opp_coarse_loss_fwd_cc", "opp_coarse_loss_bwd_cc"),
+}
 
 
 class _CoarseFocalSums(torch.autograd.Function):
-    """K5's core on CUDA tensors: forward pack (scale, bf16) + LSE + loss
+    """K5's core on CUDA tensors: forward operands (scale, bf16) + LSE + loss
     passes, backward gsum + df passes."""
 
     @staticmethod
     def forward(ctx, f0, f1, gt, inv_temp, alpha, gamma, scale):
-        device, b, p, l, c = _check(f0, f1, gt)
+        device, b, p, l, c, instance = _check(f0, f1, gt)
+        lse_entry, fwd_entry, _ = _ENTRIES[instance]
         lib = build()
         f32 = torch.float32
         row_lse = torch.empty((b, p), dtype=f32, device=device)
@@ -104,22 +150,22 @@ class _CoarseFocalSums(torch.autograd.Function):
         part = torch.empty((b, lib.lib.opp_rowcol_row_tiles(p), l), dtype=f32, device=device)
         pos, neg, mx = (torch.empty((b, p), dtype=f32, device=device) for _ in range(3))
         stream = stream_ptr(device)
-        f0p, f1p = pack_operand(f0, scale), pack_operand(f1, scale)
-        lib.call("opp_dual_lse_bf16", ptr(f0p), ptr(f1p), None, None, ptr(row_lse), ptr(col_lse),
+        f0p, f1p = _operands(f0, f1, scale, instance)
+        lib.call(lse_entry, ptr(f0p), ptr(f1p), None, None, ptr(row_lse), ptr(col_lse),
                  ptr(part), b, p, l, c, inv_temp, stream)
-        lib.call("opp_coarse_loss_fwd", ptr(f0p), ptr(f1p), ptr(gt), ptr(row_lse), ptr(col_lse),
+        lib.call(fwd_entry, ptr(f0p), ptr(f1p), ptr(gt), ptr(row_lse), ptr(col_lse),
                  ptr(pos), ptr(neg), ptr(mx), b, p, l, c, inv_temp, alpha, gamma, stream)
         LAUNCHES["K5_coarse_loss"] += 1
         ctx.save_for_backward(f0p, f1p, gt, row_lse, col_lse)
-        ctx.consts = (inv_temp, alpha, gamma, b, p, l, c, scale, f0.dtype, f1.dtype)
+        ctx.consts = (inv_temp, alpha, gamma, b, p, l, c, scale, f0.dtype, f1.dtype, instance)
         mx = mx.max()
         ctx.mark_non_differentiable(mx)
         return pos.sum(), neg.sum(), mx
 
     @staticmethod
     def backward(ctx, g_pos, g_neg, _g_mx):
-        f0, f1, gt, row_lse, col_lse = ctx.saved_tensors  # f0, f1 packed
-        inv_temp, alpha, gamma, b, p, l, c, scale, dt0, dt1 = ctx.consts
+        f0, f1, gt, row_lse, col_lse = ctx.saved_tensors  # the kernels' operands
+        inv_temp, alpha, gamma, b, p, l, c, scale, dt0, dt1, instance = ctx.consts
         device = f0.device
         lib = build()
         f32 = torch.float32
@@ -129,7 +175,7 @@ class _CoarseFocalSums(torch.autograd.Function):
         colpart = torch.empty((b, lib.lib.opp_coarse_loss_row_tiles(p), l), dtype=f32, device=device)
         df0 = torch.empty((b, p, c), dtype=f32, device=device)
         df1 = torch.empty((b, l, c), dtype=f32, device=device)
-        lib.call("opp_coarse_loss_bwd", ptr(f0), ptr(f1), ptr(gt), ptr(row_lse), ptr(col_lse),
+        lib.call(_ENTRIES[instance][2], ptr(f0), ptr(f1), ptr(gt), ptr(row_lse), ptr(col_lse),
                  ptr(coef), ptr(rowg), ptr(colg), ptr(colpart), ptr(df0), ptr(df1),
                  b, p, l, c, inv_temp, alpha, gamma, scale, stream_ptr(device))
         LAUNCHES["K5_coarse_loss_bwd"] += 1
@@ -148,8 +194,9 @@ def coarse_focal_sums(
     """K5's core: (alpha * pos sum, (1 - alpha) * neg sum, max conf) of the
     operands ``(f0 * scale)`` and ``(f1 * scale)`` rounded to bf16,
     differentiable in f0 [B, P, C] and f1 [B, L, C] (float32 or bfloat16). On
-    the card the scale and the rounding happen in the operand pack. CPU tensors
-    run the plain version."""
+    the card the scale and the rounding happen in the operand pack (up to 576
+    channels) or in PyTorch before the CUDA-core instance. CPU tensors run the
+    plain version."""
     if f0.device.type == "cpu":
         f0, f1 = ((f * scale if scale != 1.0 else f).to(torch.bfloat16) for f in (f0, f1))
         return coarse_focal_sums_plain(f0, f1, gt, inv_temp, alpha, gamma)

@@ -15,12 +15,14 @@ out-of-range cell id (a padded match slot), are zero.
 
 What bounds K3 on the card: device-memory bandwidth (the output and the taps it
 reads; 105 MB in bf16 at the query step's shapes). The design gives each
-window one warp, which copies it as 16-byte vectors with 13 loads a lane in
-flight, all issued before the lane's stores; neighbouring lanes move
-neighbouring vectors, so loads and stores coalesce. A vector's tap and the
-tap's window row come from a shift and a multiply, not a division
-(:func:`window_vector_sources` is that arithmetic in PyTorch, held to the plain
-version by the CPU tests).
+window one warp, which copies it as vectors with 13 loads a lane in flight,
+all issued before the lane's stores; neighbouring lanes move neighbouring
+vectors, so loads and stores coalesce. The vector is the widest of 16, 8, 4
+and 2 bytes that divides a pixel's bytes and both base pointers
+(``kernels.vector_bytes``): the main path's 128-channel pixels take 16 bytes,
+and a pixel of any width runs. A vector's tap and the tap's window row come
+from a shift and a multiply, not a division (:func:`window_vector_sources` is
+that arithmetic in PyTorch, held to the plain version by the CPU tests).
 
 K4 is K3's transpose: window gradients summed back onto the map. Windows
 overlap and GT-padded slots repeat cells, so collisions are the norm; the sum
@@ -32,9 +34,9 @@ the wrapper makes two hand-written launches and nothing else: an index kernel
 that orders the slots by cell id with a brute-force counting sort spread over
 the card (:func:`scatter_index_plain` is its plain version, held exactly
 equal), and the scatter itself, one block per map row with that row's index
-ranges in shared memory and one thread per 16-byte vector summing, in a fixed
-order and in f32, the slots of the at most ceil(W/stride)^2 cells whose
-windows hold its pixel.
+ranges in shared memory and one thread per vector (as wide as K3's) summing,
+in a fixed order and in f32, the slots of the at most ceil(W/stride)^2 cells
+whose windows hold its pixel.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from typing import Tuple
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr, vector_bytes
 
 
 def _window_taps(
@@ -74,12 +76,12 @@ def window_vector_sources(
     cell_ids: torch.Tensor, hw: Tuple[int, int], grid_hw: Tuple[int, int], stride: int, window: int,
     nv: int,
 ) -> torch.Tensor:
-    """The source of every 16-byte vector K3 writes, by the kernel's own
-    arithmetic: [N, K, W*W*nv] flat vector indices into one image's
-    [H*W*nv] vectors (nv vectors a pixel), -1 where the vector is zero. Vector
-    i of a window is vector i % nv of tap t = i // nv (a shift where nv is a
-    power of two), and the tap's window row is (t * magic) >> 20 with magic =
-    ceil(2^20 / window)."""
+    """The source of every vector K3 writes, by the kernel's own arithmetic:
+    [N, K, W*W*nv] flat vector indices into one image's [H*W*nv] vectors (nv
+    vectors a pixel, of whichever width the wrapper picked), -1 where the
+    vector is zero. Vector i of a window is vector i % nv of tap t = i // nv
+    (a shift where nv is a power of two), and the tap's window row is
+    (t * magic) >> 20 with magic = ceil(2^20 / window)."""
     if not 0 < window <= MAX_WINDOW:
         raise ValueError(f"window_gather: window {window} outside 1..{MAX_WINDOW}")
     h, w = hw
@@ -137,17 +139,16 @@ def window_gather(
     h_c, w_c = grid_hw
     if cell_ids.dim() != 2 or cell_ids.shape[0] != n:
         raise ValueError(f"window_gather: cell_ids {tuple(cell_ids.shape)} vs feat {tuple(feat.shape)}")
-    if (c * feat.element_size()) % 16 != 0:
-        raise ValueError(f"window_gather: C * itemsize must be a multiple of 16 bytes, C={c}")
     if not 0 < window <= MAX_WINDOW:
         raise ValueError(f"window_gather: window {window} outside 1..{MAX_WINDOW}")
     ids = cell_ids.to(torch.int32).contiguous()  # no launch for the model's int32 ids
     device = check_cuda_operands("window_gather", feat, ids)
     k = ids.shape[1]
     out = torch.empty((n, k, window * window, c), dtype=feat.dtype, device=device)
+    vec = vector_bytes(c * feat.element_size(), feat.data_ptr(), out.data_ptr())
     build().call(
         f"opp_window_gather_{KERNEL_DTYPES[feat.dtype]}",
-        ptr(feat), ptr(ids), ptr(out), n, h, w, c, h_c, w_c, k, stride, window,
+        ptr(feat), ptr(ids), ptr(out), n, h, w, c, h_c, w_c, k, stride, window, vec,
         stream_ptr(device),
     )
     LAUNCHES["K3_window_gather"] += 1
@@ -235,18 +236,17 @@ def window_scatter(
         raise ValueError(f"window_scatter: cell_ids {tuple(cell_ids.shape)} vs grad {tuple(grad.shape)}")
     if h != stride * h_c or w != stride * w_c:
         raise ValueError(f"window_scatter: map {hw} != stride {stride} * grid {grid_hw}")
-    if (c * grad.element_size()) % 16 != 0:
-        raise ValueError(f"window_scatter: C * itemsize must be a multiple of 16 bytes, C={c}")
     grad = grad.contiguous()
     ids = cell_ids.to(torch.int32)  # a launch only where the caller's ids are not int32
     device = check_cuda_operands("window_scatter", grad, ids)
     order = torch.empty((n, k), dtype=torch.int32, device=device)
     cell_start = torch.empty((n, h_c * w_c + 1), dtype=torch.int32, device=device)
     out = torch.empty((n, h, w, c), dtype=grad.dtype, device=device)
+    vec = vector_bytes(c * grad.element_size(), grad.data_ptr(), out.data_ptr())
     build().call(
         f"opp_window_scatter_{KERNEL_DTYPES[grad.dtype]}",
         ptr(grad), ptr(ids), ptr(order), ptr(cell_start), ptr(out), n, h, w, c, h_c, w_c, k,
-        stride, window, stream_ptr(device),
+        stride, window, vec, stream_ptr(device),
     )
     LAUNCHES["K4_window_scatter"] += 1
     return out

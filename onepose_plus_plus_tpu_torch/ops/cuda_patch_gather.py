@@ -16,7 +16,8 @@ NHWC map and writes zeros for the taps outside it; there is no padded copy of
 the map and no second slicing pass. One block per patch, vector copies with
 neighbouring threads on neighbouring addresses: 16-byte vectors where a
 pixel's bytes and both base pointers are multiples of 16, else 8 (a bf16
-pixel of 196 channels is 392 bytes), else 4 (:func:`vector_bytes`). Bound:
+pixel of 196 channels is 392 bytes), else 4, else 2 (a bf16 pixel of an odd
+number of channels; :func:`vector_bytes`), so any C runs. Bound:
 device-memory bandwidth (one write of the output, one read of the pixels the
 patches cover).
 There is no gradient: the TPU kernel has none either, and ``refine`` runs only
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
+from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr, vector_bytes
 
 
 def patch_taps(row0: torch.Tensor, col0: torch.Tensor, hw, window: int):
@@ -55,15 +56,6 @@ def patch_gather_plain(
     return torch.where(valid, out, torch.zeros_like(out))
 
 
-def vector_bytes(row_bytes: int, *pointers: int) -> int:
-    """The widest vector (16, 8 or 4 bytes) that divides a pixel's bytes and
-    every pointer; 0 when none does."""
-    for width in (16, 8, 4):
-        if row_bytes % width == 0 and all(p % width == 0 for p in pointers):
-            return width
-    return 0
-
-
 def patch_gather(
     feat: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor, window: int
 ) -> torch.Tensor:
@@ -87,10 +79,6 @@ def patch_gather(
     k = r0.shape[1]
     out = torch.empty((n, k, window * window, c), dtype=feat.dtype, device=device)
     vec = vector_bytes(c * feat.element_size(), feat.data_ptr(), out.data_ptr())
-    if vec == 0:
-        raise ValueError(f"patch_gather: C * itemsize and the map's address must be multiples of "
-                         f"4 bytes (16, 8 or 4-byte vectors), C={c}, {feat.dtype}, address "
-                         f"{feat.data_ptr():#x}")
     build().call(
         f"opp_patch_gather_{KERNEL_DTYPES[feat.dtype]}",
         ptr(feat), ptr(r0), ptr(c0), ptr(out), n, h, w, c, k, window, vec, stream_ptr(device),

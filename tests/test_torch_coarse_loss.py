@@ -95,3 +95,41 @@ def test_k5_core_scales_and_rounds_its_operands_on_the_cpu(scale):
         runs.append((pos.detach(), neg.detach(), mx, f0.grad, f1.grad))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c", [384, 512, 640])
+def test_k5_plain_matches_jax_above_256_channels(c):
+    """The widths the wide instances take (tensor cores in 256-channel chunks
+    up to 576, CUDA cores above), at small P and L."""
+    feat0, feat1, gt = _inputs(1, 80, 72, c, seed=c)
+    ref_loss, ref_mx, ref_g = _jax(feat0, feat1, gt, 0.08, 2.0)
+    loss, mx, g = _port(feat0, feat1, gt, 0.08, 2.0)
+    assert np.isfinite(loss)
+    np.testing.assert_allclose(loss, ref_loss, rtol=2e-4)
+    np.testing.assert_allclose(mx, ref_mx, rtol=2e-4)
+    _assert_grads_close(g, ref_g)
+
+
+def test_k5_width_rule():
+    """Which instance each coarse width takes on the card: the tensor cores up
+    to 576 channels (the packed tile's widest), their feature gradients in one
+    block per 256 padded channels; the CUDA cores up to 4096 (K1's widest);
+    past that a refusal that names K1's ceiling."""
+    from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import k5_instance
+    from onepose_plus_plus_tpu_torch.ops.cuda_encoder import k1_instance
+    from onepose_plus_plus_tpu_torch.ops.cuda_matching import TC_MAX_CHANNELS
+
+    for c in range(64, 4097, 16):
+        instance, chunks = k5_instance(c)
+        if c <= TC_MAX_CHANNELS:
+            assert instance == "tc" and chunks == -(-c // 256), c
+        else:
+            assert (instance, chunks) == ("cuda_cores", 1), c
+    assert k5_instance(256) == ("tc", 1) and k5_instance(257) == ("tc", 2)  # 257 pads to 272
+    assert k5_instance(576) == ("tc", 3) and k5_instance(577) == ("cuda_cores", 1)
+    assert k5_instance(4096) == ("cuda_cores", 1)
+    assert k1_instance(4096, 8, torch.float32) is not None  # K1 runs the widest K5 width
+    for c in (4097, 8192):
+        assert k1_instance(c, 8, torch.float32) is None
+        with pytest.raises(ValueError, match="4096"):
+            k5_instance(c)

@@ -23,6 +23,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import (
     coarse_focal_sums,
     coarse_focal_sums_plain,
     fused_coarse_focal_loss,
+    k5_instance,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     scatter_index,
@@ -374,9 +375,68 @@ def test_k3_exact_at_corners_and_ragged_shapes(gen, dtype, c, window):
 
 
 def test_wrapper_raises_for_unsupported_operands(gen):
+    """Any pixel width runs (f32 C = 3 takes the 4-byte instance); a dtype no
+    instance takes raises."""
+    ids = torch.zeros(1, 2, device="cuda")
+    f3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda")
+    assert torch.equal(window_gather(f3, ids, (2, 2), 4, 5), window_gather_plain(f3, ids, (2, 2), 4, 5))
     with pytest.raises(ValueError):
-        window_gather(torch.zeros(1, 8, 8, 3, device="cuda"), torch.zeros(1, 2, device="cuda"), (2, 2), 4, 5)
+        window_gather(torch.zeros(1, 8, 8, 4, device="cuda", dtype=torch.float16), ids, (2, 2), 4, 5)
     kernels.build()  # the library itself builds from csrc/
+
+
+# Narrow pixels: (dtype, C, elements the map starts past an alignment, the vector
+# the wrapper picks). bf16 C = 196 is the sparse FPN's pin map.
+NARROW_PIXELS = [
+    (torch.bfloat16, 196, 0, 8), (torch.bfloat16, 130, 0, 4), (torch.bfloat16, 33, 0, 2),
+    (torch.float32, 130, 0, 8), (torch.float32, 33, 0, 4), (torch.bfloat16, 128, 1, 2),
+    (torch.float32, 128, 2, 8), (torch.bfloat16, 1101, 0, 2),
+]
+
+
+def _offset_tensor(gen, shape, dtype, offset):
+    n = 1
+    for d in shape:
+        n *= d
+    base = torch.randn(offset + n, generator=gen, device="cuda").to(dtype)
+    return base[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("dtype,c,offset,vec", NARROW_PIXELS)
+def test_k3_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
+    """K3's 8-, 4- and 2-byte instances (a pixel's bytes or the map's address
+    not a multiple of 16, a pixel of more 2-byte vectors than a block has
+    threads) copy exactly: corners, out-of-range ids, ragged K."""
+    feat = _offset_tensor(gen, (2, 40, 36, c), dtype, offset)
+    assert vector_bytes(c * feat.element_size(), feat.data_ptr()) == vec
+    ids = torch.randint(-4, 10 * 9 + 4, (2, 61), generator=gen, device="cuda", dtype=torch.int32)
+    ids[:, :4] = torch.tensor([0, 8, 81, 89], dtype=torch.int32)
+    before = kernels.launch_counts()["K3_window_gather"]
+    got = window_gather(feat, ids, (10, 9), 4, 5)
+    assert kernels.launch_counts()["K3_window_gather"] == before + 1
+    ref = window_gather_plain(feat, ids, (10, 9), 4, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype,c,offset,vec", NARROW_PIXELS)
+def test_k4_narrow_vector_instances_match_plain_and_repeat(gen, dtype, c, offset, vec):
+    """K4's narrow instances: f32 sums in a fixed order whatever the vector
+    (duplicates and overlaps add up, out-of-range ids drop out), two launches
+    bitwise equal, within the wide instance's tolerances of the plain version."""
+    grad = _offset_tensor(gen, (2, 150, 25, c), dtype, offset)
+    assert vector_bytes(c * grad.element_size(), grad.data_ptr()) == vec
+    ids = torch.randint(-5, 12 * 16 + 5, (2, 150), generator=gen, device="cuda")
+    ids[:, 100:140] = ids[:, :40]  # repeated cells
+    before = kernels.launch_counts()["K4_window_scatter"]
+    got = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
+    again = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
+    assert kernels.launch_counts()["K4_window_scatter"] == before + 2
+    ref = window_scatter_plain(grad, ids, (12, 16), 4, 5, (48, 64))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() < tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -449,14 +509,10 @@ def test_k5_matches_plain(gen, b, p, l, c, gamma, frac_pos):
         assert torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item() > 0.999
 
 
-@pytest.mark.parametrize("b,p,l,c", [
-    (2, 333, 200, 32), (2, 333, 200, 64), (2, 333, 200, 256), (1, 7000, 4096, 256),
-    (1, 333, 4096, 64),
-])
-def test_k5_tensor_cores_match_plain_and_repeat_bitwise(gen, b, p, l, c):
-    """K5 forward and backward at ragged shapes: sums within 2e-4 relative,
-    gradients within 2e-2 of max|grad| with cosine > 0.999, two launches equal
-    bit for bit."""
+def _k5_against_plain(gen, b, p, l, c):
+    """K5 twice and its plain version, forward and backward: sums within 2e-4
+    relative, gradients within 2e-2 of max|grad| with cosine > 0.999, the two
+    launches equal bit for bit."""
     f0, f1, gt = _k5_inputs(gen, b, p, l, c)
     inv_temp = 1 / (0.08 + 1e-4)
     runs = []
@@ -473,6 +529,29 @@ def test_k5_tensor_cores_match_plain_and_repeat_bitwise(gen, b, p, l, c):
         scale = r.abs().max().item()
         assert (g - r).abs().max().item() < 2e-2 * scale
         assert torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item() > 0.999
+
+
+@pytest.mark.parametrize("b,p,l,c,instance", [
+    (2, 333, 200, 384, ("tc", 2)), (2, 333, 200, 512, ("tc", 2)), (1, 200, 130, 520, ("tc", 3)),
+    (2, 333, 200, 640, ("cuda_cores", 1)), (2, 333, 200, 1024, ("cuda_cores", 1)),
+    (1, 129, 65, 4096, ("cuda_cores", 1)),
+])
+def test_k5_wide_instances_match_plain_and_repeat_bitwise(gen, b, p, l, c, instance):
+    """K5 above 256 channels: the tensor cores in 256-channel output chunks up
+    to 576, the CUDA cores up to 4096 (K1's widest)."""
+    assert k5_instance(c) == instance
+    _k5_against_plain(gen, b, p, l, c)
+
+
+@pytest.mark.parametrize("b,p,l,c", [
+    (2, 333, 200, 32), (2, 333, 200, 64), (2, 333, 200, 256), (1, 7000, 4096, 256),
+    (1, 333, 4096, 64),
+])
+def test_k5_tensor_cores_match_plain_and_repeat_bitwise(gen, b, p, l, c):
+    """K5 forward and backward at ragged shapes: sums within 2e-4 relative,
+    gradients within 2e-2 of max|grad| with cosine > 0.999, two launches equal
+    bit for bit."""
+    _k5_against_plain(gen, b, p, l, c)
 
 
 def test_k5_is_deterministic_and_counts(gen):
@@ -569,21 +648,24 @@ def test_k6_gather_windows_and_operand_checks(gen):
     with pytest.raises(ValueError):
         patch_gather(torch.zeros(1, 8, 8, 4, device="cuda", dtype=torch.float16),
                      centers[..., 0], centers[..., 1], 5)
-    with pytest.raises(ValueError, match="multiples of 4 bytes"):  # 3 bf16 values are 6 bytes
-        patch_gather(torch.zeros(1, 8, 8, 3, device="cuda", dtype=torch.bfloat16),
-                     centers[..., 0], centers[..., 1], 5)
-    misaligned = torch.zeros(1 + 8 * 8 * 4, device="cuda", dtype=torch.bfloat16)[1:].view(1, 8, 8, 4)
-    with pytest.raises(ValueError, match="multiples of 4 bytes"):  # starts 2 bytes past an alignment
-        patch_gather(misaligned, centers[..., 0], centers[..., 1], 5)
+    # 3 bf16 values are 6 bytes, and a map 2 bytes past an alignment: the 2-byte instance
+    b3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    misaligned = torch.randn(1 + 8 * 8 * 4, generator=gen, device="cuda").to(torch.bfloat16)[1:].view(1, 8, 8, 4)
+    for f in (b3, misaligned):
+        assert vector_bytes(f.shape[-1] * 2, f.data_ptr()) == 2
+        assert torch.equal(patch_gather(f, centers[..., 0], centers[..., 1], 5),
+                           patch_gather_plain(f, centers[..., 0], centers[..., 1], 5))
 
 
 @pytest.mark.parametrize("dtype,c,offset,vec", [
     (torch.bfloat16, 196, 0, 8), (torch.bfloat16, 130, 0, 4), (torch.bfloat16, 256, 4, 8),
-    (torch.bfloat16, 256, 2, 4), (torch.float32, 98, 0, 8), (torch.float32, 5, 0, 4)])
+    (torch.bfloat16, 256, 2, 4), (torch.float32, 98, 0, 8), (torch.float32, 5, 0, 4),
+    (torch.bfloat16, 33, 0, 2), (torch.bfloat16, 256, 1, 2), (torch.float32, 33, 0, 4),
+    (torch.bfloat16, 130, 0, 4)])
 def test_k6_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
-    """K6's 8- and 4-byte instances (a pixel's bytes or the map's address not a
-    multiple of 16) are exact copies too; ``offset`` elements shift the map off
-    the allocator's alignment."""
+    """K6's 8-, 4- and 2-byte instances (a pixel's bytes or the map's address
+    not a multiple of 16) are exact copies too; ``offset`` elements shift the
+    map off the allocator's alignment."""
     n, h, w, k, window = 2, 20, 24, 45, 9
     base = torch.randn(offset + n * h * w * c, generator=gen, device="cuda").to(dtype)
     feat = base[offset:].view(n, h, w, c)

@@ -41,6 +41,25 @@ def test_plain_matches_pallas_interpret(window, dtype):
     assert bool((got[:, :3] == 0).all()) and bool((got[:, 3] == 0).all())
 
 
+@pytest.mark.parametrize("dtype,c", [("bfloat16", 33), ("bfloat16", 130), ("bfloat16", 196),
+                                     ("float32", 33), ("float32", 130)])
+def test_plain_matches_pallas_interpret_at_narrow_pixels(dtype, c):
+    """Pixels that no 16-byte vector divides (K6's 8-, 4- and 2-byte instances
+    on the card; bf16 C = 196 is the sparse FPN's pin map): exact against the
+    Pallas kernel, whose lane residue takes any C."""
+    rng = np.random.default_rng(c)
+    n, h, w, k, window = 2, 13, 11, 19, 9
+    feat = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    r0, c0 = _corners(rng, n, k, h, w, window)
+    jfeat = jnp.asarray(feat, getattr(jnp, dtype))
+    want = np.asarray(gather_patches_dma(jfeat, jnp.asarray(r0), jnp.asarray(c0), window,
+                                         block_k=8).astype(jnp.float32))
+    tfeat = torch.from_numpy(feat).to(getattr(torch, dtype))
+    got = patch_gather_plain(tfeat, torch.from_numpy(r0), torch.from_numpy(c0), window)
+    assert got.dtype == tfeat.dtype and got.shape == (n, k, window * window, c)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 @pytest.mark.parametrize("window", [5, 9])
 def test_gather_windows_matches_xla(window):
     rng = np.random.default_rng(10 + window)

@@ -202,8 +202,8 @@ def test_sparse_route_makes_one_patch_gather_and_no_window_gather(monkeypatch):
     (260, (0, 256), 4),  # bf16 C = 130
     (12, (0, 256), 4),  # f32 C = 3
     (512, (8, 256), 8),  # a map that starts 8 bytes past an alignment
-    (512, (2, 256), 0),  # ... or 2 bytes: no vector divides it
-    (394, (0, 256), 0),  # bf16 C = 197: an odd number of bf16 values
+    (512, (2, 256), 2),  # ... or 2 bytes: the 2-byte instance
+    (394, (0, 256), 2),  # bf16 C = 197: an odd number of bf16 values, 2-byte vectors
 ])
 def test_k6_vector_width(row_bytes, pointers, want):
     assert vector_bytes(row_bytes, *pointers) == want
