@@ -4,8 +4,8 @@
     python3 chip_smoke.py    # needs one CUDA GPU
 
 Phases, all run every time (each prints its own lines; any failure raises and
-exits non-zero), in this order but for 9a, which runs right after phase 2,
-and phase 10, which runs right after phase 6:
+exits non-zero), in this order but for 8a and 9a, which run right after
+phase 2, and phase 10, which runs right after phase 6:
   0  device: GPU name and power limit, torch and CUDA versions
   1  build the CUDA kernels from csrc/ (nvcc, -Xptxas -v report)
   2  each kernel against its plain PyTorch version at main-path shapes
@@ -25,10 +25,11 @@ and phase 10, which runs right after phase 6:
      8b, 8d, 9e) checks by the profiler's kernel names that the split-TF32
      instances ran and no CUDA-core f32 kernel of K1 or K2; 2n K3, K4 and K6
      at pixels no 16-byte vector divides (bf16 C = 196, 130, 33; f32 C = 130,
-     33: their 8-, 4- and 2-byte instances) at the query, train and sparse-FPN
-     shapes, K3 and K6 bitwise equal to their plain versions, K4 within 7a's
-     tolerances and bitwise repeatable, each beside its bound and index_select
-     or zero_ + index_add_
+     33: K3's and K4's 8-, 4- and 2-byte instances; K6's span copy) at the
+     query, train and sparse-FPN shapes, K3 and K6 bitwise equal to their
+     plain versions (K6 also on maps 2, 4 and 8 bytes past an alignment), K4
+     within 7a's tolerances and bitwise repeatable, each beside its bound and
+     index_select or zero_ + index_add_; K6 with its device and host time a call
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
      of 512^2, a 7000-point cloud, 512 match slots, thr 0; then K2's bf16
@@ -59,7 +60,10 @@ and phase 10, which runs right after phase 6:
      optimizer updates on one batch: falling loss, launch counts, step time,
      peak memory and a torch.profiler split of one micro-batch
   8  the keypoint-free SfM: 8a K6 against its plain version at the refine
-     (K 1024) and extract (K 4096) shapes, W 9, on a [8,256,256,128] map;
+     (K 1024) and extract (K 4096) shapes, W 9, on a [8,256,256,128] map,
+     through gather_windows with int32 centres as the refine calls it (one
+     launch), also on maps 2, 4 and 8 bytes past an alignment: whole call,
+     device and host time, index_select and the bound;
      8b the LoFTR pair matcher in f32 on the GPU against the CPU, full width,
      one 512^2 pair, all three modes; 8c the SfM configuration
      (configs/preprocess/sfm_inference_onepose.yaml, bf16, pair batch 8, 1024
@@ -84,10 +88,10 @@ and phase 10, which runs right after phase 6:
      the detect/track sequence implies, per-frame latency of each mode, poses
      against GT. 9c-9e run with PyTorch's default TF32 settings, as a fresh
      CLI process does
- 10  the options that are off by default: 10a K6's 8-byte instance (bf16, 196
-     channels: the sparse fine FPN's pin map [16, 256, 256, 196], K 512, W 9,
-     invalid slots) and its 4-byte one (C = 130) bitwise against the plain
-     version, timed beside the bound and index_select; 10b the sparse query
+ 10  the options that are off by default: 10a K6 at the sparse fine FPN's
+     pin map (bf16, 196 channels: [16, 256, 256, 196], K 512, W 9, int64
+     corners, invalid slots) and at C = 130 bitwise against the plain version
+     (also on maps past an alignment), timed as in 8a; 10b the sparse query
      step at the bench shapes (16 frames of 512^2, bf16) against the dense
      step on the same weights: the same match set, windows within one bf16
      step, one K6 and no K3 launch (its own run, counts from 0), both steps'
@@ -170,7 +174,9 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.ops import quant
-from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps, vector_bytes
+from onepose_plus_plus_tpu_torch.kernels import vector_bytes
+from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps
+from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     fine_transformer_short,
     fused_short_encoder_layer,
@@ -704,6 +710,69 @@ def phase2_k3(gen) -> dict:
     return {"max_abs_err": 0.0, **rec[("query", "bf16")]}
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """The host's share of a call, in us: `calls` calls queued with nothing
+    waiting on the device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+K6_OFFSETS = (2, 4, 8)  # bytes a map view starts past an alignment
+
+
+def k6_case(where: str, tag: str, f: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor, win: int,
+            call=None) -> dict:
+    """K6 at one instance: bitwise against its plain version at corners
+    (r0, c0), also on copies of the map that start 2, 4 and 8 bytes past an
+    alignment (those the dtype allows), its last 16 slots (off the map) zero,
+    the index_select yardstick equal; then the whole call, device time (the
+    profiler, K6's launch alone), host time a call, the plain version and
+    index_select on precomputed indices, beside the bytes bound. ``call``
+    (default ``patch_gather(f, r0, c0, win)``) is the caller's own entry."""
+    n, h, w, c = f.shape
+    call = call or (lambda: patch_gather(f, r0, c0, win))
+    got, ref = call(), patch_gather_plain(f, r0, c0, win)
+    flat, valid = patch_taps(r0, c0, (h, w), win)
+    table, idx = index_select_table(f, flat, valid)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref) and torch.equal(torch.index_select(table, 0, idx).view_as(got), ref)
+    zero = bool((got[:, -16:] == 0).all())
+    size = f.element_size()
+    offsets = [off for off in K6_OFFSETS if off % size == 0]
+    for off in offsets:
+        buf = torch.empty(off // size + f.numel(), dtype=f.dtype, device="cuda")
+        view = buf[off // size:].view(f.shape)
+        view.copy_(f)
+        check(view.data_ptr() % 16 == off, f"K6 {tag}: a view {view.data_ptr() % 16} bytes off, not {off}")
+        equal = equal and torch.equal(patch_gather(view, r0, c0, win), ref)
+        del buf, view
+    torch.cuda.synchronize()
+    log(f"[{where}] K6 {tag} feat{tuple(f.shape)} -> {tuple(got.shape)}: bitwise equal to the plain version and "
+        f"the yardstick {equal} (also maps {', '.join(map(str, offsets))} bytes past an alignment), "
+        f"off-map slots zero {zero}")
+    check(equal and zero and got.shape == (n, r0.shape[1], win * win, c), f"K6 {tag} disagrees")
+    ms = time_ms(call)
+    pms = time_ms(lambda: patch_gather_plain(f, r0, c0, win))
+    lms = time_ms(lambda: torch.index_select(table, 0, idx))
+    hus = host_us(call)
+    rows, busy, _ = device_rows(call, reps=5)
+    check(only_launches(rows, K6_NAMES), f"K6 {tag} launched {launch_names(rows)}")
+    dev = busy / sum(r[1] for r in rows)  # a launch, over those the profiler kept
+    index_bytes = 2 * r0.numel() * r0.element_size()
+    b = bound(gather_bytes(flat, valid, h * w, c * size, got, index_bytes), 0, f.dtype)
+    log(f"[{where}] K6 {tag} ({c * size} bytes a pixel, {r0.dtype} corners): whole call {ms:.4f} ms, device "
+        f"{dev:.4f} ms, host {hus:.1f} us a call (200 queued), plain {pms:.3f} ms, index_select with "
+        f"precomputed indices {lms:.4f} ms (medians of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        f"{100 * b['bound_ms'] / dev:.0f} % of it by device time, {100 * b['bound_ms'] / ms:.0f} % whole call")
+    del got, ref, table, idx, flat, valid
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "library_ms": lms, **b}
+
+
 # pixels that are not a multiple of 16 bytes: (dtype, C); bf16 C = 196 is the sparse FPN's pin map
 NARROW_PIXELS = ((torch.bfloat16, 196), (torch.bfloat16, 130), (torch.bfloat16, 33),
                  (torch.float32, 130), (torch.float32, 33))
@@ -711,14 +780,16 @@ NARROW_PIXELS = ((torch.bfloat16, 196), (torch.bfloat16, 130), (torch.bfloat16, 
 
 def phase2_narrow(gen, smi: str) -> None:
     """K3, K4 and K6 at pixels that no 16-byte vector divides: bf16 C = 196,
-    130, 33 and f32 C = 130, 33, through their 8-, 4- and 2-byte instances, at
-    the main path's shapes (K3 the query step's [16, 256, 256, C] with 512
-    windows; K4 the train step's 1228 slots onto [4, 256, 256, C]; K6 the
-    sparse FPN's 512 patches of 9 x 9). K3 and K6 bitwise equal to their plain
-    versions; K4 within 7a's tolerances of its plain version (index_add_ sums in
-    another order) and its two launches bitwise equal; whole-call times, and
-    device times from one profiler session a width (the three kernels' own
-    launches), beside the bound (bytes) and index_select / zero_ + index_add_."""
+    130, 33 and f32 C = 130, 33 (K3's and K4's 8-, 4- and 2-byte instances;
+    K6 moves 16 bytes a lane at any pixel), at the main path's shapes (K3 the
+    query step's [16, 256, 256, C] with 512 windows; K4 the train step's 1228
+    slots onto [4, 256, 256, C]; K6 the sparse FPN's 512 patches of 9 x 9).
+    K3 and K6 bitwise equal to their plain versions (K6 also on maps 2, 4, 8
+    bytes past an alignment); K4 within 7a's tolerances of its plain version
+    (index_add_ sums in another order) and its two launches bitwise equal;
+    whole-call times, and device times from one profiler session a width for
+    K3 and K4 (their own launches) and one for K6 (:func:`k6_case`, with its
+    host time), beside the bound (bytes) and index_select / zero_ + index_add_."""
     h = w = 256
     hc, win, n4, k4 = h // 4, 9, TRAIN_B, 1228
     for dtype, c in NARROW_PIXELS:
@@ -736,28 +807,24 @@ def phase2_narrow(gen, smi: str) -> None:
         grad = torch.randn(n4, k4, 25, c, generator=gen, device="cuda").to(dtype)
         calls = {
             "K3": (lambda: window_gather(feat, ids, (hc, hc), 4, 5), K3_NAMES),
-            "K6": (lambda: patch_gather(feat, r0, c0, win), K6_NAMES),
             "K4": (lambda: window_scatter(grad, sids, (hc, hc), 4, 5, (h, w)), K4_NAMES),
         }
+        k6_case("2n", f"{dt} C = {c}", feat, r0, c0, win)
         res = {}
-        # K3 and K6: exact against the plain version and index_select on precomputed indices
-        for tag, (fn, _), taps, plain in (
-                ("K3", calls["K3"], _window_taps(ids, (h, w), (hc, hc), 4, 5),
-                 lambda: window_gather_plain(feat, ids, (hc, hc), 4, 5)),
-                ("K6", calls["K6"], patch_taps(r0, c0, (h, w), win),
-                 lambda: patch_gather_plain(feat, r0, c0, win))):
-            got, ref = fn(), plain()
-            table, idx = index_select_table(feat, *taps)
-            torch.cuda.synchronize()
-            equal = torch.equal(got, ref) and torch.equal(torch.index_select(table, 0, idx).view_as(got), ref)
-            check(equal, f"{tag} {dt} C = {c} disagrees with its plain version")
-            n_idx = ids.numel() if tag == "K3" else 2 * r0.numel()
-            res[tag] = {"shape": f"feat{tuple(feat.shape)} -> {tuple(got.shape)}",
-                        "check": f"bitwise equal to the plain version {equal}",
-                        "ms": time_ms(fn), "plain_ms": time_ms(plain),
-                        "library": f"index_select {time_ms(lambda: torch.index_select(table, 0, idx)):.4f} ms",
-                        **bound(gather_bytes(*taps, h * w, size, got, n_idx * 4), 0, dtype)}
-            del got, ref, table, idx
+        # K3: exact against the plain version and index_select on precomputed indices
+        fn, taps = calls["K3"][0], _window_taps(ids, (h, w), (hc, hc), 4, 5)
+        plain = lambda: window_gather_plain(feat, ids, (hc, hc), 4, 5)  # noqa: E731
+        got, ref = fn(), plain()
+        table, idx = index_select_table(feat, *taps)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref) and torch.equal(torch.index_select(table, 0, idx).view_as(got), ref)
+        check(equal, f"K3 {dt} C = {c} disagrees with its plain version")
+        res["K3"] = {"shape": f"feat{tuple(feat.shape)} -> {tuple(got.shape)}",
+                     "check": f"bitwise equal to the plain version {equal}",
+                     "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                     "library": f"index_select {time_ms(lambda: torch.index_select(table, 0, idx)):.4f} ms",
+                     **bound(gather_bytes(*taps, h * w, size, got, ids.numel() * 4), 0, dtype)}
+        del got, ref, table, idx
         # K4: 7a's tolerances, two launches bitwise equal, zero_ + index_add_ on precomputed rows
         fn = calls["K4"][0]
         got, again = fn(), fn()
@@ -780,7 +847,7 @@ def phase2_narrow(gen, smi: str) -> None:
         del got, again, ref, acc, src, rows, flat, valid
         # device time: one profiler session over the three calls, split by kernel name
         prof_rows, _, _ = device_rows(lambda: [f() for f, _ in calls.values()], reps=5)
-        every = set(K3_NAMES + K4_NAMES + K6_NAMES)
+        every = set(K3_NAMES + K4_NAMES)
         check({_short(r[2]) for r in prof_rows} <= every, f"2n launches {launch_names(prof_rows)}")
         for tag, (_, names) in calls.items():
             mine = [r for r in prof_rows if _short(r[2]) in names]
@@ -967,31 +1034,60 @@ def phase5(smi: str):
     return counts, model, frames, anno
 
 
+# torch.profiler's sessions in this run: how many, how many had to be profiled
+# again, and each session's least kernel start less its launch's (launch_offset_ms)
+PROFILER = {"sessions": 0, "again": 0, "offsets": []}  # offsets: (s into the run, ms)
+STARTED = time.perf_counter()
+# margins (s) before and after the profiled calls, one an attempt
+PROFILER_MARGINS = (0.05, 0.25, 1.0, 3.0, 6.0)
+
+
+def launch_offset_ms(prof):
+    """The least (kernel start - its launch's start), ms, over the session's
+    kernels, each paired with the runtime call that launched it by their
+    correlation id: a few microseconds where the profiler maps the device's
+    clock onto the host's truly; None where no pair was kept."""
+    events = prof.profiler.kineto_results.events()
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type().name == "CPU" and e.name().startswith("cu")}
+    gaps = [e.start_ns() - launches[e.correlation_id()] for e in events
+            if e.device_type().name == "CUDA" and e.correlation_id() in launches]
+    return min(gaps) / 1e6 if gaps else None
+
+
 def device_rows(fn, reps: int = 1):
     """(device-time rows (ms, count, kernel name), total device ms, wall ms of
     the profiled calls) of `reps` calls of fn under torch.profiler. The
-    profiler can miss the first launch after it starts: where every launch of
-    a short call matters, profile a few calls and read the names. Late in a
-    long run it has also returned sessions with no device event at all, and
-    sessions in a row: such a session is profiled again after a pause, up to
-    five times."""
-    for attempt in range(5):
-        if attempt:
-            time.sleep(1.0)
+    profiler keeps only the device events it maps inside its session, and its
+    map of the device's clock onto the host's has been off by up to tens of
+    milliseconds either way in this process (``launch_offset_ms``; the run's
+    last [profiler] line): a short session then loses the launches at its
+    start or its end, or all of them. So the calls sit between idle margins,
+    and a session that saw no device time is profiled again with wider ones
+    (``PROFILER_MARGINS``)."""
+    for margin in PROFILER_MARGINS:
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)  # sessions late in a long run have missed the calls right after their start
+            time.sleep(margin)
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
+            time.sleep(margin)
+        PROFILER["sessions"] += 1
         rows = sorted(((e.device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                        if e.device_type.name == "CUDA" and e.device_time_total > 0), reverse=True)
         busy = sum(r[0] for r in rows)
         if busy > 0:
+            offset = launch_offset_ms(prof)
+            if offset is not None:
+                PROFILER["offsets"].append((time.perf_counter() - STARTED, offset))
             break
+        PROFILER["again"] += 1
+        log(f"[profiler] a session with {margin} s margins, {time.perf_counter() - STARTED:.0f} s into the "
+            f"run, saw no device time; profiling it again")
     check(busy > 0, "the profiler saw no device time")
     return rows, busy, wall
 
@@ -1567,7 +1663,9 @@ def phase7e(tmp: str, step_ms_7d: float, smi: str) -> None:
 
 def phase8a(gen) -> dict:
     """K6 at the SfM shapes: refine (K 1024) and extract (K 4096), W 9, on the
-    [8, 256, 256, 128] fine maps of 8 image pairs of 512^2."""
+    [8, 256, 256, 128] fine maps of 8 image pairs of 512^2, through
+    ``gather_windows`` with int32 centres, as the LoFTR ``refine`` mode calls
+    it (one launch: K6 reads the centres and subtracts W // 2 itself)."""
     n, h, w, c, win = 8, 256, 256, 128, 9
     feat = torch.randn(n, h, w, c, generator=gen, device="cuda")
     rec = {}
@@ -1575,26 +1673,11 @@ def phase8a(gen) -> dict:
         r0 = torch.randint(-win - 4, h + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
         c0 = torch.randint(-win - 4, w + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
         r0[:, -16:] = -10 * win  # invalid slots: all-zero patches
+        centres = torch.stack([r0, c0], -1) + win // 2  # int32 [n, k, 2], as models/loftr.py makes them
         for dt, f in (("f32", feat), ("bf16", feat.to(torch.bfloat16))):
-            got = patch_gather(f, r0, c0, win)
-            ref = patch_gather_plain(f, r0, c0, win)
-            flat, valid = patch_taps(r0, c0, (h, w), win)
-            table, idx = index_select_table(f, flat, valid)
-            lib = torch.index_select(table, 0, idx).view_as(got)
-            torch.cuda.synchronize()
-            equal = torch.equal(got, ref) and torch.equal(lib, ref)
-            zero = bool((got[:, -16:] == 0).all())
-            log(f"[8a] K6 {tag} {dt} feat{tuple(f.shape)} -> {tuple(got.shape)}: bitwise equal to the plain "
-                f"version and the yardstick {equal}, invalid slots zero {zero}")
-            check(equal and zero and got.shape == (n, k, win * win, c), f"K6 {tag} {dt} disagrees")
-            ms = time_ms(lambda: patch_gather(f, r0, c0, win))
-            pms = time_ms(lambda: patch_gather_plain(f, r0, c0, win))
-            lms = time_ms(lambda: torch.index_select(table, 0, idx))
-            b = bound(gather_bytes(flat, valid, h * w, c * f.element_size(), got, 2 * r0.numel() * 4), 0, f.dtype)
-            log(f"[8a] K6 {tag} {dt}: kernel {ms:.3f} ms, plain {pms:.3f} ms, index_select with precomputed "
-                f"indices {lms:.3f} ms (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            rec[(tag, dt)] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "library_ms": lms, **b}
-            del got, ref, lib, table, idx, flat, valid
+            rec[(tag, dt)] = k6_case("8a", f"{tag} {dt}", f, r0, c0, win,
+                                     call=lambda f=f: gather_windows(f, centres, win))
+            del f
         torch.cuda.empty_cache()
     return rec[("refine", "bf16")]  # the SfM configuration refines in bf16
 
@@ -2241,42 +2324,20 @@ K6_NAMES = ("patch_gather_kernel",)
 
 
 def phase10a(gen, smi: str) -> None:
-    """K6's narrower vector instances at the sparse fine FPN's shapes: the pin
-    map [16, 256, 256, 196] bf16 (392 bytes a pixel: 8-byte vectors), K 512,
-    W 9 (a 5x5 window and its 2-pixel halo), with invalid slots; and C = 130
-    (260 bytes: 4-byte vectors)."""
+    """K6 at the sparse fine FPN's shapes: the pin map [16, 256, 256, 196] bf16
+    (392 bytes a pixel), K 512, W 9 (a 5x5 window and its 2-pixel halo), int64
+    corners as ``fine_windows`` makes them, with invalid slots; and C = 130
+    (260 bytes)."""
     n, h, w, k, win = B, 256, 256, 512, 9
-    for c, vec in ((196, 8), (130, 4)):
+    for c in (196, 130):
         f = torch.randn(n, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
-        r0 = torch.randint(-win - 4, h + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
-        c0 = torch.randint(-win - 4, w + 4, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+        r0 = torch.randint(-win - 4, h + 4, (n, k), generator=gen, device="cuda")
+        c0 = torch.randint(-win - 4, w + 4, (n, k), generator=gen, device="cuda")
         r0[:, -16:] = -10 * win  # invalid slots: all-zero patches
-        picked = vector_bytes(c * 2, f.data_ptr())
-        got = patch_gather(f, r0, c0, win)
-        ref = patch_gather_plain(f, r0, c0, win)
-        flat, valid = patch_taps(r0, c0, (h, w), win)
-        table, idx = index_select_table(f, flat, valid)
-        lib = torch.index_select(table, 0, idx).view_as(got)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, ref) and torch.equal(lib, ref)
-        zero = bool((got[:, -16:] == 0).all())
-        log(f"[10a] K6 bf16 C = {c} ({c * 2} bytes a pixel, {picked}-byte vectors) feat{tuple(f.shape)} -> "
-            f"{tuple(got.shape)}: bitwise equal to the plain version and the yardstick {equal}, invalid "
-            f"slots zero {zero}")
-        check(picked == vec and equal and zero, f"K6's {vec}-byte instance disagrees at C = {c}")
-        ms = time_ms(lambda: patch_gather(f, r0, c0, win))
-        pms = time_ms(lambda: patch_gather_plain(f, r0, c0, win))
-        lms = time_ms(lambda: torch.index_select(table, 0, idx))
-        rows, busy, _ = device_rows(lambda: patch_gather(f, r0, c0, win), reps=5)
-        check(only_launches(rows, K6_NAMES), f"K6 launched {launch_names(rows)}")
-        dev_ms = busy / sum(r[1] for r in rows)  # a launch, over those the profiler kept
-        b = bound(gather_bytes(flat, valid, h * w, c * 2, got, 2 * r0.numel() * 4), 0, torch.bfloat16)
-        log(f"[10a] K6 C = {c}: kernel {ms:.4f} ms, device {dev_ms:.4f} ms a launch ({launch_names(rows)}), "
-            f"plain {pms:.3f} ms, index_select with precomputed indices {lms:.4f} ms (medians of 20); bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']}), {100 * b['bound_ms'] / dev_ms:.0f} % of it by device "
-            f"time, on {smi}")
-        del f, got, ref, lib, table, idx, flat, valid
+        k6_case("10a", f"bf16 C = {c}", f, r0, c0, win)
+        del f
         torch.cuda.empty_cache()
+    log(f"[10a] on {smi}")
 
 
 def _sparse_models(dtype: str):
@@ -2469,6 +2530,10 @@ def main() -> int:
                "K3_window_gather": phase2_k3(gen)}
     phase2_narrow(gen, smi)  # K3, K4, K6 at pixels of any width
     torch.cuda.empty_cache()
+    # K6 at the SfM shapes here, early: 8a profiles every call, and late in
+    # this long process torch.profiler has returned sessions without device events
+    records["K6_patch_gather"] = phase8a(gen)
+    torch.cuda.empty_cache()
     phase2_f32(gen)
     # K7's kernel checks run here, early: late in this long process torch.profiler
     # has returned sessions without device events, and 9a checks kernel names
@@ -2499,8 +2564,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase7e(tmp, step_ms, smi)
     torch.cuda.empty_cache()
-    records["K6_patch_gather"] = phase8a(gen)
-    torch.cuda.empty_cache()
     phase8b()
     sfm_counts = phase8c(smi)  # the SfM path's own run: K6's launches come from it
     counts["K6_patch_gather"] = sfm_counts["K6_patch_gather"] + sparse_k6
@@ -2526,6 +2589,12 @@ def main() -> int:
         {"name": name, "route": "cuda", **meta, "launches": counts[name], **records[name]}
         for name, meta in KERNELS.items()
     ]
+    offsets = PROFILER["offsets"] or [(0.0, float("nan"))]
+    log(f"[profiler] {PROFILER['sessions']} sessions, {PROFILER['again']} profiled again for want of device "
+        f"events; least kernel start less its launch's: {offsets[0][1]:.3f} ms at {offsets[0][0]:.0f} s, "
+        f"{offsets[-1][1]:.3f} ms at {offsets[-1][0]:.0f} s, range {min(o for _, o in offsets):.3f} to "
+        f"{max(o for _, o in offsets):.3f} ms over {len(PROFILER['offsets'])} sessions, "
+        f"{sum(abs(o) > 1 for _, o in offsets)} of them more than 1 ms either way")
     log(smi)
     print(json.dumps({"kernels": kernel_lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

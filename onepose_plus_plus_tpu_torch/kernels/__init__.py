@@ -14,8 +14,8 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 - K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``, on
   K2's tensor-core tile), counted once per forward (``K5_coarse_loss``) and once per
   backward (``K5_coarse_loss_bwd``)
-- K6 ``ops/cuda_patch_gather.py::patch_gather`` (``csrc/patch_gather.cu``), the
-  patch gather at any corner
+- K6 ``ops/cuda_patch_gather.py::patch_gather`` and ``patch_gather_centered``
+  (``csrc/patch_gather.cu``), the patch gather at any corner
 - K7 ``ops/cuda_short_encoder.py::fused_short_encoder_layer`` and
   ``fused_short_encoder_layer_packed`` (``csrc/short_encoder.cu``), the encoder
   layer over many short sequences: tensor cores for bf16 operands at C = 128
@@ -84,8 +84,8 @@ KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def vector_bytes(row_bytes: int, *pointers: int) -> int:
     """The widest vector (16, 8, 4 or 2 bytes) that divides a pixel's bytes and
-    every pointer, for the copies of K3, K4 and K6; 0 when none does (no
-    kernel dtype gives that)."""
+    every pointer, for the copies of K3 and K4 (K6 copies byte spans in 16-byte
+    chunks at any pixel); 0 when none does (no kernel dtype gives that)."""
     for width in (16, 8, 4, 2):
         if row_bytes % width == 0 and all(p % width == 0 for p in pointers):
             return width

@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # exported C functions: name -> argument types (all return int)
 _SIGNATURES = {
@@ -59,8 +60,8 @@ _SIGNATURES = {
     "opp_coarse_loss_fwd_cc": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "opp_coarse_loss_bwd_cc": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
     "opp_coarse_loss_row_tiles": [_I],
-    "opp_patch_gather_f32": [_P] * 4 + [_I] * 7 + [_P],
-    "opp_patch_gather_bf16": [_P] * 4 + [_I] * 7 + [_P],
+    "opp_patch_gather_i32": [_P] * 4 + [_L] * 4 + [_I] * 7 + [_P],
+    "opp_patch_gather_i64": [_P] * 4 + [_L] * 4 + [_I] * 7 + [_P],
     "opp_short_encoder_f32": [_P] * 13 + [_I] * 5 + [_P],
     "opp_short_encoder_bf16": [_P] * 13 + [_I] * 5 + [_P],
     "opp_short_encoder_smem_bytes": [_I] * 4,

@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 
 from .cuda_gather import WindowGather
-from .cuda_patch_gather import patch_gather
+from .cuda_patch_gather import patch_gather_centered
 
 
 def gather_windows_aligned(
@@ -54,6 +54,7 @@ def gather_windows(feat: torch.Tensor, centers_rc: torch.Tensor, window: int) ->
         window: odd window size W.
     Returns:
         [N, K, W*W, C] windows in feat's dtype; taps outside the map are zero.
+        On the card one K6 launch reads the centres as they are (int32 or
+        int64) and subtracts W // 2 itself.
     """
-    half = window // 2
-    return patch_gather(feat, centers_rc[..., 0] - half, centers_rc[..., 1] - half, window)
+    return patch_gather_centered(feat, centers_rc, window)

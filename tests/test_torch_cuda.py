@@ -40,7 +40,8 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
 from onepose_plus_plus_tpu_torch.config import ResNetFPNConfig
 from onepose_plus_plus_tpu_torch.models.backbone import ResNetFPN_8_2
 from onepose_plus_plus_tpu_torch.ops import quant
-from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, vector_bytes
+from onepose_plus_plus_tpu_torch.kernels import vector_bytes
+from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_centered, patch_gather_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     fused_short_encoder_layer,
     fused_short_encoder_layer_packed,
@@ -641,14 +642,15 @@ def test_k6_gather_windows_and_operand_checks(gen):
     ref = gather_windows(feat.cpu(), centers.cpu(), 9)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
-    # 3 channels of f32 are 12 bytes: the 4-byte instance
+    # 3 channels of f32 are 12 bytes, no multiple of 16
     f3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda")
     assert torch.equal(patch_gather(f3, centers[..., 0], centers[..., 1], 5),
                        patch_gather_plain(f3, centers[..., 0], centers[..., 1], 5))
     with pytest.raises(ValueError):
         patch_gather(torch.zeros(1, 8, 8, 4, device="cuda", dtype=torch.float16),
                      centers[..., 0], centers[..., 1], 5)
-    # 3 bf16 values are 6 bytes, and a map 2 bytes past an alignment: the 2-byte instance
+    # 3 bf16 values are 6 bytes, and a map 2 bytes past an alignment (what K3 and
+    # K4 copy 2 bytes a lane)
     b3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda").to(torch.bfloat16)
     misaligned = torch.randn(1 + 8 * 8 * 4, generator=gen, device="cuda").to(torch.bfloat16)[1:].view(1, 8, 8, 4)
     for f in (b3, misaligned):
@@ -663,9 +665,10 @@ def test_k6_gather_windows_and_operand_checks(gen):
     (torch.bfloat16, 33, 0, 2), (torch.bfloat16, 256, 1, 2), (torch.float32, 33, 0, 4),
     (torch.bfloat16, 130, 0, 4)])
 def test_k6_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
-    """K6's 8-, 4- and 2-byte instances (a pixel's bytes or the map's address
-    not a multiple of 16) are exact copies too; ``offset`` elements shift the
-    map off the allocator's alignment."""
+    """The pixels and map addresses that took K6's 8-, 4- and 2-byte instances
+    before the span copy (``vec``, as ``kernels.vector_bytes`` still picks for
+    K3 and K4) are exact copies with 16 bytes a lane too; ``offset`` elements
+    shift the map off the allocator's alignment."""
     n, h, w, k, window = 2, 20, 24, 45, 9
     base = torch.randn(offset + n * h * w * c, generator=gen, device="cuda").to(dtype)
     feat = base[offset:].view(n, h, w, c)
@@ -679,6 +682,91 @@ def test_k6_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["K6_patch_gather"] == before + 1
     assert torch.equal(got, ref) and bool((got[:, :4] == 0).all())
+
+
+# K6's span copy at every pixel width: (dtype, C) of 2 to 392 bytes, and the
+# map's start past a 16-byte alignment, in bytes (a view into a larger buffer;
+# an f32 map starts at a multiple of 4)
+K6_CASES = [(torch.bfloat16, c, base) for c in (1, 2, 4, 8, 33, 130, 196) for base in (0, 2, 4, 8)] + [
+    (torch.float32, c, base) for c in (1, 2, 4, 33, 65) for base in (0, 4, 8)]
+
+
+def _k6_corners(gen, n, k, h, w, window, dtype):
+    r0 = torch.randint(-window - 3, h + 3, (n, k), generator=gen, device="cuda").to(dtype)
+    c0 = torch.randint(-window - 3, w + 3, (n, k), generator=gen, device="cuda").to(dtype)
+    r0[:, :3] = -10 * window  # off the map, as fine_windows makes its invalid slots
+    c0[:, 3] = w + 4
+    r0[:, 4], c0[:, 5] = h - 1, w - 1
+    return r0, c0
+
+
+@pytest.mark.parametrize("corner_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("window", [5, 9, 13])
+@pytest.mark.parametrize("dtype,c,base", K6_CASES)
+def test_k6_span_copy_matches_plain_at_every_width_and_offset(gen, dtype, c, base, window, corner_dtype):
+    """K6 is bitwise the plain version at every pixel width, map offset,
+    window and corner type: corners across each edge, off the map and inside,
+    windows wider than the map."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n, h, w, k = 2, 13, 11, 37
+    feat = _offset_tensor(gen, (n, h, w, c), dtype, base // size)
+    assert feat.data_ptr() % 16 == base
+    r0, c0 = _k6_corners(gen, n, k, h, w, window, corner_dtype)
+    before = kernels.launch_counts()["K6_patch_gather"]
+    got = patch_gather(feat, r0, c0, window)
+    assert kernels.launch_counts()["K6_patch_gather"] == before + 1
+    ref = patch_gather_plain(feat, r0, c0, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and bool((got[:, :4] == 0).all())
+
+
+def _device_kernels(fn):
+    """fn()'s result and the device kernels three calls of it launch, by name."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):  # the profiler can miss a first launch
+            out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
+def test_k6_makes_one_launch_and_nothing_else(gen):
+    """A call is one K6 launch and no other launch: int32 and int64 corners,
+    strided corner views, and gather_windows' int64 centres with their -W/2
+    offset, as the SfM refine hands them."""
+    feat = torch.randn(2, 40, 56, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    centres = torch.randint(-8, 60, (2, 77, 2), generator=gen, device="cuda")  # int64
+    corners = centres - 4  # int64 [2, 77, 2]
+    r32, c32, centres32 = corners[..., 0].int().contiguous(), corners[..., 1].int().contiguous(), centres.int()
+    calls = {
+        "int32": lambda: patch_gather(feat, r32, c32, 9),
+        "int64 views": lambda: patch_gather(feat, corners[..., 0], corners[..., 1], 9),
+        "gather_windows": lambda: gather_windows(feat, centres, 9),
+        "centred int32": lambda: patch_gather_centered(feat, centres32, 9),
+    }
+    want = patch_gather_plain(feat, r32, c32, 9)
+    for tag, fn in calls.items():
+        before = kernels.launch_counts()["K6_patch_gather"]
+        got, names = _device_kernels(fn)
+        assert kernels.launch_counts()["K6_patch_gather"] == before + 3, tag
+        assert len(names) == 1 and "patch_gather_kernel" in next(iter(names)), (tag, names)
+        assert torch.equal(got, want), tag
+
+
+def test_k6_repeats_bitwise_and_raises_rather_than_fall_back(gen):
+    feat = torch.randn(4, 64, 64, 196, generator=gen, device="cuda").to(torch.bfloat16)
+    r0, c0 = _k6_corners(gen, 4, 300, 64, 64, 9, torch.int64)
+    a, b = patch_gather(feat, r0, c0, 9), patch_gather(feat, r0, c0, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    before = kernels.launch_counts()["K6_patch_gather"]
+    for bad in (feat.half(), feat.double()):
+        with pytest.raises(ValueError):
+            patch_gather(bad, r0, c0, 9)
+    with pytest.raises(ValueError):
+        patch_gather(feat, r0.float(), c0.float(), 9)
+    with pytest.raises(ValueError):
+        patch_gather(feat, r0, c0, 256)  # a window the kernel does not take
+    assert kernels.launch_counts()["K6_patch_gather"] == before
 
 
 @pytest.mark.parametrize("cin,cout,kernel,stride,pad", [(1, 32, 7, 2, 3), (48, 40, 3, 1, 1), (196, 196, 3, 2, 1),

@@ -36,7 +36,7 @@ from onepose_plus_plus_tpu_torch.models import backbone as port_backbone, onepos
 from onepose_plus_plus_tpu_torch.models.backbone import ResNetFPN_8_2
 from onepose_plus_plus_tpu_torch.models.build import build_onepose_model
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel
-from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import vector_bytes
+from onepose_plus_plus_tpu_torch.kernels import vector_bytes
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows_aligned
 from onepose_plus_plus_tpu_torch.utils.config_loader import load_config
 from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables
@@ -206,6 +206,8 @@ def test_sparse_route_makes_one_patch_gather_and_no_window_gather(monkeypatch):
     (394, (0, 256), 2),  # bf16 C = 197: an odd number of bf16 values, 2-byte vectors
 ])
 def test_k6_vector_width(row_bytes, pointers, want):
+    """The vector K3 and K4 pick at the pixels that took K6's vector instances
+    before K6 became a span copy (16-byte chunks at any pixel)."""
     assert vector_bytes(row_bytes, *pointers) == want
 
 
