@@ -14,22 +14,26 @@ phase 2, and phase 10, which runs right after phase 6:
      timed with packed weights and split by launch, a bf16 layer at C = 64
      through K1's CUDA-core bf16 instance, and K1 at the JAX kernel's widths
      above 512 and a one-head layer ((640, 8), (768, 8), (1024, 8),
-     (2048, 16), (512, 1)) in both dtypes; K3 exact at the query shape (both
+     (2048, 16), (512, 1)) in both dtypes (the CUDA-core instances, each with
+     its device time, plain version and bound); K3 exact at the query shape (both
      dtypes) and the train shape (f32), ids at the grid's corners and out of
      range, whole call and device time beside index_select; K2's bf16 (tensor-core)
      instance split by launch, its two launches bitwise equal, faster than its
-     plain version; the f32 instances of K1 and K2 (split TF32 on the tensor
+     plain version; K2's CUDA-core f32 instance at C = 640 (a small batch)
+     against its plain version, with its device time and bound; the f32 instances of K1 and K2 (split TF32 on the tensor
      cores) at [16, ...], at batch 1 (a tracking frame's shapes) and K2 at the
      train shape [4, ...], each with its f32 bound and 3xTF32 floor, split by
      launch name. Every phase that runs K1 or K2 in f32 at C = 256 (3, 7c, 7d,
      8b, 8d, 9e) checks by the profiler's kernel names that the split-TF32
      instances ran and no CUDA-core f32 kernel of K1 or K2; 2n K3, K4 and K6
      at pixels no 16-byte vector divides (bf16 C = 196, 130, 33; f32 C = 130,
-     33: K3's and K4's 8-, 4- and 2-byte instances; K6's span copy) at the
-     query, train and sparse-FPN shapes, K3 and K6 bitwise equal to their
-     plain versions (K6 also on maps 2, 4 and 8 bytes past an alignment), K4
-     within 7a's tolerances and bitwise repeatable, each beside its bound and
-     index_select or zero_ + index_add_; K6 with its device and host time a call
+     33: K3's span copy window_span_kernel, K4's span sum window_sum_kernel,
+     K6's span copy) at the query, train and sparse-FPN shapes, K3 and K6
+     bitwise equal to their plain versions (K6 also on maps 2, 4 and 8 bytes
+     past an alignment), K4 within 7a's tolerances and bitwise repeatable,
+     each kernel by name, with its whole call, device time (K4's index launch
+     and sum apart) and host time a call, beside its bound and index_select
+     or zero_ + index_add_
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
      of 512^2, a 7000-point cloud, 512 match slots, thr 0; then K2's bf16
@@ -46,8 +50,9 @@ phase 2, and phase 10, which runs right after phase 6:
   7  training: 7a K4 and 7b K5 against their plain versions at the train
      shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256), K4's
      index launch exactly equal to the plain index preparation and its two
-     launches timed apart, K5's launches split by kernel, bitwise repeatable and
-     faster than its plain version;
+     launches timed apart (as in 2n: host time a call, zero_ + index_add_, the
+     bound with K4's own index arrays), K5's launches split by kernel, bitwise
+     repeatable and faster than its plain version;
      7f K5 at the coarse widths above 256 at the train shapes: C = 384 and 512
      (tensor cores, feature gradients in 256-channel chunks), 640 and 1024
      (CUDA cores), forward and backward within 7b's tolerances, bitwise
@@ -165,6 +170,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     scatter_index_plain,
     window_gather,
     window_gather_plain,
+    window_instance,
     window_scatter,
     window_scatter_plain,
 )
@@ -174,7 +180,6 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.ops import quant
-from onepose_plus_plus_tpu_torch.kernels import vector_bytes
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_plain, patch_taps
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
@@ -333,9 +338,13 @@ def phase0() -> str:
 def phase1(smi: str) -> None:
     lib = kernels.build(verbose=True)
     log(f"[1] built {lib.path.name} in {lib.build_seconds:.2f} s")
+    entry = ""
     for line in lib.compiler_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m or line.startswith("--- "):  # a kernel, or the next source's log
+            entry = m.group(1) if m else line[4:]  # a kernel's mangled name, or the source's
         if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"[1]   {line.strip()}")
+            log(f"[1]   {entry}: {line.strip()}")
     phase1_depth_derivative(smi)
 
 
@@ -506,6 +515,13 @@ def phase2_k1_narrow(gen) -> None:
           and d.max().item() <= 5e-2 and d.mean().item() <= 5e-3 and bool(torch.isfinite(got).all()),
           "K1's CUDA-core bf16 instance disagrees at C = 64")
     check(only_launches(rows, K1_CC_NAMES), "a C = 64 bf16 layer launches something besides K1's CUDA-core kernels")
+    with torch.no_grad():
+        ms = time_ms(lambda: layer(x, src, fused=True))
+        pms = time_ms(lambda: encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.bfloat16))
+    b = bound(*k1_work(4, 1000, 700, c=64, w_bytes=2), torch.bfloat16)
+    log(f"[2] K1 bf16 at C = 64 (CUDA cores): kernel {ms:.4f} ms whole call, device {busy / 5:.4f} ms a call, "
+        f"plain {pms:.4f} ms (medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 989 TFLOP/s bf16), "
+        f"{100 * b['bound_ms'] / (busy / 5):.1f} % of it by device time; no single PyTorch call computes the layer")
 
 
 K1_WIDE = ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1))  # (C, heads) the JAX kernel takes above 512 / wide heads
@@ -528,9 +544,19 @@ def phase2_k1_wide(gen) -> None:
             d = (got - ref).abs()
             tol = (1e-3, None) if dt == "f32" else (5e-2, 5e-3)
             ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=5)
+            pms = time_ms(lambda: encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype), reps=5)
+            rows, _, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=3)
+            mine = [r for r in rows if _short(r[2]) in K1_CC_NAMES]  # the wrapper also casts the bool masks
+            check({_short(r[2]) for r in mine} == set(K1_CC_NAMES), f"K1 {dt} at C = {c} launches {launch_names(rows)}")
+            dev = sum(r[0] / r[1] for r in mine)  # one launch of each a call
+            b = bound(*k1_work(2, 150, 97, c=c, nhead=nhead, w_bytes=dtype.itemsize), dtype)
             log(f"[2] K1 {dt} at C = {c}, {nhead} heads, x{tuple(x.shape)} src{tuple(src.shape)} masked: instance "
                 f"{packed.instance!r}, max|d| {d.max().item():.3e} (<= {tol[0]:g}), mean|d| {d.mean().item():.3e}"
-                f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}; kernel {ms:.3f} ms (median of 5)")
+                f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}; kernel {ms:.3f} ms whole call, device "
+                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms "
+                f"(medians of 5); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
+                f"{'67 TFLOP/s f32' if dt == 'f32' else '989 TFLOP/s bf16'}), {100 * b['bound_ms'] / dev:.1f} % of it "
+                f"by device time")
             check(packed.instance == dt and bool(torch.isfinite(got).all()) and d.max().item() <= tol[0]
                   and (tol[1] is None or d.mean().item() <= tol[1]), f"K1 {dt} at C = {c}, {nhead} heads disagrees")
 
@@ -582,6 +608,39 @@ def phase2_k2(gen) -> dict:
         f"{1e3 * n_exp / (16 * sm_count * 1.755e9):.4f} ms at 1.755 GHz; no single PyTorch call computes "
         f"the dual-softmax statistics")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
+
+
+def phase2_k2_wide(gen) -> None:
+    """K2's CUDA-core f32 instance (f32 operands wider than the split-TF32 tile
+    takes, C > 576) at C = 640 and a small batch, against its plain version
+    with the f32 instance's tolerances of tests/test_torch_cuda.py (LSE and
+    best values 1e-3, argmax agreement 0.999), two launches bitwise equal;
+    time, device time by launch, plain version and bound (67 TFLOP/s f32)."""
+    n, p, l, c = 2, 1000, 700, 640
+    f0 = torch.randn(n, p, c, generator=gen, device="cuda")
+    f1 = torch.randn(n, l, c, generator=gen, device="cuda")
+    col_add = torch.where(torch.rand(n, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
+    call = lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add)  # noqa: E731
+    scale = c ** -0.5
+    plain = lambda: rowcol_stats_plain(f0 * scale, f1 * scale, 1 / (0.08 + 1e-4), None, col_add)  # noqa: E731
+    got, again, ref = call(), call(), plain()
+    torch.cuda.synchronize()
+    err = max((got[k] - ref[k]).abs().max().item() for k in ("row_lse", "col_lse", "row_best_val", "col_best_val"))
+    agree = min((got[k] == ref[k]).float().mean().item() for k in ("row_best_j", "col_best_p"))
+    same = all(torch.equal(got[k], again[k]) for k in got)
+    ms, pms = time_ms(call), time_ms(plain)
+    rows, _, _ = device_rows(call, reps=5)
+    mine = [r for r in rows if _short(r[2]) in K2_CC_NAMES]  # the wrapper also scales the two operands
+    dev = sum(r[0] / r[1] for r in mine)  # one launch of each a call
+    b = bound(n * (p + l) * c * 4 + l * 4 + n * (p + l) * 16, 2 * n * p * l * c, torch.float32)
+    log(f"[2] K2 f32 at C = {c} (CUDA cores) [{n},{p}]x[{n},{l}]x{c}: LSE and best values max|d| {err:.3e} (<= 1e-3), "
+        f"argmax agree {agree:.6f} (>= 0.999), two launches bitwise equal {same}; kernel {ms:.4f} ms whole call, "
+        f"device {dev:.4f} ms a call of K2's kernels (every launch: {launch_names(rows)}), plain {pms:.4f} ms "
+        f"(medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 67 TFLOP/s f32), "
+        f"{100 * b['bound_ms'] / dev:.1f} % of it by device time; no single PyTorch call computes the dual-softmax "
+        f"statistics")
+    check(err <= 1e-3 and agree >= 0.999 and same, "K2's CUDA-core f32 instance disagrees at C = 640")
+    check({_short(r[2]) for r in mine} == set(K2_CC_NAMES), f"K2 f32 at C = 640 launches {launch_names(rows)}")
 
 
 TF32_OPS_PER_S = 495e12  # dense TF32 tensor cores (NVIDIA's data sheet, H100 SXM)
@@ -776,91 +835,124 @@ def k6_case(where: str, tag: str, f: torch.Tensor, r0: torch.Tensor, c0: torch.T
 # pixels that are not a multiple of 16 bytes: (dtype, C); bf16 C = 196 is the sparse FPN's pin map
 NARROW_PIXELS = ((torch.bfloat16, 196), (torch.bfloat16, 130), (torch.bfloat16, 33),
                  (torch.float32, 130), (torch.float32, 33))
+# each instance of K3 by the name of its launch
+K3_INSTANCE_NAMES = {"vector": ("window_gather_kernel",), "span": ("window_span_kernel",)}
+
+
+def k3_record(where: str, tag: str, feat: torch.Tensor, ids: torch.Tensor) -> dict:
+    """K3 on one map (windows of 5 at stride 4) through window_gather, the
+    instance it routes to: bitwise against its plain version
+    and index_select on precomputed indices, the launch by name; whole call,
+    device time a launch (the profiler), host time a call (200 queued), the
+    plain version, index_select, and the bytes bound."""
+    n, h, w, c = feat.shape
+    grid, size = (h // 4, w // 4), c * feat.element_size()
+    inst = window_instance(size, feat.data_ptr())
+    call = lambda: window_gather(feat, ids, grid, 4, 5)  # noqa: E731
+    plain = lambda: window_gather_plain(feat, ids, grid, 4, 5)  # noqa: E731
+    got, ref = call(), plain()
+    flat, valid = _window_taps(ids, (h, w), grid, 4, 5)
+    table, idx = index_select_table(feat, flat, valid)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref) and torch.equal(torch.index_select(table, 0, idx).view_as(got), ref)
+    check(equal, f"K3 {tag} disagrees with its plain version")
+    ms, pms, lms = time_ms(call), time_ms(plain), time_ms(lambda: torch.index_select(table, 0, idx))
+    hus = host_us(call)
+    rows, busy, _ = device_rows(call, reps=5)
+    check(only_launches(rows, K3_INSTANCE_NAMES[inst]), f"K3 {tag} launched {launch_names(rows)}")
+    dev = busy / sum(r[1] for r in rows)  # a launch, over those the profiler kept
+    b = bound(gather_bytes(flat, valid, h * w, size, got, ids.numel() * 4), 0, feat.dtype)
+    log(f"[{where}] K3 {tag} ({size} bytes a pixel, {inst} instance) feat{tuple(feat.shape)} -> {tuple(got.shape)}: "
+        f"bitwise equal to the plain version and index_select {equal}; whole call {ms:.4f} ms, device {dev:.4f} ms "
+        f"a launch ({launch_names(rows)}), host {hus:.1f} us a call (200 queued), plain {pms:.3f} ms, index_select "
+        f"with precomputed indices {lms:.4f} ms (medians of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        f"{100 * b['bound_ms'] / dev:.0f} % of it by device time, {100 * b['bound_ms'] / ms:.0f} % whole call")
+    del got, ref, table, idx
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "library_ms": lms, "device_ms": dev, "host_us": hus, **b}
+
+
+def k4_record(where: str, tag: str, grad: torch.Tensor, ids: torch.Tensor, hw) -> dict:
+    """K4 (windows of 5 at stride 4, int32 ids) through window_scatter: within
+    7a's tolerances of its plain version (index_add_ sums in another order),
+    two calls bitwise equal, the two launches by name; whole call, device time
+    of the index launch and the sum apart (the profiler), host time a call
+    (200 queued), the plain version, zero_ + index_add_ on precomputed rows
+    (index_add_ alone beside it), and the bound: the valid taps read, K4's own
+    index arrays (ids, order, cell_start), the map written; one add a tap
+    element."""
+    n, k, taps, c = grad.shape
+    h, w = hw
+    grid, size = (h // 4, w // 4), c * grad.element_size()
+    call = lambda: window_scatter(grad, ids, grid, 4, 5, hw)  # noqa: E731
+    plain = lambda: window_scatter_plain(grad, ids, grid, 4, 5, hw)  # noqa: E731
+    got, again, ref = call(), call(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    same = torch.equal(got, again)
+    tol = 1e-4 if grad.dtype == torch.float32 else 6e-2  # f32 summation order / one bf16 rounding of |sum| <= ~8
+    check(err <= tol and same, f"K4 {tag} disagrees or is not deterministic")
+    flat, valid = _window_taps(ids, hw, grid, 4, 5)
+    rows = (flat + (h * w) * torch.arange(n, device="cuda")[:, None])[valid]
+    src = grad.reshape(n, k * taps, c)[valid]
+    acc = torch.zeros(n * h * w, c, dtype=grad.dtype, device="cuda")
+    ms, pms = time_ms(call), time_ms(plain)
+    bare = time_ms(lambda: acc.index_add_(0, rows, src))
+    lms = time_ms(lambda: acc.zero_().index_add_(0, rows, src))
+    hus = host_us(call)
+    prow, _, _ = device_rows(call, reps=5)
+    names = ("scatter_index_kernel", "window_sum_kernel")
+    check(only_launches(prow, names), f"K4 {tag} launched {launch_names(prow)}")
+    per = {_short(r[2]): r[0] / r[1] for r in prow}  # device ms a launch, by name
+    dev = sum(per.values())  # a call: one launch of each
+    index_bytes = 4 * (ids.numel() + n * k + n * (grid[0] * grid[1] + 1))
+    b = bound(src.numel() * src.element_size() + index_bytes + got.numel() * got.element_size(), src.numel(),
+              grad.dtype)
+    log(f"[{where}] K4 {tag} ({size} bytes a pixel) grad{tuple(grad.shape)} -> map{tuple(got.shape)}: "
+        f"max|d| {err:.3e} (<= {tol:g}), two calls bitwise equal {same}; whole call {ms:.4f} ms, device "
+        f"{dev:.4f} ms a call (index launch {per[names[0]]:.4f} ms, {names[1]} {per[names[1]]:.4f} ms), host "
+        f"{hus:.1f} us a call (200 queued), plain {pms:.3f} ms, zero_ + index_add_ {lms:.4f} ms (index_add_ alone, "
+        f"into a map that exists, {bare:.4f} ms) (medians of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+        f"{100 * b['bound_ms'] / dev:.0f} % of it by device time ({100 * b['bound_ms'] / per[names[1]]:.0f} % by the "
+        f"sum's alone), {100 * b['bound_ms'] / ms:.0f} % whole call")
+    del got, again, ref, acc, src, rows
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": lms, "device_ms": dev,
+            "index_ms": per[names[0]], "host_us": hus, **b}
 
 
 def phase2_narrow(gen, smi: str) -> None:
     """K3, K4 and K6 at pixels that no 16-byte vector divides: bf16 C = 196,
-    130, 33 and f32 C = 130, 33 (K3's and K4's 8-, 4- and 2-byte instances;
-    K6 moves 16 bytes a lane at any pixel), at the main path's shapes (K3 the
-    query step's [16, 256, 256, C] with 512 windows; K4 the train step's 1228
-    slots onto [4, 256, 256, C]; K6 the sparse FPN's 512 patches of 9 x 9).
-    K3 and K6 bitwise equal to their plain versions (K6 also on maps 2, 4, 8
-    bytes past an alignment); K4 within 7a's tolerances of its plain version
-    (index_add_ sums in another order) and its two launches bitwise equal;
-    whole-call times, and device times from one profiler session a width for
-    K3 and K4 (their own launches) and one for K6 (:func:`k6_case`, with its
-    host time), beside the bound (bytes) and index_select / zero_ + index_add_."""
+    130, 33 and f32 C = 130, 33 (the span instances of K3 and K4; K6 moves 16
+    bytes a lane at any pixel), at the main path's shapes (K3 the query step's
+    [16, 256, 256, C] with 512 windows; K4 the train step's 1228 slots onto
+    [4, 256, 256, C]; K6 the sparse FPN's 512 patches of 9 x 9). K3 and K6
+    bitwise equal to their plain versions (K6 also on maps 2, 4, 8 bytes past
+    an alignment), K3 by the name of its span kernel; K4 within 7a's
+    tolerances of its plain version and its two calls bitwise equal, its two
+    launches by name (:func:`k3_record`, :func:`k4_record`, :func:`k6_case`)."""
     h = w = 256
     hc, win, n4, k4 = h // 4, 9, TRAIN_B, 1228
+
+    def query_ids(n, k):
+        ids = torch.randint(0, hc * hc, (n, k), generator=gen, device="cuda", dtype=torch.int32)
+        ids[:, :8] = torch.tensor([-1, -7, 4096, 5000, 0, 63, 4032, 4095], dtype=torch.int32)
+        return ids
+
+    sids = torch.randint(0, hc * hc, (n4, k4), generator=gen, device="cuda", dtype=torch.int32)
+    sids[:, 1028:] = sids[:, :200]  # GT slots repeating predicted cells
+    sids[:, 1000:1028] = -1  # unfilled prediction slots
     for dtype, c in NARROW_PIXELS:
         dt = "f32" if dtype == torch.float32 else "bf16"
-        size = c * torch.tensor([], dtype=dtype).element_size()
         feat = torch.randn(B, h, w, c, generator=gen, device="cuda").to(dtype)
-        ids = torch.randint(0, hc * hc, (B, 512), generator=gen, device="cuda", dtype=torch.int32)
-        ids[:, :8] = torch.tensor([-1, -7, 4096, 5000, 0, 63, 4032, 4095], dtype=torch.int32)
         r0 = torch.randint(-win - 4, h + 4, (B, 512), generator=gen, device="cuda", dtype=torch.int32)
         c0 = torch.randint(-win - 4, w + 4, (B, 512), generator=gen, device="cuda", dtype=torch.int32)
         r0[:, -16:] = -10 * win
-        sids = torch.randint(0, hc * hc, (n4, k4), generator=gen, device="cuda", dtype=torch.int32)
-        sids[:, 1028:] = sids[:, :200]
-        sids[:, 1000:1028] = -1
-        grad = torch.randn(n4, k4, 25, c, generator=gen, device="cuda").to(dtype)
-        calls = {
-            "K3": (lambda: window_gather(feat, ids, (hc, hc), 4, 5), K3_NAMES),
-            "K4": (lambda: window_scatter(grad, sids, (hc, hc), 4, 5, (h, w)), K4_NAMES),
-        }
         k6_case("2n", f"{dt} C = {c}", feat, r0, c0, win)
-        res = {}
-        # K3: exact against the plain version and index_select on precomputed indices
-        fn, taps = calls["K3"][0], _window_taps(ids, (h, w), (hc, hc), 4, 5)
-        plain = lambda: window_gather_plain(feat, ids, (hc, hc), 4, 5)  # noqa: E731
-        got, ref = fn(), plain()
-        table, idx = index_select_table(feat, *taps)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, ref) and torch.equal(torch.index_select(table, 0, idx).view_as(got), ref)
-        check(equal, f"K3 {dt} C = {c} disagrees with its plain version")
-        res["K3"] = {"shape": f"feat{tuple(feat.shape)} -> {tuple(got.shape)}",
-                     "check": f"bitwise equal to the plain version {equal}",
-                     "ms": time_ms(fn), "plain_ms": time_ms(plain),
-                     "library": f"index_select {time_ms(lambda: torch.index_select(table, 0, idx)):.4f} ms",
-                     **bound(gather_bytes(*taps, h * w, size, got, ids.numel() * 4), 0, dtype)}
-        del got, ref, table, idx
-        # K4: 7a's tolerances, two launches bitwise equal, zero_ + index_add_ on precomputed rows
-        fn = calls["K4"][0]
-        got, again = fn(), fn()
-        ref = window_scatter_plain(grad, sids, (hc, hc), 4, 5, (h, w))
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        same = torch.equal(got, again)
-        tol = 1e-4 if dtype == torch.float32 else 6e-2  # 7a's: f32 summation order / one bf16 rounding
-        check(err <= tol and same, f"K4 {dt} C = {c} disagrees or is not deterministic")
-        flat, valid = _window_taps(sids, (h, w), (hc, hc), 4, 5)
-        rows = (flat + (h * w) * torch.arange(n4, device="cuda")[:, None])[valid]
-        src = grad.reshape(n4, k4 * 25, c)[valid]
-        acc = torch.zeros(n4 * h * w, c, dtype=dtype, device="cuda")
-        res["K4"] = {"shape": f"grad{tuple(grad.shape)} -> map{tuple(got.shape)}",
-                     "check": f"max|d| {err:.3e} (<= {tol:g}), two launches bitwise equal {same}",
-                     "ms": time_ms(fn), "plain_ms": time_ms(lambda: window_scatter_plain(grad, sids, (hc, hc), 4, 5, (h, w))),
-                     "library": f"zero_ + index_add_ {time_ms(lambda: acc.zero_().index_add_(0, rows, src)):.4f} ms",
-                     **bound(src.numel() * src.element_size() + rows.numel() * 4 + got.numel() * got.element_size(),
-                             src.numel(), dtype)}
-        del got, again, ref, acc, src, rows, flat, valid
-        # device time: one profiler session over the three calls, split by kernel name
-        prof_rows, _, _ = device_rows(lambda: [f() for f, _ in calls.values()], reps=5)
-        every = set(K3_NAMES + K4_NAMES)
-        check({_short(r[2]) for r in prof_rows} <= every, f"2n launches {launch_names(prof_rows)}")
-        for tag, (_, names) in calls.items():
-            mine = [r for r in prof_rows if _short(r[2]) in names]
-            n_calls = sum(r[1] for r in mine if _short(r[2]) == names[-1])  # one last launch a call
-            check(n_calls > 0, f"the profiler kept no launch of {tag}")
-            dev = sum(r[0] for r in mine) / n_calls
-            r = res[tag]
-            log(f"[2n] {tag} {dt} C = {c} ({size} bytes a pixel, {vector_bytes(size, feat.data_ptr())}-byte "
-                f"vectors) {r['shape']}: {r['check']}; kernel {r['ms']:.4f} ms whole call, device {dev:.4f} ms "
-                f"a call ({launch_names(mine)}), plain {r['plain_ms']:.3f} ms, {r['library']} (medians of 20); "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {100 * r['bound_ms'] / dev:.0f} % of it by "
-                f"device time")
-        del feat, grad
+        check(window_instance(c * feat.element_size(), feat.data_ptr()) == "span", f"{dt} C = {c} is not narrow")
+        k3_record("2n", f"{dt} C = {c}", feat, query_ids(B, 512))
+        del feat
+        grad = torch.randn(n4, k4, 25, c, generator=gen, device="cuda").to(dtype)
+        k4_record("2n", f"{dt} C = {c}", grad, sids, (h, w))
+        del grad
         torch.cuda.empty_cache()
     log(f"[2n] on {smi}")
 
@@ -1137,7 +1229,7 @@ def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True) -> N
         f"{sorted(set(F32_CC_NAMES) & names) or 'none'}")
     check(want <= names and not set(F32_CC_NAMES) & names,
           f"[{where}] the f32 path did not run K1/K2's split-TF32 instances alone: {sorted(names)}")
-K3_NAMES = ("window_gather_kernel",)
+K3_NAMES = ("window_gather_kernel", "window_span_kernel")
 
 
 def _step_batch(frames, anno, dev="cuda"):
@@ -1246,38 +1338,13 @@ def phase7a(gen) -> dict:
     rec = {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         grad = torch.randn(n, k, 25, 128, generator=gen, device="cuda").to(dtype)
-        args = (grad, ids, (hc, hc), 4, 5, (4 * hc, 4 * hc))
-        got, again = window_scatter(*args), window_scatter(*args)
-        ref = window_scatter_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        same = torch.equal(got, again)
-        tol = 1e-4 if dtype == torch.float32 else 6e-2  # f32 summation order / one bf16 rounding of |sum| <= ~8
-        log(f"[7a] K4 {dt} grad{tuple(grad.shape)} -> map{tuple(got.shape)}: max|d| {err:.3e} "
-            f"(<= {tol:g}), two launches bitwise equal {same}")
-        check(err <= tol and same, f"K4 {dt} disagrees or is not deterministic")
-        ms = time_ms(lambda: window_scatter(*args))
-        pms = time_ms(lambda: window_scatter_plain(*args))
-        rows_, busy, _ = device_rows(lambda: window_scatter(*args), reps=5)
-        log(f"[7a] K4 {dt} device time by launch: {launch_names(rows_)} "
-            f"({busy / 5:.4f} ms a call, torch.profiler, 5 calls)")
-        check(only_launches(rows_, K4_NAMES), "K4 launches something besides its two kernels")
-        # yardstick: the function K4 computes is the whole map, so zero it and
-        # index_add_ the valid taps (indices and rows precomputed; atomics)
-        flat, valid = _window_taps(ids, (4 * hc, 4 * hc), (hc, hc), 4, 5)
-        rows = (flat + (16 * hc * hc) * torch.arange(n, device="cuda")[:, None])[valid]
-        src = grad.reshape(n, k * 25, 128)[valid]
-        acc = torch.zeros(n * 16 * hc * hc, 128, dtype=dtype, device="cuda")
-        bare = time_ms(lambda: acc.index_add_(0, rows, src))
-        lms = time_ms(lambda: acc.zero_().index_add_(0, rows, src))
-        n_bytes = src.numel() * src.element_size() + rows.numel() * 4 + got.numel() * got.element_size()
-        b = bound(n_bytes, src.numel(), dtype)  # one add per tap element
-        before = f" ({K4_PREVIOUS_MS} ms with the library sort in the wrapper)" if dt == "f32" else ""
-        log(f"[7a] K4 {dt}: kernel {ms:.3f} ms{before}, plain {pms:.3f} ms, zero_ + index_add_ {lms:.3f} ms (index_add_ alone, into a map "
-            f"that exists, {bare:.3f} ms) (median of 20); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-        rec[dt] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": lms, **b}
-        del acc, src, rows
-    return rec["f32"]  # the train config is f32
+        rec[dt] = k4_record("7a", f"train {dt}", grad, ids, (4 * hc, 4 * hc))
+        if dt == "f32":
+            log(f"[7a] K4 f32 whole call {rec[dt]['ms']:.4f} ms ({K4_PREVIOUS_MS} ms with the library sort in the "
+                f"wrapper)")
+        del grad
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return {key: rec["f32"][key] for key in keys}  # the train config is f32
 
 
 def phase7b(gen) -> dict:
@@ -2513,7 +2580,7 @@ def phase10d() -> None:
     check(err <= 1e-4, "the LayerNorm keypoint encoder on the card differs from the CPU")
 
 
-K4_NAMES = ("scatter_index_kernel", "window_scatter_kernel")
+K4_NAMES = ("scatter_index_kernel", "window_sum_kernel")
 # K5 on the tensor cores: the operand pack, K2's LSE pass, the loss, g sums and feature gradients
 K5_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "loss_tc_kernel", "gsum_tc_kernel",
             "colg_reduce", "dfeat_tc_kernel")
@@ -2528,6 +2595,7 @@ def main() -> int:
     gen.manual_seed(0)
     records = {"K1_encoder_layer": phase2_k1(gen), "K2_rowcol_stats": phase2_k2(gen),
                "K3_window_gather": phase2_k3(gen)}
+    phase2_k2_wide(gen)  # K2's CUDA-core f32 instance
     phase2_narrow(gen, smi)  # K3, K4, K6 at pixels of any width
     torch.cuda.empty_cache()
     # K6 at the SfM shapes here, early: 8a profiles every call, and late in

@@ -49,38 +49,20 @@
 // the same arithmetic in PyTorch, held against the plain version by the CPU
 // tests. The corners are read in the caller's integer type and strides (a
 // column of a [N, K, 2] centre tensor needs no copy), plus a constant offset
-// (gather_windows' -W/2), so a call is one launch.
+// (gather_windows' -W/2), so a call is one launch. The copy loop itself
+// (opp::copy_patch, span.cuh) is shared with K3's span instance, which
+// derives each window's corner from its cell id (gather.cu).
 #include <cstdint>
 
 #include "common.cuh"
+#include "span.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;      // a block a patch
-constexpr int MAGIC_SHIFT = 48;   // a slot's patch row is (slot * magic) >> 48
 constexpr int MAX_WINDOW = 255;
 
-// Bytes [o, o + 16) of the 32 bytes a | b (little endian), 0 <= o < 16.
-__device__ __forceinline__ uint4 funnel16(const uint4& a, const uint4& b, int o) {
-  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  const int q = o >> 2, sh = (o & 3) * 8;
-  unsigned s[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {  // s[j] = w[q + j] by selects, no local memory
-    const unsigned even = (q & 1) ? w[j + 1] : w[j];
-    const unsigned odd = (q & 1) ? w[j + 3] : w[j + 2];
-    s[j] = (q & 2) ? odd : even;
-  }
-  return make_uint4(__funnelshift_r(s[0], s[1], sh), __funnelshift_r(s[1], s[2], sh),
-                    __funnelshift_r(s[2], s[3], sh), __funnelshift_r(s[3], s[4], sh));
-}
-
-__device__ __forceinline__ unsigned half_mask(int lo, int hi, int h) {  // 2-byte half h in [lo, hi)?
-  return (2 * h >= lo && 2 * h < hi) ? 0xFFFFu << (16 * (h & 1)) : 0u;
-}
-
 template <typename Idx>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(opp::PATCH_THREADS)
 patch_gather_kernel(const char* __restrict__ feat, const Idx* __restrict__ row0,
                     const Idx* __restrict__ col0, char* __restrict__ out, long long row_sn,
                     long long row_sk, long long col_sn, long long col_sk, int offset, int H,
@@ -89,65 +71,8 @@ patch_gather_kernel(const char* __restrict__ feat, const Idx* __restrict__ row0,
   const int kk = blockIdx.x, b = blockIdx.y;
   const long long r0 = (long long)__ldg(row0 + b * row_sn + kk * row_sk) + offset;
   const long long c0 = (long long)__ldg(col0 + b * col_sn + kk * col_sk) + offset;
-  const int row = window * P;                        // bytes a patch row (a patch is under 2^31 bytes)
-  const long long pitch = (long long)W * P;          // bytes an image row
-  char* const dst = out + ((long long)b * gridDim.x + kk) * window * row;
-  const int dmod = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
-  const long long src0 = reinterpret_cast<long long>(feat) + (long long)b * H * pitch + c0 * P;
-  const long long cl = c0 > 0 ? c0 : 0, ch = c0 + window < W ? c0 + window : W;
-  const int copy_lo = ch > cl ? (int)((cl - c0) * P) : 0;  // a row's map bytes: [copy_lo, copy_hi)
-  const int copy_hi = ch > cl ? (int)((ch - c0) * P) : 0;
-  const int T = window * cmax;
-  // slot t: chunk c of patch row dr, the aligned 16 output bytes at patch offset a
-  for (int t = threadIdx.x; t < T; t += THREADS) {
-    const int dr = (int)(((unsigned long long)t * magic) >> MAGIC_SHIFT);
-    const int c = t - dr * cmax;
-    const int start = dr * row;                      // the row: patch bytes [start, start + row)
-    const int a = ((start + dmod) & ~15) - dmod + 16 * c;
-    if (a >= start + row) continue;                  // a slot past the row's last chunk
-    const int lo = start + copy_lo - a, hi = start + copy_hi - a;  // its map bytes, unclipped
-    const long long r = r0 + dr;
-    const bool copy = r >= 0 && r < H && copy_hi > copy_lo && hi > 0 && lo < 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (copy) {
-      const long long src = src0 + r * pitch + (a - start);  // map address of the chunk's byte 0
-      const int o = (int)(src & 15);
-      // f0 holds no map byte where the first lies in f1: at the map's first
-      // bytes it would leave the map's vectors, so it is raised to the first
-      const long long f1 = src - o + 16, f0 = f1 - 16 < vec_lo ? vec_lo : f1 - 16;
-      val = __ldg(reinterpret_cast<const uint4*>(f0));
-      if (o != 0) {
-        uint4 second = make_uint4(0u, 0u, 0u, 0u);
-        if (o + hi > 16) second = __ldg(reinterpret_cast<const uint4*>(f1));
-        val = funnel16(val, second, o);
-      }
-      if (lo > 0 || hi < 16) {  // the row's first or last map bytes: zero the rest
-        val.x &= half_mask(lo, hi, 0) | half_mask(lo, hi, 1);
-        val.y &= half_mask(lo, hi, 2) | half_mask(lo, hi, 3);
-        val.z &= half_mask(lo, hi, 4) | half_mask(lo, hi, 5);
-        val.w &= half_mask(lo, hi, 6) | half_mask(lo, hi, 7);
-      }
-    }
-    char* p = dst + a;
-    const int s_lo = start - a, s_hi = start + row - a;  // its bytes in the row
-    if (s_lo <= 0 && s_hi >= 16) {
-      __stcs(reinterpret_cast<uint4*>(p), val);
-    } else {  // the row's first or last chunk: its own 2-byte halves
-      const unsigned w[4] = {val.x, val.y, val.z, val.w};
-#pragma unroll
-      for (int h = 0; h < 8; ++h)
-        if (2 * h >= s_lo && 2 * h < s_hi)
-          reinterpret_cast<unsigned short*>(p)[h] = (unsigned short)(w[h >> 1] >> (16 * (h & 1)));
-    }
-  }
-}
-
-// Chunk slots a patch row: the most 16-byte chunks a row of `row` bytes
-// touches when rows start at multiples of gcd(row, 16) past an alignment.
-long long chunk_slots(long long row) {
-  int g = 16;
-  while (row % g) g >>= 1;
-  return (16 - g + row + 15) / 16;
+  char* const dst = out + ((long long)b * gridDim.x + kk) * window * window * P;
+  opp::copy_patch(feat, dst, b, r0, c0, H, W, P, window, cmax, magic, vec_lo);
 }
 
 template <typename Idx>
@@ -160,12 +85,12 @@ int launch_patch_gather(const void* feat, const void* row0, const void* col0, vo
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(feat) % 2 || reinterpret_cast<uintptr_t>(out) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const long long cmax = chunk_slots((long long)window * P);
-  if (window * cmax * cmax >= (1LL << MAGIC_SHIFT)) return (int)cudaErrorInvalidValue;
-  const unsigned long long magic = ((1ull << MAGIC_SHIFT) + cmax - 1) / cmax;
+  const long long cmax = opp::chunk_slots((long long)window * P);
+  if (window * cmax * cmax >= (1LL << opp::MAGIC_SHIFT)) return (int)cudaErrorInvalidValue;
+  const unsigned long long magic = ((1ull << opp::MAGIC_SHIFT) + cmax - 1) / cmax;
   const long long base = reinterpret_cast<long long>(feat);
   const long long vec_lo = base & ~15LL;
-  patch_gather_kernel<Idx><<<dim3(K, N), THREADS, 0, stream>>>(
+  patch_gather_kernel<Idx><<<dim3(K, N), opp::PATCH_THREADS, 0, stream>>>(
       static_cast<const char*>(feat), static_cast<const Idx*>(row0),
       static_cast<const Idx*>(col0), static_cast<char*>(out), row_sn, row_sk, col_sn, col_sk,
       offset, H, W, P, window, (int)cmax, magic, vec_lo);

@@ -8,9 +8,10 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``: tensor
   cores for bf16 operands (``pack_operand``) and, in split TF32, for f32 ones up to
   C = 576 (``pack_tf32_operand``); CUDA cores for wider f32)
-- K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``)
+- K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``: 16-byte vectors where a pixel
+  is a multiple of 16 bytes, else K6's span copy, ``csrc/span.cuh``)
 - K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP: an index
-  launch (``scatter_index``) and the scatter launch
+  launch (``scatter_index``) and the sum launch (span sums in 16-byte chunks, ``csrc/span.cuh``)
 - K5 ``ops/cuda_coarse_loss.py::fused_coarse_focal_loss`` (``csrc/coarse_loss.cu``, on
   K2's tensor-core tile), counted once per forward (``K5_coarse_loss``) and once per
   backward (``K5_coarse_loss_bwd``)
@@ -76,20 +77,13 @@ def ptr(t):
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of ``device``'s current stream, which the kernels launch on
+    (read without building a ``torch.cuda.Stream``: a few microseconds of host
+    time a call less)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def vector_bytes(row_bytes: int, *pointers: int) -> int:
-    """The widest vector (16, 8, 4 or 2 bytes) that divides a pixel's bytes and
-    every pointer, for the copies of K3 and K4 (K6 copies byte spans in 16-byte
-    chunks at any pixel); 0 when none does (no kernel dtype gives that)."""
-    for width in (16, 8, 4, 2):
-        if row_bytes % width == 0 and all(p % width == 0 for p in pointers):
-            return width
-    return 0
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -48,13 +48,13 @@ _SIGNATURES = {
     "opp_pack_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_pack_operand_bf16": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_pack_tf32_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
-    "opp_window_gather_f32": [_P] * 3 + [_I] * 10 + [_P],
-    "opp_window_gather_bf16": [_P] * 3 + [_I] * 10 + [_P],
+    "opp_window_gather": [_P] * 3 + [_I] * 9 + [_P],
+    "opp_window_span": [_P] * 3 + [_I] * 9 + [_P],
     "opp_dual_lse_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     "opp_dual_lse_cc_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     "opp_window_scatter_index": [_P] * 3 + [_I] * 3 + [_P],
-    "opp_window_scatter_f32": [_P] * 5 + [_I] * 10 + [_P],
-    "opp_window_scatter_bf16": [_P] * 5 + [_I] * 10 + [_P],
+    "opp_window_scatter_f32": [_P] * 5 + [_I] * 9 + [_P],
+    "opp_window_scatter_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "opp_coarse_loss_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
     "opp_coarse_loss_fwd_cc": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],

@@ -11,6 +11,8 @@
   (``experiments/pallas_short_encoder.py``), which does not import as a file.
 - :func:`make_plane_object`, :func:`write_annotation`, :func:`write_db_model`:
   a OnePose-format object with its SfM outputs, for the CLIs.
+- :func:`run_span_chunks`: the span copy of K6 and K3's span instance, done
+  on bytes by the kernel's chunk plan.
 """
 import dataclasses
 import functools
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import torch
 
 from onepose_plus_plus_tpu_torch import config as port_config
 
@@ -135,3 +138,35 @@ def load_short_encoder_experiment():
     module.__file__ = str(path)
     exec(compile("".join(lines), str(path), "exec"), module.__dict__)
     return module
+
+
+def run_span_chunks(alloc: torch.Tensor, map_lo: int, map_hi: int, chunks, out_bytes: int) -> torch.Tensor:
+    """Do what K6 (and K3's span instance) does with the chunk plan
+    (``ops/cuda_patch_gather.py::patch_chunks``), on the bytes of an allocation
+    (uint8) that holds the map at [map_lo, map_hi): each live chunk loads its
+    two aligned vectors, takes 16 bytes from byte o on, zeroes those outside
+    [lo, hi) and stores its bytes [s_lo, s_hi). Asserts that every loaded
+    vector lies in the allocation and touches the map, and that the stores
+    cover the output exactly once."""
+    live = chunks["live"].reshape(-1)
+    ch = {key: v.reshape(-1)[live] for key, v in chunks.items()}
+    j = torch.arange(16)
+    loads = torch.cat([ch["f0"][ch["copy"]], ch["f1"][ch["need1"]]])
+    assert bool((loads % 16 == 0).all())
+    assert bool((loads >= 0).all()) and bool((loads + 16 <= alloc.numel()).all())
+    assert bool((loads + 16 > map_lo).all()) and bool((loads < map_hi).all())
+    f0 = ch["f0"].clamp(0, alloc.numel() - 16)  # chunks with nothing to copy load nothing
+    f1 = ch["f1"].clamp(0, alloc.numel() - 16)
+    first, second = alloc[f0[:, None] + j], alloc[f1[:, None] + j]
+    second = torch.where(ch["need1"][:, None], second, torch.full_like(second, 0xAB))  # never read
+    both = torch.cat([first, second], 1)  # [M, 32]
+    val = torch.gather(both, 1, ch["o"][:, None] + j)
+    keep = ch["copy"][:, None] & (j >= ch["lo"][:, None]) & (j < ch["hi"][:, None])
+    val = torch.where(keep, val, torch.zeros_like(val))
+    store = (j >= ch["s_lo"][:, None]) & (j < ch["s_hi"][:, None])
+    pos = (ch["a"][:, None] + j)[store]
+    assert bool((pos >= 0).all()) and bool((pos < out_bytes).all())
+    assert torch.equal(torch.bincount(pos, minlength=out_bytes), torch.ones(out_bytes, dtype=torch.long))
+    out = torch.full((out_bytes,), 0xEE, dtype=torch.uint8)
+    out[pos] = val[store]
+    return out

@@ -7,7 +7,9 @@ machine with an NVIDIA Hopper GPU and the CUDA toolkit, and skip elsewhere:
 
 ``chip_smoke.py`` makes the same comparisons at the main path's shapes.
 """
+import collections
 import re
+import time
 
 import pytest
 import torch
@@ -30,8 +32,10 @@ from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     scatter_index_plain,
     window_gather,
     window_gather_plain,
+    window_instance,
     window_scatter,
     window_scatter_plain,
+    window_sum_chunks,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
@@ -40,7 +44,6 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
 from onepose_plus_plus_tpu_torch.config import ResNetFPNConfig
 from onepose_plus_plus_tpu_torch.models.backbone import ResNetFPN_8_2
 from onepose_plus_plus_tpu_torch.ops import quant
-from onepose_plus_plus_tpu_torch.kernels import vector_bytes
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_centered, patch_gather_plain
 from onepose_plus_plus_tpu_torch.ops.cuda_short_encoder import (
     fused_short_encoder_layer,
@@ -376,7 +379,7 @@ def test_k3_exact_at_corners_and_ragged_shapes(gen, dtype, c, window):
 
 
 def test_wrapper_raises_for_unsupported_operands(gen):
-    """Any pixel width runs (f32 C = 3 takes the 4-byte instance); a dtype no
+    """Any pixel width runs (f32 C = 3 takes the span instance); a dtype no
     instance takes raises."""
     ids = torch.zeros(1, 2, device="cuda")
     f3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda")
@@ -386,12 +389,12 @@ def test_wrapper_raises_for_unsupported_operands(gen):
     kernels.build()  # the library itself builds from csrc/
 
 
-# Narrow pixels: (dtype, C, elements the map starts past an alignment, the vector
-# the wrapper picks). bf16 C = 196 is the sparse FPN's pin map.
+# Narrow pixels: (dtype, C, elements the map starts past an alignment). Each runs
+# the span instances of K3 and K4; bf16 C = 196 is the sparse FPN's pin map.
 NARROW_PIXELS = [
-    (torch.bfloat16, 196, 0, 8), (torch.bfloat16, 130, 0, 4), (torch.bfloat16, 33, 0, 2),
-    (torch.float32, 130, 0, 8), (torch.float32, 33, 0, 4), (torch.bfloat16, 128, 1, 2),
-    (torch.float32, 128, 2, 8), (torch.bfloat16, 1101, 0, 2),
+    (torch.bfloat16, 196, 0), (torch.bfloat16, 130, 0), (torch.bfloat16, 33, 0),
+    (torch.float32, 130, 0), (torch.float32, 33, 0), (torch.bfloat16, 128, 1),
+    (torch.float32, 128, 2), (torch.bfloat16, 1101, 0),
 ]
 
 
@@ -403,41 +406,83 @@ def _offset_tensor(gen, shape, dtype, offset):
     return base[offset:].view(*shape)
 
 
-@pytest.mark.parametrize("dtype,c,offset,vec", NARROW_PIXELS)
-def test_k3_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
-    """K3's 8-, 4- and 2-byte instances (a pixel's bytes or the map's address
-    not a multiple of 16, a pixel of more 2-byte vectors than a block has
-    threads) copy exactly: corners, out-of-range ids, ragged K."""
+def _device_kernels(fn, calls=3):
+    """fn()'s result and the device launches `calls` calls of it make, counted
+    by kernel name (idle margins around the calls, so that the profiler keeps
+    their launches)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    counts = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            m = re.search(r"(\w+)(?:<[^(]*>)?\(", e.key)
+            counts[m.group(1) if m else e.key] += e.count
+    return out, dict(counts)
+
+
+@pytest.mark.parametrize("dtype,c,offset", NARROW_PIXELS)
+def test_k3_narrow_vector_instances_match_plain(gen, dtype, c, offset):
+    """K3 at a pixel's bytes or a map address that is not a multiple of 16 (a
+    pixel of more 2-byte halves than a block has threads among them) runs its
+    span instance, one launch a call, and copies exactly: corners,
+    out-of-range ids, ragged K."""
     feat = _offset_tensor(gen, (2, 40, 36, c), dtype, offset)
-    assert vector_bytes(c * feat.element_size(), feat.data_ptr()) == vec
+    assert window_instance(c * feat.element_size(), feat.data_ptr()) == "span"
     ids = torch.randint(-4, 10 * 9 + 4, (2, 61), generator=gen, device="cuda", dtype=torch.int32)
     ids[:, :4] = torch.tensor([0, 8, 81, 89], dtype=torch.int32)
     before = kernels.launch_counts()["K3_window_gather"]
-    got = window_gather(feat, ids, (10, 9), 4, 5)
-    assert kernels.launch_counts()["K3_window_gather"] == before + 1
+    got, launched = _device_kernels(lambda: window_gather(feat, ids, (10, 9), 4, 5))
+    assert kernels.launch_counts()["K3_window_gather"] == before + 3
+    assert launched == {"window_span_kernel": 3}, launched
     ref = window_gather_plain(feat, ids, (10, 9), 4, 5)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("dtype,c,offset,vec", NARROW_PIXELS)
-def test_k4_narrow_vector_instances_match_plain_and_repeat(gen, dtype, c, offset, vec):
-    """K4's narrow instances: f32 sums in a fixed order whatever the vector
-    (duplicates and overlaps add up, out-of-range ids drop out), two launches
-    bitwise equal, within the wide instance's tolerances of the plain version."""
+@pytest.mark.parametrize("dtype,c,offset", NARROW_PIXELS)
+def test_k4_narrow_vector_instances_match_plain_and_repeat(gen, dtype, c, offset):
+    """K4 at the narrow pixels (and on gradients past an alignment): two
+    launches a call, the index launch and the span sum; f32 sums in a fixed
+    order (duplicates and overlaps add up, out-of-range ids drop out), two
+    calls bitwise equal, within the 128-channel case's tolerances of the plain
+    version."""
     grad = _offset_tensor(gen, (2, 150, 25, c), dtype, offset)
-    assert vector_bytes(c * grad.element_size(), grad.data_ptr()) == vec
-    ids = torch.randint(-5, 12 * 16 + 5, (2, 150), generator=gen, device="cuda")
+    ids = torch.randint(-5, 12 * 16 + 5, (2, 150), generator=gen, device="cuda", dtype=torch.int32)
     ids[:, 100:140] = ids[:, :40]  # repeated cells
     before = kernels.launch_counts()["K4_window_scatter"]
-    got = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
+    got, launched = _device_kernels(lambda: window_scatter(grad, ids, (12, 16), 4, 5, (48, 64)), calls=2)
     again = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
-    assert kernels.launch_counts()["K4_window_scatter"] == before + 2
+    assert kernels.launch_counts()["K4_window_scatter"] == before + 3
+    assert launched == {"scatter_index_kernel": 2, "window_sum_kernel": 2}, launched
     ref = window_scatter_plain(grad, ids, (12, 16), 4, 5, (48, 64))
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert (got.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,c,offset", [(torch.float32, 128, 0), (torch.bfloat16, 128, 0),
+                                            (torch.bfloat16, 33, 1), (torch.float32, 33, 1),
+                                            (torch.bfloat16, 196, 0), (torch.float32, 130, 2)])
+def test_k4_span_sum_equals_its_cpu_mirror_bitwise(gen, dtype, c, offset):
+    """The card's K4 map is, byte for byte, what ``window_sum_chunks`` computes
+    on the CPU from the same gradient bytes at the same addresses mod 16 (the
+    kernel's f32 order, its funnel shifts and its rounding), ``offset``
+    elements past the allocator's alignment."""
+    grad = _offset_tensor(gen, (2, 90, 25, c), dtype, offset)
+    ids = torch.randint(-5, 12 * 16 + 5, (2, 90), generator=gen, device="cuda", dtype=torch.int32)
+    ids[:, 60:80] = ids[:, :20]  # repeated cells
+    got = window_scatter(grad, ids, (12, 16), 4, 5, (48, 64))
+    base, n_bytes = grad.data_ptr() % 16, grad.numel() * grad.element_size()
+    mem = torch.zeros(base + n_bytes + 16, dtype=torch.uint8)
+    mem[base:base + n_bytes] = grad.cpu().reshape(-1).view(torch.uint8)
+    want, _, _ = window_sum_chunks(mem, base, got.data_ptr() % 16, ids.cpu(), (12, 16), 4, 5, (48, 64), c, dtype)
+    assert torch.equal(got.cpu().reshape(-1).view(torch.uint8), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -654,7 +699,7 @@ def test_k6_gather_windows_and_operand_checks(gen):
     b3 = torch.randn(1, 8, 8, 3, generator=gen, device="cuda").to(torch.bfloat16)
     misaligned = torch.randn(1 + 8 * 8 * 4, generator=gen, device="cuda").to(torch.bfloat16)[1:].view(1, 8, 8, 4)
     for f in (b3, misaligned):
-        assert vector_bytes(f.shape[-1] * 2, f.data_ptr()) == 2
+        assert window_instance(f.shape[-1] * 2, f.data_ptr()) == "span"
         assert torch.equal(patch_gather(f, centers[..., 0], centers[..., 1], 5),
                            patch_gather_plain(f, centers[..., 0], centers[..., 1], 5))
 
@@ -666,13 +711,13 @@ def test_k6_gather_windows_and_operand_checks(gen):
     (torch.bfloat16, 130, 0, 4)])
 def test_k6_narrow_vector_instances_match_plain(gen, dtype, c, offset, vec):
     """The pixels and map addresses that took K6's 8-, 4- and 2-byte instances
-    before the span copy (``vec``, as ``kernels.vector_bytes`` still picks for
-    K3 and K4) are exact copies with 16 bytes a lane too; ``offset`` elements
-    shift the map off the allocator's alignment."""
+    before the span copy (``vec``, the vector they took) are exact copies with
+    16 bytes a lane too, and take K3's and K4's span instances; ``offset``
+    elements shift the map off the allocator's alignment."""
     n, h, w, k, window = 2, 20, 24, 45, 9
     base = torch.randn(offset + n * h * w * c, generator=gen, device="cuda").to(dtype)
     feat = base[offset:].view(n, h, w, c)
-    assert vector_bytes(c * feat.element_size(), feat.data_ptr()) == vec
+    assert vec < 16 and window_instance(c * feat.element_size(), feat.data_ptr()) == "span"
     r0 = torch.randint(-window - 3, h + 3, (n, k), generator=gen, device="cuda")
     c0 = torch.randint(-window - 3, w + 3, (n, k), generator=gen, device="cuda")
     r0[:, :4] = -10 * window
@@ -720,15 +765,6 @@ def test_k6_span_copy_matches_plain_at_every_width_and_offset(gen, dtype, c, bas
     assert torch.equal(got, ref) and bool((got[:, :4] == 0).all())
 
 
-def _device_kernels(fn):
-    """fn()'s result and the device kernels three calls of it launch, by name."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):  # the profiler can miss a first launch
-            out = fn()
-        torch.cuda.synchronize()
-    return out, {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
-
-
 def test_k6_makes_one_launch_and_nothing_else(gen):
     """A call is one K6 launch and no other launch: int32 and int64 corners,
     strided corner views, and gather_windows' int64 centres with their -W/2
@@ -748,7 +784,7 @@ def test_k6_makes_one_launch_and_nothing_else(gen):
         before = kernels.launch_counts()["K6_patch_gather"]
         got, names = _device_kernels(fn)
         assert kernels.launch_counts()["K6_patch_gather"] == before + 3, tag
-        assert len(names) == 1 and "patch_gather_kernel" in next(iter(names)), (tag, names)
+        assert set(names) == {"patch_gather_kernel"}, (tag, names)
         assert torch.equal(got, want), tag
 
 

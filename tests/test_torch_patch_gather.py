@@ -21,6 +21,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import (
     patch_spans,
 )
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows
+from port_helpers import run_span_chunks
 
 
 def _corners(rng, n, k, h, w, window):
@@ -88,37 +89,6 @@ def test_wrapper_takes_the_plain_version_on_cpu_only():
     assert torch.equal(patch_gather(feat, r0, c0, 5), patch_gather_plain(feat, r0, c0, 5))
 
 
-def _run_chunks(alloc: torch.Tensor, map_lo: int, map_hi: int, chunks, out_bytes: int) -> torch.Tensor:
-    """Do what K6 does with the chunk plan, on the bytes of an allocation
-    (uint8) that holds the map at [map_lo, map_hi): each live chunk loads its
-    two aligned vectors, takes 16 bytes from byte o on, zeroes those outside
-    [lo, hi) and stores its bytes [s_lo, s_hi). Asserts that every loaded
-    vector lies in the allocation and touches the map, and that the stores
-    cover the output exactly once."""
-    live = chunks["live"].reshape(-1)
-    ch = {key: v.reshape(-1)[live] for key, v in chunks.items()}
-    j = torch.arange(16)
-    loads = torch.cat([ch["f0"][ch["copy"]], ch["f1"][ch["need1"]]])
-    assert bool((loads % 16 == 0).all())
-    assert bool((loads >= 0).all()) and bool((loads + 16 <= alloc.numel()).all())
-    assert bool((loads + 16 > map_lo).all()) and bool((loads < map_hi).all())
-    f0 = ch["f0"].clamp(0, alloc.numel() - 16)  # chunks with nothing to copy load nothing
-    f1 = ch["f1"].clamp(0, alloc.numel() - 16)
-    first, second = alloc[f0[:, None] + j], alloc[f1[:, None] + j]
-    second = torch.where(ch["need1"][:, None], second, torch.full_like(second, 0xAB))  # never read
-    both = torch.cat([first, second], 1)  # [M, 32]
-    val = torch.gather(both, 1, ch["o"][:, None] + j)
-    keep = ch["copy"][:, None] & (j >= ch["lo"][:, None]) & (j < ch["hi"][:, None])
-    val = torch.where(keep, val, torch.zeros_like(val))
-    store = (j >= ch["s_lo"][:, None]) & (j < ch["s_hi"][:, None])
-    pos = (ch["a"][:, None] + j)[store]
-    assert bool((pos >= 0).all()) and bool((pos < out_bytes).all())
-    assert torch.equal(torch.bincount(pos, minlength=out_bytes), torch.ones(out_bytes, dtype=torch.long))
-    out = torch.full((out_bytes,), 0xEE, dtype=torch.uint8)
-    out[pos] = val[store]
-    return out
-
-
 # every vector width the old wrapper could pick: pixels of 2 to 392 bytes
 PLAN_PIXELS = [("bfloat16", c) for c in (1, 2, 4, 8, 33, 130, 196)] + [("float32", c) for c in (1, 2, 4, 33, 65)]
 
@@ -155,7 +125,7 @@ def test_k6_span_plan_reproduces_the_plain_version(dtype, c, window, base):
     assert bool((spans["fetch_lo"] <= spans["src"])[copied].all())
     assert bool((spans["src"] + spans["length"] <= spans["fetch_hi"])[copied].all())
     assert torch.equal(spans["shift"][copied], (spans["src"] - spans["dst"] - spans["head"])[copied] % 16)
-    got = _run_chunks(alloc, base, base + map_bytes, patch_chunks(spans, pixel, window), want.numel() * want.element_size())
+    got = run_span_chunks(alloc, base, base + map_bytes, patch_chunks(spans, pixel, window), want.numel() * want.element_size())
     assert torch.equal(got, want.reshape(-1).view(torch.uint8))
 
 
@@ -203,7 +173,7 @@ def test_k6_span_plan_matches_pallas_interpret(dtype, c):
     alloc[4:4 + map_bytes] = tfeat.reshape(-1).view(torch.uint8)
     spans = patch_spans(torch.from_numpy(r0), torch.from_numpy(c0), (h, w), pixel, window, feat_addr=4)
     out_bytes = n * k * window * window * pixel
-    got = _run_chunks(alloc, 4, 4 + map_bytes, patch_chunks(spans, pixel, window), out_bytes)
+    got = run_span_chunks(alloc, 4, 4 + map_bytes, patch_chunks(spans, pixel, window), out_bytes)
     got = got.view(tfeat.dtype).reshape(n, k, window * window, c)
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 

@@ -36,7 +36,6 @@ from onepose_plus_plus_tpu_torch.models import backbone as port_backbone, onepos
 from onepose_plus_plus_tpu_torch.models.backbone import ResNetFPN_8_2
 from onepose_plus_plus_tpu_torch.models.build import build_onepose_model
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel
-from onepose_plus_plus_tpu_torch.kernels import vector_bytes
 from onepose_plus_plus_tpu_torch.ops.window_gather import gather_windows_aligned
 from onepose_plus_plus_tpu_torch.utils.config_loader import load_config
 from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables
@@ -194,21 +193,6 @@ def test_sparse_route_makes_one_patch_gather_and_no_window_gather(monkeypatch):
     with torch.no_grad():
         model(batch)
     assert calls == {"K6": 1, "K3": 2}
-
-
-@pytest.mark.parametrize("row_bytes,pointers,want", [
-    (512, (0, 4096), 16),  # bf16 C = 256 / f32 C = 128: 16-byte vectors
-    (392, (0, 256), 8),  # bf16 C = 196 (the sparse FPN's pin map)
-    (260, (0, 256), 4),  # bf16 C = 130
-    (12, (0, 256), 4),  # f32 C = 3
-    (512, (8, 256), 8),  # a map that starts 8 bytes past an alignment
-    (512, (2, 256), 2),  # ... or 2 bytes: the 2-byte instance
-    (394, (0, 256), 2),  # bf16 C = 197: an odd number of bf16 values, 2-byte vectors
-])
-def test_k6_vector_width(row_bytes, pointers, want):
-    """The vector K3 and K4 pick at the pixels that took K6's vector instances
-    before K6 became a span copy (16-byte chunks at any pixel)."""
-    assert vector_bytes(row_bytes, *pointers) == want
 
 
 def test_options_reach_the_model_through_the_cli_overrides(monkeypatch):
