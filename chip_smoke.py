@@ -14,8 +14,12 @@ phase 2, and phase 10, which runs right after phase 6:
      timed with packed weights and split by launch, a bf16 layer at C = 64
      through K1's CUDA-core bf16 instance, and K1 at the JAX kernel's widths
      above 512 and a one-head layer ((640, 8), (768, 8), (1024, 8),
-     (2048, 16), (512, 1)) in both dtypes (the CUDA-core instances, each with
-     its device time, plain version and bound); K3 exact at the query shape (both
+     (2048, 16), (512, 1)) in both dtypes (f32: the CUDA-core instance; bf16:
+     the wide tensor-core instance, also at (256, 4) and (128, 8), bitwise
+     repeatable, faster than its plain version and the CUDA-core bf16
+     instance as whole calls; each with its device time, plain version and
+     bound), and the wide bf16 instance at self [4, 4096, C] for C = 512,
+     1024 and 2048 with its share of the operations bound; K3 exact at the query shape (both
      dtypes) and the train shape (f32), ids at the grid's corners and out of
      range, whole call and device time beside index_select; K2's bf16 (tensor-core)
      instance split by launch, its two launches bitwise equal, faster than its
@@ -75,7 +79,10 @@ phase 2, and phase 10, which runs right after phase 6:
      slots, LM) at full width on a 20-frame plane-rendered object of 512^2:
      every stage of run_sfm in its order, on in-memory images with the match
      gallery, PLY and h5 exports off (the card's machine has no matplotlib and
-     no h5py), launch counts, stage walls, pairs/s and peak memory; 8d the same
+     no h5py), launch counts, stage walls, pairs/s, peak memory and each
+     stage's peak, then descriptor extraction at its shape through the
+     self-pair refine it ran before (fine stage included) and through
+     extract, wall and peak memory of each, outputs bitwise equal; 8d the same
      stages in f32 on a 6-frame object of 256^2, GPU against CPU
   9  the serving entry points and K7: 9a K7 against its plain version at the
      fine transformer's four (L, S) shapes, M 8192 (and 8189, not a multiple
@@ -159,6 +166,7 @@ from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, no
 from onepose_plus_plus_tpu_torch.models.position_encoding import KeypointEncoder, sine_position_encoding
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain, k5_instance
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
+    PackedEncoderWeights,
     encoder_layer_plain,
     fused_encoder_layer,
     fused_encoder_layer_packed,
@@ -525,40 +533,99 @@ def phase2_k1_narrow(gen) -> None:
 
 
 K1_WIDE = ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1))  # (C, heads) the JAX kernel takes above 512 / wide heads
+K1_JAX_TEST_WIDTHS = ((256, 4), (128, 8))  # the JAX kernel's own tests' widths besides (256, 8)
+K1_TCW_REALISTIC = ((512, 8), (1024, 8), (2048, 16))  # the wide bf16 instance at self [4, 4096, C]
+
+
+def _cuda_core_bf16(packed: PackedEncoderWeights, ws: dict) -> PackedEncoderWeights:
+    """The same layer packed for K1's CUDA-core bf16 instance, which ran every
+    bf16 width but (256, 8) before the wide tensor-core instance: timed beside it."""
+    loose = tuple(ws[k].contiguous() for k in ("wq", "wk", "wv", "wmerge", "wmlp0", "wmlp1"))
+    return PackedEncoderWeights(torch.bfloat16, packed.nhead, packed.width, loose, packed.ln, instance="bf16")
 
 
 def phase2_k1_wide(gen) -> None:
-    """K1's CUDA-core instances at the JAX kernel's widths above 512 and at a
-    head as wide as the layer: the threads loop over the channels and the
-    [C, hd + 1] table is read through L2. Small shapes: seconds, not minutes."""
-    for c, nhead in K1_WIDE:
+    """K1 at the JAX kernel's widths above 512, at a head as wide as the layer
+    and at its own tests' other widths (256, 4), (128, 8): f32 operands on the
+    CUDA-core instance (threads loop over the channels, the [C, hd + 1] table
+    read through L2), bf16 operands on the wide tensor-core instance, held to
+    the plain version, bitwise repeatable, by kernel name, and timed as whole
+    calls beside the plain version and the CUDA-core bf16 instance that ran
+    these widths before. Small shapes: seconds, not minutes."""
+    for c, nhead in K1_WIDE + K1_JAX_TEST_WIDTHS:
         x, src, w = _encoder_inputs(gen, 150, 97, c=c, n=2)
         masks = {"x_mask": torch.rand(2, 150, generator=gen, device="cuda") < 0.8,
                  "source_mask": torch.rand(2, 97, generator=gen, device="cuda") < 0.8}
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            if dt == "f32" and (c, nhead) not in K1_WIDE:
+                continue
             ws = w if dtype == torch.float32 else {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
             packed = pack_encoder_weights(**ws, nhead=nhead, dtype=dtype)
             got = fused_encoder_layer_packed(x, src, packed, **masks)
+            again = fused_encoder_layer_packed(x, src, packed, **masks)
             ref = encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype)
             torch.cuda.synchronize()
             d = (got - ref).abs()
             tol = (1e-3, None) if dt == "f32" else (5e-2, 5e-3)
+            instance, names = ("f32", K1_CC_NAMES) if dt == "f32" else ("tcw", K1_TCW_NAMES)
             ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=5)
             pms = time_ms(lambda: encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype), reps=5)
             rows, _, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=3)
-            mine = [r for r in rows if _short(r[2]) in K1_CC_NAMES]  # the wrapper also casts the bool masks
-            check({_short(r[2]) for r in mine} == set(K1_CC_NAMES), f"K1 {dt} at C = {c} launches {launch_names(rows)}")
-            dev = sum(r[0] / r[1] for r in mine)  # one launch of each a call
+            mine = [r for r in rows if _short(r[2]) in names]  # the wrapper also casts the bool masks
+            check({_short(r[2]) for r in mine} == set(names)
+                  and not {_short(r[2]) for r in rows} & set(K1_NAMES) - set(names),
+                  f"K1 {dt} at C = {c} launches {launch_names(rows)}")
+            dev = sum(r[0] for r in mine) / 3  # device ms a call
             b = bound(*k1_work(2, 150, 97, c=c, nhead=nhead, w_bytes=dtype.itemsize), dtype)
+            cc = ""
+            if dt == "bf16":
+                cc_packed = _cuda_core_bf16(packed, ws)
+                cc_ms = time_ms(lambda: fused_encoder_layer_packed(x, src, cc_packed, **masks), reps=5)
+                cc = f", the CUDA-core bf16 instance {cc_ms:.3f} ms"
             log(f"[2] K1 {dt} at C = {c}, {nhead} heads, x{tuple(x.shape)} src{tuple(src.shape)} masked: instance "
                 f"{packed.instance!r}, max|d| {d.max().item():.3e} (<= {tol[0]:g}), mean|d| {d.mean().item():.3e}"
-                f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}; kernel {ms:.3f} ms whole call, device "
-                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms "
+                f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}, two launches bitwise equal "
+                f"{torch.equal(got, again)}; kernel {ms:.3f} ms whole call, device "
+                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms{cc} "
                 f"(medians of 5); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
                 f"{'67 TFLOP/s f32' if dt == 'f32' else '989 TFLOP/s bf16'}), {100 * b['bound_ms'] / dev:.1f} % of it "
                 f"by device time")
-            check(packed.instance == dt and bool(torch.isfinite(got).all()) and d.max().item() <= tol[0]
-                  and (tol[1] is None or d.mean().item() <= tol[1]), f"K1 {dt} at C = {c}, {nhead} heads disagrees")
+            check(packed.instance == instance and bool(torch.isfinite(got).all()) and d.max().item() <= tol[0]
+                  and (tol[1] is None or d.mean().item() <= tol[1]) and torch.equal(got, again),
+                  f"K1 {dt} at C = {c}, {nhead} heads disagrees")
+            if dt == "bf16":
+                check(ms < pms and ms < cc_ms, f"K1's wide tensor-core instance at C = {c}, {nhead} heads "
+                      f"({ms:.3f} ms) is not faster than its plain version ({pms:.3f}) and the CUDA cores ({cc_ms:.3f})")
+    phase2_k1_tcw_realistic(gen)
+
+
+def phase2_k1_tcw_realistic(gen) -> None:
+    """The wide bf16 instance at a shape that fills the card: self [4, 4096, C]
+    (256 row tiles), against the plain version, with its device time by launch
+    and its share of the operations bound."""
+    for c, nhead in K1_TCW_REALISTIC:
+        x, _, w = _encoder_inputs(gen, 4096, None, c=c, n=4)
+        ws = {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
+        packed = pack_encoder_weights(**ws, nhead=nhead, dtype=torch.bfloat16)
+        got = fused_encoder_layer_packed(x, x, packed)
+        ref = encoder_layer_plain(x, x, **ws, nhead=nhead, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        check(packed.instance == "tcw" and bool(torch.isfinite(got).all()) and d.max().item() <= 5e-2
+              and d.mean().item() <= 5e-3, f"K1 bf16 self [4, 4096, {c}] disagrees")
+        del got, ref
+        ms = time_ms(lambda: fused_encoder_layer_packed(x, x, packed), reps=10)
+        pms = time_ms(lambda: encoder_layer_plain(x, x, **ws, nhead=nhead, dtype=torch.bfloat16), reps=5)
+        rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
+        check(only_launches(rows, K1_TCW_NAMES), f"K1 bf16 self [4, 4096, {c}] launches {launch_names(rows)}")
+        b = bound(*k1_work(4, 4096, 4096, c=c, nhead=nhead, w_bytes=2), torch.bfloat16)
+        log(f"[2] K1 bf16 self [4, 4096, {c}], {nhead} heads (wide tensor-core instance): max|d| "
+            f"{d.max().item():.3e}, mean|d| {d.mean().item():.3e}; kernel {ms:.4f} ms whole call (median of 10), "
+            f"device {busy / 3:.4f} ms a call (every launch: {launch_names(rows)}), plain {pms:.3f} ms (median of 5); "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, 989 TFLOP/s bf16): {100 * b['bound_ms'] / (busy / 3):.1f} % "
+            f"of it by device time, {100 * b['bound_ms'] / ms:.1f} % by whole call")
+        del x
+        torch.cuda.empty_cache()
 
 
 K2_PREVIOUS_MS = 24.138  # bf16 on the CUDA-core tile at the recorded shape (NVIDIA H100 80GB HBM3, 700.00 W)
@@ -1208,7 +1275,9 @@ def launch_names(rows) -> str:
 K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")  # bf16, tensor cores
 K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")  # f32, C = 256
 K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")  # other widths, CUDA cores
-K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES
+K1_TCW_NAMES = ("tcw_pack_kernel", "tcw_gemm_kernel", "tcw_kv_reduce_kernel", "tcw_ln_image_kernel",
+                "tcw_ln_residual_kernel")  # bf16 at the other tensor-core widths
+K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES
 # K2's bf16 instance (tensor cores), its operand pack first; its f32 instance in
 # split TF32 (tensor cores), its pack first; its CUDA-core instance (wider f32)
 K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")
@@ -1849,19 +1918,27 @@ def sfm_stages(images, Ks, poses, corners, sc, matcher, device):
     export): pairs, coarse matching, merge, verification + triangulation, the
     post-optimisation (keyframes, refinement pairs, fine refinement, depth
     solve, write-back), filtering, descriptor extraction, annotations. Returns
-    the results, the stage walls (s, synchronised) and the matcher calls."""
+    the results, the stage walls (s, synchronised), each stage's peak device
+    memory (GiB, the peak counter reset before each stage; on the card) and
+    the matcher calls."""
     calls = {"coarse": 0, "refine": 0, "extract": 0}
     coarse_fn, refine_fn, extract_fn = make_loftr_fns(matcher)
     coarse_fn = _counted(coarse_fn, calls, "coarse")
     refine_fn = _counted(refine_fn, calls, "refine")
     extract_fn = _counted(extract_fn, calls, "extract")
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    walls, t = {}, time.perf_counter()
+    if device == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    walls, peaks, t = {}, {}, time.perf_counter()
 
     def lap(name):
         nonlocal t
         sync()
         walls[name] = time.perf_counter() - t
+        if device == "cuda":
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
 
     n = len(images)
@@ -1898,7 +1975,8 @@ def sfm_stages(images, Ks, poses, corners, sc, matcher, device):
     anno = build_annotations(imgs, points3d, fine_desc, coarse_descriptors=coarse_desc)
     lap("annotations")
     return {"pairs": pairs, "raw": raw, "coarse_xyz": coarse_xyz, "problems": problems, "depths": depths,
-            "refined": refined, "points3d": points3d, "anno": anno, "walls": walls, "calls": calls}
+            "refined": refined, "points3d": points3d, "anno": anno, "walls": walls, "peaks": peaks,
+            "calls": calls}
 
 
 def phase8c(smi: str):
@@ -1931,12 +2009,12 @@ def phase8c(smi: str):
     kernels.reset_launch_counts()
     res = sfm_stages(images, Ks, poses, corners, sc, matcher, "cuda")
     counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(res["peaks"].values())  # the stages reset the counter: the largest stage's peak
     calls = res["calls"]
     per_forward = 2 * len(matcher.cfg.coarse.layer_sequence)  # both streams of every coarse layer
     expected = {"K1_encoder_layer": per_forward * sum(calls.values()), "K2_rowcol_stats": calls["coarse"],
                 "K3_window_gather": 0, "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
-                "K6_patch_gather": 2 * (calls["refine"] + calls["extract"]),
+                "K6_patch_gather": 2 * calls["refine"],  # descriptor extraction gathers no window
                 "K7_short_encoder": 0}
     log(f"[8c] matcher calls {calls}; launches {counts} (expected {expected})")
     check(counts == expected, "a kernel of the SfM path was not launched as the calls imply")
@@ -1954,10 +2032,49 @@ def phase8c(smi: str):
         f"{len(anno['anno_2d'])} frames; peak memory {peak:.2f} GiB, on {smi}")
     log("[8c] stage walls (s, synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
         + f"; total {sum(walls.values()):.3f}")
+    log("[8c] peak memory by stage (GiB, the counter reset before each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in res["peaks"].items()) + f"; on {smi}")
     log(f"[8c] match_coarse: {len(res['pairs']) / walls['coarse matching']:.2f} pairs/s "
         f"({calls['coarse']} calls of {sc.pair_batch} pairs)")
     check(bool(finite) and len(pts) > 0 and st["num_points3D"] > 0, "the SfM run gave no finite points")
+    phase8c_extraction(matcher, pair_imgs, smi)
     return counts
+
+
+def phase8c_extraction(matcher: LoFTRMatcher, pair_imgs: np.ndarray, smi: str) -> None:
+    """Descriptor extraction at its shape (8 frames of 512^2, 4096 keypoint
+    slots) before and after it stopped running the fine stage: the self-pair
+    refine that the surface called before (windows, fine transformer,
+    soft-argmax, all unread) against ``extract``, each call's wall
+    (synchronised, median of 3) and peak device memory, and the two outputs
+    bitwise equal."""
+    rng = np.random.default_rng(83)
+    img = torch.from_numpy(np.ascontiguousarray(pair_imgs)).cuda()
+    kpts = torch.from_numpy(rng.uniform(0, 512, (pair_imgs.shape[0], 4096, 2)).astype(np.float32)).cuda()
+    mask = torch.ones(kpts.shape[:2], dtype=torch.bool, device="cuda")
+    calls = {"refine (self pair, fine stage)": lambda: matcher.refine(img, img, kpts, kpts, mask, extract_features=True),
+             "extract": lambda: matcher.extract(img, kpts)}
+    rec = {}
+    with torch.inference_mode():
+        for tag, fn in calls.items():
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            rec[tag] = (float(np.median(walls)), torch.cuda.max_memory_allocated() / 2 ** 30, out)
+            del out
+    (w0, p0, ref), (w1, p1, (fine, coarse)) = rec.values()
+    same = torch.equal(fine, ref["feat_fine_0"]) and torch.equal(coarse, ref["feat_coarse_0"])
+    log(f"[8c] descriptor extraction, {pair_imgs.shape[0]} frames of 512^2 x 4096 keypoints: the self-pair refine "
+        f"(before) {w0:.4f} s, peak {p0:.2f} GiB; extract (now) {w1:.4f} s, peak {p1:.2f} GiB; outputs bitwise "
+        f"equal {same}; on {smi}")
+    check(same, "extract and the self-pair refine give different descriptors")
 
 
 def phase8d() -> None:

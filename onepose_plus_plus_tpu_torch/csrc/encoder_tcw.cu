@@ -1,0 +1,622 @@
+// K1's bf16 instance on the tensor cores at the widths the 256-channel one
+// (encoder.cu, namespace tc) does not take: C a multiple of 64 from 128 to
+// 4096 whose head width C / heads is a multiple of 16, all but (256, 8).
+//
+// Replaces onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer
+// (_kv_stats_kernel + _apply_kernel) at those widths, with its precision rule:
+// every product operand (x, source, K', V, Q', K'^T[V|1], msg, the LN1 output,
+// the FFN hidden, the weights) is rounded to bf16, products sum in f32, the
+// LayerNorms and the residual stay f32 and the output is f32.
+//
+// Bound: operations (20 C^2 an x row, 4 C^2 a source row, and the attention's
+// 2 C (hd + 1) each). The 256-channel instance keeps a row tile's whole width
+// in shared memory; a [64, C] f32 tile is 1 MB at C = 4096, so this one
+// streams channels instead. The layer is a chain of products, each of the
+// same shape: a block of one warpgroup computes a [64 rows, 128 columns]
+// (or 136) output tile from 64-row A chunks and B chunks that arrive by bulk
+// copies through a ring (wgmma_gemm.cuh), every weight read once per 64 rows.
+// Operands live in device memory as bf16 byte images of the chunks a product
+// reads ("images": [batch][row tile][k chunk][64 x 64] in the core-matrix
+// layout), written by the previous product's epilogue, so every A chunk and
+// every B chunk is one contiguous copy. The weights are packed once per layer
+// on the host side ([column block][k chunk][128 out x 64 in], out rows past N
+// zero). The launches, in order:
+//   1. pack: the f32 source rows, rounded to bf16, as an image (rows past S zero).
+//   2. K and V: one product against [Wk; Wv] (N = 2C); its epilogue applies
+//      elu + 1 and the source mask to K' and writes K' and V transposed
+//      (channel-major images, the source rows as k), so that K'^T V is a
+//      K-major product too.
+//   3. stats: a block per (64 channels d, 128 value columns e of d's heads,
+//      a group of up to 16 source chunks) sums K'^T [V | 1] over its group:
+//      B is V^T's chunk plus 8 more rows, one of them ones, which the
+//      prologue writes into every stage once (the copies leave them alone),
+//      so column 128 is sum K'. It writes the group's partials of each head's
+//      K'_h^T V_h and sum K'_h ([C, hd + 1] a group).
+//   4. reduce: sums the groups' partials in group order and writes, per
+//      128-column block of the attention output, the B image
+//      [KV_h^T (block-diagonal) ; sum K'_h of the block's heads (8 rows)],
+//      bf16, only the k chunks of the block's heads.
+//   5. pack x; 6. Q' = (elu(x Wq) + 1) * mask, an image.
+//   7. attention: [num | den] = Q' [KV | sum K'] (N = 136), only over the
+//      block's heads' channels; the epilogue takes each column's denominator
+//      from its head's column (a quad shuffle) and writes msg, an image.
+//   8. merge: msg Wmerge in f32 to device memory, with each row's
+//      (mean, M2) over the block's columns.
+//   9. LN1: the partials merged in column-block order (Chan's formula), the
+//      rows normalised and written as an image.
+//  10. FFN hidden: relu([x | LN1] W0) (A from two images), an image.
+//  11. FFN out: hidden W1 in f32 with its row partials, as in 8.
+//  12. LN2 and the residual on the f32 x: y.
+// No atomics; every sum runs in a fixed order, so two launches are bitwise
+// equal. Every launch is checked with cudaGetLastError.
+#include "common.cuh"
+#include "wgmma.cuh"
+#include "wgmma_gemm.cuh"
+
+namespace {
+namespace tcw {
+
+namespace wg = opp::wg;
+namespace gm = opp::gemm;
+using opp::MAX_DEVICES;
+using opp::raise_smem_limit;
+using gm::in_chunk;
+
+constexpr int TM = 64;                    // rows of a tile
+constexpr int BN = 128;                   // output columns of a product block
+constexpr int NTA = BN + 8;               // the stats' and attention's: 8 columns of sums more
+constexpr int NST = 4;                    // ring stages: two blocks an SM
+constexpr int SG = 16;                    // source chunks a stats block sums
+constexpr uint32_t CHUNK = gm::A_CHUNK;   // 8192: an image chunk [64, 64]
+constexpr uint32_t W_CHUNK = BN * 128;    // 16384: a weight chunk [128, 64], a V^T chunk
+constexpr uint32_t KV_CHUNK = NTA * 128;  // 17408: an attention B chunk [136, 64]
+constexpr float EPS = 1e-6f;
+constexpr float LN_EPS = 1e-5f;
+
+enum Kind { KV_PROJ, STATS, QPROJ, ATT, RAW, RELU };
+
+struct Params {
+  const unsigned char* a0;  // A image: chunks 0..ka0-1 of a row tile
+  const unsigned char* a1;  // A image: chunks ka0..ka-1 (FFN hidden: [x | LN1])
+  int ka0, ka, a_tiles;     // k chunks of a row tile in a0, in all; row tiles a batch element
+  const unsigned char* b;   // B chunks [batch][column block][kb]
+  long long b_batch;        // bytes from one batch element's B chunks to the next (0: weights)
+  int kb;                   // chunks a column block has
+  uint32_t b_bytes;         // bytes of a B chunk
+  int n;                    // output columns
+  int C, hd, rows, tiles;   // width, head width, valid rows of A, row tiles of the output image
+  int G, n_src_chunks, nb;  // source groups, source chunks, 128-column blocks of C
+  int out_k;                // k chunks of the output image
+  const float* mask;
+  unsigned char* out0;      // output image (K'^T for KV_PROJ)
+  unsigned char* out1;      // V^T (KV_PROJ)
+  float* outf;              // f32 rows (RAW) or partials (STATS)
+  float* lnp;               // (mean, M2) per row and column block (RAW)
+};
+
+__device__ __forceinline__ float elu_p1_fast(float x) {  // as encoder.cu's tc::elu_p1_fast
+  return wg::ex2_fast(fminf(x, 0.f) * 1.4426950408889634f) + fmaxf(x, 0.f);
+}
+
+__device__ __forceinline__ void store_bf16x2(unsigned char* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
+// The 128-column blocks of V^T whose channels share a head with 64-channel tile i.
+__host__ __device__ __forceinline__ void value_blocks(int i, int hd, int& lo, int& hi) {
+  const int h_a = (TM * i) / hd, h_b = (TM * i + TM - 1) / hd;
+  lo = h_a * hd / BN;
+  hi = ((h_b + 1) * hd - 1) / BN;
+}
+// The heads [h_first, h_last] of attention column block nb, and the k chunks
+// [k_lo, k_hi) of Q' they read.
+__host__ __device__ __forceinline__ void head_chunks(int nb, int C, int hd, int& h_first, int& h_last,
+                                                     int& k_lo, int& k_hi) {
+  const int n0 = nb * BN;
+  h_first = n0 / hd;
+  h_last = ((n0 + BN < C ? n0 + BN : C) - 1) / hd;
+  k_lo = h_first * hd / 64;
+  k_hi = ((h_last + 1) * hd + 63) / 64;
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
+  constexpr int NT = (KIND == STATS || KIND == ATT) ? NTA : BN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r_loc[2] = {16 * w + g, 16 * w + g + 8};
+
+  int nb = blockIdx.x, rt = blockIdx.y, b = blockIdx.z, k0 = 0, k1 = p.ka, vb_lo = 0, grp = 0;
+  if constexpr (KIND == STATS) {  // rt: a 64-channel tile of K'^T; nb: a 128-column block of V^T
+    int vb_hi;
+    value_blocks(rt, p.hd, vb_lo, vb_hi);
+    nb = vb_lo + blockIdx.x;
+    if (nb > vb_hi) return;
+    b = blockIdx.z / p.G;
+    grp = blockIdx.z % p.G;
+    k0 = grp * SG;
+    k1 = min(p.n_src_chunks, k0 + SG);
+  } else if constexpr (KIND == ATT) {
+    int h_first, h_last;
+    head_chunks(nb, p.C, p.hd, h_first, h_last, k0, k1);
+  }
+  const size_t tile = (size_t)b * p.a_tiles + rt;
+  const auto a_of = [&](int u) -> const void* {
+    const int kc = k0 + u;
+    return kc < p.ka0 ? p.a0 + (tile * p.ka0 + kc) * CHUNK
+                      : p.a1 + (tile * (p.ka - p.ka0) + (kc - p.ka0)) * CHUNK;
+  };
+  const auto b_of = [&](int u) -> const void* {
+    return p.b + b * p.b_batch + ((size_t)nb * p.kb + k0 + u) * p.b_bytes;
+  };
+  const auto prologue = [&](unsigned char* s) {
+    if constexpr (KIND == STATS) {
+      // rows 128..135 of every stage's B: row 128 ones, the rest zeros
+      using S = gm::Smem<NT, NST>;
+      for (int i = tid; i < NST * 256; i += blockDim.x) {
+        const int st = i / 256, byte = (i % 256) * 4;
+        const uint32_t v = (byte % 128) < 16 ? 0x3F803F80u : 0u;
+        *reinterpret_cast<uint32_t*>(s + st * S::STAGE + CHUNK + W_CHUNK + byte) = v;
+      }
+    }
+  };
+
+  const auto epilogue = [&](float(&acc)[NT / 2]) {
+    if constexpr (KIND == KV_PROJ) {
+      // K' (columns < C) and V (the rest), written transposed: element (channel c,
+      // source row s) of K'^T at [b][c / 64][s / 64] chunk of 8 KB, of V^T at
+      // [b][c / 128][s / 64] chunk of 16 KB. Lanes g and g ^ 1 hold rows s and
+      // s ^ 1: they swap one value of each column pair, so that a thread stores
+      // two rows of one column as one word, a warp one 128-byte core matrix.
+      float m[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = rt * TM + r_loc[h];
+        m[h] = s < p.rows ? (p.mask != nullptr ? p.mask[(size_t)b * p.rows + s] : 1.f) : 0.f;
+      }
+      const bool odd = g & 1;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = nb * BN + 8 * j + 2 * t;
+        const bool is_k = nb * BN + 8 * j < p.C;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (is_k) {
+            v0 = elu_p1_fast(v0) * m[h];
+            v1 = elu_p1_fast(v1) * m[h];
+          }
+          const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+          const int c = (is_k ? n : n - p.C) + (odd ? 1 : 0);
+          const int s = (rt * TM + r_loc[h]) & ~1;
+          const float lo = odd ? got : v0, hi = odd ? v1 : got;
+          unsigned char* dst =
+              is_k ? p.out0 + (((size_t)b * (p.C / TM) + c / TM) * p.n_src_chunks + s / TM) * CHUNK +
+                         in_chunk(c % TM, s % TM)
+                   : p.out1 + (((size_t)b * p.nb + c / BN) * p.n_src_chunks + s / TM) * W_CHUNK +
+                         in_chunk(c % BN, s % TM);
+          store_bf16x2(dst, lo, hi);
+        }
+      }
+    } else if constexpr (KIND == STATS) {
+      // this group's partials: part[b][grp][d][e - first channel of d's head], sum K' at [d][hd]
+      float* out = p.outf + ((size_t)b * p.G + grp) * p.C * (p.hd + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = rt * TM + r_loc[h], head0 = (d / p.hd) * p.hd;
+        float* row = out + (size_t)d * (p.hd + 1);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = nb * BN + 8 * j + 2 * t + e;
+            if (col < p.C && col >= head0 && col < head0 + p.hd) row[col - head0] = acc[4 * j + 2 * h + e];
+          }
+        if (t == 0 && nb == vb_lo) row[p.hd] = acc[64 + 2 * h];  // column 128: sum K'
+      }
+    } else if constexpr (KIND == ATT) {
+      // msg = num / (den + 1e-6): column 128 + i holds the denominator of the
+      // block's i-th head, in the quad's thread i / 2 (register i % 2)
+      int h_first, h_last, kl, kh;
+      head_chunks(nb, p.C, p.hd, h_first, h_last, kl, kh);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = nb * BN + 8 * j;
+        if (n >= p.C) continue;
+        const int i = n / p.hd - h_first;  // the same in every lane
+        const int src = (lane & ~3) | (i >> 1);
+        const float d0 = __shfl_sync(0xffffffffu, (i & 1) ? acc[65] : acc[64], src);
+        const float d1 = __shfl_sync(0xffffffffu, (i & 1) ? acc[67] : acc[66], src);
+        const float inv0 = 1.f / (d0 + EPS), inv1 = 1.f / (d1 + EPS);
+        const int c = n + 2 * t;
+        unsigned char* chunk = p.out0 + (((size_t)b * p.tiles + rt) * p.out_k + c / TM) * CHUNK;
+        store_bf16x2(chunk + in_chunk(r_loc[0], c % TM), acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        store_bf16x2(chunk + in_chunk(r_loc[1], c % TM), acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+    } else if constexpr (KIND == QPROJ || KIND == RELU) {
+      float m[2] = {1.f, 1.f};
+      if constexpr (KIND == QPROJ) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rt * TM + r_loc[h];
+          m[h] = r < p.rows ? (p.mask != nullptr ? p.mask[(size_t)b * p.rows + r] : 1.f) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = nb * BN + 8 * j + 2 * t;
+        if (nb * BN + 8 * j >= p.n) continue;
+        unsigned char* chunk = p.out0 + (((size_t)b * p.tiles + rt) * p.out_k + c / TM) * CHUNK;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if constexpr (KIND == QPROJ) {
+            v0 = elu_p1_fast(v0) * m[h];
+            v1 = elu_p1_fast(v1) * m[h];
+          } else {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          store_bf16x2(chunk + in_chunk(r_loc[h], c % TM), v0, v1);
+        }
+      }
+    } else {  // RAW: f32 rows and each row's (mean, M2) over this block's columns
+      const int valid = min(16, (p.n - nb * BN) / 8);  // 8-column groups of this block inside N
+      const float inv_n = 1.f / (8 * valid);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t row = (size_t)b * p.tiles * TM + rt * TM + r_loc[h];
+        float* dst = p.outf + row * p.n + nb * BN + 2 * t;
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (j < valid) {
+            const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            s += v0 + v1;
+            *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(v0, v1);
+          }
+        const float mean = gm::quad_sum(s) * inv_n;
+        float m2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (j < valid) {
+            const float d0 = acc[4 * j + 2 * h] - mean, d1 = acc[4 * j + 2 * h + 1] - mean;
+            m2 += d0 * d0 + d1 * d1;
+          }
+        m2 = gm::quad_sum(m2);
+        if (t == 0) *reinterpret_cast<float2*>(p.lnp + (row * p.nb + nb) * 2) = make_float2(mean, m2);
+      }
+    }
+  };
+  gm::run<NT, NST>(smem, k1 - k0, a_of, b_of, p.b_bytes, prologue, epilogue);
+}
+
+// f32 rows [B, rows, C] -> a bf16 image [B, tiles, C / 64, 64 x 64], rows past `rows` zero.
+// Block (k chunk, row tile, batch); a thread writes 16 bytes (a core-matrix row) at a time.
+__global__ void tcw_pack_kernel(const float* __restrict__ src, unsigned char* __restrict__ img,
+                                int rows, int C, int tiles) {
+  const int kc = blockIdx.x, rt = blockIdx.y, b = blockIdx.z;
+  unsigned char* out = img + (((size_t)b * tiles + rt) * gridDim.x + kc) * CHUNK;
+  for (int q = threadIdx.x; q < 512; q += blockDim.x) {  // q = (row / 8) * 64 + (k / 8) * 8 + row % 8
+    const int row = rt * TM + (q >> 6) * 8 + (q & 7), k = kc * 64 + ((q >> 3) & 7) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows) {
+      const float4* s = reinterpret_cast<const float4*>(src + ((size_t)b * rows + row) * C + k);
+      const float4 x0 = s[0], x1 = s[1];
+      __nv_bfloat162 h[4] = {__floats2bfloat162_rn(x0.x, x0.y), __floats2bfloat162_rn(x0.z, x0.w),
+                             __floats2bfloat162_rn(x1.x, x1.y), __floats2bfloat162_rn(x1.z, x1.w)};
+      v = *reinterpret_cast<const uint4*>(h);
+    }
+    *reinterpret_cast<uint4*>(out + q * 16) = v;
+  }
+}
+
+// The attention's B image: block (k chunk, column block, batch) writes chunk
+// [136, 64] of column block nb: rows 0..127 KV^T (value column e, channel d:
+// the groups' partials summed in group order where e and d share a head, else
+// 0), rows 128.. sum K' of the block's heads; only the chunks of its heads.
+__global__ void tcw_kv_reduce_kernel(const float* __restrict__ part, unsigned char* __restrict__ kvimg,
+                                     int C, int hd, int G) {
+  const int kc = blockIdx.x, nb = blockIdx.y, b = blockIdx.z;
+  int h_first, h_last, k_lo, k_hi;
+  head_chunks(nb, C, hd, h_first, h_last, k_lo, k_hi);
+  if (kc < k_lo || kc >= k_hi) return;
+  __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(
+      kvimg + (((size_t)b * gridDim.y + nb) * gridDim.x + kc) * KV_CHUNK);
+  const size_t group = (size_t)C * (hd + 1);
+  for (int q = threadIdx.x; q < NTA * 64; q += blockDim.x) {  // q: the element at byte 2 q
+    const int n = (q >> 9) * 8 + ((q >> 3) & 7), d = kc * 64 + ((q >> 6) & 7) * 8 + (q & 7);
+    const int head = d / hd;
+    int col = -1;
+    if (n < BN) {
+      const int e = nb * BN + n;
+      if (e < C && e / hd == head) col = e - head * hd;
+    } else if (h_first + n - BN <= h_last && h_first + n - BN == head) {
+      col = hd;
+    }
+    float a = 0.f;
+    if (col >= 0)
+      for (int gi = 0; gi < G; ++gi) a += part[((size_t)b * G + gi) * group + (size_t)d * (hd + 1) + col];
+    out[q] = __float2bfloat16_rn(a);
+  }
+}
+
+// A row's LayerNorm statistics from its column blocks' (mean, M2), merged in
+// block order by Chan's formula; rstd over C columns (biased variance).
+__device__ __forceinline__ void row_stats(const float* __restrict__ lnp, size_t row, int nb, int C,
+                                          float& mean, float& rstd) {
+  const float2* q = reinterpret_cast<const float2*>(lnp) + row * nb;
+  float m = q[0].x, m2 = q[0].y, cnt = (float)min(BN, C);
+  for (int i = 1; i < nb; ++i) {
+    const float2 v = q[i];
+    const float c = (float)min(BN, C - i * BN), tot = cnt + c;
+    const float delta = v.x - m;
+    m += delta * (c / tot);
+    m2 += v.y + delta * delta * (cnt * c / tot);
+    cnt = tot;
+  }
+  mean = m;
+  rstd = rsqrtf(m2 / C + LN_EPS);
+}
+
+// LN1: every row of the f32 merge output (padded rows too) normalised and
+// written as a bf16 image. One warp a row; a lane writes 8 values at a time.
+__global__ void tcw_ln_image_kernel(const float* __restrict__ raw, const float* __restrict__ lnp,
+                                    const float* __restrict__ scale, const float* __restrict__ bias,
+                                    unsigned char* __restrict__ img, int n_rows, int tiles, int C, int nb) {
+  const size_t row = (size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= (size_t)n_rows) return;
+  const int lane = threadIdx.x & 31;
+  float mean, rstd;
+  row_stats(lnp, row, nb, C, mean, rstd);
+  const size_t b = row / (tiles * TM);
+  const int r = row % (tiles * TM);
+  const float* src = raw + row * C;
+  for (int k = 8 * lane; k < C; k += 256) {
+    const float4 x0 = *reinterpret_cast<const float4*>(src + k), x1 = *reinterpret_cast<const float4*>(src + k + 4);
+    const float4 s0 = *reinterpret_cast<const float4*>(scale + k), s1 = *reinterpret_cast<const float4*>(scale + k + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(bias + k), b1 = *reinterpret_cast<const float4*>(bias + k + 4);
+    __nv_bfloat162 h[4] = {
+        __floats2bfloat162_rn((x0.x - mean) * rstd * s0.x + b0.x, (x0.y - mean) * rstd * s0.y + b0.y),
+        __floats2bfloat162_rn((x0.z - mean) * rstd * s0.z + b0.z, (x0.w - mean) * rstd * s0.w + b0.w),
+        __floats2bfloat162_rn((x1.x - mean) * rstd * s1.x + b1.x, (x1.y - mean) * rstd * s1.y + b1.y),
+        __floats2bfloat162_rn((x1.z - mean) * rstd * s1.z + b1.z, (x1.w - mean) * rstd * s1.w + b1.w)};
+    unsigned char* chunk = img + ((b * tiles + r / TM) * (C / 64) + k / 64) * CHUNK;
+    *reinterpret_cast<uint4*>(chunk + in_chunk(r % TM, k % 64)) = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+// LN2 and the residual: y = x + LN(FFN out) for the L valid rows of each batch element.
+__global__ void tcw_ln_residual_kernel(const float* __restrict__ raw, const float* __restrict__ lnp,
+                                       const float* __restrict__ scale, const float* __restrict__ bias,
+                                       const float* __restrict__ x, float* __restrict__ y, int B, int L,
+                                       int tiles, int C, int nb) {
+  const size_t out_row = (size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (out_row >= (size_t)B * L) return;
+  const int lane = threadIdx.x & 31;
+  const size_t row = (out_row / L) * tiles * TM + out_row % L;  // in the padded rows
+  float mean, rstd;
+  row_stats(lnp, row, nb, C, mean, rstd);
+  const float* src = raw + row * C;
+  for (int k = 4 * lane; k < C; k += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(src + k);
+    const float4 s = *reinterpret_cast<const float4*>(scale + k);
+    const float4 bi = *reinterpret_cast<const float4*>(bias + k);
+    const float4 xv = *reinterpret_cast<const float4*>(x + out_row * C + k);
+    *reinterpret_cast<float4*>(y + out_row * C + k) =
+        make_float4(xv.x + ((v.x - mean) * rstd * s.x + bi.x), xv.y + ((v.y - mean) * rstd * s.y + bi.y),
+                    xv.z + ((v.z - mean) * rstd * s.z + bi.z), xv.w + ((v.w - mean) * rstd * s.w + bi.w));
+  }
+}
+
+// The scratch of one call, carved from one buffer (every piece 128-byte aligned).
+struct Layout {
+  int CK, NB, LT, ST, G, hd;
+  size_t sa, kt, vt, part, kv, xa, qa, ma, hid, raw, lnp, total;
+  Layout(int B, int L, int S, int C, int nhead, bool self) {
+    CK = C / 64;
+    NB = (C + BN - 1) / BN;
+    LT = (L + TM - 1) / TM;
+    ST = (S + TM - 1) / TM;
+    G = (ST + SG - 1) / SG;
+    hd = C / nhead;
+    size_t at = 0;
+    const auto take = [&](size_t bytes) {
+      const size_t here = at;
+      at += (bytes + 127) / 128 * 128;
+      return here;
+    };
+    const size_t x_img = (size_t)B * LT * CK * CHUNK;
+    xa = take(x_img);
+    sa = self ? xa : take((size_t)B * ST * CK * CHUNK);
+    kt = take((size_t)B * CK * ST * CHUNK);
+    vt = take((size_t)B * NB * ST * W_CHUNK);
+    part = take((size_t)B * G * C * (hd + 1) * 4);
+    kv = take((size_t)B * NB * CK * KV_CHUNK);
+    qa = take(x_img);  // Q', then the LN1 output
+    ma = take(x_img);
+    hid = take(2 * x_img);
+    raw = take((size_t)B * LT * TM * C * 4);
+    lnp = take((size_t)B * LT * TM * NB * 8);
+    total = at;
+  }
+};
+
+bool takes(int C, int nhead) {
+  return C % 64 == 0 && C >= 128 && C <= 4096 && nhead > 0 && C % nhead == 0 && (C / nhead) % 16 == 0;
+}
+
+template <int KIND>
+cudaError_t gemm(const Params& p, dim3 grid, cudaStream_t stream) {
+  constexpr int NT = (KIND == STATS || KIND == ATT) ? NTA : BN;
+  constexpr size_t smem = gm::Smem<NT, NST>::BYTES;
+  static int have[MAX_DEVICES];
+  raise_smem_limit(tcw_gemm_kernel<KIND>, smem, have);
+  tcw_gemm_kernel<KIND><<<grid, 128, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+#define OPP_CHECK(call)                 \
+  do {                                  \
+    const cudaError_t e_ = (call);      \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)
+
+int launch(const float* x, const float* src, const void* wkv, const void* wapply, const float* ln1s,
+           const float* ln1b, const float* ln2s, const float* ln2b, const float* qmask,
+           const float* smask, void* scratch, float* y, int B, int L, int S, int C, int nhead,
+           cudaStream_t stream) {
+  if (B <= 0 || L <= 0 || S <= 0 || !takes(C, nhead)) return (int)cudaErrorInvalidValue;
+  const bool self = x == src && L == S;
+  const Layout lay(B, L, S, C, nhead, self);
+  const int CK = lay.CK, NB = lay.NB, LT = lay.LT, ST = lay.ST, G = lay.G, hd = lay.hd;
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  unsigned char *sa = base + lay.sa, *kt = base + lay.kt, *vt = base + lay.vt, *kv = base + lay.kv;
+  unsigned char *xa = base + lay.xa, *qa = base + lay.qa, *ma = base + lay.ma, *hid = base + lay.hid;
+  float* part = reinterpret_cast<float*>(base + lay.part);
+  float* raw = reinterpret_cast<float*>(base + lay.raw);
+  float* lnp = reinterpret_cast<float*>(base + lay.lnp);
+  const unsigned char* wa = static_cast<const unsigned char*>(wapply);
+  const unsigned char* wq = wa;
+  const unsigned char* wm = wq + (size_t)NB * CK * W_CHUNK;
+  const unsigned char* w0 = wm + (size_t)NB * CK * W_CHUNK;
+  const unsigned char* w1 = w0 + (size_t)CK * 2 * CK * W_CHUNK;
+
+  // source side: pack, K' and V (transposed), the stats, their reduction
+  if (!self) {
+    tcw_pack_kernel<<<dim3(CK, ST, B), 256, 0, stream>>>(src, sa, S, C, ST);
+    OPP_CHECK(cudaGetLastError());
+  }
+  tcw_pack_kernel<<<dim3(CK, LT, B), 256, 0, stream>>>(x, xa, L, C, LT);
+  OPP_CHECK(cudaGetLastError());
+  Params p{};
+  p.C = C;
+  p.hd = hd;
+  p.G = G;
+  p.n_src_chunks = ST;
+  p.nb = NB;
+  p.a0 = sa;
+  p.ka0 = p.ka = CK;
+  p.a_tiles = ST;
+  p.b = static_cast<const unsigned char*>(wkv);
+  p.kb = CK;
+  p.b_bytes = W_CHUNK;
+  p.n = 2 * C;
+  p.rows = S;
+  p.mask = smask;
+  p.out0 = kt;
+  p.out1 = vt;
+  OPP_CHECK(gemm<KV_PROJ>(p, dim3(2 * C / BN, ST, B), stream));
+
+  int widest = 0;  // value blocks a channel tile needs, at most
+  for (int i = 0; i < CK; ++i) {
+    int lo, hi;
+    value_blocks(i, hd, lo, hi);
+    widest = hi - lo + 1 > widest ? hi - lo + 1 : widest;
+  }
+  Params s{};
+  s.C = C;
+  s.hd = hd;
+  s.G = G;
+  s.n_src_chunks = ST;
+  s.nb = NB;
+  s.a0 = kt;
+  s.ka0 = s.ka = ST;
+  s.a_tiles = CK;
+  s.b = vt;
+  s.b_batch = (long long)NB * ST * W_CHUNK;
+  s.kb = ST;
+  s.b_bytes = W_CHUNK;
+  s.outf = part;
+  OPP_CHECK(gemm<STATS>(s, dim3(widest, CK, B * G), stream));
+  tcw_kv_reduce_kernel<<<dim3(CK, NB, B), 256, 0, stream>>>(part, kv, C, hd, G);
+  OPP_CHECK(cudaGetLastError());
+
+  // x side: Q', attention, merge, LN1, FFN, LN2 + residual
+  Params a{};
+  a.C = C;
+  a.hd = hd;
+  a.nb = NB;
+  a.rows = L;
+  a.tiles = LT;
+  a.a_tiles = LT;
+  a.out_k = CK;
+
+  a.a0 = xa;
+  a.ka0 = a.ka = CK;
+  a.b = wq;
+  a.kb = CK;
+  a.b_bytes = W_CHUNK;
+  a.n = C;
+  a.mask = qmask;
+  a.out0 = qa;
+  OPP_CHECK(gemm<QPROJ>(a, dim3(NB, LT, B), stream));
+
+  a.a0 = qa;
+  a.b = kv;
+  a.b_batch = (long long)NB * CK * KV_CHUNK;
+  a.b_bytes = KV_CHUNK;
+  a.mask = nullptr;
+  a.out0 = ma;
+  OPP_CHECK(gemm<ATT>(a, dim3(NB, LT, B), stream));
+
+  a.a0 = ma;
+  a.b = wm;
+  a.b_batch = 0;
+  a.b_bytes = W_CHUNK;
+  a.outf = raw;
+  a.lnp = lnp;
+  OPP_CHECK(gemm<RAW>(a, dim3(NB, LT, B), stream));
+  const int n_rows = B * LT * TM;
+  tcw_ln_image_kernel<<<(n_rows + 7) / 8, 256, 0, stream>>>(raw, lnp, ln1s, ln1b, qa, n_rows, LT, C, NB);
+  OPP_CHECK(cudaGetLastError());
+
+  a.a0 = xa;
+  a.a1 = qa;  // the LN1 output
+  a.ka0 = CK;
+  a.ka = 2 * CK;
+  a.b = w0;
+  a.kb = 2 * CK;
+  a.n = 2 * C;
+  a.out0 = hid;
+  a.out_k = 2 * CK;
+  OPP_CHECK(gemm<RELU>(a, dim3(2 * C / BN, LT, B), stream));
+
+  a.a0 = hid;
+  a.a1 = nullptr;
+  a.ka0 = a.ka = 2 * CK;
+  a.b = w1;
+  a.n = C;
+  a.outf = raw;
+  a.lnp = lnp;
+  OPP_CHECK(gemm<RAW>(a, dim3(NB, LT, B), stream));
+  tcw_ln_residual_kernel<<<(B * L + 7) / 8, 256, 0, stream>>>(raw, lnp, ln2s, ln2b, x, y, B, L, LT, C, NB);
+  OPP_CHECK(cudaGetLastError());
+  return 0;
+}
+
+#undef OPP_CHECK
+
+}  // namespace tcw
+}  // namespace
+
+// bf16 operands on the tensor cores at the other widths (C a multiple of 64
+// from 128 to 4096, head width a multiple of 16). wkv: [Wk; Wv] as [C / 64
+// column blocks][C / 64 k chunks] of [128 out, 64 in] bf16 chunks; wapply: Wq
+// and Wmerge ([ceil(C / 128)][C / 64] chunks each, out rows past C zero), W0
+// ([C / 64][2 C / 64]), W1 ([ceil(C / 128)][2 C / 64]). scratch:
+// opp_encoder_tcw_scratch_bytes bytes, 128-byte aligned.
+extern "C" int opp_encoder_layer_tcw(const float* x, const float* src, const void* wkv,
+                                     const void* wapply, const float* ln1s, const float* ln1b,
+                                     const float* ln2s, const float* ln2b, const float* qmask,
+                                     const float* smask, void* scratch, float* y, int B, int L, int S,
+                                     int C, int nhead, void* stream) {
+  return tcw::launch(x, src, wkv, wapply, ln1s, ln1b, ln2s, ln2b, qmask, smask, scratch, y, B, L, S,
+                     C, nhead, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of scratch a call needs (self: x and source are one tensor); 0 where no instance takes C.
+extern "C" long long opp_encoder_tcw_scratch_bytes(int B, int L, int S, int C, int nhead, int self) {
+  if (B <= 0 || L <= 0 || S <= 0 || !tcw::takes(C, nhead)) return 0;
+  return (long long)tcw::Layout(B, L, S, C, nhead, self != 0 && L == S).total;
+}

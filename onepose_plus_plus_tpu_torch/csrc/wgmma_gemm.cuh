@@ -1,0 +1,151 @@
+// One tensor-core product loop for kernels that run a chain of products over
+// operands in device memory (K1's wide bf16 instance, encoder_tcw.cu): a block
+// of one warpgroup computes acc[64, NT] = sum over n chunks u of A_u B_u^T,
+// A_u a [64 rows, 64 k] chunk and B_u an [NT rows, 64 k] chunk (a torch
+// Linear weight's [out, in] orientation), both bf16 byte images of wgmma's
+// unswizzled K-major core-matrix layout (wgmma.cuh):
+//     element (r, k) of a chunk at byte (r / 8) * 1024 + (k / 8) * 128 + (r % 8) * 16 + (k % 8) * 2,
+// i.e. LBO = 128 (the next 8 k), SBO = 1024 (the next 8 rows). The caller's
+// functors give each chunk's device address; one bulk copy (cp.async.bulk +
+// mbarrier) brings each operand's chunk into a ring of NST stages, and a
+// chunk's four k16 products stay in flight while the next chunk's are issued.
+// The four products of a chunk are one unrolled chain (a compile-time trip
+// count); chunks are counted at run time. A prologue functor writes shared
+// memory before the first copy (a constant block of B that the copies leave
+// alone, say); the epilogue functor gets the f32 accumulator fragments:
+// thread (w = warp, g = lane / 4, t = lane % 4) holds acc[4 j + 2 h + e] =
+// D[16 w + g + 8 h][8 j + 2 t + e].
+#pragma once
+
+#include "wgmma.cuh"
+
+namespace opp {
+namespace gemm {
+
+namespace wg = opp::wg;
+
+constexpr int TM = 64;                      // rows of A, of a block's output
+constexpr uint32_t A_CHUNK = TM * 64 * 2;   // 8192 bytes: A [64, 64] bf16
+constexpr uint32_t LBO = 128, SBO = 1024;
+
+// Shared memory of a block: NST stages of an A chunk and an [NT, 64] B chunk, the barriers.
+template <int NT, int NST>
+struct Smem {
+  static constexpr uint32_t B_CHUNK = NT * 128;
+  static constexpr uint32_t STAGE = A_CHUNK + B_CHUNK;
+  static constexpr size_t BYTES = (size_t)NST * STAGE + 8 * NST;
+  static_assert(STAGE % 128 == 0, "stages stay 128-byte aligned");
+};
+
+// D[64, 136] (+)= A[64, 16] * B[136, 16]^T, bf16 operands from shared memory, f32 accumulators.
+__device__ __forceinline__ void mma_n136(float (&d)[68], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67},"
+      " %68, %69, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int NT>
+__device__ __forceinline__ void mma(float (&d)[NT / 2], uint64_t a, uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  wg::mma_n128(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void mma<136>(float (&d)[68], uint64_t a, uint64_t b, int scale_d) {
+  mma_n136(d, a, b, scale_d);
+}
+
+// The block's product over chunks 0..n-1 (n >= 1): a_of(u) / b_of(u) give the
+// device addresses of chunk u's A and B (16-byte aligned), b_bytes the bytes
+// of B to copy (at most Smem<NT, NST>::B_CHUNK; rows past them keep what the
+// prologue wrote). prologue(smem) runs once, before the first copy;
+// epilogue(acc) once the last product is in the registers. Every thread of
+// the warpgroup calls this.
+template <int NT, int NST, class AOf, class BOf, class Pro, class Epi>
+__device__ __forceinline__ void run(unsigned char* smem, int n, AOf a_of, BOf b_of, uint32_t b_bytes,
+                                    Pro prologue, Epi epilogue) {
+  using S = Smem<NT, NST>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * S::STAGE);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
+    wg::mbar_init_fence();
+  }
+  prologue(smem);
+  wg::fence_proxy_async();
+  __syncthreads();
+  const auto fetch = [&](int u) {
+    const int st = u % NST;
+    unsigned char* stage = smem + st * S::STAGE;
+    wg::mbar_expect_tx(full + st, A_CHUNK + b_bytes);
+    wg::bulk_load(stage, a_of(u), A_CHUNK, full + st);
+    wg::bulk_load(stage + A_CHUNK, b_of(u), b_bytes, full + st);
+  };
+  if (tid == 0)
+    for (int u = 0; u < NST && u < n; ++u) fetch(u);
+
+  float acc[NT / 2];
+#pragma unroll 1
+  for (int u = 0; u < n; ++u) {
+    const int st = u % NST;
+    wg::mbar_wait(full + st, (u / NST) & 1);
+    const uint32_t a = wg::smem_u32(smem + st * S::STAGE), b = a + A_CHUNK;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma<NT>(acc, wg::desc(a + kk * 2 * LBO, LBO, SBO), wg::desc(b + kk * 2 * LBO, LBO, SBO),
+              (u > 0 || kk > 0) ? 1 : 0);
+    wg::commit();
+    if (u > 0) {
+      // chunk u - 1's products are done in every warp: its stage takes chunk u - 1 + NST
+      wg::wait<1>();
+      __syncthreads();
+      if (tid == 0 && u - 1 + NST < n) fetch(u - 1 + NST);
+    }
+  }
+  wg::wait<0>();
+  wg::fence_regs(acc);
+  epilogue(acc);
+}
+
+// Sum over the four lanes of a quad (one accumulator row's threads), in a fixed order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Byte offset of element (r, k) of a [rows, 64] chunk image.
+__host__ __device__ __forceinline__ uint32_t in_chunk(int r, int k) {
+  return (r >> 3) * 1024 + (k >> 3) * 128 + (r & 7) * 16 + (k & 7) * 2;
+}
+
+}  // namespace gemm
+}  // namespace opp

@@ -33,7 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# exported C functions: name -> argument types (all return int)
+# exported C functions: name -> argument types (all return int but those in _RESTYPES)
 _SIGNATURES = {
     "opp_encoder_layer_f32": [_P] * 17 + [_I] * 5 + [_P],
     "opp_encoder_layer_bf16": [_P] * 17 + [_I] * 5 + [_P],
@@ -41,6 +41,8 @@ _SIGNATURES = {
     "opp_encoder_layer_tf32x3": [_P] * 14 + [_I] * 3 + [_P],
     "opp_encoder_source_tiles": [_I, _I],
     "opp_encoder_tc_source_tiles": [_I],
+    "opp_encoder_layer_tcw": [_P] * 12 + [_I] * 5 + [_P],
+    "opp_encoder_tcw_scratch_bytes": [_I] * 6,
     "opp_rowcol_stats_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_tf32x3": [_P] * 12 + [_I] * 4 + [_F, _P],
@@ -68,6 +70,8 @@ _SIGNATURES = {
     "opp_short_encoder_tc": [_P] * 8 + [_I] * 5 + [_P],
 }
 
+_RESTYPES = {"opp_encoder_tcw_scratch_bytes": ctypes.c_longlong}
+
 
 class KernelLibrary:
     """The loaded kernel library and how it was built."""
@@ -80,7 +84,7 @@ class KernelLibrary:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self.lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
 
     def call(self, name: str, *args) -> None:
         """Call an exported launcher; raise if CUDA reported an error."""

@@ -157,9 +157,10 @@ def make_loftr_fns(model: LoFTRMatcher) -> Tuple[Callable, Callable, Callable]:
 
     @torch.inference_mode()
     def extract_fn(img, kpts, mask):
-        # a self-pair refine call reuses the feature-sampling path
-        img, kpts = dev(img), dev(kpts)
-        out = model.refine(img, img, kpts, kpts, dev(mask), extract_features=True)
-        return {"feat_fine": out["feat_fine_0"].cpu(), "feat_coarse": out["feat_coarse_0"].cpu()}
+        # the self-pair refine's feat_fine_0 / feat_coarse_0 (the JAX function's
+        # definition), without the fine stage that neither reads: JAX's jit
+        # never computes those unread outputs, the eager port must skip them
+        fine, coarse = model.extract(dev(img), dev(kpts))
+        return {"feat_fine": fine.cpu(), "feat_coarse": coarse.cpu()}
 
     return coarse_match_fn, refine_fn, extract_fn

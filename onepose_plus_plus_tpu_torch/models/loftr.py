@@ -21,7 +21,7 @@ use K static match slots with validity masks. Images are [N, H, W, 1] floats.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
@@ -193,14 +193,31 @@ class LoFTRMatcher(nn.Module):
             "match_mask": match_mask,
         }
         if extract_features:
-            n, _, c = feat0.shape
-            feat0_map = feat0.reshape(n, hw0_c[0], hw0_c[1], c)
-            feat1_map = feat1.reshape(n, hw1_c[0], hw1_c[1], c)
-            out["feat_coarse_0"] = bilinear_sample(feat0_map, mkpts0_c / scale_c)
-            out["feat_coarse_1"] = bilinear_sample(feat1_map, mkpts1_c / scale_c)
-            out["feat_fine_0"] = bilinear_sample(f0_map, mkpts0_c / scale_f)
-            out["feat_fine_1"] = bilinear_sample(f1_map, mkpts1_f / scale_f)
+            out["feat_coarse_0"], out["feat_fine_0"] = self._sample_features(
+                feat0, hw0_c, f0_map, mkpts0_c, scale_c, scale_f)
+            out["feat_coarse_1"], out["feat_fine_1"] = self._sample_features(
+                feat1, hw1_c, f1_map, mkpts1_f, scale_c, scale_f, mkpts1_c)
         return out
+
+    @staticmethod
+    def _sample_features(feat, hw_c, f_map, kpts_f, scale_c, scale_f, kpts_c=None):
+        """(coarse, fine) features at keypoints: the coarse transformer's output
+        at ``kpts_c`` (default ``kpts_f``), the backbone's fine map at ``kpts_f``."""
+        n, _, c = feat.shape
+        feat_map = feat.reshape(n, hw_c[0], hw_c[1], c)
+        kpts_c = kpts_f if kpts_c is None else kpts_c
+        return bilinear_sample(feat_map, kpts_c / scale_c), bilinear_sample(f_map, kpts_f / scale_f)
+
+    def extract(self, img: torch.Tensor, kpts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(feat_fine, feat_coarse) at keypoints [N, K, 2]: what ``refine(img,
+        img, kpts, kpts, mask, extract_features=True)`` returns as
+        ``feat_fine_0`` / ``feat_coarse_0``, computed the same way (the
+        self-pair coarse transformer included), without the fine windows, the
+        fine transformer and the soft-argmax that those two never read."""
+        feat0, _, hw0_c, _, f0_map, _ = self._coarse_features(img, img)
+        h_i, h_f = img.shape[1], f0_map.shape[1]
+        coarse, fine = self._sample_features(feat0, hw0_c, f0_map, kpts, h_i / hw0_c[0], h_i / h_f)
+        return fine, coarse
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor) -> Dict[str, Any]:
         return self.match(img0, img1)

@@ -1,7 +1,8 @@
 """K1: one LoFTR linear-attention encoder layer as a hand-written CUDA kernel.
 
 Replaces ``onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer``
-(``_kv_stats_kernel`` and ``_apply_kernel``). Source: ``csrc/encoder.cu``.
+(``_kv_stats_kernel`` and ``_apply_kernel``). Sources: ``csrc/encoder.cu``,
+``csrc/encoder_tcw.cu``.
 
 The layer (reference ``loftr_module/transformer.py:7-58``): Q/K/V projection,
 elu+1 linear attention, merge, LayerNorm, FFN over concat(x, msg) with ReLU,
@@ -11,7 +12,7 @@ partials and summed by a second small launch (deterministic, no atomics), then
 one block per x tile runs the whole rest of the layer in shared memory.
 
 What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
-row), every product computed in the kernel's own body. Four instances, chosen
+row), every product computed in the kernel's own body. Five instances, chosen
 by :func:`k1_instance` from the operand type and the width, all counted as
 ``K1_encoder_layer``:
 
@@ -27,7 +28,17 @@ by :func:`k1_instance` from the operand type and the width, all counted as
   (~2^-22 relative, f32 accuracy), activations as f32 tiles split into A
   fragments in registers, the weights packed once as hi and lo images; the
   per-head K'^T[V|1] and attention products in f32 FMAs on the CUDA cores.
-- ``"bf16"``: **bfloat16 operands at any other width** run the CUDA-core
+- ``"tcw"``: **bfloat16 operands at the other widths that the tensor cores
+  take** (C a multiple of 64 from 128 to 4096, head width a multiple of 16:
+  (128, 8), (256, 4), (512, 1), (640, 8), ..., (4096, 32)) run on the tensor
+  cores as a chain of products (``csrc/encoder_tcw.cu``): every launch works
+  on 64-row tiles, its operands bf16 images of ``wgmma`` chunks in device
+  memory, the weights packed once ([column block][k chunk][128 out x 64 in],
+  :func:`pack_weight_chunks_tcw`) and streamed by bulk copies; the stats as
+  per-group partials of K'^T[V|1] reduced in group order, the LayerNorms from
+  per-column-block (mean, M2) partials merged in block order.
+- ``"bf16"``: **bfloat16 operands at the widths left** (C = 32, C = 64, a head
+  width that is not a multiple of 16, C not a multiple of 64) run the CUDA-core
   kernels with bf16 weights, each product operand rounded to bf16 as it is
   staged.
 - ``"f32"``: **float32 operands at any other width** keep exact f32 FMAs on
@@ -70,19 +81,49 @@ _TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instances' only width
 _CHUNK_K = 64  # input columns of one packed bf16 weight chunk
 _TF32_CHUNK_K = 8  # input columns of one packed split-TF32 weight chunk
 _CC_MAX_WIDTH = 4096  # the CUDA-core instances' widest layer (csrc/encoder.cu::MAX_CC_C)
+TCW_BLOCK = 128  # output columns of a "tcw" product block (csrc/encoder_tcw.cu::BN)
+TCW_TILE = 64  # rows of a "tcw" tile, and channels of a k chunk
+TCW_SOURCE_GROUP = 16  # source chunks a "tcw" stats block sums (csrc/encoder_tcw.cu::SG)
+
+
+def tcw_takes(c: int, nhead: int) -> bool:
+    """Whether the wide tensor-core instance's kernels take (C, heads): C a
+    multiple of 64 from 128 to 4096 and a head width that is a multiple of 16
+    (one bf16 ``wgmma`` k step)."""
+    return c % 64 == 0 and 128 <= c <= 4096 and nhead > 0 and c % nhead == 0 and (c // nhead) % 16 == 0
 
 
 def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
     """The K1 instance that runs a layer of width ``c`` with ``nhead`` heads on
-    ``dtype`` operands: ``"tc"`` (tensor cores, bf16), ``"tf32x3"`` (tensor
-    cores, f32 in split TF32), ``"bf16"`` (CUDA cores, bf16 operands), ``"f32"``
-    (CUDA cores, exact), or None where no instance takes it."""
+    ``dtype`` operands: ``"tc"`` (tensor cores, bf16, C = 256 with 8 heads),
+    ``"tf32x3"`` (tensor cores, f32 in split TF32, the same width), ``"tcw"``
+    (tensor cores, bf16, the other widths :func:`tcw_takes` names), ``"bf16"``
+    (CUDA cores, bf16 operands, the widths left), ``"f32"`` (CUDA cores,
+    exact), or None where no instance takes it."""
     if (dtype not in KERNEL_DTYPES or nhead <= 0 or c % 32 != 0 or not 0 < c <= _CC_MAX_WIDTH
             or c % nhead != 0):
         return None
     if (c, nhead) == (_TC_WIDTH, _TC_HEADS):
         return "tc" if dtype == torch.bfloat16 else "tf32x3"
-    return "bf16" if dtype == torch.bfloat16 else "f32"
+    if dtype == torch.bfloat16:
+        return "tcw" if tcw_takes(c, nhead) else "bf16"
+    return "f32"
+
+
+def tcw_value_blocks(i: int, hd: int) -> Tuple[int, int]:
+    """The 128-column blocks [lo, hi] of V^T whose channels share a head with
+    the "tcw" stats' 64-channel tile i (``encoder_tcw.cu::value_blocks``)."""
+    h_a, h_b = (TCW_TILE * i) // hd, (TCW_TILE * i + TCW_TILE - 1) // hd
+    return h_a * hd // TCW_BLOCK, ((h_b + 1) * hd - 1) // TCW_BLOCK
+
+
+def tcw_head_chunks(nb: int, c: int, hd: int) -> Tuple[int, int, int, int]:
+    """(h_first, h_last, k_lo, k_hi): the heads of the "tcw" attention's column
+    block nb and the 64-channel k chunks [k_lo, k_hi) of Q' it reads
+    (``encoder_tcw.cu::head_chunks``)."""
+    n0 = nb * TCW_BLOCK
+    h_first, h_last = n0 // hd, (min(n0 + TCW_BLOCK, c) - 1) // hd
+    return h_first, h_last, h_first * hd // TCW_TILE, -(-((h_last + 1) * hd) // TCW_TILE)
 
 
 def _elu_p1(x: torch.Tensor) -> torch.Tensor:
@@ -153,8 +194,10 @@ class PackedEncoderWeights:
     read; views where no copy was needed), empty where a tensor-core instance
     reads the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and
     bias in f32. ``stats`` / ``apply``: the chunk images of a tensor-core
-    instance (bf16, or f32 TF32 halves; else None). ``instance``: :func:`k1_instance`'s
-    choice (None on the CPU, where the plain version runs).
+    instance (bf16, or f32 TF32 halves; for ``"tcw"`` [Wk; Wv] and Wq, Wmerge,
+    W0, W1 in :func:`pack_weight_chunks_tcw`'s chunks; else None).
+    ``instance``: :func:`k1_instance`'s choice (None on the CPU, where the
+    plain version runs).
     """
 
     dtype: torch.dtype
@@ -179,6 +222,22 @@ def pack_weight_chunks(w_out_in: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pack_weight_chunks: shape {(n, k)} needs N % 8 == 0 and K % 64 == 0")
     t = w_out_in.reshape(n // 8, 8, k // _CHUNK_K, 8, 8)  # [ng, nr, chunk, kg, kc]
     return t.permute(2, 0, 3, 1, 4).contiguous()
+
+
+def pack_weight_chunks_tcw(w_out_in: torch.Tensor) -> torch.Tensor:
+    """A weight [N, K] in torch's Linear layout ([out, in]) as the chunks the
+    "tcw" products copy: [ceil(N / 128), K / 64, 16, 8, 8, 8] indexed (column
+    block, k chunk, out group, in group, out % 8, in % 8), out rows past N zero,
+    so that element (n, k) lies in chunk (n // 128, k // 64) at byte
+    ``((n % 128) // 8) * 1024 + ((k % 64) // 8) * 128 + (n % 8) * 16 + (k % 8) * 2``
+    of its 16 KB: the ``wgmma`` K-major layout of a [128 out, 64 in] B operand."""
+    n, k = w_out_in.shape
+    if n % 8 != 0 or k % TCW_TILE != 0:
+        raise ValueError(f"pack_weight_chunks_tcw: shape {(n, k)} needs N % 8 == 0 and K % 64 == 0")
+    nb = -(-n // TCW_BLOCK)
+    w = F.pad(w_out_in, (0, 0, 0, nb * TCW_BLOCK - n))
+    t = w.reshape(nb, TCW_BLOCK // 8, 8, k // TCW_TILE, 8, 8)  # [nb, ng, nr, kc, kg, kr]
+    return t.permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
 def pack_weight_chunks_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
@@ -232,15 +291,19 @@ def pack_encoder_weights(
     if instance is None:
         raise ValueError(f"fused_encoder_layer: no K1 instance takes C = {c} with {nhead} heads "
                          f"(C must be a multiple of 32 up to {_CC_MAX_WIDTH}, divisible by the heads)")
-    if instance not in ("tc", "tf32x3"):
+    if instance not in ("tc", "tf32x3", "tcw"):
         return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln,
                                     instance=instance)
-    pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
     q, k, v, m, w0, w1 = (w.t() for w in loose)  # torch Linear layout [out, in]
-    stats = torch.cat([pack(k), pack(v)])
-    # in the kernel's order: Q, merge, the FFN's first product by output half
-    # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
-    apply = torch.cat([pack(q), pack(m), pack(w0[:c]), pack(w0[c:]), pack(w1)])
+    if instance == "tcw":
+        stats = pack_weight_chunks_tcw(torch.cat([k, v]))  # K' and V: one product, N = 2C
+        apply = torch.cat([pack_weight_chunks_tcw(w).reshape(-1) for w in (q, m, w0, w1)])
+    else:
+        pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
+        stats = torch.cat([pack(k), pack(v)])
+        # in the kernel's order: Q, merge, the FFN's first product by output half
+        # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
+        apply = torch.cat([pack(q), pack(m), pack(w0[:c]), pack(w0[c:]), pack(w1)])
     return PackedEncoderWeights(dtype, nhead, c, (), ln, stats, apply, instance)
 
 
@@ -277,7 +340,7 @@ def fused_encoder_layer_packed(
     if masks[1] is not None and masks[1].shape != (n, s):
         raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
     instance = packed.instance
-    tensor_cores = instance in ("tc", "tf32x3")
+    tensor_cores = instance in ("tc", "tf32x3", "tcw")
     if tensor_cores:  # their bulk copies read 16-byte aligned rows
         x = x if x.data_ptr() % 16 == 0 else x.clone()
         source = source if source.data_ptr() % 16 == 0 else source.clone()
@@ -297,6 +360,16 @@ def fused_encoder_layer_packed(
             ptr(x), ptr(source), *(ptr(w) for w in weights),
             ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
             ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
+        )
+    elif instance == "tcw":
+        self_layer = x.data_ptr() == source.data_ptr() and l == s
+        scratch = torch.empty(lib.lib.opp_encoder_tcw_scratch_bytes(n, l, s, c, nhead, int(self_layer)),
+                              dtype=torch.uint8, device=device)
+        lib.call(
+            "opp_encoder_layer_tcw",
+            ptr(x), ptr(source), ptr(packed.stats), ptr(packed.apply),
+            ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
+            ptr(scratch), ptr(y), n, l, s, c, nhead, stream_ptr(device),
         )
     elif instance == "tf32x3":
         n_tiles = lib.lib.opp_encoder_tc_source_tiles(s)
@@ -352,8 +425,9 @@ def fused_encoder_layer(
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
     kernel does). It also routes (:func:`k1_instance`): C = 256 with 8 heads
-    to the tensor cores (bfloat16, or float32 in split TF32), another width to
-    the CUDA-core instance of the operand type.
+    to the tensor cores (bfloat16, or float32 in split TF32), bfloat16 at the
+    other widths :func:`tcw_takes` names to the wide tensor-core instance, any
+    other width to the CUDA-core instance of the operand type.
     Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
     weights at every call; a caller that keeps its weights packs them once
     (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.

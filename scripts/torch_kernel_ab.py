@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K3-K7 of one checkout of the port, for A/B runs on one card.
 
-    python3 scripts/torch_kernel_ab.py [--tree DIR]    # needs one CUDA GPU and nvcc
+    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1]    # needs one CUDA GPU and nvcc
 
 Imports ``onepose_plus_plus_tpu_torch`` from DIR (default: the checkout this
 script lies in), builds its kernels there, and times, on inputs made from a
@@ -31,7 +31,12 @@ C = 33 (512 int32 corners); each also with the device time of every launch of
 the call, the host time a call, ``index_select`` on precomputed indices and
 the bytes bound. Last, the host time of reading the current stream's handle
 (``torch.cuda.current_stream().cuda_stream``, and ``kernels.stream_ptr``
-where the tree has it), which every wrapper does once a call. Prints one JSON
+where the tree has it), which every wrapper does once a call. With ``--k1``,
+only K1 (``fused_encoder_layer``) with bf16 operands at self [4, 4096, C] for
+(C, heads) = (512, 8), (1024, 8) and (2048, 16): whole call (median of 5),
+device time a call of every launch by name, and the instance the tree routes
+to where it names one (a tree from before the wide tensor-core instance runs
+these widths on its CUDA-core kernels, seconds a call at 2048). Prints one JSON
 line. Only entry points that every checkout
 of the port has are called, so that two trees (an older commit unpacked
 beside this one) can be run in turns in one session on one card: parent,
@@ -51,6 +56,7 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
+    parser.add_argument("--k1", action="store_true", help="time only K1's bf16 layer at self [4, 4096, C]")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -223,6 +229,27 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    if args.k1:
+        from onepose_plus_plus_tpu_torch.ops import cuda_encoder
+
+        rec = {}
+        for c, nhead in ((512, 8), (1024, 8), (2048, 16)):
+            rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale  # noqa: E731
+            w = [rn(c, c, scale=c ** -0.5).to(torch.bfloat16) for _ in range(4)]
+            w += [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(2 * c, 2 * c, scale=(2 * c) ** -0.5).to(torch.bfloat16),
+                  rn(2 * c, c, scale=(2 * c) ** -0.5).to(torch.bfloat16), 1 + rn(c, scale=0.1), rn(c, scale=0.1)]
+            x = rn(4, 4096, c)
+            call = lambda: cuda_encoder.fused_encoder_layer(x, x, *w, nhead=nhead, dtype=torch.bfloat16)  # noqa: E731
+            named, dev = launches_ms(call, reps=3)
+            instance = getattr(cuda_encoder, "k1_instance", lambda *a: None)(c, nhead, torch.bfloat16)
+            rec[f"K1_bf16_self_4x4096_c{c}_h{nhead}"] = {"whole_ms": whole_ms(call, reps=5), "device_ms": dev,
+                                                         "launches": named, "instance": instance}
+            del x
+            torch.cuda.empty_cache()
+        print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
+        return 0
     gathers = {}
     for tag, dtype, c, n, k in (("K3_bf16_query", torch.bfloat16, 128, 16, 512),
                                 ("K3_f32_train", torch.float32, 128, 4, 1228),
@@ -286,8 +313,6 @@ def main() -> int:
     del fmap
     stream_us = {"current_stream().cuda_stream": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
                  "kernels.stream_ptr": host_us(lambda: kernels.stream_ptr(dev))}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(json.dumps({
         "tree": str(tree), "gpu": smi,
         **gathers,

@@ -177,7 +177,8 @@ def test_k1_f32_runs_the_split_tf32_instance_and_repeats_bitwise(gen, l, s, mask
 @pytest.mark.parametrize("c", [384, 512])
 def test_k1_runs_the_jax_kernels_widths_above_256(gen, dtype, c):
     """C = 384 and 512 with 8 heads (widths the JAX kernel takes) run K1's
-    CUDA-core instances, whose apply block takes 8 rows there."""
+    f32 CUDA-core instance, whose apply block takes 8 rows there, and its wide
+    tensor-core instance for bf16 operands."""
     x, src, w, xm, sm = _k1_args(gen, 2, 97, 130, True, dtype, c=c)
     before = kernels.launch_counts()["K1_encoder_layer"]
     got = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
@@ -195,10 +196,13 @@ def test_k1_runs_the_jax_kernels_widths_above_256(gen, dtype, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1)])
 def test_k1_runs_the_jax_kernels_widths_above_512_and_wide_heads(gen, dtype, c, nhead):
-    """Above 512 the CUDA-core instances' threads loop over the channels and
-    the stats block takes fewer rows (16 at 640-1024, 8 at 2048); a table no
-    block holds (every width here) is read through L2. Ragged rows, masks."""
+    """f32 operands: above 512 the CUDA-core instance's threads loop over the
+    channels and the stats block takes fewer rows (16 at 640-1024, 8 at 2048);
+    a table no block holds (every width here) is read through L2. bf16
+    operands run the wide tensor-core instance. Ragged rows, masks."""
     x, src, w, xm, sm = _k1_args(gen, 2, 37, 70, True, dtype, c=c)
+    assert pack_encoder_weights(*w, nhead=nhead, dtype=dtype).instance == (
+        "tcw" if dtype == torch.bfloat16 else "f32")
     before = kernels.launch_counts()["K1_encoder_layer"]
     got = fused_encoder_layer(x, src, *w, xm, sm, nhead=nhead, dtype=dtype)
     assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
@@ -212,9 +216,40 @@ def test_k1_runs_the_jax_kernels_widths_above_512_and_wide_heads(gen, dtype, c, 
         assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
 
 
+TCW_WIDTHS = ((128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 8), (1024, 8), (2048, 16),
+              (4096, 16), (4096, 32))  # (C, heads) of the wide bf16 tensor-core instance
+K1_TCW_NAMES = ("tcw_pack_kernel", "tcw_gemm_kernel", "tcw_kv_reduce_kernel", "tcw_ln_image_kernel",
+                "tcw_ln_residual_kernel")
+
+
+@pytest.mark.parametrize("c,nhead", TCW_WIDTHS)
+@pytest.mark.parametrize("l,s,masks", [(97, 61, True), (130, 257, False), (200, None, True), (65, 1100, False)])
+def test_k1_tcw_matches_plain_repeats_bitwise_and_launches_its_kernels(gen, c, nhead, l, s, masks):
+    """bf16 operands at the wide instance's widths: within the bf16 tolerances of
+    the plain version (max 5e-2, mean 5e-3: a rounded operand may land on the
+    neighbouring bf16 value), two launches bitwise equal (partials summed in a
+    fixed order, no atomics), the instance's kernels by name and none of the
+    CUDA-core ones; ragged rows (neither a multiple of 64), more than one
+    16-chunk source group (S = 1100), a self layer (source is x)."""
+    x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.bfloat16, c=c)
+    packed = pack_encoder_weights(*w, nhead=nhead, dtype=torch.bfloat16)
+    assert packed.instance == "tcw"
+    before = kernels.launch_counts()["K1_encoder_layer"]
+    got = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
+    again, names = _names(lambda: fused_encoder_layer_packed(x, src, packed, xm, sm))
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    d = (got - ref).abs()
+    assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3, (d.max().item(), d.mean().item())
+    assert set(K1_TCW_NAMES) <= names and not set(K1_CC_NAMES) & names, names
+
+
 def test_k1_tensor_core_instance_names_its_width(gen):
-    """bf16 operands take the tensor cores at C = 256 with 8 heads and the
-    CUDA-core bf16 instance at another width; a width no instance takes raises."""
+    """bf16 operands take the tensor cores at C = 256 with 8 heads, the wide
+    tensor-core instance at C = 128 and f32 the CUDA cores; a width no instance
+    takes raises."""
     x, src, w, _, _ = _k1_args(gen, 1, 70, 70, False, torch.bfloat16, c=128)
     for dtype in (torch.bfloat16, torch.float32):
         got = fused_encoder_layer(x, src, *w, nhead=8, dtype=dtype)

@@ -195,16 +195,17 @@ def test_k1_plain_matches_pallas_kernel_above_256(c, dtype, atol):
 @pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (512, 1)])
 def test_k1_plain_matches_pallas_kernel_above_512_and_wide_heads(c, nhead, dtype, atol):
     """Widths above 512 and a head as wide as the layer, which the JAX kernel
-    takes and K1's CUDA-core instances now run (the threads loop over the
-    channels; the [C, hd + 1] table that no block holds is read through L2):
-    the port's layer through K1 (its plain version on the CPU) agrees with the
-    TPU kernel in interpret mode, at the tolerances of the widths up to 512."""
+    takes and K1 runs (f32 operands on its CUDA-core instance, whose threads
+    loop over the channels and read the [C, hd + 1] table through L2; bf16
+    operands on its wide tensor-core instance): the port's layer through K1
+    (its plain version on the CPU) agrees with the TPU kernel in interpret
+    mode, at the tolerances of the widths up to 512."""
     x, src, xm, sm = _inputs(7, n=1, l=12, s=20, c=c, masks=True)
     _, p = _jax_layer(x, src, xm, sm, c=c, nhead=nhead)
     ref = _pallas_layer(x, src, xm, sm, p, nhead=nhead)
     port = LoFTREncoderLayer(c, nhead, dtype=dtype).eval()
     port.load_state_dict(state_dict_from_jax({"params": p}))
-    assert k1_instance(c, nhead, dtype) == ("bf16" if dtype == torch.bfloat16 else "f32")
+    assert k1_instance(c, nhead, dtype) == ("tcw" if dtype == torch.bfloat16 else "f32")
     with torch.no_grad():
         out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
     assert out.dtype == torch.float32

@@ -203,3 +203,35 @@ def test_sfm_surfaces_on_cpu(pair):
     np.testing.assert_array_equal(np.asarray(e["feat_fine"]), self_pair["feat_fine_0"].numpy())
     np.testing.assert_array_equal(np.asarray(e["feat_coarse"]), self_pair["feat_coarse_0"].numpy())
     assert build_loftr_matcher({}, device="cpu").cfg == loftr_config_from_dict({})
+
+
+def test_extract_skips_the_fine_stage_and_matches_jax(pair, monkeypatch):
+    """LoFTRMatcher.extract (the SfM descriptor extraction) gives bitwise the
+    self-pair refine's feat_fine_0 / feat_coarse_0 without gathering a fine
+    window or running the fine transformer, and agrees with the JAX
+    extract_fn on the same weights and inputs."""
+    import onepose_plus_plus_tpu_torch.models.loftr as port_loftr
+    from onepose_plus_plus_tpu.models.build import make_loftr_fns as jax_make_loftr_fns
+
+    jm, variables, port, img0, _ = pair
+    mk0, _, mask = _refine_inputs(np.random.default_rng(4))
+    with torch.no_grad():
+        self_pair = port.refine(_t(img0), _t(img0), _t(mk0), _t(mk0), _t(mask), extract_features=True)
+
+    def fine_stage(*args, **kwargs):
+        raise AssertionError("extraction ran the fine stage")
+
+    monkeypatch.setattr(port_loftr, "gather_windows", fine_stage)
+    monkeypatch.setattr(port_loftr.LoFTRMatcher, "_fine_refine_windows", fine_stage)
+    with torch.no_grad():
+        fine, coarse = port.extract(_t(img0), _t(mk0))
+    e = make_loftr_fns(port)[2](img0, mk0, mask)
+    np.testing.assert_array_equal(fine.numpy(), self_pair["feat_fine_0"].numpy())
+    np.testing.assert_array_equal(coarse.numpy(), self_pair["feat_coarse_0"].numpy())
+    np.testing.assert_array_equal(np.asarray(e["feat_fine"]), fine.numpy())
+    np.testing.assert_array_equal(np.asarray(e["feat_coarse"]), coarse.numpy())
+    ref = jax_make_loftr_fns(jm, variables)[2](img0, mk0, mask)
+    for key, got in (("feat_fine", fine), ("feat_coarse", coarse)):
+        r = np.asarray(ref[key])
+        assert got.shape == r.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), r, atol=1e-4)

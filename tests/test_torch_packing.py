@@ -21,6 +21,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     k1_instance,
     pack_encoder_weights,
     pack_weight_chunks,
+    tcw_takes,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     scatter_index,
@@ -281,13 +282,13 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
 @pytest.mark.parametrize("c,nhead,dtype,expected", [
     (256, 8, "bfloat16", "tc"),     # both coarse transformers of the bf16 configurations
     (64, 8, "bfloat16", "bf16"),    # the narrow test configurations: CUDA cores, bf16 operands
-    (256, 4, "bfloat16", "bf16"),   # the tensor-core instance's width with other heads
+    (256, 4, "bfloat16", "tcw"),    # the tensor-core instance's width with other heads: the wide instance
     (224, 8, "bfloat16", "bf16"),
     (64, 8, "float32", "f32"),
     (256, 8, "float32", "tf32x3"),  # the demo's coarse width: tensor cores in split TF32
     (48, 8, "bfloat16", None),      # not a multiple of 32
     (288, 8, "float32", "f32"),     # above 256: the CUDA-core instances reach 4096
-    (384, 8, "bfloat16", "bf16"),   # the JAX kernel's widths above 256
+    (384, 8, "bfloat16", "tcw"),    # the JAX kernel's widths above 256
     (512, 8, "float32", "f32"),
     (544, 8, "float32", "f32"),     # above 512: the threads loop over the channels
     (512, 4, "float32", "f32"),     # a [C, C / heads + 1] table that no block holds: read through L2
@@ -311,6 +312,50 @@ def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, 
     assert seen == [True] * 4  # one (self, cross) pair over two streams
 
 
+def _other_instance(c, nhead, dtype):
+    """The instance of a width other than (256, 8): bf16 operands on the wide
+    tensor-core instance where it takes the width, else the CUDA cores."""
+    if dtype == torch.float32:
+        return "f32"
+    return "tcw" if c % 64 == 0 and c >= 128 and (c // nhead) % 16 == 0 else "bf16"
+
+
+TCW_WIDTHS = [(128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 8), (1024, 8), (2048, 16),
+              (4096, 16), (4096, 32)]
+CUDA_CORE_BF16_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (128, 16), (192, 8), (224, 8), (256, 32),
+                         (320, 40), (640, 16), (4096, 512)]
+
+
+def _meta_weights(c):
+    ww = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    return (ww(c, c), ww(c, c), ww(c, c), ww(c, c), ww(c), ww(c), ww(2 * c, 2 * c), ww(2 * c, c), ww(c), ww(c))
+
+
+@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + CUDA_CORE_BF16_WIDTHS)
+def test_k1_tcw_routing_and_packing_agree(c, nhead):
+    """bf16 operands take the wide tensor-core instance exactly where C is a
+    multiple of 64 from 128 to 4096 and the head width a multiple of 16, but
+    (256, 8); every other width keeps an instance (the CUDA cores), so no width
+    starts to raise. The model routes every one of them to K1, and the packing
+    (run on meta tensors: the CPU keeps the loose weights) names the same
+    instance and packs the wide one's chunks: [Wk; Wv] as 2C / 128 column
+    blocks of C / 64 chunks, then Wq, Wmerge, W0, W1."""
+    want = "tcw" if (c, nhead) in TCW_WIDTHS else "bf16"
+    assert k1_instance(c, nhead, torch.bfloat16) == want
+    assert tcw_takes(c, nhead) == (want == "tcw")
+    assert k1_instance(c, nhead, torch.float32) == "f32"
+    cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype="bfloat16", layer_iter_n=1)
+    assert routes_to_k1(cfg, False, 256, 300)
+    packed = pack_encoder_weights(*_meta_weights(c), nhead=nhead, dtype=torch.bfloat16)
+    assert packed.instance == want and packed.width == c
+    if want == "bf16":
+        assert packed.stats is None and len(packed.loose) == 6
+        return
+    nb, ck = -(-c // 128), c // 64
+    assert packed.loose == () and packed.stats.shape == (2 * c // 128, ck, 16, 8, 8, 8)
+    assert packed.apply.numel() == (2 * nb * ck + ck * 2 * ck + nb * 2 * ck) * 128 * 64
+
+
 def _jax_widths(c_max):
     """Every (C, nhead) the JAX kernel takes up to C = c_max: C % 128 == 0 and a
     head width C / nhead that is a multiple of 8 (``pallas_encoder.py::fused_encoder_layer``)."""
@@ -327,7 +372,9 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
     seen = [(c, nhead, k1_instance(c, nhead, dtype)) for c, nhead in _jax_widths(512)]
     assert all(got is not None for _, _, got in seen), [(c, n) for c, n, g in seen if g is None]
     assert ("tc" if dtype == torch.bfloat16 else "tf32x3") in {g for c, n, g in seen if (c, n) == (256, 8)}
-    assert {g for c, n, g in seen if (c, n) != (256, 8)} == {"bf16" if dtype == torch.bfloat16 else "f32"}
+    for c, nhead, got in seen:
+        if (c, nhead) != (256, 8):
+            assert got == _other_instance(c, nhead, dtype), (c, nhead, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -337,9 +384,10 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
     rule, so that no such width reaches a wrapper that raises."""
     widths = _jax_widths(2048)
     assert len(widths) == 170
-    tc, cc = ("tc", "bf16") if dtype == torch.bfloat16 else ("tf32x3", "f32")
+    tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     for c, nhead in widths:
-        assert k1_instance(c, nhead, dtype) == (tc if (c, nhead) == (256, 8) else cc), (c, nhead)
+        want = tc if (c, nhead) == (256, 8) else _other_instance(c, nhead, dtype)
+        assert k1_instance(c, nhead, dtype) == want, (c, nhead)
         cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype=name, layer_iter_n=1)
         assert routes_to_k1(cfg, False, 256, 300) and not routes_to_k1(cfg, True, 256, 300)
