@@ -13,13 +13,19 @@ phase 2, and phase 10, which runs right after phase 6:
      at the LoFTR shape [8, 4096, 256], with masks and at a small ragged shape,
      timed with packed weights and split by launch, a bf16 layer at C = 64
      through K1's CUDA-core bf16 instance, and K1 at the JAX kernel's widths
-     above 512 and a one-head layer ((640, 8), (768, 8), (1024, 8),
-     (2048, 16), (512, 1)) in both dtypes (f32: the CUDA-core instance; bf16:
-     the wide tensor-core instance, also at (256, 4) and (128, 8), bitwise
-     repeatable, faster than its plain version and the CUDA-core bf16
-     instance as whole calls; each with its device time, plain version and
-     bound), and the wide bf16 instance at self [4, 4096, C] for C = 512,
-     1024 and 2048 with its share of the operations bound; K3 exact at the query shape (both
+     above 512, a one-head layer and its own tests' other widths ((640, 8),
+     (768, 8), (1024, 8), (2048, 16), (512, 1), (256, 4), (128, 8)) in both
+     dtypes and at head widths 24 and 8 ((384, 16), (128, 16)) in f32 (f32:
+     the wide split-TF32 instance; bf16: the wide tensor-core instance),
+     bitwise repeatable, faster as whole calls than the plain version and
+     the CUDA-core instance of the operand type (timed in turns with it),
+     each with its device time, plain version and bound; the wide instances
+     at self [4, 4096, C] for C = 512, 1024 and 2048 with their share of the
+     operations bound (f32: of the f32 bound and of the 3xTF32 floor, beside
+     the CUDA-core f32 instance's device time); the wide chains at (256, 8)
+     through forced packs beside the instances that run that width ("tcw"
+     against "tc", "tcw_tf32" against "tf32x3", self [16, 7000, 256]);
+     K3 exact at the query shape (both
      dtypes) and the train shape (f32), ids at the grid's corners and out of
      range, whole call and device time beside index_select; K2's bf16 (tensor-core)
      instance split by launch, its two launches bitwise equal, faster than its
@@ -167,6 +173,7 @@ from onepose_plus_plus_tpu_torch.models.position_encoding import KeypointEncoder
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain, k5_instance
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     PackedEncoderWeights,
+    chunk_images,
     encoder_layer_plain,
     fused_encoder_layer,
     fused_encoder_layer_packed,
@@ -271,6 +278,16 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def turns_ms(fa, fb, reps: int = 10):
+    """Whole-call ms of fa and fb timed in turns (a, b, b, a, a, b), each the
+    least of its three turns' medians: calls of a few launches are bound by
+    the host, whose stalls within a run only ever slow a turn."""
+    a, b = [], []
+    for side in (a, b, b, a, a, b):
+        side.append(time_ms(fa if side is a else fb, reps))
+    return min(a), min(b)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -534,30 +551,37 @@ def phase2_k1_narrow(gen) -> None:
 
 K1_WIDE = ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1))  # (C, heads) the JAX kernel takes above 512 / wide heads
 K1_JAX_TEST_WIDTHS = ((256, 4), (128, 8))  # the JAX kernel's own tests' widths besides (256, 8)
-K1_TCW_REALISTIC = ((512, 8), (1024, 8), (2048, 16))  # the wide bf16 instance at self [4, 4096, C]
+K1_NARROW_HEADS = ((384, 16), (128, 16))  # head widths 24 and 8: f32 on the tensor cores, bf16 on the CUDA cores
+K1_TCW_REALISTIC = ((512, 8), (1024, 8), (2048, 16))  # the wide instances at self [4, 4096, C]
+_W_KEYS = ("wq", "wk", "wv", "wmerge", "wmlp0", "wmlp1")
 
 
-def _cuda_core_bf16(packed: PackedEncoderWeights, ws: dict) -> PackedEncoderWeights:
-    """The same layer packed for K1's CUDA-core bf16 instance, which ran every
-    bf16 width but (256, 8) before the wide tensor-core instance: timed beside it."""
-    loose = tuple(ws[k].contiguous() for k in ("wq", "wk", "wv", "wmerge", "wmlp0", "wmlp1"))
-    return PackedEncoderWeights(torch.bfloat16, packed.nhead, packed.width, loose, packed.ln, instance="bf16")
+def _forced_pack(packed: PackedEncoderWeights, ws: dict, instance: str) -> PackedEncoderWeights:
+    """The same layer packed for another K1 instance of its operand type, timed
+    beside the one the router picks: the CUDA-core instance ("bf16", "f32"),
+    which ran every width but (256, 8) before the wide tensor-core instances,
+    or another tensor-core chain."""
+    loose = tuple(ws[k].to(packed.dtype).contiguous() for k in _W_KEYS)
+    if instance in ("bf16", "f32"):
+        return PackedEncoderWeights(packed.dtype, packed.nhead, packed.width, loose, packed.ln, instance=instance)
+    return PackedEncoderWeights(packed.dtype, packed.nhead, packed.width, (), packed.ln,
+                                *chunk_images(instance, *loose), instance)
 
 
 def phase2_k1_wide(gen) -> None:
-    """K1 at the JAX kernel's widths above 512, at a head as wide as the layer
-    and at its own tests' other widths (256, 4), (128, 8): f32 operands on the
-    CUDA-core instance (threads loop over the channels, the [C, hd + 1] table
-    read through L2), bf16 operands on the wide tensor-core instance, held to
-    the plain version, bitwise repeatable, by kernel name, and timed as whole
-    calls beside the plain version and the CUDA-core bf16 instance that ran
-    these widths before. Small shapes: seconds, not minutes."""
-    for c, nhead in K1_WIDE + K1_JAX_TEST_WIDTHS:
+    """K1 at the JAX kernel's widths above 512, at a head as wide as the layer,
+    at its own tests' other widths (256, 4), (128, 8) and at head widths 24 and
+    8: f32 operands on the wide split-TF32 instance, bf16 operands on the wide
+    bf16 instance (where its 16-channel head step allows), held to the plain
+    version, bitwise repeatable, by kernel name, and timed as whole calls
+    beside the plain version and the CUDA-core instance of the operand type
+    that ran these widths before. Small shapes: seconds, not minutes."""
+    for c, nhead in K1_WIDE + K1_JAX_TEST_WIDTHS + K1_NARROW_HEADS:
         x, src, w = _encoder_inputs(gen, 150, 97, c=c, n=2)
         masks = {"x_mask": torch.rand(2, 150, generator=gen, device="cuda") < 0.8,
                  "source_mask": torch.rand(2, 97, generator=gen, device="cuda") < 0.8}
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            if dt == "f32" and (c, nhead) not in K1_WIDE:
+            if dt == "bf16" and (c, nhead) in K1_NARROW_HEADS:
                 continue
             ws = w if dtype == torch.float32 else {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
             packed = pack_encoder_weights(**ws, nhead=nhead, dtype=dtype)
@@ -567,36 +591,38 @@ def phase2_k1_wide(gen) -> None:
             torch.cuda.synchronize()
             d = (got - ref).abs()
             tol = (1e-3, None) if dt == "f32" else (5e-2, 5e-3)
-            instance, names = ("f32", K1_CC_NAMES) if dt == "f32" else ("tcw", K1_TCW_NAMES)
-            ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=5)
+            instance, names = ("tcw_tf32", K1_TCW32_NAMES) if dt == "f32" else ("tcw", K1_TCW_NAMES)
             pms = time_ms(lambda: encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype), reps=5)
+            cc_packed = _forced_pack(packed, ws, dt)
+            ms, cc_ms = turns_ms(lambda: fused_encoder_layer_packed(x, src, packed, **masks),
+                                 lambda: fused_encoder_layer_packed(x, src, cc_packed, **masks))
             rows, _, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=3)
             mine = [r for r in rows if _short(r[2]) in names]  # the wrapper also casts the bool masks
             check({_short(r[2]) for r in mine} == set(names)
                   and not {_short(r[2]) for r in rows} & set(K1_NAMES) - set(names),
                   f"K1 {dt} at C = {c} launches {launch_names(rows)}")
             dev = sum(r[0] for r in mine) / 3  # device ms a call
-            b = bound(*k1_work(2, 150, 97, c=c, nhead=nhead, w_bytes=dtype.itemsize), dtype)
-            cc = ""
-            if dt == "bf16":
-                cc_packed = _cuda_core_bf16(packed, ws)
-                cc_ms = time_ms(lambda: fused_encoder_layer_packed(x, src, cc_packed, **masks), reps=5)
-                cc = f", the CUDA-core bf16 instance {cc_ms:.3f} ms"
+            n_bytes, ops = k1_work(2, 150, 97, c=c, nhead=nhead, w_bytes=dtype.itemsize)
+            b = bound(n_bytes, ops, dtype)
+            floor = "" if dt == "bf16" else (f", 3xTF32 floor {1e3 * 3 * ops / TF32_OPS_PER_S:.5f} ms "
+                                             f"({1e5 * 3 * ops / TF32_OPS_PER_S / dev:.1f} % of it)")
             log(f"[2] K1 {dt} at C = {c}, {nhead} heads, x{tuple(x.shape)} src{tuple(src.shape)} masked: instance "
                 f"{packed.instance!r}, max|d| {d.max().item():.3e} (<= {tol[0]:g}), mean|d| {d.mean().item():.3e}"
                 f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}, two launches bitwise equal "
                 f"{torch.equal(got, again)}; kernel {ms:.3f} ms whole call, device "
-                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms{cc} "
-                f"(medians of 5); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
-                f"{'67 TFLOP/s f32' if dt == 'f32' else '989 TFLOP/s bf16'}), {100 * b['bound_ms'] / dev:.1f} % of it "
-                f"by device time")
+                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms, "
+                f"the CUDA-core {dt} instance {cc_ms:.3f} ms (kernel and CUDA cores in three turns each, the least "
+                f"median of 10 calls; plain median of 5); bound {b['bound_ms']:.5f} ms "
+                f"({b['bound_by']}, {'67 TFLOP/s f32' if dt == 'f32' else '989 TFLOP/s bf16'}), "
+                f"{100 * b['bound_ms'] / dev:.1f} % of it by device time{floor}")
             check(packed.instance == instance and bool(torch.isfinite(got).all()) and d.max().item() <= tol[0]
                   and (tol[1] is None or d.mean().item() <= tol[1]) and torch.equal(got, again),
                   f"K1 {dt} at C = {c}, {nhead} heads disagrees")
-            if dt == "bf16":
-                check(ms < pms and ms < cc_ms, f"K1's wide tensor-core instance at C = {c}, {nhead} heads "
-                      f"({ms:.3f} ms) is not faster than its plain version ({pms:.3f}) and the CUDA cores ({cc_ms:.3f})")
+            check(ms < pms and ms < cc_ms, f"K1's wide {dt} tensor-core instance at C = {c}, {nhead} heads "
+                  f"({ms:.3f} ms) is not faster than its plain version ({pms:.3f}) and the CUDA cores ({cc_ms:.3f})")
     phase2_k1_tcw_realistic(gen)
+    phase2_k1_tcw32_realistic(gen)
+    phase2_k1_at_256(gen)
 
 
 def phase2_k1_tcw_realistic(gen) -> None:
@@ -626,6 +652,85 @@ def phase2_k1_tcw_realistic(gen) -> None:
             f"of it by device time, {100 * b['bound_ms'] / ms:.1f} % by whole call")
         del x
         torch.cuda.empty_cache()
+
+
+def phase2_k1_tcw32_realistic(gen) -> None:
+    """The wide split-TF32 instance at self [4, 4096, C]: against the plain f32
+    version (TF32 off), its device time by launch, its share of the f32 bound
+    (67 TFLOP/s) and of the 3xTF32 floor (three products at 495 TFLOP/s), the
+    CUDA-core f32 instance's device time on the same inputs beside it."""
+    for c, nhead in K1_TCW_REALISTIC:
+        x, _, w = _encoder_inputs(gen, 4096, None, c=c, n=4)
+        packed = pack_encoder_weights(**w, nhead=nhead, dtype=torch.float32)
+        got = fused_encoder_layer_packed(x, x, packed)
+        ref = encoder_layer_plain(x, x, **w, nhead=nhead)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(packed.instance == "tcw_tf32" and bool(torch.isfinite(got).all()) and err <= 1e-3,
+              f"K1 f32 self [4, 4096, {c}] disagrees: {err}")
+        del got, ref
+        ms = time_ms(lambda: fused_encoder_layer_packed(x, x, packed), reps=10)
+        pms = time_ms(lambda: encoder_layer_plain(x, x, **w, nhead=nhead), reps=5)
+        rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
+        check(only_launches(rows, K1_TCW32_NAMES), f"K1 f32 self [4, 4096, {c}] launches {launch_names(rows)}")
+        cc_packed = _forced_pack(packed, w, "f32")
+        cc_rows, cc_busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, cc_packed), reps=2)
+        cc_busy /= 2
+        check(only_launches(cc_rows, K1_CC_NAMES), f"K1's CUDA-core f32 instance launches {launch_names(cc_rows)}")
+        n_bytes, ops = k1_work(4, 4096, 4096, c=c, nhead=nhead, w_bytes=4)
+        fb = bound(n_bytes, ops, torch.float32)
+        floor = 1e3 * 3 * ops / TF32_OPS_PER_S
+        dev = busy / 3
+        log(f"[2] K1 f32 self [4, 4096, {c}], {nhead} heads (wide split-TF32 instance): max|d| {err:.3e} "
+            f"(<= 1e-3); kernel {ms:.4f} ms whole call (median of 10), device {dev:.4f} ms a call (every launch: "
+            f"{launch_names(rows)}), plain {pms:.3f} ms (median of 5); f32 bound {fb['bound_ms']:.4f} ms "
+            f"({fb['bound_by']}, 67 TFLOP/s): {100 * fb['bound_ms'] / dev:.1f} % of it by device time; 3xTF32 floor "
+            f"{floor:.4f} ms (495 TFLOP/s): {100 * floor / dev:.1f} %; the CUDA-core f32 instance {cc_busy:.3f} ms "
+            f"device ({cc_busy / dev:.1f}x; {launch_names(cc_rows)})")
+        del x
+        torch.cuda.empty_cache()
+
+
+def phase2_k1_at_256(gen) -> None:
+    """The wide chains at the width the 256-channel instances run, measured and
+    not routed: at self [16, 7000, 256], 8 heads, "tcw" (forced pack) beside
+    "tc" with bf16 operands and "tcw_tf32" beside "tf32x3" with f32 operands,
+    each held to the plain version, whole calls in turns (routed, wide, wide,
+    routed) and device time."""
+    x, _, w = _encoder_inputs(gen, 7000, None, n=B)
+    wb = {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
+    for dt, dtype, ws, names in (("bf16", torch.bfloat16, wb, (K1_TC_NAMES, K1_TCW_NAMES)),
+                                 ("f32", torch.float32, w, (K1_TF32_NAMES, K1_TCW32_NAMES))):
+        routed = pack_encoder_weights(**ws, nhead=8, dtype=dtype)
+        check(routed.instance == ("tc" if dt == "bf16" else "tf32x3"), f"K1 {dt} at (256, 8) routes to {routed.instance}")
+        wide = _forced_pack(routed, ws, "tcw" if dt == "bf16" else "tcw_tf32")
+        ref = encoder_layer_plain(x, x, **ws, nhead=8, dtype=dtype)
+        res = {}
+        for tag, packed, kernel_names in (("routed", routed, names[0]), ("wide", wide, names[1])):
+            got = fused_encoder_layer_packed(x, x, packed)
+            torch.cuda.synchronize()
+            d = (got - ref).abs()
+            ok = d.max().item() <= 1e-3 if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+            check(ok and bool(torch.isfinite(got).all()), f"K1 {dt} {packed.instance} at (256, 8) disagrees")
+            rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
+            check(only_launches(rows, kernel_names), f"K1 {packed.instance} launches {launch_names(rows)}")
+            res[tag] = {"max": d.max().item(), "dev": busy / 3, "ms": []}
+            del got
+        for tag in ("routed", "wide", "wide", "routed"):
+            packed = routed if tag == "routed" else wide
+            res[tag]["ms"].append(time_ms(lambda: fused_encoder_layer_packed(x, x, packed)))
+        _, ops = k1_work(B, 7000, 7000)
+        ref_bound = 1e3 * ops / PEAK_OPS_PER_S[torch.bfloat16] if dt == "bf16" else 1e3 * 3 * ops / TF32_OPS_PER_S
+        log(f"[2] K1 {dt} at (256, 8), self [{B}, 7000, 256]: {routed.instance!r} (routed) whole call "
+            f"{res['routed']['ms'][0]:.4f} / {res['routed']['ms'][1]:.4f} ms, device {res['routed']['dev']:.4f} ms, "
+            f"max|d| {res['routed']['max']:.3e}; {wide.instance!r} (forced pack) whole call {res['wide']['ms'][0]:.4f} / "
+            f"{res['wide']['ms'][1]:.4f} ms, device {res['wide']['dev']:.4f} ms, max|d| {res['wide']['max']:.3e} "
+            f"(medians of 20 in turns: routed, wide, wide, routed); "
+            f"{'bf16 bound' if dt == 'bf16' else '3xTF32 floor'} {ref_bound:.4f} ms: "
+            f"{100 * ref_bound / res['routed']['dev']:.1f} % / {100 * ref_bound / res['wide']['dev']:.1f} % of it")
+        del ref
+    del x
+    torch.cuda.empty_cache()
 
 
 K2_PREVIOUS_MS = 24.138  # bf16 on the CUDA-core tile at the recorded shape (NVIDIA H100 80GB HBM3, 700.00 W)
@@ -1277,7 +1382,9 @@ K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_t
 K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")  # other widths, CUDA cores
 K1_TCW_NAMES = ("tcw_pack_kernel", "tcw_gemm_kernel", "tcw_kv_reduce_kernel", "tcw_ln_image_kernel",
                 "tcw_ln_residual_kernel")  # bf16 at the other tensor-core widths
-K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES
+K1_TCW32_NAMES = ("tcw32_pack_kernel", "tcw32_gemm_kernel", "tcw32_kv_reduce_kernel", "tcw32_ln_image_kernel",
+                  "tcw32_ln_residual_kernel")  # f32 in split TF32 at the other tensor-core widths
+K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES + K1_TCW32_NAMES
 # K2's bf16 instance (tensor cores), its operand pack first; its f32 instance in
 # split TF32 (tensor cores), its pack first; its CUDA-core instance (wider f32)
 K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")

@@ -51,6 +51,7 @@
 // equal. Every launch is checked with cudaGetLastError.
 #include "common.cuh"
 #include "wgmma.cuh"
+#include "tcw_plan.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -61,17 +62,14 @@ namespace gm = opp::gemm;
 using opp::MAX_DEVICES;
 using opp::raise_smem_limit;
 using gm::in_chunk;
+using namespace opp::tcw_plan;
 
-constexpr int TM = 64;                    // rows of a tile
-constexpr int BN = 128;                   // output columns of a product block
 constexpr int NTA = BN + 8;               // the stats' and attention's: 8 columns of sums more
 constexpr int NST = 4;                    // ring stages: two blocks an SM
 constexpr int SG = 16;                    // source chunks a stats block sums
 constexpr uint32_t CHUNK = gm::A_CHUNK;   // 8192: an image chunk [64, 64]
 constexpr uint32_t W_CHUNK = BN * 128;    // 16384: a weight chunk [128, 64], a V^T chunk
 constexpr uint32_t KV_CHUNK = NTA * 128;  // 17408: an attention B chunk [136, 64]
-constexpr float EPS = 1e-6f;
-constexpr float LN_EPS = 1e-5f;
 
 enum Kind { KV_PROJ, STATS, QPROJ, ATT, RAW, RELU };
 
@@ -94,29 +92,8 @@ struct Params {
   float* lnp;               // (mean, M2) per row and column block (RAW)
 };
 
-__device__ __forceinline__ float elu_p1_fast(float x) {  // as encoder.cu's tc::elu_p1_fast
-  return wg::ex2_fast(fminf(x, 0.f) * 1.4426950408889634f) + fmaxf(x, 0.f);
-}
-
 __device__ __forceinline__ void store_bf16x2(unsigned char* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-
-// The 128-column blocks of V^T whose channels share a head with 64-channel tile i.
-__host__ __device__ __forceinline__ void value_blocks(int i, int hd, int& lo, int& hi) {
-  const int h_a = (TM * i) / hd, h_b = (TM * i + TM - 1) / hd;
-  lo = h_a * hd / BN;
-  hi = ((h_b + 1) * hd - 1) / BN;
-}
-// The heads [h_first, h_last] of attention column block nb, and the k chunks
-// [k_lo, k_hi) of Q' they read.
-__host__ __device__ __forceinline__ void head_chunks(int nb, int C, int hd, int& h_first, int& h_last,
-                                                     int& k_lo, int& k_hi) {
-  const int n0 = nb * BN;
-  h_first = n0 / hd;
-  h_last = ((n0 + BN < C ? n0 + BN : C) - 1) / hd;
-  k_lo = h_first * hd / 64;
-  k_hi = ((h_last + 1) * hd + 63) / 64;
 }
 
 template <int KIND>
@@ -138,7 +115,7 @@ __global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
     k1 = min(p.n_src_chunks, k0 + SG);
   } else if constexpr (KIND == ATT) {
     int h_first, h_last;
-    head_chunks(nb, p.C, p.hd, h_first, h_last, k0, k1);
+    head_chunks(nb, p.C, p.hd, 64, h_first, h_last, k0, k1);
   }
   const size_t tile = (size_t)b * p.a_tiles + rt;
   const auto a_of = [&](int u) -> const void* {
@@ -218,7 +195,7 @@ __global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
       // msg = num / (den + 1e-6): column 128 + i holds the denominator of the
       // block's i-th head, in the quad's thread i / 2 (register i % 2)
       int h_first, h_last, kl, kh;
-      head_chunks(nb, p.C, p.hd, h_first, h_last, kl, kh);
+      head_chunks(nb, p.C, p.hd, 64, h_first, h_last, kl, kh);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int n = nb * BN + 8 * j;
@@ -319,7 +296,7 @@ __global__ void tcw_kv_reduce_kernel(const float* __restrict__ part, unsigned ch
                                      int C, int hd, int G) {
   const int kc = blockIdx.x, nb = blockIdx.y, b = blockIdx.z;
   int h_first, h_last, k_lo, k_hi;
-  head_chunks(nb, C, hd, h_first, h_last, k_lo, k_hi);
+  head_chunks(nb, C, hd, 64, h_first, h_last, k_lo, k_hi);
   if (kc < k_lo || kc >= k_hi) return;
   __nv_bfloat16* out = reinterpret_cast<__nv_bfloat16*>(
       kvimg + (((size_t)b * gridDim.y + nb) * gridDim.x + kc) * KV_CHUNK);
@@ -339,24 +316,6 @@ __global__ void tcw_kv_reduce_kernel(const float* __restrict__ part, unsigned ch
       for (int gi = 0; gi < G; ++gi) a += part[((size_t)b * G + gi) * group + (size_t)d * (hd + 1) + col];
     out[q] = __float2bfloat16_rn(a);
   }
-}
-
-// A row's LayerNorm statistics from its column blocks' (mean, M2), merged in
-// block order by Chan's formula; rstd over C columns (biased variance).
-__device__ __forceinline__ void row_stats(const float* __restrict__ lnp, size_t row, int nb, int C,
-                                          float& mean, float& rstd) {
-  const float2* q = reinterpret_cast<const float2*>(lnp) + row * nb;
-  float m = q[0].x, m2 = q[0].y, cnt = (float)min(BN, C);
-  for (int i = 1; i < nb; ++i) {
-    const float2 v = q[i];
-    const float c = (float)min(BN, C - i * BN), tot = cnt + c;
-    const float delta = v.x - m;
-    m += delta * (c / tot);
-    m2 += v.y + delta * delta * (cnt * c / tot);
-    cnt = tot;
-  }
-  mean = m;
-  rstd = rsqrtf(m2 / C + LN_EPS);
 }
 
 // LN1: every row of the f32 merge output (padded rows too) normalised and
@@ -391,22 +350,7 @@ __global__ void tcw_ln_residual_kernel(const float* __restrict__ raw, const floa
                                        const float* __restrict__ scale, const float* __restrict__ bias,
                                        const float* __restrict__ x, float* __restrict__ y, int B, int L,
                                        int tiles, int C, int nb) {
-  const size_t out_row = (size_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (out_row >= (size_t)B * L) return;
-  const int lane = threadIdx.x & 31;
-  const size_t row = (out_row / L) * tiles * TM + out_row % L;  // in the padded rows
-  float mean, rstd;
-  row_stats(lnp, row, nb, C, mean, rstd);
-  const float* src = raw + row * C;
-  for (int k = 4 * lane; k < C; k += 128) {
-    const float4 v = *reinterpret_cast<const float4*>(src + k);
-    const float4 s = *reinterpret_cast<const float4*>(scale + k);
-    const float4 bi = *reinterpret_cast<const float4*>(bias + k);
-    const float4 xv = *reinterpret_cast<const float4*>(x + out_row * C + k);
-    *reinterpret_cast<float4*>(y + out_row * C + k) =
-        make_float4(xv.x + ((v.x - mean) * rstd * s.x + bi.x), xv.y + ((v.y - mean) * rstd * s.y + bi.y),
-                    xv.z + ((v.z - mean) * rstd * s.z + bi.z), xv.w + ((v.w - mean) * rstd * s.w + bi.w));
-  }
+  ln_residual(raw, lnp, scale, bias, x, y, B, L, tiles, C, nb);
 }
 
 // The scratch of one call, carved from one buffer (every piece 128-byte aligned).

@@ -1,5 +1,6 @@
-// One tensor-core product loop for kernels that run a chain of products over
-// operands in device memory (K1's wide bf16 instance, encoder_tcw.cu): a block
+// Tensor-core product loops for kernels that run a chain of products over
+// operands in device memory (K1's wide instances: bf16 in encoder_tcw.cu, f32
+// in split TF32 in encoder_tcw_tf32.cu, whose loop, run_tf32, closes the file). A block
 // of one warpgroup computes acc[64, NT] = sum over n chunks u of A_u B_u^T,
 // A_u a [64 rows, 64 k] chunk and B_u an [NT rows, 64 k] chunk (a torch
 // Linear weight's [out, in] orientation), both bf16 byte images of wgmma's
@@ -145,6 +146,135 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Byte offset of element (r, k) of a [rows, 64] chunk image.
 __host__ __device__ __forceinline__ uint32_t in_chunk(int r, int k) {
   return (r >> 3) * 1024 + (k >> 3) * 128 + (r & 7) * 16 + (k & 7) * 2;
+}
+
+// ------------------------------------------------------------ split TF32
+// The same loop for f32 operands in split TF32: A_u is a [64 rows, 32 k] f32
+// chunk (8 KB) and B_u an [NT rows, 32 k] f32 chunk as two images, its TF32 hi
+// and lo halves (kernels.tf32_split), b_bytes each, hi then lo in device
+// memory; all in wgmma's K-major core-matrix layout of 4-byte values:
+//     element (r, k) at byte (r / 8) * 1024 + (k / 4) * 128 + (r % 8) * 16 + (k % 4) * 4
+// (the same LBO and SBO as a bf16 [rows, 64] chunk). TF32 wgmma reads only
+// K-major operands from shared memory, and a B operand cannot be split once it
+// is there, so B arrives split; A comes from registers: each thread reads its
+// fragments of the chunk (a warp's 32 lanes hit 32 distinct banks) and splits
+// them there. A k8 step is three products, lo x B_hi, hi x B_lo, hi x B_hi
+// (~2^-22 relative); a chunk's twelve are one unrolled chain. The next chunk's
+// fragments are split while they run, into the other of two register sets:
+// n (the chunks) must be even. The tensor cores' f32 accumulation over a long
+// k loses accuracy (a layer of such products was 4-9x further from a float64
+// layer than cuBLAS's f32 one, the more so the wider), so each pair of chunks
+// (k = 64) sums in a fresh accumulator that is then added into an f32 sum in
+// registers, rounded to nearest: the epilogue gets that sum.
+
+// Bytes of element (r, k) of a [rows, 32] f32 chunk image.
+__host__ __device__ __forceinline__ uint32_t in_chunk32(int r, int k) {
+  return (r >> 3) * 1024 + (k >> 2) * 128 + (r & 7) * 16 + (k & 3) * 4;
+}
+
+// Shared memory of a split-TF32 block: NST stages of an A chunk, B's hi and lo images, the barriers.
+template <int NT, int NST>
+struct Smem32 {
+  static constexpr uint32_t B_HALF = NT * 128;
+  static constexpr uint32_t STAGE = A_CHUNK + 2 * B_HALF;
+  static constexpr size_t BYTES = (size_t)NST * STAGE + 8 * NST;
+  static_assert(STAGE % 128 == 0, "stages stay 128-byte aligned");
+};
+
+template <int NT>
+__device__ __forceinline__ void mma_tf32(float (&d)[NT / 2], const uint32_t (&a)[4], uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void mma_tf32<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  wg::mma_rs_tf32_n128(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void mma_tf32<136>(float (&d)[68], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  wg::mma_rs_tf32_n136(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void mma_tf32<144>(float (&d)[72], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  wg::mma_rs_tf32_n144(d, a, b, scale_d);
+}
+
+// run's contract with split-TF32 chunks: a_of(u) / b_of(u) give chunk u's A
+// and its B hi image (lo follows b_bytes further, b_bytes at most
+// Smem32<NT, NST>::B_HALF), n >= 2 and even.
+template <int NT, int NST, class AOf, class BOf, class Pro, class Epi>
+__device__ __forceinline__ void run_tf32(unsigned char* smem, int n, AOf a_of, BOf b_of, uint32_t b_bytes,
+                                         Pro prologue, Epi epilogue) {
+  using S = Smem32<NT, NST>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * S::STAGE);
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
+  if (tid == 0) {
+    for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
+    wg::mbar_init_fence();
+  }
+  prologue(smem);
+  wg::fence_proxy_async();
+  __syncthreads();
+  const auto fetch = [&](int u) {
+    const int st = u % NST;
+    unsigned char* stage = smem + st * S::STAGE;
+    const unsigned char* b = static_cast<const unsigned char*>(b_of(u));
+    wg::mbar_expect_tx(full + st, A_CHUNK + 2 * b_bytes);
+    wg::bulk_load(stage, a_of(u), A_CHUNK, full + st);
+    wg::bulk_load(stage + A_CHUNK, b, b_bytes, full + st);
+    wg::bulk_load(stage + A_CHUNK + S::B_HALF, b + b_bytes, b_bytes, full + st);
+  };
+  if (tid == 0)
+    for (int u = 0; u < NST && u < n; ++u) fetch(u);
+
+  // A[16 w + g (+ 8)][8 kk + t (+ 4)] of a chunk: floats at a_off + 64 kk (+ 256) (+ 32)
+  const int a_off = (2 * w * 1024 + g * 16 + t * 4) / 4;
+  uint32_t ah[2][4][4], al[2][4][4];
+  const auto split = [&](int u, uint32_t(&h)[4][4], uint32_t(&l)[4][4]) {
+    const int st = u % NST;
+    wg::mbar_wait(full + st, (u / NST) & 1);
+    const float* a = reinterpret_cast<const float*>(smem + st * S::STAGE) + a_off;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::tf32_split(a[64 * kk], h[kk][0], l[kk][0]);
+      wg::tf32_split(a[64 * kk + 256], h[kk][1], l[kk][1]);
+      wg::tf32_split(a[64 * kk + 32], h[kk][2], l[kk][2]);
+      wg::tf32_split(a[64 * kk + 288], h[kk][3], l[kk][3]);
+    }
+  };
+  float acc[NT / 2], sum[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) sum[i] = 0.f;
+  const auto products = [&](int u, const uint32_t(&h)[4][4], const uint32_t(&l)[4][4]) {
+    const uint32_t bh = wg::smem_u32(smem + (u % NST) * S::STAGE + A_CHUNK), bl = bh + S::B_HALF;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dh = wg::desc(bh + kk * 2 * LBO, LBO, SBO), dl = wg::desc(bl + kk * 2 * LBO, LBO, SBO);
+      mma_tf32<NT>(acc, l[kk], dh, (u % 2 == 1 || kk > 0) ? 1 : 0);  // fresh at an even chunk
+      mma_tf32<NT>(acc, h[kk], dl, 1);
+      mma_tf32<NT>(acc, h[kk], dh, 1);
+    }
+    wg::commit();
+  };
+  // chunk v's products are done in every warp: its stage takes chunk v + NST
+  const auto refill = [&](int v) {
+    __syncthreads();
+    if (tid == 0 && v + NST < n) fetch(v + NST);
+  };
+  split(0, ah[0], al[0]);
+#pragma unroll 1
+  for (int u = 0; u < n; u += 2) {
+    products(u, ah[0], al[0]);
+    if (u > 0) refill(u - 1);  // done at the last pass's wait<0>
+    split(u + 1, ah[1], al[1]);
+    products(u + 1, ah[1], al[1]);
+    wg::wait<1>();
+    refill(u);
+    if (u + 2 < n) split(u + 2, ah[0], al[0]);
+    wg::wait<0>();
+    wg::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
+  }
+  epilogue(sum);
 }
 
 }  // namespace gemm

@@ -5,8 +5,10 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
 - K1 ``ops/cuda_encoder.py::fused_encoder_layer`` and ``fused_encoder_layer_packed``
   (``csrc/encoder.cu``: tensor cores at C = 256 with 8 heads, bf16 operands or f32 ones
   in split TF32; ``csrc/encoder_tcw.cu``: tensor cores for bf16 operands at the other
-  widths with C % 64 == 0 and heads of a multiple of 16 channels; CUDA cores at the
-  rest up to 4096)
+  widths with C % 64 == 0 and heads of a multiple of 16 channels;
+  ``csrc/encoder_tcw_tf32.cu``: tensor cores in split TF32 for f32 operands at the
+  other widths with C % 64 == 0 and heads of a multiple of 8 channels; CUDA cores
+  at the rest up to 4096)
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``: tensor
   cores for bf16 operands (``pack_operand``) and, in split TF32, for f32 ones up to
   C = 576 (``pack_tf32_operand``); CUDA cores for wider f32)

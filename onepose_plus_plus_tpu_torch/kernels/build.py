@@ -43,6 +43,8 @@ _SIGNATURES = {
     "opp_encoder_tc_source_tiles": [_I],
     "opp_encoder_layer_tcw": [_P] * 12 + [_I] * 5 + [_P],
     "opp_encoder_tcw_scratch_bytes": [_I] * 6,
+    "opp_encoder_layer_tcw_tf32": [_P] * 12 + [_I] * 5 + [_P],
+    "opp_encoder_tcw_tf32_scratch_bytes": [_I] * 6,
     "opp_rowcol_stats_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_tf32x3": [_P] * 12 + [_I] * 4 + [_F, _P],
@@ -70,7 +72,8 @@ _SIGNATURES = {
     "opp_short_encoder_tc": [_P] * 8 + [_I] * 5 + [_P],
 }
 
-_RESTYPES = {"opp_encoder_tcw_scratch_bytes": ctypes.c_longlong}
+_RESTYPES = {"opp_encoder_tcw_scratch_bytes": ctypes.c_longlong,
+             "opp_encoder_tcw_tf32_scratch_bytes": ctypes.c_longlong}
 
 
 class KernelLibrary:

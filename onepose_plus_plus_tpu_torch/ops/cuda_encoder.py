@@ -2,7 +2,7 @@
 
 Replaces ``onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer``
 (``_kv_stats_kernel`` and ``_apply_kernel``). Sources: ``csrc/encoder.cu``,
-``csrc/encoder_tcw.cu``.
+``csrc/encoder_tcw.cu``, ``csrc/encoder_tcw_tf32.cu``.
 
 The layer (reference ``loftr_module/transformer.py:7-58``): Q/K/V projection,
 elu+1 linear attention, merge, LayerNorm, FFN over concat(x, msg) with ReLU,
@@ -12,7 +12,7 @@ partials and summed by a second small launch (deterministic, no atomics), then
 one block per x tile runs the whole rest of the layer in shared memory.
 
 What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
-row), every product computed in the kernel's own body. Five instances, chosen
+row), every product computed in the kernel's own body. Six instances, chosen
 by :func:`k1_instance` from the operand type and the width, all counted as
 ``K1_encoder_layer``:
 
@@ -37,12 +37,23 @@ by :func:`k1_instance` from the operand type and the width, all counted as
   :func:`pack_weight_chunks_tcw`) and streamed by bulk copies; the stats as
   per-group partials of K'^T[V|1] reduced in group order, the LayerNorms from
   per-column-block (mean, M2) partials merged in block order.
+- ``"tcw_tf32"``: **float32 operands at the other widths that the tensor cores
+  take in split TF32** (C a multiple of 64 from 128 to 4096, head width a
+  multiple of 8, one TF32 ``wgmma`` k step: every f32 width of the JAX kernel
+  up to 4096 but (256, 8)) run the ``"tcw"`` chain with every product as three
+  TF32 products of hi / lo halves (``csrc/encoder_tcw_tf32.cu``): A operands
+  f32 images of [64 rows, 32 k] chunks split in registers, B operands packed
+  split, hi image then lo image ([column block][k chunk][128 out x 32 in],
+  :func:`pack_weight_chunks_tcw_tf32`; V^T and the attention's B written so by
+  their producers), the attention's B with 16 rows of head sums, its k range
+  over Q' an even number of chunks (:func:`tcw32_head_chunks`).
 - ``"bf16"``: **bfloat16 operands at the widths left** (C = 32, C = 64, a head
   width that is not a multiple of 16, C not a multiple of 64) run the CUDA-core
   kernels with bf16 weights, each product operand rounded to bf16 as it is
   staged.
-- ``"f32"``: **float32 operands at any other width** keep exact f32 FMAs on
-  the CUDA cores (no TF32).
+- ``"f32"``: **float32 operands at the widths left** (C = 32, 64 or 96, C not
+  a multiple of 64, a head width that is not a multiple of 8) keep exact f32
+  FMAs on the CUDA cores (no TF32).
 
 The CUDA-core instances take C a multiple of 32 up to 4096, divisible by the
 heads (:func:`k1_instance`): every width the JAX kernel takes (C % 128 == 0,
@@ -56,7 +67,8 @@ L2 instead. A width outside these has no instance: the wrapper raises
 
 The weights reach the kernels packed (:func:`pack_encoder_weights`): for the
 tensor-core instances as byte images of the shared-memory chunks they read,
-in the order the kernel consumes them (bf16, or the TF32 hi and lo halves),
+in the order the kernel consumes them (bf16, or the TF32 hi and lo halves;
+:func:`chunk_images`),
 for the CUDA-core instances as contiguous [in, out] matrices. A model
 packs each layer once (``LoFTREncoderLayer.packed_weights``); the loose-tensor
 entry :func:`fused_encoder_layer` packs at every call.
@@ -84,6 +96,9 @@ _CC_MAX_WIDTH = 4096  # the CUDA-core instances' widest layer (csrc/encoder.cu::
 TCW_BLOCK = 128  # output columns of a "tcw" product block (csrc/encoder_tcw.cu::BN)
 TCW_TILE = 64  # rows of a "tcw" tile, and channels of a k chunk
 TCW_SOURCE_GROUP = 16  # source chunks a "tcw" stats block sums (csrc/encoder_tcw.cu::SG)
+TCW32_CHUNK = 32  # k columns of a "tcw_tf32" chunk (csrc/encoder_tcw_tf32.cu::KW)
+TCW32_SOURCE_GROUP = 32  # source chunks a "tcw_tf32" stats block sums: 1024 rows, as "tcw"
+TCW32_SUMS = 16  # rows of head sums in the "tcw_tf32" attention's B (NTA - BN): heads a block holds
 
 
 def tcw_takes(c: int, nhead: int) -> bool:
@@ -93,13 +108,21 @@ def tcw_takes(c: int, nhead: int) -> bool:
     return c % 64 == 0 and 128 <= c <= 4096 and nhead > 0 and c % nhead == 0 and (c // nhead) % 16 == 0
 
 
+def tcw_tf32_takes(c: int, nhead: int) -> bool:
+    """Whether the wide split-TF32 instance's kernels take (C, heads): C a
+    multiple of 64 from 128 to 4096 and a head width that is a multiple of 8
+    (one TF32 ``wgmma`` k step)."""
+    return c % 64 == 0 and 128 <= c <= 4096 and nhead > 0 and c % nhead == 0 and (c // nhead) % 8 == 0
+
+
 def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
     """The K1 instance that runs a layer of width ``c`` with ``nhead`` heads on
     ``dtype`` operands: ``"tc"`` (tensor cores, bf16, C = 256 with 8 heads),
     ``"tf32x3"`` (tensor cores, f32 in split TF32, the same width), ``"tcw"``
-    (tensor cores, bf16, the other widths :func:`tcw_takes` names), ``"bf16"``
-    (CUDA cores, bf16 operands, the widths left), ``"f32"`` (CUDA cores,
-    exact), or None where no instance takes it."""
+    (tensor cores, bf16, the other widths :func:`tcw_takes` names),
+    ``"tcw_tf32"`` (tensor cores, f32 in split TF32, the other widths
+    :func:`tcw_tf32_takes` names), ``"bf16"`` / ``"f32"`` (CUDA cores, the
+    widths left; f32 exact), or None where no instance takes it."""
     if (dtype not in KERNEL_DTYPES or nhead <= 0 or c % 32 != 0 or not 0 < c <= _CC_MAX_WIDTH
             or c % nhead != 0):
         return None
@@ -107,7 +130,7 @@ def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
         return "tc" if dtype == torch.bfloat16 else "tf32x3"
     if dtype == torch.bfloat16:
         return "tcw" if tcw_takes(c, nhead) else "bf16"
-    return "f32"
+    return "tcw_tf32" if tcw_tf32_takes(c, nhead) else "f32"
 
 
 def tcw_value_blocks(i: int, hd: int) -> Tuple[int, int]:
@@ -117,13 +140,27 @@ def tcw_value_blocks(i: int, hd: int) -> Tuple[int, int]:
     return h_a * hd // TCW_BLOCK, ((h_b + 1) * hd - 1) // TCW_BLOCK
 
 
-def tcw_head_chunks(nb: int, c: int, hd: int) -> Tuple[int, int, int, int]:
+def tcw_head_chunks(nb: int, c: int, hd: int, chunk: int = TCW_TILE) -> Tuple[int, int, int, int]:
     """(h_first, h_last, k_lo, k_hi): the heads of the "tcw" attention's column
-    block nb and the 64-channel k chunks [k_lo, k_hi) of Q' it reads
-    (``encoder_tcw.cu::head_chunks``)."""
+    block nb and the k chunks [k_lo, k_hi) of ``chunk`` channels of Q' it reads
+    (``tcw_plan.cuh::head_chunks``)."""
     n0 = nb * TCW_BLOCK
     h_first, h_last = n0 // hd, (min(n0 + TCW_BLOCK, c) - 1) // hd
-    return h_first, h_last, h_first * hd // TCW_TILE, -(-((h_last + 1) * hd) // TCW_TILE)
+    return h_first, h_last, h_first * hd // chunk, -(-((h_last + 1) * hd) // chunk)
+
+
+def tcw32_head_chunks(nb: int, c: int, hd: int) -> Tuple[int, int, int, int]:
+    """:func:`tcw_head_chunks` of the "tcw_tf32" attention (32-channel chunks),
+    its k range widened by one chunk where it spans an odd number, at the end
+    if there is room, else at the start (its product loop takes chunks in
+    pairs; ``encoder_tcw_tf32.cu::head_chunks32``)."""
+    h_first, h_last, k_lo, k_hi = tcw_head_chunks(nb, c, hd, TCW32_CHUNK)
+    if (k_hi - k_lo) % 2:
+        if k_hi < c // TCW32_CHUNK:
+            k_hi += 1
+        else:
+            k_lo -= 1
+    return h_first, h_last, k_lo, k_hi
 
 
 def _elu_p1(x: torch.Tensor) -> torch.Tensor:
@@ -185,6 +222,9 @@ def encoder_layer_plain(
     return x32 + h2
 
 
+_TENSOR_CORE = ("tc", "tf32x3", "tcw", "tcw_tf32")  # the instances that read chunk images
+
+
 @dataclass(frozen=True)
 class PackedEncoderWeights:
     """One layer's weights as K1 reads them, for one operand type and device.
@@ -194,8 +234,9 @@ class PackedEncoderWeights:
     read; views where no copy was needed), empty where a tensor-core instance
     reads the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and
     bias in f32. ``stats`` / ``apply``: the chunk images of a tensor-core
-    instance (bf16, or f32 TF32 halves; for ``"tcw"`` [Wk; Wv] and Wq, Wmerge,
-    W0, W1 in :func:`pack_weight_chunks_tcw`'s chunks; else None).
+    instance (bf16, or f32 TF32 halves; for ``"tcw"`` / ``"tcw_tf32"`` [Wk; Wv]
+    and Wq, Wmerge, W0, W1 in :func:`pack_weight_chunks_tcw`'s /
+    :func:`pack_weight_chunks_tcw_tf32`'s chunks; else None; :func:`chunk_images`).
     ``instance``: :func:`k1_instance`'s choice (None on the CPU, where the
     plain version runs).
     """
@@ -257,6 +298,42 @@ def pack_weight_chunks_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
     return torch.stack(halves, dim=1).contiguous()
 
 
+def pack_weight_chunks_tcw_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
+    """A float32 weight [N, K] in torch's Linear layout ([out, in]) as the chunks
+    the "tcw_tf32" products copy: [ceil(N / 128), K / 32, 2, 16, 8, 8, 4] indexed
+    (column block, k chunk, half, out group, in group, out % 8, in % 4), half 0
+    the TF32 hi part and half 1 the lo part (:func:`kernels.tf32_split`), out
+    rows past N zero, so that element (n, k) of a half lies in chunk
+    (n // 128, k // 32) at byte ``((n % 128) // 8) * 1024 + ((k % 32) // 4) * 128
+    + (n % 8) * 16 + (k % 4) * 4`` of that half's 16 KB: the ``wgmma`` K-major
+    layout of a [128 out, 32 in] B operand of 4-byte values."""
+    n, k = w_out_in.shape
+    if n % 8 != 0 or k % TCW32_CHUNK != 0:
+        raise ValueError(f"pack_weight_chunks_tcw_tf32: shape {(n, k)} needs N % 8 == 0 and K % 32 == 0")
+    nb = -(-n // TCW_BLOCK)
+    halves = []
+    for half in tf32_split(F.pad(w_out_in.float(), (0, 0, 0, nb * TCW_BLOCK - n))):
+        t = half.reshape(nb, TCW_BLOCK // 8, 8, k // TCW32_CHUNK, 8, 4)  # [nb, ng, nr, kc, kg, kr]
+        halves.append(t.permute(0, 3, 1, 4, 2, 5))
+    return torch.stack(halves, dim=2).contiguous()
+
+
+def chunk_images(instance: str, wq, wk, wv, wmerge, wmlp0, wmlp1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(stats, apply): a tensor-core instance's chunk images of one layer's
+    weights ([in, out] layout, already of the operand type), in the order its
+    kernels consume them."""
+    q, k, v, m, w0, w1 = (w.t() for w in (wq, wk, wv, wmerge, wmlp0, wmlp1))  # Linear layout [out, in]
+    if instance in ("tcw", "tcw_tf32"):
+        pack = pack_weight_chunks_tcw if instance == "tcw" else pack_weight_chunks_tcw_tf32
+        stats = pack(torch.cat([k, v]))  # K' and V: one product, N = 2C
+        return stats, torch.cat([pack(w).reshape(-1) for w in (q, m, w0, w1)])
+    pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
+    c = q.shape[0]
+    # in the kernel's order: Q, merge, the FFN's first product by output half
+    # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
+    return torch.cat([pack(k), pack(v)]), torch.cat([pack(q), pack(m), pack(w0[:c]), pack(w0[c:]), pack(w1)])
+
+
 def pack_encoder_weights(
     wq: torch.Tensor,
     wk: torch.Tensor,
@@ -291,20 +368,10 @@ def pack_encoder_weights(
     if instance is None:
         raise ValueError(f"fused_encoder_layer: no K1 instance takes C = {c} with {nhead} heads "
                          f"(C must be a multiple of 32 up to {_CC_MAX_WIDTH}, divisible by the heads)")
-    if instance not in ("tc", "tf32x3", "tcw"):
+    if instance not in _TENSOR_CORE:
         return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln,
                                     instance=instance)
-    q, k, v, m, w0, w1 = (w.t() for w in loose)  # torch Linear layout [out, in]
-    if instance == "tcw":
-        stats = pack_weight_chunks_tcw(torch.cat([k, v]))  # K' and V: one product, N = 2C
-        apply = torch.cat([pack_weight_chunks_tcw(w).reshape(-1) for w in (q, m, w0, w1)])
-    else:
-        pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
-        stats = torch.cat([pack(k), pack(v)])
-        # in the kernel's order: Q, merge, the FFN's first product by output half
-        # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
-        apply = torch.cat([pack(q), pack(m), pack(w0[:c]), pack(w0[c:]), pack(w1)])
-    return PackedEncoderWeights(dtype, nhead, c, (), ln, stats, apply, instance)
+    return PackedEncoderWeights(dtype, nhead, c, (), ln, *chunk_images(instance, *loose), instance)
 
 
 def fused_encoder_layer_packed(
@@ -340,7 +407,7 @@ def fused_encoder_layer_packed(
     if masks[1] is not None and masks[1].shape != (n, s):
         raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
     instance = packed.instance
-    tensor_cores = instance in ("tc", "tf32x3", "tcw")
+    tensor_cores = instance in _TENSOR_CORE
     if tensor_cores:  # their bulk copies read 16-byte aligned rows
         x = x if x.data_ptr() % 16 == 0 else x.clone()
         source = source if source.data_ptr() % 16 == 0 else source.clone()
@@ -361,12 +428,12 @@ def fused_encoder_layer_packed(
             ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
             ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
         )
-    elif instance == "tcw":
+    elif instance in ("tcw", "tcw_tf32"):
         self_layer = x.data_ptr() == source.data_ptr() and l == s
-        scratch = torch.empty(lib.lib.opp_encoder_tcw_scratch_bytes(n, l, s, c, nhead, int(self_layer)),
-                              dtype=torch.uint8, device=device)
+        scratch_bytes = getattr(lib.lib, f"opp_encoder_{instance}_scratch_bytes")
+        scratch = torch.empty(scratch_bytes(n, l, s, c, nhead, int(self_layer)), dtype=torch.uint8, device=device)
         lib.call(
-            "opp_encoder_layer_tcw",
+            f"opp_encoder_layer_{instance}",
             ptr(x), ptr(source), ptr(packed.stats), ptr(packed.apply),
             ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
             ptr(scratch), ptr(y), n, l, s, c, nhead, stream_ptr(device),
@@ -425,9 +492,10 @@ def fused_encoder_layer(
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
     kernel does). It also routes (:func:`k1_instance`): C = 256 with 8 heads
-    to the tensor cores (bfloat16, or float32 in split TF32), bfloat16 at the
-    other widths :func:`tcw_takes` names to the wide tensor-core instance, any
-    other width to the CUDA-core instance of the operand type.
+    to the tensor cores (bfloat16, or float32 in split TF32), the other widths
+    :func:`tcw_takes` (bfloat16) or :func:`tcw_tf32_takes` (float32) names to
+    the wide tensor-core instance of the operand type, any other width to the
+    CUDA-core instance of the operand type.
     Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
     weights at every call; a caller that keeps its weights packs them once
     (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.

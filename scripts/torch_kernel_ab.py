@@ -32,11 +32,12 @@ the call, the host time a call, ``index_select`` on precomputed indices and
 the bytes bound. Last, the host time of reading the current stream's handle
 (``torch.cuda.current_stream().cuda_stream``, and ``kernels.stream_ptr``
 where the tree has it), which every wrapper does once a call. With ``--k1``,
-only K1 (``fused_encoder_layer``) with bf16 operands at self [4, 4096, C] for
-(C, heads) = (512, 8), (1024, 8) and (2048, 16): whole call (median of 5),
-device time a call of every launch by name, and the instance the tree routes
-to where it names one (a tree from before the wide tensor-core instance runs
-these widths on its CUDA-core kernels, seconds a call at 2048). Prints one JSON
+only K1 (``fused_encoder_layer``) with bf16 and with f32 operands at self
+[4, 4096, C] for (C, heads) = (512, 8), (1024, 8) and (2048, 16): whole call
+(median of 5), device time a call of every launch by name (templated kernels
+by instance, ``tcw32_gemm_kernel<2>``), and the instance the tree routes to
+where it names one (a tree from before the wide tensor-core instances runs
+these widths on its CUDA-core kernels, a fifth of a second a call at 2048). Prints one JSON
 line. Only entry points that every checkout
 of the port has are called, so that two trees (an older commit unpacked
 beside this one) can be run in turns in one session on one card: parent,
@@ -56,7 +57,7 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
-    parser.add_argument("--k1", action="store_true", help="time only K1's bf16 layer at self [4, 4096, C]")
+    parser.add_argument("--k1", action="store_true", help="time only K1's bf16 and f32 layers at self [4, 4096, C]")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -115,9 +116,10 @@ def main() -> int:
         every = sum(e.device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA")
         return sum(e.device_time_total for e in rows) / 1e3 / sum(e.count for e in rows), sorted(names), every / 1e3 / reps
 
-    def launches_ms(fn, reps=10):
+    def launches_ms(fn, reps=10, templates=False):
         """({kernel name: device ms a launch}, device ms a call) of every launch
-        fn makes, with the idle margins of device_ms."""
+        fn makes, with the idle margins of device_ms; ``templates`` keeps a
+        templated kernel's arguments in its name."""
         fn()
         for margin in (0.05, 0.25, 1.0, 3.0, 6.0):
             torch.cuda.synchronize()
@@ -134,7 +136,7 @@ def main() -> int:
             raise RuntimeError("the profiler saw no launch")
         named = {}
         for e in rows:
-            m = re.search(r"(\w+)(?:<[^(]*>)?\(", e.key)
+            m = re.search(r"(\w+(?:<[^(]*>)?)\(" if templates else r"(\w+)(?:<[^(]*>)?\(", e.key)
             named[m.group(1) if m else e.key[:40]] = e.device_time_total / 1e3 / e.count
         return named, sum(e.device_time_total for e in rows) / 1e3 / reps
 
@@ -234,20 +236,22 @@ def main() -> int:
     if args.k1:
         from onepose_plus_plus_tpu_torch.ops import cuda_encoder
 
+        torch.backends.cuda.matmul.allow_tf32 = False
         rec = {}
-        for c, nhead in ((512, 8), (1024, 8), (2048, 16)):
-            rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale  # noqa: E731
-            w = [rn(c, c, scale=c ** -0.5).to(torch.bfloat16) for _ in range(4)]
-            w += [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(2 * c, 2 * c, scale=(2 * c) ** -0.5).to(torch.bfloat16),
-                  rn(2 * c, c, scale=(2 * c) ** -0.5).to(torch.bfloat16), 1 + rn(c, scale=0.1), rn(c, scale=0.1)]
-            x = rn(4, 4096, c)
-            call = lambda: cuda_encoder.fused_encoder_layer(x, x, *w, nhead=nhead, dtype=torch.bfloat16)  # noqa: E731
-            named, dev = launches_ms(call, reps=3)
-            instance = getattr(cuda_encoder, "k1_instance", lambda *a: None)(c, nhead, torch.bfloat16)
-            rec[f"K1_bf16_self_4x4096_c{c}_h{nhead}"] = {"whole_ms": whole_ms(call, reps=5), "device_ms": dev,
-                                                         "launches": named, "instance": instance}
-            del x
-            torch.cuda.empty_cache()
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for c, nhead in ((512, 8), (1024, 8), (2048, 16)):
+                rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale  # noqa: E731
+                w = [rn(c, c, scale=c ** -0.5).to(dtype) for _ in range(4)]
+                w += [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(2 * c, 2 * c, scale=(2 * c) ** -0.5).to(dtype),
+                      rn(2 * c, c, scale=(2 * c) ** -0.5).to(dtype), 1 + rn(c, scale=0.1), rn(c, scale=0.1)]
+                x = rn(4, 4096, c)
+                call = lambda: cuda_encoder.fused_encoder_layer(x, x, *w, nhead=nhead, dtype=dtype)  # noqa: E731
+                named, dev = launches_ms(call, reps=3, templates=True)
+                instance = getattr(cuda_encoder, "k1_instance", lambda *a: None)(c, nhead, dtype)
+                rec[f"K1_{dt}_self_4x4096_c{c}_h{nhead}"] = {"whole_ms": whole_ms(call, reps=5), "device_ms": dev,
+                                                             "launches": named, "instance": instance}
+                del x
+                torch.cuda.empty_cache()
         print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
         return 0
     gathers = {}

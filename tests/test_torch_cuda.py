@@ -13,6 +13,7 @@ import time
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from onepose_plus_plus_tpu_torch import kernels
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
@@ -141,13 +142,22 @@ def test_k1_packed_weights_equal_loose_and_repeat_bitwise(gen, dtype):
 
 def _names(fn):
     """fn()'s result and the names of the kernels three calls of it launch
-    (without namespaces, templates and arguments)."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):  # the profiler can miss a first launch
-            out = fn()
+    (without namespaces, templates and arguments). A profiler session that
+    kept no device event (it keeps only those it maps inside the session) is
+    taken again with idle margins around the calls."""
+    for margin in (0.0, 0.25, 1.0):
         torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            for _ in range(3):  # the profiler can miss a first launch
+                out = fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        events = prof.key_averages()
+        if any(e.device_type.name == "CUDA" and e.device_time_total > 0 for e in events):
+            break
     names = set()
-    for e in prof.key_averages():
+    for e in events:
         m = re.search(r"(\w+)(?:<[^(]*>)?\(", e.key)
         names.add(m.group(1) if m else e.key)
     return out, names
@@ -177,9 +187,10 @@ def test_k1_f32_runs_the_split_tf32_instance_and_repeats_bitwise(gen, l, s, mask
 @pytest.mark.parametrize("c", [384, 512])
 def test_k1_runs_the_jax_kernels_widths_above_256(gen, dtype, c):
     """C = 384 and 512 with 8 heads (widths the JAX kernel takes) run K1's
-    f32 CUDA-core instance, whose apply block takes 8 rows there, and its wide
-    tensor-core instance for bf16 operands."""
+    wide tensor-core instances: split TF32 for f32 operands, bf16 for bf16."""
     x, src, w, xm, sm = _k1_args(gen, 2, 97, 130, True, dtype, c=c)
+    assert pack_encoder_weights(*w, nhead=8, dtype=dtype).instance == (
+        "tcw" if dtype == torch.bfloat16 else "tcw_tf32")
     before = kernels.launch_counts()["K1_encoder_layer"]
     got = fused_encoder_layer(x, src, *w, xm, sm, nhead=8, dtype=dtype)
     assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
@@ -196,13 +207,11 @@ def test_k1_runs_the_jax_kernels_widths_above_256(gen, dtype, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1)])
 def test_k1_runs_the_jax_kernels_widths_above_512_and_wide_heads(gen, dtype, c, nhead):
-    """f32 operands: above 512 the CUDA-core instance's threads loop over the
-    channels and the stats block takes fewer rows (16 at 640-1024, 8 at 2048);
-    a table no block holds (every width here) is read through L2. bf16
-    operands run the wide tensor-core instance. Ragged rows, masks."""
+    """Above 512 and at a one-head layer, f32 operands run the wide split-TF32
+    instance and bf16 operands the wide bf16 one. Ragged rows, masks."""
     x, src, w, xm, sm = _k1_args(gen, 2, 37, 70, True, dtype, c=c)
     assert pack_encoder_weights(*w, nhead=nhead, dtype=dtype).instance == (
-        "tcw" if dtype == torch.bfloat16 else "f32")
+        "tcw" if dtype == torch.bfloat16 else "tcw_tf32")
     before = kernels.launch_counts()["K1_encoder_layer"]
     got = fused_encoder_layer(x, src, *w, xm, sm, nhead=nhead, dtype=dtype)
     assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
@@ -247,21 +256,104 @@ def test_k1_tcw_matches_plain_repeats_bitwise_and_launches_its_kernels(gen, c, n
 
 
 def test_k1_tensor_core_instance_names_its_width(gen):
-    """bf16 operands take the tensor cores at C = 256 with 8 heads, the wide
-    tensor-core instance at C = 128 and f32 the CUDA cores; a width no instance
-    takes raises."""
+    """At C = 128 with 8 heads bf16 and f32 operands take the wide tensor-core
+    instances; a width no instance takes raises."""
     x, src, w, _, _ = _k1_args(gen, 1, 70, 70, False, torch.bfloat16, c=128)
     for dtype in (torch.bfloat16, torch.float32):
         got = fused_encoder_layer(x, src, *w, nhead=8, dtype=dtype)
         ref = encoder_layer_plain(x, src, *w, nhead=8, dtype=dtype)
         torch.cuda.synchronize()
         d = (got - ref).abs()
-        # the CUDA-core instances sum in another order than the plain version: f32
-        # to 1e-3, bf16 operands may land on the neighbouring bf16 value
+        # the kernels sum in another order than the plain version: f32 to 1e-3,
+        # bf16 operands may land on the neighbouring bf16 value
         assert d.max().item() < (1e-3 if dtype == torch.float32 else 5e-2) and d.mean().item() <= 5e-3
     x, src, w, _, _ = _k1_args(gen, 1, 70, 70, False, torch.bfloat16, c=48)
     with pytest.raises(ValueError, match="C = 48"):
         fused_encoder_layer(x, src, *w, nhead=8, dtype=torch.bfloat16)
+
+
+TCW32_WIDTHS = TCW_WIDTHS + ((384, 16), (128, 16))  # (C, heads) of the wide f32 split-TF32 instance, heads 24 and 8
+K1_TCW32_NAMES = ("tcw32_pack_kernel", "tcw32_gemm_kernel", "tcw32_kv_reduce_kernel", "tcw32_ln_image_kernel",
+                  "tcw32_ln_residual_kernel")
+
+
+@pytest.mark.parametrize("c,nhead", TCW32_WIDTHS)
+@pytest.mark.parametrize("l,s,masks", [(97, 61, True), (130, 257, False), (200, None, True), (65, 1100, False)])
+def test_k1_tcw_tf32_matches_plain_repeats_bitwise_and_launches_its_kernels(gen, c, nhead, l, s, masks):
+    """f32 operands at the wide split-TF32 instance's widths: within 1e-3 of the
+    plain f32 version (TF32 off), two launches bitwise equal (partials summed in
+    a fixed order, no atomics), the instance's kernels by name and none of the
+    CUDA-core ones; ragged rows, more than one source group (S = 1100), a self
+    layer (source is x)."""
+    x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.float32, c=c)
+    packed = pack_encoder_weights(*w, nhead=nhead, dtype=torch.float32)
+    assert packed.instance == "tcw_tf32"
+    before = kernels.launch_counts()["K1_encoder_layer"]
+    got = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
+    again, names = _names(lambda: fused_encoder_layer_packed(x, src, packed, xm, sm))
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= 1e-3, (got - ref).abs().max().item()
+    assert set(K1_TCW32_NAMES) <= names and not set(K1_CC_NAMES) & names, names
+
+
+def _layer_f64(x, src, w, xm, sm, nhead):
+    """The layer with every operand, product and sum in float64 (the f32 inputs
+    and weights as they are): what an f32 instance approximates."""
+    wq, wk, wv, wm, ln1s, ln1b, w0, w1, ln2s, ln2b = (t.double() for t in w)
+    x, src = x.double(), src.double()
+    n, l, c = x.shape
+    s, hd = src.shape[1], c // nhead
+    elu_p1 = lambda t: torch.where(t > 0, t + 1.0, torch.exp(t))  # noqa: E731
+    k = elu_p1(src @ wk)
+    q = elu_p1(x @ wq)
+    if sm is not None:
+        k = k * sm.double()[..., None]
+    if xm is not None:
+        q = q * xm.double()[..., None]
+    kh, vh, qh = k.view(n, s, nhead, hd), (src @ wv).view(n, s, nhead, hd), q.view(n, l, nhead, hd)
+    num = torch.einsum("nlhd,nhde->nlhe", qh, torch.einsum("nshd,nshe->nhde", kh, vh))
+    den = torch.einsum("nlhd,nhd->nlh", qh, kh.sum(dim=1))[..., None]
+    h1 = F.layer_norm((num / (den + 1e-6)).reshape(n, l, c) @ wm, (c,), ln1s, ln1b, 1e-5)
+    hid = torch.relu(torch.cat([x, h1], dim=-1) @ w0)
+    return x + F.layer_norm(hid @ w1, (c,), ln2s, ln2b, 1e-5)
+
+
+@pytest.mark.parametrize("c,nhead,l,s,masks", [(512, 8, 1000, 1500, False), (1024, 8, 777, None, True),
+                                               (384, 16, 1000, 1500, True), (128, 16, 777, None, False)])
+def test_k1_tcw_tf32_epilogues_do_not_drift(gen, c, nhead, l, s, masks):
+    """The split-TF32 chain computes elu+1 through ex2.approx and divides by
+    (den + 1e-6) through a reciprocal, and drops each product's lo x lo term
+    (~2^-22 relative): its mean distance to the layer in float64 stays within
+    twice the plain f32 version's. A single TF32 product (10 bits) would miss
+    this by orders of magnitude."""
+    x, src, w, xm, sm = _k1_args(gen, 4, l, s, masks, torch.float32, c=c)
+    got = fused_encoder_layer(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
+    exact = _layer_f64(x, src, w, xm, sm, nhead)
+    torch.cuda.synchronize()
+    err_kernel, err_plain = (got.double() - exact).abs().mean().item(), (ref.double() - exact).abs().mean().item()
+    print(f"K1 tcw_tf32 C={c} heads={nhead} l={l} s={s}: mean|kernel - f64| {err_kernel:.4e}, "
+          f"mean|plain - f64| {err_plain:.4e}")
+    assert err_kernel <= 2 * err_plain
+
+
+@pytest.mark.parametrize("c,nhead", [(64, 8), (224, 8), (544, 8), (640, 160)])
+def test_k1_f32_cuda_cores_keep_the_widths_left(gen, c, nhead):
+    """f32 operands at widths no split-TF32 instance takes (C below 128 or not a
+    multiple of 64, a head width that is not a multiple of 8) run K1's
+    CUDA-core kernels, within 1e-3 of the plain version, bitwise repeatable."""
+    x, src, w, xm, sm = _k1_args(gen, 2, 97, 130, True, torch.float32, c=c)
+    packed = pack_encoder_weights(*w, nhead=nhead, dtype=torch.float32)
+    assert packed.instance == "f32"
+    got = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    again, names = _names(lambda: fused_encoder_layer_packed(x, src, packed, xm, sm))
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and (got - ref).abs().max().item() < 1e-3
+    assert set(K1_CC_NAMES) <= names and not set(K1_TCW32_NAMES) & names, names
 
 
 def test_bf16_model_at_d_model_64_runs_k1_cuda_core_instance(gen):

@@ -195,8 +195,7 @@ def test_k1_plain_matches_pallas_kernel_above_256(c, dtype, atol):
 @pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (512, 1)])
 def test_k1_plain_matches_pallas_kernel_above_512_and_wide_heads(c, nhead, dtype, atol):
     """Widths above 512 and a head as wide as the layer, which the JAX kernel
-    takes and K1 runs (f32 operands on its CUDA-core instance, whose threads
-    loop over the channels and read the [C, hd + 1] table through L2; bf16
+    takes and K1 runs (f32 operands on its wide split-TF32 instance, bf16
     operands on its wide tensor-core instance): the port's layer through K1
     (its plain version on the CPU) agrees with the TPU kernel in interpret
     mode, at the tolerances of the widths up to 512."""
@@ -205,8 +204,41 @@ def test_k1_plain_matches_pallas_kernel_above_512_and_wide_heads(c, nhead, dtype
     ref = _pallas_layer(x, src, xm, sm, p, nhead=nhead)
     port = LoFTREncoderLayer(c, nhead, dtype=dtype).eval()
     port.load_state_dict(state_dict_from_jax({"params": p}))
-    assert k1_instance(c, nhead, dtype) == ("tcw" if dtype == torch.bfloat16 else "f32")
+    assert k1_instance(c, nhead, dtype) == ("tcw" if dtype == torch.bfloat16 else "tcw_tf32")
     with torch.no_grad():
         out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, atol=atol)
+
+
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("c,nhead", [(384, 16), (128, 16)])
+def test_k1_plain_matches_xla_layer_f32_at_narrow_heads(c, nhead, masks):
+    """Head widths 24 and 8 (32-channel chunks straddled; 16 heads a 128-column
+    block), which f32 operands run on K1's wide split-TF32 instance: the port's
+    layer through K1 (its plain version on the CPU) against the XLA
+    ``LoFTREncoderLayer`` in f32 at the f32 tolerance (1e-5)."""
+    x, src, xm, sm = _inputs(8, n=1, l=30, s=44, c=c, masks=masks)
+    layer, p = _jax_layer(x, src, xm, sm, c=c, nhead=nhead)
+    ref = layer.apply({"params": p}, x, src, xm, sm)
+    port = LoFTREncoderLayer(c, nhead, dtype=torch.float32).eval()
+    port.load_state_dict(state_dict_from_jax({"params": p}))
+    assert k1_instance(c, nhead, torch.float32) == "tcw_tf32"
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("c,nhead", [(384, 16), (128, 16)])
+def test_k1_plain_matches_pallas_kernel_at_narrow_heads_f32(c, nhead):
+    """The same widths against the TPU kernel in interpret mode, which rounds
+    its product operands to bf16: f32 operands to 3e-2, as at the other widths."""
+    x, src, xm, sm = _inputs(9, n=1, l=24, s=40, c=c, masks=True)
+    _, p = _jax_layer(x, src, xm, sm, c=c, nhead=nhead)
+    ref = _pallas_layer(x, src, xm, sm, p, nhead=nhead)
+    port = LoFTREncoderLayer(c, nhead, dtype=torch.float32).eval()
+    port.load_state_dict(state_dict_from_jax({"params": p}))
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=3e-2)

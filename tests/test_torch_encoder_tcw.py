@@ -1,5 +1,7 @@
-"""K1's wide bf16 instance on the tensor cores (``"tcw"``, ``csrc/encoder_tcw.cu``)
-on the CPU: its weight pack, its tile plan, and its order of sums.
+"""K1's wide instances on the tensor cores on the CPU: bf16 (``"tcw"``,
+``csrc/encoder_tcw.cu``) and f32 in split TF32 (``"tcw_tf32"``,
+``csrc/encoder_tcw_tf32.cu``): their weight packs, their tile plans, and
+their order of sums.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
 phase 2). What surrounds them is held here: the packed [128 out, 64 in] chunks
@@ -9,22 +11,32 @@ the at most 8 heads of a 128-column block) must cover every same-head pair; and
 the layer computed in the plan's order (K'^T[V|1] partials per group of 16
 source chunks, summed in group order; the attention over each block's k chunks
 only; each LayerNorm from per-128-column (mean, M2) partials merged in block
-order) must reproduce the plain version.
+order) must reproduce the plain version. The split-TF32 chain keeps that plan
+at 32-channel k chunks (heads straddle them at head widths 24, 40 and 80), an
+attention block of up to 16 heads (head width 8) and an even k range, and
+computes every product as three TF32 products of hi / lo halves.
 """
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from onepose_plus_plus_tpu_torch.kernels import tf32_split
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
+    TCW32_CHUNK,
+    TCW32_SOURCE_GROUP,
+    TCW32_SUMS,
     TCW_BLOCK,
     TCW_SOURCE_GROUP,
     TCW_TILE,
     _elu_p1,
     encoder_layer_plain,
     pack_weight_chunks_tcw,
+    pack_weight_chunks_tcw_tf32,
+    tcw32_head_chunks,
     tcw_head_chunks,
     tcw_takes,
+    tcw_tf32_takes,
     tcw_value_blocks,
 )
 
@@ -32,6 +44,9 @@ torch.set_num_threads(2)
 
 TCW_WIDTHS = [(128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 8), (1024, 8), (2048, 16),
               (4096, 16), (4096, 32), (192, 12), (320, 20)]
+# the split-TF32 chain's widths with head widths 8, 24, 40, 80 and 128 besides
+TCW32_WIDTHS = TCW_WIDTHS + [(128, 16), (256, 32), (4096, 512), (384, 16), (192, 8), (1920, 80), (640, 16),
+                             (320, 8), (640, 8), (1280, 16), (512, 4), (4096, 32)]
 
 
 @pytest.mark.parametrize("n,k", [(640, 640), (1280, 640), (192, 128), (256, 512)])
@@ -77,6 +92,57 @@ def test_tcw_plan_covers_every_same_head_pair(c, nhead):
         assert k_lo * TCW_TILE <= ch.min() and ch.max() < k_hi * TCW_TILE <= c
 
 
+@pytest.mark.parametrize("n,k", [(640, 640), (1280, 640), (192, 128), (256, 512), (136, 96)])
+def test_tcw_tf32_weight_pack_matches_the_byte_formula(n, k):
+    """Element (n, k) of a [N out, K in] f32 weight lies in chunk (n // 128, k // 32)
+    of 2 x 16 KB, its TF32 hi part in the first half and its lo part in the
+    second, at byte ((n % 128) // 8) * 1024 + ((k % 32) // 4) * 128 + (n % 8) * 16
+    + (k % 4) * 4 of the half; hi + lo is the weight to ~2^-22; rows past N (to a
+    multiple of 128) are zero."""
+    rng = np.random.default_rng(n + k)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
+    packed = pack_weight_chunks_tcw_tf32(w)
+    nb = -(-n // 128)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert tuple(packed.shape) == (nb, k // 32, 2, 16, 8, 8, 4)
+    words = packed.view(torch.int32).numpy().reshape(-1)
+    r = np.arange(n)[:, None]
+    c = np.arange(k)[None, :]
+    byte = (((r // 128) * (k // 32) + c // 32) * 32768 + ((r % 128) // 8) * 1024 + ((c % 32) // 4) * 128
+            + (r % 8) * 16 + (c % 4) * 4)
+    hi, lo = tf32_split(w)
+    np.testing.assert_array_equal(words[byte // 4], hi.view(torch.int32).numpy())
+    np.testing.assert_array_equal(words[(byte + 16384) // 4], lo.view(torch.int32).numpy())
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all() and (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((hi.double() + lo.double() - w.double()).abs() <= 2.0 ** -21 * w.double().abs()).all()
+    assert np.count_nonzero(words) == int(hi.ne(0).sum() + lo.ne(0).sum())  # the rest is zero padding
+
+
+@pytest.mark.parametrize("c,nhead", TCW32_WIDTHS)
+def test_tcw32_plan_covers_every_same_head_pair(c, nhead):
+    """The split-TF32 chain's plan: every (d, e) pair of channels in one head lies
+    in a stats block of d's tile; every attention column's head channels lie in
+    its block's 32-channel k chunks, an even number of them inside [0, C / 32),
+    and a block has at most the 16 sum rows' heads."""
+    assert tcw_tf32_takes(c, nhead)
+    hd = c // nhead
+    head = np.arange(c) // hd
+    for i in range(c // TCW_TILE):
+        lo, hi = tcw_value_blocks(i, hd)
+        d = np.arange(TCW_TILE * i, TCW_TILE * (i + 1))
+        e = np.flatnonzero(np.isin(head, head[d]))
+        assert lo * TCW_BLOCK <= e.min() and e.max() < min(c, (hi + 1) * TCW_BLOCK)
+    for nb in range(-(-c // TCW_BLOCK)):
+        h_first, h_last, k_lo, k_hi = tcw32_head_chunks(nb, c, hd)
+        cols = np.arange(nb * TCW_BLOCK, min(c, (nb + 1) * TCW_BLOCK))
+        assert h_first == head[cols].min() and h_last == head[cols].max() and h_last - h_first < TCW32_SUMS
+        ch = np.flatnonzero(np.isin(head, head[cols]))
+        assert 0 <= k_lo and k_lo * TCW32_CHUNK <= ch.min() and ch.max() < k_hi * TCW32_CHUNK <= c
+        assert (k_hi - k_lo) % 2 == 0
+        plain = tcw_head_chunks(nb, c, hd, TCW32_CHUNK)
+        assert (k_hi - k_lo) - (plain[3] - plain[2]) in (0, 1)  # widened by one chunk at most
+
+
 def _layernorm_by_blocks(raw, scale, bias):
     """LayerNorm over the last dimension from per-128-column (mean, M2)
     partials merged in block order (Chan's formula), as the kernel's row
@@ -100,25 +166,38 @@ def _layernorm_by_blocks(raw, scale, bias):
     return (raw - mean[..., None]) * rstd[..., None] * scale + bias
 
 
-def tcw_layer_by_the_plan(x, source, w, x_mask, source_mask, nhead, dtype):
+def split_tf32_mm(a, b):
+    """a @ b as the split-TF32 kernels compute it: three TF32 products of the
+    hi / lo halves (``kernels.tf32_split``), lo hi + hi lo + hi hi, in f32."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def tcw_layer_by_the_plan(x, source, w, x_mask, source_mask, nhead, dtype, tf32=False):
     """The layer in the wide instance's order of sums, with product operands
-    rounded to ``dtype`` as the kernels round them (f32 arithmetic)."""
+    rounded to ``dtype`` as the kernels round them (f32 arithmetic); with
+    ``tf32``, the split-TF32 chain's: f32 operands, every product split
+    (:func:`split_tf32_mm`, the stats' ones row too), the attention over
+    :func:`tcw32_head_chunks`' 32-channel chunks with 16 rows of head sums."""
     wq, wk, wv, wm, ln1s, ln1b, w0, w1, ln2s, ln2b = w  # [in, out]
     n, l, c = x.shape
     s, hd = source.shape[1], c // nhead
+    mm = split_tf32_mm if tf32 else torch.matmul
+    chunk, n_sums = (TCW32_CHUNK, TCW32_SUMS) if tf32 else (TCW_TILE, 8)
 
     def r(t):
         return t.to(dtype).float()
 
     xb, sb = r(x), r(source)
-    k = _elu_p1(sb @ r(wk))
+    k = _elu_p1(mm(sb, r(wk)))
     if source_mask is not None:
         k = k * source_mask[..., None]
-    kp, v = r(k), r(sb @ r(wv))
+    kp, v = r(k), r(mm(sb, r(wv)))
     head = torch.arange(c) // hd
     # stats: each group's partials of the same-head blocks of K'^T V and sum K',
     # over the value blocks of each 64-channel tile only; groups summed in order
-    group_rows = TCW_SOURCE_GROUP * TCW_TILE
+    group_rows = TCW32_SOURCE_GROUP * TCW32_CHUNK if tf32 else TCW_SOURCE_GROUP * TCW_TILE
     total = None
     for g0 in range(0, s, group_rows):
         kg, vg = kp[:, g0:g0 + group_rows], v[:, g0:g0 + group_rows]
@@ -127,36 +206,37 @@ def tcw_layer_by_the_plan(x, source, w, x_mask, source_mask, nhead, dtype):
             lo, hi = tcw_value_blocks(i, hd)
             d = torch.arange(TCW_TILE * i, TCW_TILE * (i + 1))
             e = torch.arange(lo * TCW_BLOCK, min(c, (hi + 1) * TCW_BLOCK))
-            prod = kg[:, :, d].transpose(1, 2) @ vg[:, :, e]  # [n, 64, E]
+            kt = kg[:, :, d].transpose(1, 2)
+            prod = mm(kt, vg[:, :, e])  # [n, 64, E]
             for a, dd in enumerate(d.tolist()):
                 same = head[e] == head[dd]
                 part[:, dd, e[same] - head[dd] * hd] = prod[:, a, same]
-            part[:, d, hd] = kg[:, :, d].sum(1)
+            part[:, d, hd] = mm(kt, torch.ones(n, kt.shape[2], 1))[..., 0]  # the ones row
         total = part if total is None else total + part
     kvr = r(total)  # the attention's B image
     bd = torch.zeros(n, c, c)  # block-diagonal KV, [channel d, value column e]
     for h in range(nhead):
         sl = slice(h * hd, (h + 1) * hd)
         bd[:, sl, sl] = kvr[:, sl, :hd]
-    q = _elu_p1(xb @ r(wq))
+    q = _elu_p1(mm(xb, r(wq)))
     if x_mask is not None:
         q = q * x_mask[..., None]
     qp = r(q)
     msg = torch.empty(n, l, c)
     for nb in range(-(-c // TCW_BLOCK)):
-        h_first, h_last, k_lo, k_hi = tcw_head_chunks(nb, c, hd)
+        h_first, h_last, k_lo, k_hi = tcw32_head_chunks(nb, c, hd) if tf32 else tcw_head_chunks(nb, c, hd)
         cols = torch.arange(nb * TCW_BLOCK, min(c, (nb + 1) * TCW_BLOCK))
-        ks = torch.arange(k_lo * TCW_TILE, k_hi * TCW_TILE)
-        sums = torch.zeros(n, len(ks), 8)  # the 8 rows of sum K'_h of the block's heads
+        ks = torch.arange(k_lo * chunk, k_hi * chunk)
+        sums = torch.zeros(n, len(ks), n_sums)  # the rows of sum K'_h of the block's heads
         for i, h in enumerate(range(h_first, h_last + 1)):
             sums[:, :, i] = kvr[:, ks, hd] * (head[ks] == h)
-        num = qp[:, :, ks] @ bd[:, ks][:, :, cols]
-        den = qp[:, :, ks] @ sums
+        num = mm(qp[:, :, ks], bd[:, ks][:, :, cols])
+        den = mm(qp[:, :, ks], sums)
         inv = 1.0 / (den[..., head[cols] - h_first] + 1e-6)
         msg[:, :, cols] = r(num * inv)
-    h1 = _layernorm_by_blocks(msg @ r(wm), ln1s, ln1b)
-    hid = r(torch.relu(torch.cat([xb, r(h1)], dim=-1) @ r(w0)))
-    return x + _layernorm_by_blocks(hid @ r(w1), ln2s, ln2b)
+    h1 = _layernorm_by_blocks(mm(msg, r(wm)), ln1s, ln1b)
+    hid = r(torch.relu(mm(torch.cat([xb, r(h1)], dim=-1), r(w0))))
+    return x + _layernorm_by_blocks(mm(hid, r(w1)), ln2s, ln2b)
 
 
 def _layer_inputs(c, n, l, s, seed):
@@ -188,6 +268,21 @@ def test_tcw_order_of_sums_reproduces_the_plain_version(c, nhead, dtype):
         assert d.max().item() < 1e-4, d.max().item()
     else:
         assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3, (d.max().item(), d.mean().item())
+
+
+@pytest.mark.parametrize("c,nhead", [(384, 16), (640, 8), (128, 16), (320, 40)])
+def test_tcw32_order_of_sums_and_split_products_reproduce_the_plain_version(c, nhead):
+    """The split-TF32 chain's plan (32-channel chunks, heads straddling them at
+    head widths 24 and 80, 16 heads a block at head width 8, the attention's k
+    range widened to an even count) with every product split into three TF32
+    products, at ragged L, two source groups (S = 1100 rows: 36 chunks of 32,
+    groups of 32) and masks: within 1e-4 of the plain f32 version (one TF32
+    product in place of the three is off by ~3e-3 here)."""
+    x, src, w, (xm, sm) = _layer_inputs(c, 2, 97, 1100, seed=c + 1)
+    got = tcw_layer_by_the_plan(x, src, w, xm, sm, nhead, torch.float32, tf32=True)
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
+    d = (got - ref).abs().max().item()
+    assert d < 1e-4, d
 
 
 def test_tcw_layernorm_partials_match_layer_norm():

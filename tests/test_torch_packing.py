@@ -22,6 +22,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     pack_encoder_weights,
     pack_weight_chunks,
     tcw_takes,
+    tcw_tf32_takes,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     scatter_index,
@@ -289,9 +290,14 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
     (48, 8, "bfloat16", None),      # not a multiple of 32
     (288, 8, "float32", "f32"),     # above 256: the CUDA-core instances reach 4096
     (384, 8, "bfloat16", "tcw"),    # the JAX kernel's widths above 256
-    (512, 8, "float32", "f32"),
-    (544, 8, "float32", "f32"),     # above 512: the threads loop over the channels
-    (512, 4, "float32", "f32"),     # a [C, C / heads + 1] table that no block holds: read through L2
+    (512, 8, "float32", "tcw_tf32"),  # f32 at the JAX kernel's other widths: tensor cores in split TF32
+    (544, 8, "float32", "f32"),     # not a multiple of 64: the CUDA cores, whose threads loop over the channels
+    (512, 4, "float32", "tcw_tf32"),  # a [C, C / heads + 1] table the CUDA-core block could not hold
+    (128, 16, "float32", "tcw_tf32"),  # head width 8: one TF32 k step (bf16 needs 16)
+    (128, 16, "bfloat16", "bf16"),
+    (384, 16, "float32", "tcw_tf32"),  # head width 24: heads straddle 32-channel chunks
+    (96, 1, "float32", "f32"),      # below 128
+    (640, 160, "float32", "f32"),   # head width 4: not a TF32 k step
     (4128, 8, "float32", None),     # above 4096
     (96, 5, "bfloat16", None),      # heads do not divide C
 ])
@@ -313,10 +319,11 @@ def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, 
 
 
 def _other_instance(c, nhead, dtype):
-    """The instance of a width other than (256, 8): bf16 operands on the wide
-    tensor-core instance where it takes the width, else the CUDA cores."""
+    """The instance of a width other than (256, 8): the wide tensor-core instance
+    of the operand type where C is a multiple of 64 from 128 and the head width
+    a multiple of its k step (bf16 16, TF32 8), else the CUDA cores."""
     if dtype == torch.float32:
-        return "f32"
+        return "tcw_tf32" if c % 64 == 0 and c >= 128 and (c // nhead) % 8 == 0 else "f32"
     return "tcw" if c % 64 == 0 and c >= 128 and (c // nhead) % 16 == 0 else "bf16"
 
 
@@ -324,6 +331,7 @@ TCW_WIDTHS = [(128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 
               (4096, 16), (4096, 32)]
 CUDA_CORE_BF16_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (128, 16), (192, 8), (224, 8), (256, 32),
                          (320, 40), (640, 16), (4096, 512)]
+CUDA_CORE_F32_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (224, 8), (288, 8), (640, 160), (4064, 8)]
 
 
 def _meta_weights(c):
@@ -343,7 +351,7 @@ def test_k1_tcw_routing_and_packing_agree(c, nhead):
     want = "tcw" if (c, nhead) in TCW_WIDTHS else "bf16"
     assert k1_instance(c, nhead, torch.bfloat16) == want
     assert tcw_takes(c, nhead) == (want == "tcw")
-    assert k1_instance(c, nhead, torch.float32) == "f32"
+    assert k1_instance(c, nhead, torch.float32) == ("f32" if (c, nhead) in CUDA_CORE_F32_WIDTHS else "tcw_tf32")
     cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype="bfloat16", layer_iter_n=1)
     assert routes_to_k1(cfg, False, 256, 300)
     packed = pack_encoder_weights(*_meta_weights(c), nhead=nhead, dtype=torch.bfloat16)
@@ -354,6 +362,47 @@ def test_k1_tcw_routing_and_packing_agree(c, nhead):
     nb, ck = -(-c // 128), c // 64
     assert packed.loose == () and packed.stats.shape == (2 * c // 128, ck, 16, 8, 8, 8)
     assert packed.apply.numel() == (2 * nb * ck + ck * 2 * ck + nb * 2 * ck) * 128 * 64
+
+
+@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + CUDA_CORE_BF16_WIDTHS + CUDA_CORE_F32_WIDTHS)
+def test_k1_tcw_tf32_routing_and_packing_agree(c, nhead):
+    """f32 operands take the wide split-TF32 instance exactly where C is a
+    multiple of 64 from 128 to 4096 and the head width a multiple of 8, but
+    (256, 8); the model routes every width to K1, and the packing (meta
+    tensors) names the same instance and packs its chunks: [Wk; Wv] as 2C / 128
+    column blocks of C / 32 chunks of [128 out, 32 in], hi and lo, then Wq,
+    Wmerge, W0, W1."""
+    want = "f32" if (c, nhead) in CUDA_CORE_F32_WIDTHS else "tcw_tf32"
+    assert k1_instance(c, nhead, torch.float32) == want
+    assert tcw_tf32_takes(c, nhead) == (want == "tcw_tf32")
+    cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype="float32", layer_iter_n=1)
+    assert routes_to_k1(cfg, False, 256, 300)
+    packed = pack_encoder_weights(*_meta_weights(c), nhead=nhead, dtype=torch.float32)
+    assert packed.instance == want and packed.width == c
+    if want == "f32":
+        assert packed.stats is None and len(packed.loose) == 6
+        return
+    nb, kc = -(-c // 128), c // 32
+    assert packed.loose == () and packed.stats.shape == (2 * c // 128, kc, 2, 16, 8, 8, 4)
+    assert packed.apply.numel() == (2 * nb * kc + (c // 64) * 2 * kc + nb * 2 * kc) * 2 * 128 * 32
+
+
+def test_k1_instance_reads_the_f32_rule_at_every_width():
+    """Every (C, heads) K1 takes in f32 (C a multiple of 32 up to 4096, heads
+    dividing C): the split-TF32 instances exactly where C % 64 == 0, C >= 128
+    and the head width is a multiple of 8 ("tf32x3" at (256, 8), "tcw_tf32" at
+    the rest), the CUDA cores ("f32") only outside that set."""
+    seen = {"tf32x3": 0, "tcw_tf32": 0, "f32": 0}
+    for c in range(32, 4097, 32):
+        for nhead in range(1, c + 1):
+            if c % nhead:
+                continue
+            got = k1_instance(c, nhead, torch.float32)
+            tensor_cores = c % 64 == 0 and c >= 128 and (c // nhead) % 8 == 0
+            want = "tf32x3" if (c, nhead) == (256, 8) else "tcw_tf32" if tensor_cores else "f32"
+            assert got == want, (c, nhead, got)
+            seen[got] += 1
+    assert seen == {"tf32x3": 1, "tcw_tf32": 758, "f32": 1711}, seen
 
 
 def _jax_widths(c_max):
@@ -380,8 +429,10 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
     """Above 512 too: every (C, nhead) the JAX kernel takes up to C = 2048 (170
-    pairs) has a CUDA-core instance, and the model routes each to K1 by the JAX
-    rule, so that no such width reaches a wrapper that raises."""
+    pairs) has an instance (f32: the wide split-TF32 one; bf16: the wide one
+    where the head width is a multiple of 16, else the CUDA cores), and the
+    model routes each to K1 by the JAX rule, so that no such width reaches a
+    wrapper that raises."""
     widths = _jax_widths(2048)
     assert len(widths) == 170
     tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
