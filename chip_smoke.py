@@ -11,18 +11,21 @@ phase 2, and phase 10, which runs right after phase 6:
   2  each kernel against its plain PyTorch version at main-path shapes
      (batch 16), f32 and bf16, with CUDA-event medians over 20 runs; K1 also
      at the LoFTR shape [8, 4096, 256], with masks and at a small ragged shape,
-     timed with packed weights and split by launch, a bf16 layer at C = 64
-     through K1's CUDA-core bf16 instance, and K1 at the JAX kernel's widths
-     above 512, a one-head layer and its own tests' other widths ((640, 8),
-     (768, 8), (1024, 8), (2048, 16), (512, 1), (256, 4), (128, 8)) in both
-     dtypes and at head widths 24 and 8 ((384, 16), (128, 16)) in f32 (f32:
-     the wide split-TF32 instance; bf16: the wide tensor-core instance),
-     bitwise repeatable, faster as whole calls than the plain version and
-     the CUDA-core instance of the operand type (timed in turns with it),
-     each with its device time, plain version and bound; the wide instances
-     at self [4, 4096, C] for C = 512, 1024 and 2048 with their share of the
-     operations bound (f32: of the f32 bound and of the 3xTF32 floor, beside
-     the CUDA-core f32 instance's device time); the wide chains at (256, 8)
+     timed with packed weights and split by launch, a bf16 and an f32 layer
+     at C = 64 through K1's CUDA-core instances, and K1 at the JAX kernel's
+     widths above 512, a one-head layer and its own tests' other widths
+     ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1), (256, 4), (128, 8))
+     in both dtypes and at head widths 24 and 8 ((384, 16), (128, 16)) in f32
+     (f32: the wide split-TF32 instance, max|d| <= 1e-4; bf16: the wide
+     tensor-core instance), bitwise repeatable, faster as whole calls than the
+     plain version and the CUDA-core instance of the operand type (timed in
+     turns with it, and held to the plain version itself: bitwise repeatable,
+     by kernel name), each with its device time, plain version and bound; the
+     wide instances at self [4, 4096, C] for C = 512, 1024 and 2048 with their
+     share of the operations bound (f32: of the f32 bound and of the 3xTF32
+     floor, beside the CUDA-core f32 instance's device time and error; at
+     C = 512 the mean distance to the layer in float64, within 2x plain
+     f32's, beside single TF32's); the wide chains at (256, 8)
      through forced packs beside the instances that run that width ("tcw"
      against "tc", "tcw_tf32" against "tf32x3", self [16, 7000, 256]);
      K3 exact at the query shape (both
@@ -281,11 +284,11 @@ def check(cond: bool, msg: str) -> None:
 
 
 def turns_ms(fa, fb, reps: int = 10):
-    """Whole-call ms of fa and fb timed in turns (a, b, b, a, a, b), each the
-    least of its three turns' medians: calls of a few launches are bound by
+    """Whole-call ms of fa and fb timed in turns (a, b, b, a, a, b, b, a), each
+    the least of its four turns' medians: calls of a few launches are bound by
     the host, whose stalls within a run only ever slow a turn."""
     a, b = [], []
-    for side in (a, b, b, a, a, b):
+    for side in (a, b, b, a, a, b, b, a):
         side.append(time_ms(fa if side is a else fb, reps))
     return min(a), min(b)
 
@@ -520,7 +523,8 @@ def phase2_k1(gen) -> dict:
 
 def phase2_k1_narrow(gen) -> None:
     """A bf16 layer at a width the tensor-core instance does not take (C = 64, 8
-    heads, as the narrow configurations) runs K1's CUDA-core bf16 instance."""
+    heads, as the narrow configurations) runs K1's CUDA-core bf16 instance, an
+    f32 one its CUDA-core f32 instance (no split-TF32 chain takes C = 64)."""
     torch.manual_seed(0)
     layer = LoFTREncoderLayer(64, 8, "linear", dtype=torch.bfloat16).cuda().eval()
     x = torch.randn(4, 1000, 64, generator=gen, device="cuda")
@@ -547,6 +551,29 @@ def phase2_k1_narrow(gen) -> None:
     log(f"[2] K1 bf16 at C = 64 (CUDA cores): kernel {ms:.4f} ms whole call, device {busy / 5:.4f} ms a call, "
         f"plain {pms:.4f} ms (medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 989 TFLOP/s bf16), "
         f"{100 * b['bound_ms'] / (busy / 5):.1f} % of it by device time; no single PyTorch call computes the layer")
+    torch.manual_seed(0)
+    layer = LoFTREncoderLayer(64, 8, "linear", dtype=torch.float32).cuda().eval()
+    with torch.no_grad():
+        before = kernels.launch_counts()["K1_encoder_layer"]
+        got = layer(x, src, fused=True)
+        launched = kernels.launch_counts()["K1_encoder_layer"] - before
+        again = layer(x, src, fused=True)
+        ref = encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.float32)
+        rows, busy, _ = device_rows(lambda: layer(x, src, fused=True), reps=5)
+        ms = time_ms(lambda: layer(x, src, fused=True))
+        pms = time_ms(lambda: encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.float32))
+    torch.cuda.synchronize()
+    d = (got - ref).abs().max().item()
+    b = bound(*k1_work(4, 1000, 700, c=64, w_bytes=4), torch.float32)
+    log(f"[2] K1 f32 at C = 64, 8 heads, x{tuple(x.shape)} src{tuple(src.shape)}: instance "
+        f"{layer.packed_weights().instance!r}, {launched} launch, max|d| {d:.3e} (<= 1e-3), two launches bitwise "
+        f"equal {torch.equal(got, again)}; kernel {ms:.4f} ms whole call, device {busy / 5:.4f} ms a call, plain "
+        f"{pms:.4f} ms (medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 67 TFLOP/s f32), "
+        f"{100 * b['bound_ms'] / (busy / 5):.1f} % of it by device time; launches {launch_names(rows)}")
+    check(layer.packed_weights().instance == "f32" and launched == 1 and d <= 1e-3
+          and bool(torch.isfinite(got).all()) and torch.equal(got, again),
+          "K1's CUDA-core f32 instance disagrees at C = 64")
+    check(only_launches(rows, K1_CC_NAMES), "a C = 64 f32 layer launches something besides K1's CUDA-core kernels")
 
 
 K1_WIDE = ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1))  # (C, heads) the JAX kernel takes above 512 / wide heads
@@ -566,6 +593,26 @@ def _forced_pack(packed: PackedEncoderWeights, ws: dict, instance: str) -> Packe
         return PackedEncoderWeights(packed.dtype, packed.nhead, packed.width, loose, packed.ln, instance=instance)
     return PackedEncoderWeights(packed.dtype, packed.nhead, packed.width, (), packed.ln,
                                 *chunk_images(instance, *loose), instance)
+
+
+TCW32_MAX_ERR = 1e-4  # "tcw_tf32" against plain f32: split TF32 passes it, one TF32 product does not
+
+
+def _check_cuda_cores(call, ref, dt: str, where: str) -> float:
+    """K1's CUDA-core instance of dt, through a forced pack, held to the plain
+    version as when it ran these widths: f32 max|d| <= 1e-3, bf16 max 5e-2 and
+    mean 5e-3; two launches bitwise equal, its kernels and no other K1 kernel.
+    Its max|d|."""
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    ok = d.max().item() <= 1e-3 if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+    check(ok and bool(torch.isfinite(got).all()) and torch.equal(got, again),
+          f"K1's CUDA-core {dt} instance at {where} disagrees: max|d| {d.max().item():.3e}")
+    rows, _, _ = device_rows(call)
+    k1 = {_short(r[2]) for r in rows} & set(K1_NAMES)  # the wrapper also casts bool masks
+    check(k1 == set(K1_CC_NAMES), f"K1's CUDA-core {dt} instance launches {launch_names(rows)}")
+    return d.max().item()
 
 
 def phase2_k1_wide(gen) -> None:
@@ -590,7 +637,7 @@ def phase2_k1_wide(gen) -> None:
             ref = encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype)
             torch.cuda.synchronize()
             d = (got - ref).abs()
-            tol = (1e-3, None) if dt == "f32" else (5e-2, 5e-3)
+            tol = (TCW32_MAX_ERR, None) if dt == "f32" else (5e-2, 5e-3)
             instance, names = ("tcw_tf32", K1_TCW32_NAMES) if dt == "f32" else ("tcw", K1_TCW_NAMES)
             pms = time_ms(lambda: encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype), reps=5)
             cc_packed = _forced_pack(packed, ws, dt)
@@ -602,6 +649,9 @@ def phase2_k1_wide(gen) -> None:
                   and not {_short(r[2]) for r in rows} & set(K1_NAMES) - set(names),
                   f"K1 {dt} at C = {c} launches {launch_names(rows)}")
             dev = sum(r[0] for r in mine) / 3  # device ms a call
+            # profiled after the timed turns, as the chain itself is
+            cc_d = _check_cuda_cores(lambda: fused_encoder_layer_packed(x, src, cc_packed, **masks), ref, dt,
+                                     f"C = {c}, {nhead} heads")
             n_bytes, ops = k1_work(2, 150, 97, c=c, nhead=nhead, w_bytes=dtype.itemsize)
             b = bound(n_bytes, ops, dtype)
             floor = "" if dt == "bf16" else (f", 3xTF32 floor {1e3 * 3 * ops / TF32_OPS_PER_S:.5f} ms "
@@ -611,8 +661,8 @@ def phase2_k1_wide(gen) -> None:
                 f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}, two launches bitwise equal "
                 f"{torch.equal(got, again)}; kernel {ms:.3f} ms whole call, device "
                 f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms, "
-                f"the CUDA-core {dt} instance {cc_ms:.3f} ms (kernel and CUDA cores in three turns each, the least "
-                f"median of 10 calls; plain median of 5); bound {b['bound_ms']:.5f} ms "
+                f"the CUDA-core {dt} instance {cc_ms:.3f} ms (max|d| {cc_d:.3e}; kernel and CUDA cores in four "
+                f"turns each, the least median of 10 calls; plain median of 5); bound {b['bound_ms']:.5f} ms "
                 f"({b['bound_by']}, {'67 TFLOP/s f32' if dt == 'f32' else '989 TFLOP/s bf16'}), "
                 f"{100 * b['bound_ms'] / dev:.1f} % of it by device time{floor}")
             check(packed.instance == instance and bool(torch.isfinite(got).all()) and d.max().item() <= tol[0]
@@ -666,14 +716,29 @@ def phase2_k1_tcw32_realistic(gen) -> None:
         ref = encoder_layer_plain(x, x, **w, nhead=nhead)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        check(packed.instance == "tcw_tf32" and bool(torch.isfinite(got).all()) and err <= 1e-3,
+        check(packed.instance == "tcw_tf32" and bool(torch.isfinite(got).all()) and err <= TCW32_MAX_ERR,
               f"K1 f32 self [4, 4096, {c}] disagrees: {err}")
+        drift = ""
+        if c == K1_TCW_REALISTIC[0][0]:  # the float64 layer's distance, at the first width
+            exact = encoder_layer_plain(x, x, **w, nhead=nhead, dtype=torch.float64)
+            tf32_was = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            single = encoder_layer_plain(x, x, **w, nhead=nhead)
+            torch.backends.cuda.matmul.allow_tf32 = tf32_was
+            e_kernel, e_plain, e_single = ((y.double() - exact).abs().mean().item() for y in (got, ref, single))
+            drift = (f"; mean|y - y64| kernel {e_kernel:.3e} (<= 2x plain f32's), plain f32 {e_plain:.3e}, "
+                     f"plain single TF32 {e_single:.3e}")
+            check(e_kernel <= 2 * e_plain, f"K1 f32 self [4, 4096, {c}] drifts from float64: {e_kernel} "
+                  f"against plain f32's {e_plain}")
+            del exact, single
+        cc_packed = _forced_pack(packed, w, "f32")
+        cc_err = _check_cuda_cores(lambda: fused_encoder_layer_packed(x, x, cc_packed), ref, "f32",
+                                   f"self [4, 4096, {c}]")
         del got, ref
         ms = time_ms(lambda: fused_encoder_layer_packed(x, x, packed), reps=10)
         pms = time_ms(lambda: encoder_layer_plain(x, x, **w, nhead=nhead), reps=5)
         rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
         check(only_launches(rows, K1_TCW32_NAMES), f"K1 f32 self [4, 4096, {c}] launches {launch_names(rows)}")
-        cc_packed = _forced_pack(packed, w, "f32")
         cc_rows, cc_busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, cc_packed), reps=2)
         cc_busy /= 2
         check(only_launches(cc_rows, K1_CC_NAMES), f"K1's CUDA-core f32 instance launches {launch_names(cc_rows)}")
@@ -682,11 +747,11 @@ def phase2_k1_tcw32_realistic(gen) -> None:
         floor = 1e3 * 3 * ops / TF32_OPS_PER_S
         dev = busy / 3
         log(f"[2] K1 f32 self [4, 4096, {c}], {nhead} heads (wide split-TF32 instance): max|d| {err:.3e} "
-            f"(<= 1e-3); kernel {ms:.4f} ms whole call (median of 10), device {dev:.4f} ms a call (every launch: "
+            f"(<= {TCW32_MAX_ERR:g}){drift}; kernel {ms:.4f} ms whole call (median of 10), device {dev:.4f} ms a call (every launch: "
             f"{launch_names(rows)}), plain {pms:.3f} ms (median of 5); f32 bound {fb['bound_ms']:.4f} ms "
             f"({fb['bound_by']}, 67 TFLOP/s): {100 * fb['bound_ms'] / dev:.1f} % of it by device time; 3xTF32 floor "
             f"{floor:.4f} ms (495 TFLOP/s): {100 * floor / dev:.1f} %; the CUDA-core f32 instance {cc_busy:.3f} ms "
-            f"device ({cc_busy / dev:.1f}x; {launch_names(cc_rows)})")
+            f"device ({cc_busy / dev:.1f}x; max|d| {cc_err:.3e} (<= 1e-3); {launch_names(cc_rows)})")
         del x
         torch.cuda.empty_cache()
 
@@ -710,7 +775,8 @@ def phase2_k1_at_256(gen) -> None:
             got = fused_encoder_layer_packed(x, x, packed)
             torch.cuda.synchronize()
             d = (got - ref).abs()
-            ok = d.max().item() <= 1e-3 if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+            lim = TCW32_MAX_ERR if packed.instance == "tcw_tf32" else 1e-3
+            ok = d.max().item() <= lim if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
             check(ok and bool(torch.isfinite(got).all()), f"K1 {dt} {packed.instance} at (256, 8) disagrees")
             rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
             check(only_launches(rows, kernel_names), f"K1 {packed.instance} launches {launch_names(rows)}")

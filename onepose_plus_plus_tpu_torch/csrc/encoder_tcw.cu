@@ -48,7 +48,10 @@
 //  11. FFN out: hidden W1 in f32 with its row partials, as in 8.
 //  12. LN2 and the residual on the f32 x: y.
 // No atomics; every sum runs in a fixed order, so two launches are bitwise
-// equal. Every launch is checked with cudaGetLastError.
+// equal. Every launch is checked with cudaGetLastError. The plan, the launch
+// sequence, the scratch layout and the epilogues that do not depend on the
+// operand type are tcw_plan.cuh's, shared with the split-TF32 chain
+// (encoder_tcw_tf32.cu); this file holds the bf16 kernels and their traits.
 #include "common.cuh"
 #include "wgmma.cuh"
 #include "tcw_plan.cuh"
@@ -67,30 +70,8 @@ using namespace opp::tcw_plan;
 constexpr int NTA = BN + 8;               // the stats' and attention's: 8 columns of sums more
 constexpr int NST = 4;                    // ring stages: two blocks an SM
 constexpr int SG = 16;                    // source chunks a stats block sums
-constexpr uint32_t CHUNK = gm::A_CHUNK;   // 8192: an image chunk [64, 64]
 constexpr uint32_t W_CHUNK = BN * 128;    // 16384: a weight chunk [128, 64], a V^T chunk
 constexpr uint32_t KV_CHUNK = NTA * 128;  // 17408: an attention B chunk [136, 64]
-
-enum Kind { KV_PROJ, STATS, QPROJ, ATT, RAW, RELU };
-
-struct Params {
-  const unsigned char* a0;  // A image: chunks 0..ka0-1 of a row tile
-  const unsigned char* a1;  // A image: chunks ka0..ka-1 (FFN hidden: [x | LN1])
-  int ka0, ka, a_tiles;     // k chunks of a row tile in a0, in all; row tiles a batch element
-  const unsigned char* b;   // B chunks [batch][column block][kb]
-  long long b_batch;        // bytes from one batch element's B chunks to the next (0: weights)
-  int kb;                   // chunks a column block has
-  uint32_t b_bytes;         // bytes of a B chunk
-  int n;                    // output columns
-  int C, hd, rows, tiles;   // width, head width, valid rows of A, row tiles of the output image
-  int G, n_src_chunks, nb;  // source groups, source chunks, 128-column blocks of C
-  int out_k;                // k chunks of the output image
-  const float* mask;
-  unsigned char* out0;      // output image (K'^T for KV_PROJ)
-  unsigned char* out1;      // V^T (KV_PROJ)
-  float* outf;              // f32 rows (RAW) or partials (STATS)
-  float* lnp;               // (mean, M2) per row and column block (RAW)
-};
 
 __device__ __forceinline__ void store_bf16x2(unsigned char* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
@@ -146,11 +127,7 @@ __global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
       // s ^ 1: they swap one value of each column pair, so that a thread stores
       // two rows of one column as one word, a warp one 128-byte core matrix.
       float m[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int s = rt * TM + r_loc[h];
-        m[h] = s < p.rows ? (p.mask != nullptr ? p.mask[(size_t)b * p.rows + s] : 1.f) : 0.f;
-      }
+      row_mask(p, b, rt, r_loc, m);
       const bool odd = g & 1;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -176,21 +153,7 @@ __global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
         }
       }
     } else if constexpr (KIND == STATS) {
-      // this group's partials: part[b][grp][d][e - first channel of d's head], sum K' at [d][hd]
-      float* out = p.outf + ((size_t)b * p.G + grp) * p.C * (p.hd + 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int d = rt * TM + r_loc[h], head0 = (d / p.hd) * p.hd;
-        float* row = out + (size_t)d * (p.hd + 1);
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = nb * BN + 8 * j + 2 * t + e;
-            if (col < p.C && col >= head0 && col < head0 + p.hd) row[col - head0] = acc[4 * j + 2 * h + e];
-          }
-        if (t == 0 && nb == vb_lo) row[p.hd] = acc[64 + 2 * h];  // column 128: sum K'
-      }
+      store_stats<NT>(p, acc, b, grp, rt, nb, vb_lo, r_loc, t);
     } else if constexpr (KIND == ATT) {
       // msg = num / (den + 1e-6): column 128 + i holds the denominator of the
       // block's i-th head, in the quad's thread i / 2 (register i % 2)
@@ -212,13 +175,7 @@ __global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
       }
     } else if constexpr (KIND == QPROJ || KIND == RELU) {
       float m[2] = {1.f, 1.f};
-      if constexpr (KIND == QPROJ) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = rt * TM + r_loc[h];
-          m[h] = r < p.rows ? (p.mask != nullptr ? p.mask[(size_t)b * p.rows + r] : 1.f) : 0.f;
-        }
-      }
+      if constexpr (KIND == QPROJ) row_mask(p, b, rt, r_loc, m);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int c = nb * BN + 8 * j + 2 * t;
@@ -237,32 +194,8 @@ __global__ void __launch_bounds__(128, 2) tcw_gemm_kernel(Params p) {
           store_bf16x2(chunk + in_chunk(r_loc[h], c % TM), v0, v1);
         }
       }
-    } else {  // RAW: f32 rows and each row's (mean, M2) over this block's columns
-      const int valid = min(16, (p.n - nb * BN) / 8);  // 8-column groups of this block inside N
-      const float inv_n = 1.f / (8 * valid);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t row = (size_t)b * p.tiles * TM + rt * TM + r_loc[h];
-        float* dst = p.outf + row * p.n + nb * BN + 2 * t;
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          if (j < valid) {
-            const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-            s += v0 + v1;
-            *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(v0, v1);
-          }
-        const float mean = gm::quad_sum(s) * inv_n;
-        float m2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          if (j < valid) {
-            const float d0 = acc[4 * j + 2 * h] - mean, d1 = acc[4 * j + 2 * h + 1] - mean;
-            m2 += d0 * d0 + d1 * d1;
-          }
-        m2 = gm::quad_sum(m2);
-        if (t == 0) *reinterpret_cast<float2*>(p.lnp + (row * p.nb + nb) * 2) = make_float2(mean, m2);
-      }
+    } else {  // RAW
+      store_raw(p, acc, b, rt, nb, r_loc, t);
     }
   };
   gm::run<NT, NST>(smem, k1 - k0, a_of, b_of, p.b_bytes, prologue, epilogue);
@@ -353,193 +286,42 @@ __global__ void tcw_ln_residual_kernel(const float* __restrict__ raw, const floa
   ln_residual(raw, lnp, scale, bias, x, y, B, L, tiles, C, nb);
 }
 
-// The scratch of one call, carved from one buffer (every piece 128-byte aligned).
-struct Layout {
-  int CK, NB, LT, ST, G, hd;
-  size_t sa, kt, vt, part, kv, xa, qa, ma, hid, raw, lnp, total;
-  Layout(int B, int L, int S, int C, int nhead, bool self) {
-    CK = C / 64;
-    NB = (C + BN - 1) / BN;
-    LT = (L + TM - 1) / TM;
-    ST = (S + TM - 1) / TM;
-    G = (ST + SG - 1) / SG;
-    hd = C / nhead;
-    size_t at = 0;
-    const auto take = [&](size_t bytes) {
-      const size_t here = at;
-      at += (bytes + 127) / 128 * 128;
-      return here;
-    };
-    const size_t x_img = (size_t)B * LT * CK * CHUNK;
-    xa = take(x_img);
-    sa = self ? xa : take((size_t)B * ST * CK * CHUNK);
-    kt = take((size_t)B * CK * ST * CHUNK);
-    vt = take((size_t)B * NB * ST * W_CHUNK);
-    part = take((size_t)B * G * C * (hd + 1) * 4);
-    kv = take((size_t)B * NB * CK * KV_CHUNK);
-    qa = take(x_img);  // Q', then the LN1 output
-    ma = take(x_img);
-    hid = take(2 * x_img);
-    raw = take((size_t)B * LT * TM * C * 4);
-    lnp = take((size_t)B * LT * TM * NB * 8);
-    total = at;
+// The chain's traits (tcw_plan.cuh): bf16 images of [64, 64] chunks.
+struct Chain {
+  static constexpr int KW = 64, HEAD_STEP = 16, SG = tcw::SG;
+  static constexpr uint32_t W_BYTES = W_CHUNK, W_STRIDE = W_CHUNK, KV_BYTES = KV_CHUNK, KV_STRIDE = KV_CHUNK;
+
+  template <int KIND>
+  static cudaError_t gemm(const Params& p, dim3 grid, cudaStream_t stream) {
+    constexpr int NT = (KIND == STATS || KIND == ATT) ? NTA : BN;
+    constexpr size_t smem = gm::Smem<NT, NST>::BYTES;
+    static int have[MAX_DEVICES];
+    raise_smem_limit(tcw_gemm_kernel<KIND>, smem, have);
+    tcw_gemm_kernel<KIND><<<grid, 128, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  static cudaError_t pack(const float* src, unsigned char* img, int rows, int C, int tiles, int B,
+                          cudaStream_t stream) {
+    tcw_pack_kernel<<<dim3(C / KW, tiles, B), 256, 0, stream>>>(src, img, rows, C, tiles);
+    return cudaGetLastError();
+  }
+  static cudaError_t kv_reduce(const float* part, unsigned char* kv, int C, int hd, int G, int B,
+                               cudaStream_t stream) {
+    tcw_kv_reduce_kernel<<<dim3(C / KW, (C + BN - 1) / BN, B), 256, 0, stream>>>(part, kv, C, hd, G);
+    return cudaGetLastError();
+  }
+  static cudaError_t ln_image(const float* raw, const float* lnp, const float* scale, const float* bias,
+                              unsigned char* img, int n_rows, int tiles, int C, int nb, cudaStream_t stream) {
+    tcw_ln_image_kernel<<<(n_rows + 7) / 8, 256, 0, stream>>>(raw, lnp, scale, bias, img, n_rows, tiles, C, nb);
+    return cudaGetLastError();
+  }
+  static cudaError_t ln_residual(const float* raw, const float* lnp, const float* scale, const float* bias,
+                                 const float* x, float* y, int B, int L, int tiles, int C, int nb,
+                                 cudaStream_t stream) {
+    tcw_ln_residual_kernel<<<(B * L + 7) / 8, 256, 0, stream>>>(raw, lnp, scale, bias, x, y, B, L, tiles, C, nb);
+    return cudaGetLastError();
   }
 };
-
-bool takes(int C, int nhead) {
-  return C % 64 == 0 && C >= 128 && C <= 4096 && nhead > 0 && C % nhead == 0 && (C / nhead) % 16 == 0;
-}
-
-template <int KIND>
-cudaError_t gemm(const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr int NT = (KIND == STATS || KIND == ATT) ? NTA : BN;
-  constexpr size_t smem = gm::Smem<NT, NST>::BYTES;
-  static int have[MAX_DEVICES];
-  raise_smem_limit(tcw_gemm_kernel<KIND>, smem, have);
-  tcw_gemm_kernel<KIND><<<grid, 128, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-#define OPP_CHECK(call)                 \
-  do {                                  \
-    const cudaError_t e_ = (call);      \
-    if (e_ != cudaSuccess) return (int)e_; \
-  } while (0)
-
-int launch(const float* x, const float* src, const void* wkv, const void* wapply, const float* ln1s,
-           const float* ln1b, const float* ln2s, const float* ln2b, const float* qmask,
-           const float* smask, void* scratch, float* y, int B, int L, int S, int C, int nhead,
-           cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || S <= 0 || !takes(C, nhead)) return (int)cudaErrorInvalidValue;
-  const bool self = x == src && L == S;
-  const Layout lay(B, L, S, C, nhead, self);
-  const int CK = lay.CK, NB = lay.NB, LT = lay.LT, ST = lay.ST, G = lay.G, hd = lay.hd;
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  unsigned char *sa = base + lay.sa, *kt = base + lay.kt, *vt = base + lay.vt, *kv = base + lay.kv;
-  unsigned char *xa = base + lay.xa, *qa = base + lay.qa, *ma = base + lay.ma, *hid = base + lay.hid;
-  float* part = reinterpret_cast<float*>(base + lay.part);
-  float* raw = reinterpret_cast<float*>(base + lay.raw);
-  float* lnp = reinterpret_cast<float*>(base + lay.lnp);
-  const unsigned char* wa = static_cast<const unsigned char*>(wapply);
-  const unsigned char* wq = wa;
-  const unsigned char* wm = wq + (size_t)NB * CK * W_CHUNK;
-  const unsigned char* w0 = wm + (size_t)NB * CK * W_CHUNK;
-  const unsigned char* w1 = w0 + (size_t)CK * 2 * CK * W_CHUNK;
-
-  // source side: pack, K' and V (transposed), the stats, their reduction
-  if (!self) {
-    tcw_pack_kernel<<<dim3(CK, ST, B), 256, 0, stream>>>(src, sa, S, C, ST);
-    OPP_CHECK(cudaGetLastError());
-  }
-  tcw_pack_kernel<<<dim3(CK, LT, B), 256, 0, stream>>>(x, xa, L, C, LT);
-  OPP_CHECK(cudaGetLastError());
-  Params p{};
-  p.C = C;
-  p.hd = hd;
-  p.G = G;
-  p.n_src_chunks = ST;
-  p.nb = NB;
-  p.a0 = sa;
-  p.ka0 = p.ka = CK;
-  p.a_tiles = ST;
-  p.b = static_cast<const unsigned char*>(wkv);
-  p.kb = CK;
-  p.b_bytes = W_CHUNK;
-  p.n = 2 * C;
-  p.rows = S;
-  p.mask = smask;
-  p.out0 = kt;
-  p.out1 = vt;
-  OPP_CHECK(gemm<KV_PROJ>(p, dim3(2 * C / BN, ST, B), stream));
-
-  int widest = 0;  // value blocks a channel tile needs, at most
-  for (int i = 0; i < CK; ++i) {
-    int lo, hi;
-    value_blocks(i, hd, lo, hi);
-    widest = hi - lo + 1 > widest ? hi - lo + 1 : widest;
-  }
-  Params s{};
-  s.C = C;
-  s.hd = hd;
-  s.G = G;
-  s.n_src_chunks = ST;
-  s.nb = NB;
-  s.a0 = kt;
-  s.ka0 = s.ka = ST;
-  s.a_tiles = CK;
-  s.b = vt;
-  s.b_batch = (long long)NB * ST * W_CHUNK;
-  s.kb = ST;
-  s.b_bytes = W_CHUNK;
-  s.outf = part;
-  OPP_CHECK(gemm<STATS>(s, dim3(widest, CK, B * G), stream));
-  tcw_kv_reduce_kernel<<<dim3(CK, NB, B), 256, 0, stream>>>(part, kv, C, hd, G);
-  OPP_CHECK(cudaGetLastError());
-
-  // x side: Q', attention, merge, LN1, FFN, LN2 + residual
-  Params a{};
-  a.C = C;
-  a.hd = hd;
-  a.nb = NB;
-  a.rows = L;
-  a.tiles = LT;
-  a.a_tiles = LT;
-  a.out_k = CK;
-
-  a.a0 = xa;
-  a.ka0 = a.ka = CK;
-  a.b = wq;
-  a.kb = CK;
-  a.b_bytes = W_CHUNK;
-  a.n = C;
-  a.mask = qmask;
-  a.out0 = qa;
-  OPP_CHECK(gemm<QPROJ>(a, dim3(NB, LT, B), stream));
-
-  a.a0 = qa;
-  a.b = kv;
-  a.b_batch = (long long)NB * CK * KV_CHUNK;
-  a.b_bytes = KV_CHUNK;
-  a.mask = nullptr;
-  a.out0 = ma;
-  OPP_CHECK(gemm<ATT>(a, dim3(NB, LT, B), stream));
-
-  a.a0 = ma;
-  a.b = wm;
-  a.b_batch = 0;
-  a.b_bytes = W_CHUNK;
-  a.outf = raw;
-  a.lnp = lnp;
-  OPP_CHECK(gemm<RAW>(a, dim3(NB, LT, B), stream));
-  const int n_rows = B * LT * TM;
-  tcw_ln_image_kernel<<<(n_rows + 7) / 8, 256, 0, stream>>>(raw, lnp, ln1s, ln1b, qa, n_rows, LT, C, NB);
-  OPP_CHECK(cudaGetLastError());
-
-  a.a0 = xa;
-  a.a1 = qa;  // the LN1 output
-  a.ka0 = CK;
-  a.ka = 2 * CK;
-  a.b = w0;
-  a.kb = 2 * CK;
-  a.n = 2 * C;
-  a.out0 = hid;
-  a.out_k = 2 * CK;
-  OPP_CHECK(gemm<RELU>(a, dim3(2 * C / BN, LT, B), stream));
-
-  a.a0 = hid;
-  a.a1 = nullptr;
-  a.ka0 = a.ka = 2 * CK;
-  a.b = w1;
-  a.n = C;
-  a.outf = raw;
-  a.lnp = lnp;
-  OPP_CHECK(gemm<RAW>(a, dim3(NB, LT, B), stream));
-  tcw_ln_residual_kernel<<<(B * L + 7) / 8, 256, 0, stream>>>(raw, lnp, ln2s, ln2b, x, y, B, L, LT, C, NB);
-  OPP_CHECK(cudaGetLastError());
-  return 0;
-}
-
-#undef OPP_CHECK
 
 }  // namespace tcw
 }  // namespace
@@ -555,12 +337,11 @@ extern "C" int opp_encoder_layer_tcw(const float* x, const float* src, const voi
                                      const float* ln2s, const float* ln2b, const float* qmask,
                                      const float* smask, void* scratch, float* y, int B, int L, int S,
                                      int C, int nhead, void* stream) {
-  return tcw::launch(x, src, wkv, wapply, ln1s, ln1b, ln2s, ln2b, qmask, smask, scratch, y, B, L, S,
-                     C, nhead, static_cast<cudaStream_t>(stream));
+  return opp::tcw_plan::launch<tcw::Chain>(x, src, wkv, wapply, ln1s, ln1b, ln2s, ln2b, qmask, smask, scratch, y,
+                                           B, L, S, C, nhead, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of scratch a call needs (self: x and source are one tensor); 0 where no instance takes C.
 extern "C" long long opp_encoder_tcw_scratch_bytes(int B, int L, int S, int C, int nhead, int self) {
-  if (B <= 0 || L <= 0 || S <= 0 || !tcw::takes(C, nhead)) return 0;
-  return (long long)tcw::Layout(B, L, S, C, nhead, self != 0 && L == S).total;
+  return opp::tcw_plan::scratch_bytes<tcw::Chain>(B, L, S, C, nhead, self != 0);
 }

@@ -103,3 +103,12 @@ def tf32_split(x: torch.Tensor):
     holds x to ~2^-22 relative."""
     hi = tf32_round(x)
     return hi, tf32_round(x.float() - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the split-TF32 kernels compute it: three TF32 products of the
+    :func:`tf32_split` halves, lo hi + hi lo + hi hi (lo lo dropped), summed in
+    f32 (with TF32 matmul off, each product of two TF32 values is exact in f32)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return al @ bh + ah @ bl + ah @ bh

@@ -80,7 +80,7 @@ operand type: only the operands of products are rounded to it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -186,39 +186,47 @@ def encoder_layer_plain(
     *,
     nhead: int = 8,
     dtype: torch.dtype = torch.float32,
+    matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1, in f32 arithmetic.
 
     ``dtype`` is the product operand type, as in the kernel and the TPU
     kernel: every weight and every activation that enters a product (x,
     source, K', V, Q', K'^T[V|1], msg, the LN1 output, the FFN hidden) is
-    rounded to it; the LayerNorms and the residual stay f32.
+    rounded to it; the LayerNorms and the residual stay f32. With
+    ``torch.float64`` every operand, product and sum is float64 (the inputs
+    and weights as they are): the layer an f32 instance approximates.
+    ``matmul`` computes the two-operand products (x, source, msg, the LN1
+    output and the FFN hidden times a weight), e.g.
+    :func:`~onepose_plus_plus_tpu_torch.kernels.tf32x3_matmul` for the split
+    TF32 arithmetic of the f32 tensor-core instances.
     """
     n, l, c = x.shape
     s = source.shape[1]
     hd = c // nhead
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
 
-    def r(t):  # a product operand: rounded to dtype, computed in f32
-        return t.to(dtype).float()
+    def r(t):  # a product operand: rounded to dtype, computed in acc
+        return t.to(dtype).to(acc)
 
-    x32 = x.float()
-    xb, sb = r(x32), r(source.float())
-    k = _elu_p1(sb @ r(wk))
+    x32 = x.to(acc)
+    xb, sb = r(x32), r(source)
+    k = _elu_p1(matmul(sb, r(wk)))
     if source_mask is not None:
-        k = k * source_mask.float()[..., None]
-    kh, vh = r(k).view(n, s, nhead, hd), r(sb @ r(wv)).view(n, s, nhead, hd)
+        k = k * source_mask.to(acc)[..., None]
+    kh, vh = r(k).view(n, s, nhead, hd), r(matmul(sb, r(wv))).view(n, s, nhead, hd)
     kv = r(torch.einsum("nshd,nshe->nhde", kh, vh))
     ksum = r(kh.sum(dim=1))  # [N, H, D]
-    q = _elu_p1(xb @ r(wq))
+    q = _elu_p1(matmul(xb, r(wq)))
     if x_mask is not None:
-        q = q * x_mask.float()[..., None]
+        q = q * x_mask.to(acc)[..., None]
     qh = r(q).view(n, l, nhead, hd)
     num = torch.einsum("nlhd,nhde->nlhe", qh, kv)
     den = torch.einsum("nlhd,nhd->nlh", qh, ksum)[..., None]
     msg = r((num / (den + _EPS)).reshape(n, l, c))
-    h1 = F.layer_norm(msg @ r(wmerge), (c,), ln1_scale.float(), ln1_bias.float(), _LN_EPS)
-    a = r(torch.relu(torch.cat([xb, r(h1)], dim=-1) @ r(wmlp0)))
-    h2 = F.layer_norm(a @ r(wmlp1), (c,), ln2_scale.float(), ln2_bias.float(), _LN_EPS)
+    h1 = F.layer_norm(matmul(msg, r(wmerge)), (c,), ln1_scale.to(acc), ln1_bias.to(acc), _LN_EPS)
+    a = r(torch.relu(matmul(torch.cat([xb, r(h1)], dim=-1), r(wmlp0))))
+    h2 = F.layer_norm(matmul(a, r(wmlp1)), (c,), ln2_scale.to(acc), ln2_bias.to(acc), _LN_EPS)
     return x32 + h2
 
 

@@ -7,12 +7,12 @@ For random layers (weights and inputs from a seed, as tests/test_torch_cuda.py
 makes them) at (C, heads) = (256, 8), (512, 8), (1024, 8) and (128, 16), batch
 4, prints the mean |y - y64| of: the kernel the router picks for f32 operands
 (``tf32x3`` at (256, 8), ``tcw_tf32`` elsewhere), the plain version in f32 on
-cuBLAS with TF32 off, the plain version with every product split into three
-TF32 products of hi / lo halves as the kernels split them (on cuBLAS, so f32
-sums), and the plain version with PyTorch's single TF32 products
-(``allow_tf32``); y64 is the layer with every operand, product and sum in
-float64. The kernel's mean signed difference (its bias) too. One JSON line at
-the end.
+cuBLAS with TF32 off, the plain version with every two-operand product split
+into three TF32 products of hi / lo halves as the kernels split them
+(``kernels.tf32x3_matmul``, on cuBLAS, so f32 sums), and the plain version
+with PyTorch's single TF32 products (``allow_tf32``); y64 is the plain version
+in float64. The kernel's mean signed difference (its bias) too. One JSON line
+at the end.
 """
 from __future__ import annotations
 
@@ -24,9 +24,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import torch  # noqa: E402
-import torch.nn.functional as F  # noqa: E402
 
-from onepose_plus_plus_tpu_torch.kernels import tf32_split  # noqa: E402
+from onepose_plus_plus_tpu_torch.kernels import tf32x3_matmul  # noqa: E402
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (  # noqa: E402
     encoder_layer_plain,
     fused_encoder_layer,
@@ -35,31 +34,6 @@ from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (  # noqa: E402
 
 CASES = ((256, 8, 1000, 1500, False), (512, 8, 1000, 1500, False), (1024, 8, 777, None, True),
          (128, 16, 777, None, False))  # (C, heads, L, S or None for a self layer, masks)
-
-
-def layer_f64(x, src, w, xm, sm, nhead):
-    wq, wk, wv, wm, ln1s, ln1b, w0, w1, ln2s, ln2b = (t.double() for t in w)
-    x, src = x.double(), src.double()
-    n, l, c = x.shape
-    s, hd = src.shape[1], c // nhead
-    k = torch.where(src @ wk > 0, src @ wk + 1.0, torch.exp(src @ wk))
-    q = torch.where(x @ wq > 0, x @ wq + 1.0, torch.exp(x @ wq))
-    if sm is not None:
-        k = k * sm.double()[..., None]
-    if xm is not None:
-        q = q * xm.double()[..., None]
-    kh, vh, qh = k.view(n, s, nhead, hd), (src @ wv).view(n, s, nhead, hd), q.view(n, l, nhead, hd)
-    num = torch.einsum("nlhd,nhde->nlhe", qh, torch.einsum("nshd,nshe->nhde", kh, vh))
-    den = torch.einsum("nlhd,nhd->nlh", qh, kh.sum(dim=1))[..., None]
-    h1 = F.layer_norm((num / (den + 1e-6)).reshape(n, l, c) @ wm, (c,), ln1s, ln1b, 1e-5)
-    hid = torch.relu(torch.cat([x, h1], dim=-1) @ w0)
-    return x + F.layer_norm(hid @ w1, (c,), ln2s, ln2b, 1e-5)
-
-
-def split_mm(a, b):
-    ah, al = tf32_split(a)
-    bh, bl = tf32_split(b)
-    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
 
 
 def main() -> int:
@@ -81,19 +55,14 @@ def main() -> int:
                                                              1 + rn(c, scale=0.1), rn(c, scale=0.1)]
         xm = (torch.rand(4, l, generator=gen, device="cuda") > 0.3).float() if masks else None
         sm = (torch.rand(4, src.shape[1], generator=gen, device="cuda") > 0.3).float() if masks else None
-        exact = layer_f64(x, src, w, xm, sm, nhead)
+        exact = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float64)
 
         def dist(y):
             return (y.double() - exact).abs().mean().item()
 
         got = fused_encoder_layer(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
         plain = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead)
-        matmul = torch.Tensor.__matmul__
-        torch.Tensor.__matmul__ = lambda a, b: split_mm(a, b) if a.dtype == torch.float32 else matmul(a, b)
-        try:
-            split = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead)
-        finally:
-            torch.Tensor.__matmul__ = matmul
+        split = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, matmul=tf32x3_matmul)
         torch.backends.cuda.matmul.allow_tf32 = True
         single = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead)
         torch.backends.cuda.matmul.allow_tf32 = False

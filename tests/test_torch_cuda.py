@@ -13,7 +13,6 @@ import time
 
 import pytest
 import torch
-import torch.nn.functional as F
 
 from onepose_plus_plus_tpu_torch import kernels
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
@@ -299,28 +298,6 @@ def test_k1_tcw_tf32_matches_plain_repeats_bitwise_and_launches_its_kernels(gen,
     assert set(K1_TCW32_NAMES) <= names and not set(K1_CC_NAMES) & names, names
 
 
-def _layer_f64(x, src, w, xm, sm, nhead):
-    """The layer with every operand, product and sum in float64 (the f32 inputs
-    and weights as they are): what an f32 instance approximates."""
-    wq, wk, wv, wm, ln1s, ln1b, w0, w1, ln2s, ln2b = (t.double() for t in w)
-    x, src = x.double(), src.double()
-    n, l, c = x.shape
-    s, hd = src.shape[1], c // nhead
-    elu_p1 = lambda t: torch.where(t > 0, t + 1.0, torch.exp(t))  # noqa: E731
-    k = elu_p1(src @ wk)
-    q = elu_p1(x @ wq)
-    if sm is not None:
-        k = k * sm.double()[..., None]
-    if xm is not None:
-        q = q * xm.double()[..., None]
-    kh, vh, qh = k.view(n, s, nhead, hd), (src @ wv).view(n, s, nhead, hd), q.view(n, l, nhead, hd)
-    num = torch.einsum("nlhd,nhde->nlhe", qh, torch.einsum("nshd,nshe->nhde", kh, vh))
-    den = torch.einsum("nlhd,nhd->nlh", qh, kh.sum(dim=1))[..., None]
-    h1 = F.layer_norm((num / (den + 1e-6)).reshape(n, l, c) @ wm, (c,), ln1s, ln1b, 1e-5)
-    hid = torch.relu(torch.cat([x, h1], dim=-1) @ w0)
-    return x + F.layer_norm(hid @ w1, (c,), ln2s, ln2b, 1e-5)
-
-
 @pytest.mark.parametrize("c,nhead,l,s,masks", [(512, 8, 1000, 1500, False), (1024, 8, 777, None, True),
                                                (384, 16, 1000, 1500, True), (128, 16, 777, None, False)])
 def test_k1_tcw_tf32_epilogues_do_not_drift(gen, c, nhead, l, s, masks):
@@ -332,7 +309,7 @@ def test_k1_tcw_tf32_epilogues_do_not_drift(gen, c, nhead, l, s, masks):
     x, src, w, xm, sm = _k1_args(gen, 4, l, s, masks, torch.float32, c=c)
     got = fused_encoder_layer(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
     ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
-    exact = _layer_f64(x, src, w, xm, sm, nhead)
+    exact = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float64)
     torch.cuda.synchronize()
     err_kernel, err_plain = (got.double() - exact).abs().mean().item(), (ref.double() - exact).abs().mean().item()
     print(f"K1 tcw_tf32 C={c} heads={nhead} l={l} s={s}: mean|kernel - f64| {err_kernel:.4e}, "

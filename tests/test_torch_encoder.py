@@ -20,7 +20,7 @@ from onepose_plus_plus_tpu_torch.models.transformer import (
     LoFTREncoderLayer,
     LocalFeatureTransformer,
 )
-from onepose_plus_plus_tpu_torch.ops.cuda_encoder import fused_encoder_layer, k1_instance
+from onepose_plus_plus_tpu_torch.ops.cuda_encoder import encoder_layer_plain, fused_encoder_layer, k1_instance
 from onepose_plus_plus_tpu_torch.utils.weights import state_dict_from_jax
 
 torch.set_num_threads(2)
@@ -107,6 +107,23 @@ def test_k1_plain_matches_xla_layer_f32(masks):
     ref = layer.apply({"params": p}, x, src, xm, sm)
     out = fused_encoder_layer(torch.from_numpy(x), torch.from_numpy(src), *_kernel_args(p),
                               _opt(xm), _opt(sm), nhead=NHEAD)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("variant", ["float64", "tf32x3"])
+def test_k1_plain_f64_and_split_tf32_match_xla_layer_f32(variant, masks):
+    """The plain version's two reference modes against the XLA layer in f32 at
+    the f32 tolerance (1e-5): every operand, product and sum in float64 (what
+    the card's drift tests measure an f32 instance against), and every
+    two-operand product in split TF32 (``kernels.tf32x3_matmul``)."""
+    x, src, xm, sm = _inputs(10, masks=masks)
+    layer, p = _jax_layer(x, src, xm, sm)
+    ref = layer.apply({"params": p}, x, src, xm, sm)
+    extra = {"dtype": torch.float64} if variant == "float64" else {"matmul": kernels.tf32x3_matmul}
+    out = encoder_layer_plain(torch.from_numpy(x), torch.from_numpy(src), *_kernel_args(p), _opt(xm), _opt(sm),
+                              nhead=NHEAD, **extra)
+    assert out.dtype == (torch.float64 if variant == "float64" else torch.float32)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 

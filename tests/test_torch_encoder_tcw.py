@@ -21,7 +21,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from onepose_plus_plus_tpu_torch.kernels import tf32_split
+from onepose_plus_plus_tpu_torch.kernels import tf32_split, tf32x3_matmul
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     TCW32_CHUNK,
     TCW32_SOURCE_GROUP,
@@ -166,24 +166,16 @@ def _layernorm_by_blocks(raw, scale, bias):
     return (raw - mean[..., None]) * rstd[..., None] * scale + bias
 
 
-def split_tf32_mm(a, b):
-    """a @ b as the split-TF32 kernels compute it: three TF32 products of the
-    hi / lo halves (``kernels.tf32_split``), lo hi + hi lo + hi hi, in f32."""
-    ah, al = tf32_split(a)
-    bh, bl = tf32_split(b)
-    return al @ bh + ah @ bl + ah @ bh
-
-
 def tcw_layer_by_the_plan(x, source, w, x_mask, source_mask, nhead, dtype, tf32=False):
     """The layer in the wide instance's order of sums, with product operands
     rounded to ``dtype`` as the kernels round them (f32 arithmetic); with
     ``tf32``, the split-TF32 chain's: f32 operands, every product split
-    (:func:`split_tf32_mm`, the stats' ones row too), the attention over
+    (:func:`tf32x3_matmul`, the stats' ones row too), the attention over
     :func:`tcw32_head_chunks`' 32-channel chunks with 16 rows of head sums."""
     wq, wk, wv, wm, ln1s, ln1b, w0, w1, ln2s, ln2b = w  # [in, out]
     n, l, c = x.shape
     s, hd = source.shape[1], c // nhead
-    mm = split_tf32_mm if tf32 else torch.matmul
+    mm = tf32x3_matmul if tf32 else torch.matmul
     chunk, n_sums = (TCW32_CHUNK, TCW32_SUMS) if tf32 else (TCW_TILE, 8)
 
     def r(t):

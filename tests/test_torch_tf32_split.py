@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from onepose_plus_plus_tpu_torch.kernels import tf32_round, tf32_split
+from onepose_plus_plus_tpu_torch.kernels import tf32_round, tf32_split, tf32x3_matmul
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import pack_weight_chunks_tf32
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     pack_tf32_operand,
@@ -60,6 +60,21 @@ def test_tf32_split_reconstructs_x_to_2e21(seed):
     assert rel.max().item() <= 2.0 ** -21
     # the remainder x - hi is exact in f32: only lo's own rounding is lost
     assert torch.equal((x.float() - hi).double(), x - hi.double())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tf32x3_matmul_keeps_f32_accuracy(seed):
+    """Three TF32 products of the halves land as near a float64 product as an
+    f32 one does (within 4x), where one TF32 product lands 100x further."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((64, 512)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((512, 48)).astype(np.float32))
+    exact = a.double() @ b.double()
+    err = {name: (y.double() - exact).abs().max().item()
+           for name, y in (("f32", a @ b), ("split", tf32x3_matmul(a, b)),
+                           ("single", tf32_round(a) @ tf32_round(b)))}
+    assert err["split"] <= 4 * err["f32"], err
+    assert err["single"] >= 100 * err["split"], err
 
 
 def _numpy_unpack_tf32(packed: np.ndarray, rows: int, c: int) -> np.ndarray:
