@@ -32,8 +32,15 @@ phase 2, and phase 10, which runs right after phase 6:
      dtypes) and the train shape (f32), ids at the grid's corners and out of
      range, whole call and device time beside index_select; K2's bf16 (tensor-core)
      instance split by launch, its two launches bitwise equal, faster than its
-     plain version; K2's CUDA-core f32 instance at C = 640 (a small batch)
-     against its plain version, with its device time and bound; the f32 instances of K1 and K2 (split TF32 on the tensor
+     plain version; K2 above 576 channels on the channel-streaming tensor-core
+     tile, bf16 ("wide_bf16") and f32 in split TF32 ("wide_tf32"), at
+     [2,1000]x[2,700] with a column mask at C = 640 and 1000 and at
+     [16,7000]x[16,4096] at C = 640, 1024 and 2048, against the plain version
+     (1e-3, argmaxes 99.9 %), bitwise repeatable, by kernel name, with device
+     time by launch, plain version and bound; its mean row-LSE distance to
+     float64 at C = 2048 (wide_tf32 within 2x plain f32's) and the fused
+     selection's match set on planted features at C = 1024 in bf16 (Jaccard
+     >= 0.98); the f32 instances of K1 and K2 (split TF32 on the tensor
      cores) at [16, ...], at batch 1 (a tracking frame's shapes) and K2 at the
      train shape [4, ...], each with its f32 bound and 3xTF32 floor, split by
      launch name. Every phase that runs K1 or K2 in f32 at C = 256 (3, 7c, 7d,
@@ -68,12 +75,13 @@ phase 2, and phase 10, which runs right after phase 6:
      repeatable and faster than its plain version;
      7f K5 at the coarse widths above 256 at the train shapes: C = 384 and 512
      (tensor cores, feature gradients in 256-channel chunks), 640 and 1024
-     (CUDA cores), forward and backward within 7b's tolerances, bitwise
-     repeatable, split by launch;
+     (CUDA cores, the LSEs from K2's wide bf16 pass), forward and backward
+     within 7b's tolerances, bitwise repeatable, split by launch;
      7c one f32 micro-batch on the GPU (kernels) against the same micro-batch
      on the CPU (plain versions), loss and every gradient, at the train
-     config's coarse width (256) and at 512 (K5 once forward, once backward,
-     in two chunks); 7d the train config
+     config's coarse width (256), at 512 (K5 once forward, once backward,
+     in two chunks) and at 1024 (K2's wide_tf32, K5's CUDA-core instance);
+     7d the train config
      at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
      optimizer updates on one batch: falling loss, launch counts, step time,
      peak memory and a torch.profiler split of one micro-batch
@@ -195,6 +203,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     dual_softmax_rowcol_stats,
     fused_select_topk_matches,
+    k2_instance,
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.ops import quant
@@ -249,6 +258,10 @@ KERNELS = {
     "K2_rowcol_stats": {
         "source": "onepose_plus_plus_tpu_torch/csrc/matching.cu",
         "replaces": "onepose_plus_plus_tpu/ops/pallas_matching.py:211",
+        # the record's numbers are the bf16 instance's at C = 256; phase 2 prints the others'
+        "instances": {"tc": "onepose_plus_plus_tpu_torch/csrc/sim_tile_tc.cuh",
+                      "tf32x3": "onepose_plus_plus_tpu_torch/csrc/sim_tile_tf32.cuh",
+                      "wide_bf16, wide_tf32": "onepose_plus_plus_tpu_torch/csrc/sim_tile_wide.cuh"},
     },
     "K3_window_gather": {
         "source": "onepose_plus_plus_tpu_torch/csrc/gather.cu",
@@ -848,37 +861,122 @@ def phase2_k2(gen) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": pms, **b, "library_ms": None}
 
 
-def phase2_k2_wide(gen) -> None:
-    """K2's CUDA-core f32 instance (f32 operands wider than the split-TF32 tile
-    takes, C > 576) at C = 640 and a small batch, against its plain version
-    with the f32 instance's tolerances of tests/test_torch_cuda.py (LSE and
-    best values 1e-3, argmax agreement 0.999), two launches bitwise equal;
-    time, device time by launch, plain version and bound (67 TFLOP/s f32)."""
-    n, p, l, c = 2, 1000, 700, 640
-    f0 = torch.randn(n, p, c, generator=gen, device="cuda")
-    f1 = torch.randn(n, l, c, generator=gen, device="cuda")
-    col_add = torch.where(torch.rand(n, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
-    call = lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add)  # noqa: E731
-    scale = c ** -0.5
-    plain = lambda: rowcol_stats_plain(f0 * scale, f1 * scale, 1 / (0.08 + 1e-4), None, col_add)  # noqa: E731
+# K2 above 576 channels, on the tensor cores at any width (csrc/sim_tile_wide.cuh): each
+# instance's operand packs, both passes and their merges
+K2_WIDE_NAMES = {
+    "bf16": ("pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "argmax_wide_bf16_kernel",
+             "col_argmax_reduce"),
+    "f32": ("pack_tf32_operand_kernel", "pack_tf32_hilo_kernel", "lse_wide_tf32x3_kernel", "col_lse_reduce",
+            "argmax_wide_tf32x3_kernel", "col_argmax_reduce"),
+}
+K2_WIDE_LOAD = (640, 1024, 2048)  # C at [16, 7000] x [16, 4096]
+K2_CC_PREVIOUS_MS = 1.6281  # f32 at [2,1000]x[2,700]x640 on the CUDA-core tile, its last run (NVIDIA H100 80GB HBM3, 700.00 W)
+
+
+def k2_two_products(n: int, p: int, l: int, c: int, dt: str) -> float:
+    """The least ms of K2's two similarity products: at 989 TFLOP/s in bf16, as
+    three TF32 products each at 495 TFLOP/s (the 3xTF32 floor) in f32."""
+    ops = 2 * 2 * n * p * l * c
+    return 1e3 * (ops / PEAK_OPS_PER_S[torch.bfloat16] if dt == "bf16" else 3 * ops / TF32_OPS_PER_S)
+
+
+def _k2_wide_case(f0, f1, col_add, dt: str, reps: int, prof_reps: int):
+    """K2 at one shape in one dtype against its plain version on the same
+    values: (max|d| of LSEs and best values, least argmax agreement, two launches
+    bitwise equal, whole-call ms, plain ms, device rows, device ms a call)."""
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    scale = f0.shape[-1] ** -0.5
+    a0, a1 = (f0 * scale).to(dtype), (f1 * scale).to(dtype)
+    call = lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add, dtype=dtype)  # noqa: E731
+    plain = lambda: rowcol_stats_plain(a0, a1, 1 / (0.08 + 1e-4), None, col_add)  # noqa: E731
     got, again, ref = call(), call(), plain()
     torch.cuda.synchronize()
     err = max((got[k] - ref[k]).abs().max().item() for k in ("row_lse", "col_lse", "row_best_val", "col_best_val"))
     agree = min((got[k] == ref[k]).float().mean().item() for k in ("row_best_j", "col_best_p"))
     same = all(torch.equal(got[k], again[k]) for k in got)
-    ms, pms = time_ms(call), time_ms(plain)
-    rows, _, _ = device_rows(call, reps=5)
-    mine = [r for r in rows if _short(r[2]) in K2_CC_NAMES]  # the wrapper also scales the two operands
-    dev = sum(r[0] / r[1] for r in mine)  # one launch of each a call
-    b = bound(n * (p + l) * c * 4 + l * 4 + n * (p + l) * 16, 2 * n * p * l * c, torch.float32)
-    log(f"[2] K2 f32 at C = {c} (CUDA cores) [{n},{p}]x[{n},{l}]x{c}: LSE and best values max|d| {err:.3e} (<= 1e-3), "
-        f"argmax agree {agree:.6f} (>= 0.999), two launches bitwise equal {same}; kernel {ms:.4f} ms whole call, "
-        f"device {dev:.4f} ms a call of K2's kernels (every launch: {launch_names(rows)}), plain {pms:.4f} ms "
-        f"(medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 67 TFLOP/s f32), "
-        f"{100 * b['bound_ms'] / dev:.1f} % of it by device time; no single PyTorch call computes the dual-softmax "
-        f"statistics")
-    check(err <= 1e-3 and agree >= 0.999 and same, "K2's CUDA-core f32 instance disagrees at C = 640")
-    check({_short(r[2]) for r in mine} == set(K2_CC_NAMES), f"K2 f32 at C = 640 launches {launch_names(rows)}")
+    del got, again, ref
+    ms, pms = time_ms(call, reps=reps), time_ms(plain, reps=max(3, reps // 4))
+    rows, busy, _ = device_rows(call, reps=prof_reps)
+    return err, agree, same, ms, pms, rows, busy / prof_reps
+
+
+def phase2_k2_wide(gen, smi: str) -> None:
+    """K2 above 576 channels on the channel-streaming tensor-core tile, both
+    instances ("wide_bf16": bf16 operands; "wide_tf32": f32 in split TF32):
+    ragged [2,1000]x[2,700] at C = 640 and 1000 with a column mask, and the
+    shape at load [16,7000]x[16,4096] at C = 640 / 1024 / 2048 (no mask): LSEs
+    and best values within 1e-3 of the plain version on the same values,
+    argmaxes agreeing on >= 99.9 %, two launches bitwise equal, exactly the
+    instance's kernels by name; whole call, device time by launch, plain
+    version, bound and share. Then the mean row-LSE distance to float64 at
+    C = 2048 beside the plain version's (wide_tf32 within 2x plain f32's), and
+    the match set of the fused selection on planted features at C = 1024 in
+    bf16 against the plain version's (Jaccard >= 0.98, as phase 3)."""
+    n, p, l = 2, 1000, 700
+    for c in (640, 1000):
+        f0 = torch.randn(n, p, c, generator=gen, device="cuda")
+        f1 = torch.randn(n, l, c, generator=gen, device="cuda")
+        col_add = torch.where(torch.rand(n, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
+        for dt in ("bf16", "f32"):
+            err, agree, same, ms, pms, rows, dev = _k2_wide_case(f0, f1, col_add, dt, 20, 5)
+            b = k2_two_products(n, p, l, c, dt)
+            before = f"; the CUDA-core tile took {K2_CC_PREVIOUS_MS} ms (f32)" if c == 640 else ""
+            log(f"[2] K2 wide {dt} [{n},{p}]x[{n},{l}]x{c} masked: LSE and best values max|d| {err:.3e} (<= 1e-3), "
+                f"argmax agree {agree:.6f} (>= 0.999), two launches bitwise equal {same}; kernel {ms:.4f} ms whole "
+                f"call{before}, device {dev:.4f} ms a call ({launch_names(rows)}), plain {pms:.4f} ms; bound "
+                f"{b:.5f} ms (two products, operations), {100 * b / dev:.1f} % of it by device time")
+            check(err <= 1e-3 and agree >= 0.999 and same, f"K2 wide {dt} at C = {c} disagrees")
+            check(only_launches(rows, K2_WIDE_NAMES[dt]), f"K2 wide {dt} at C = {c} launches {launch_names(rows)}")
+        del f0, f1
+    for c in K2_WIDE_LOAD:
+        f0 = torch.randn(B, 7000, c, generator=gen, device="cuda")
+        f1 = torch.randn(B, 4096, c, generator=gen, device="cuda")
+        zeros = torch.zeros(B, 4096, device="cuda")
+        for dt in ("bf16", "f32"):
+            err, agree, same, ms, pms, rows, dev = _k2_wide_case(f0, f1, zeros, dt, 10, 3)
+            b = k2_two_products(B, 7000, 4096, c, dt)
+            log(f"[2] K2 wide {dt} [{B},7000]x[{B},4096]x{c}: LSE and best values max|d| {err:.3e} (<= 1e-3), "
+                f"argmax agree {agree:.6f}, bitwise {same}; kernel {ms:.3f} ms whole call, device {dev:.3f} ms a "
+                f"call ({launch_names(rows)}), plain {pms:.3f} ms; bound {b:.3f} ms ("
+                f"{'two products at 989 TFLOP/s' if dt == 'bf16' else 'the 3xTF32 floor of two products'}), "
+                f"{100 * b / dev:.1f} % of it by device time; on {smi}")
+            check(err <= 1e-3 and agree >= 0.999 and same, f"K2 wide {dt} at [{B},7000]x[{B},4096]x{c} disagrees")
+            check(only_launches(rows, K2_WIDE_NAMES[dt]), f"K2 wide {dt} at C = {c} launches {launch_names(rows)}")
+        del f0, f1
+        torch.cuda.empty_cache()
+    # the mean distance of row_lse to float64 at C = 2048, beside the plain version's
+    c = 2048
+    f0 = torch.randn(n, p, c, generator=gen, device="cuda")
+    f1 = torch.randn(n, l, c, generator=gen, device="cuda")
+    col_add = torch.where(torch.rand(n, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
+    dist = {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        a0, a1 = (f0 * c ** -0.5).to(dtype), (f1 * c ** -0.5).to(dtype)
+        sim = torch.einsum("bpc,blc->bpl", a0.double(), a1.double()) / (0.08 + 1e-4) + col_add.double()[:, None, :]
+        lse64 = torch.logsumexp(sim, dim=2)
+        got = dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add, dtype=dtype)["row_lse"]
+        ref = rowcol_stats_plain(a0, a1, 1 / (0.08 + 1e-4), None, col_add)["row_lse"]
+        dist[dt] = tuple((x.double() - lse64).abs().mean().item() for x in (got, ref))
+    log(f"[2] K2 wide at [{n},{p}]x[{n},{l}]x{c}: mean |row_lse - float64| wide_bf16 {dist['bf16'][0]:.3e} "
+        f"(plain bf16 values, f32 sums {dist['bf16'][1]:.3e}), wide_tf32 {dist['f32'][0]:.3e} (plain f32 "
+        f"{dist['f32'][1]:.3e}; <= 2x)")
+    check(dist["f32"][0] <= 2 * dist["f32"][1], "K2 wide_tf32 drifts from float64 beyond 2x plain f32")
+    # the match set on planted features at C = 1024 in bf16: rows 3i planted on columns 2i
+    c, p = 1024, 2000
+    f1 = torch.randn(n, 4096, c, generator=gen, device="cuda")
+    f0 = torch.randn(n, p, c, generator=gen, device="cuda")
+    rows_ = torch.arange(0, p, 3, device="cuda")
+    f0[:, rows_] = f1[:, 2 * rows_ // 3] + 0.3 * torch.randn(n, len(rows_), c, generator=gen, device="cuda")
+    sel = dict(temperature=0.08, grid_hw=(64, 64), thr=0.0, border_rm=2, k=1024, dtype=torch.bfloat16)
+    kern = fused_select_topk_matches(f0, f1, **sel)
+    plain = fused_select_topk_matches(f0.cpu(), f1.cpu(), **sel)
+    sets = [[set(zip(m.i_ids[f][m.mask[f]].tolist(), m.j_ids[f][m.mask[f]].tolist())) for f in range(n)]
+            for m in (kern, plain)]
+    jacc = [len(a & b) / max(len(a | b), 1) for a, b in zip(*sets)]
+    log(f"[2] K2 wide_bf16 fused selection on planted features [{n},{p}]x[{n},4096]x{c}: matches "
+        f"{[len(x) for x in sets[0]]}, plain {[len(x) for x in sets[1]]}, jaccard {[round(j, 4) for j in jacc]} "
+        f"(>= 0.98)")
+    check(min(jacc) >= 0.98 and all(sets[0]), "K2 wide_bf16 changes the match set")
 
 
 TF32_OPS_PER_S = 495e12  # dense TF32 tensor cores (NVIDIA's data sheet, H100 SXM)
@@ -1452,22 +1550,24 @@ K1_TCW32_NAMES = ("tcw32_pack_kernel", "tcw32_gemm_kernel", "tcw32_kv_reduce_ker
                   "tcw32_ln_residual_kernel")  # f32 in split TF32 at the other tensor-core widths
 K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES + K1_TCW32_NAMES
 # K2's bf16 instance (tensor cores), its operand pack first; its f32 instance in
-# split TF32 (tensor cores), its pack first; its CUDA-core instance (wider f32)
+# split TF32 (tensor cores), its pack first; above 576 channels K2_WIDE_NAMES
 K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")
 K2_TF32_NAMES = ("pack_tf32_operand_kernel", "lse_tf32x3_kernel", "col_lse_reduce", "argmax_tf32x3_kernel",
                  "col_argmax_reduce")
-K2_CC_NAMES = ("lse_kernel", "col_lse_reduce", "argmax_kernel", "col_argmax_reduce")
-K2_NAMES = tuple(dict.fromkeys(K2_TC_NAMES + K2_TF32_NAMES + K2_CC_NAMES))
-# the CUDA-core f32 kernels of K1 and K2, which no f32 path at C = 256 may launch
-F32_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel", "lse_kernel", "argmax_kernel")
+K2_NAMES = tuple(dict.fromkeys(K2_TC_NAMES + K2_TF32_NAMES + K2_WIDE_NAMES["bf16"] + K2_WIDE_NAMES["f32"]))
+# the CUDA-core f32 kernels of K1, which no f32 path at C = 256 may launch (K2 has none)
+F32_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")
 
 
-def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True) -> None:
-    """A profiled f32 path at C = 256 ran the split-TF32 instances of K1 and K2
-    (where it runs them) and none of their CUDA-core f32 kernels."""
+def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True, wide: bool = False) -> None:
+    """A profiled f32 path ran the split-TF32 instances of K1 and K2 (where it
+    runs them: at C = 256, or K2's wide one above 576 channels) and none of
+    K1's CUDA-core f32 kernels."""
     names = {_short(r[2]) for r in rows}
-    want = (set(K1_TF32_NAMES) if k1 else set()) | ({"lse_tf32x3_kernel", "argmax_tf32x3_kernel"} if k2 else set())
-    log(f"[{where}] f32 instances by name: {sorted(want & names)} ran; CUDA-core f32 kernels of K1/K2: "
+    k2_names = ({"lse_wide_tf32x3_kernel", "argmax_wide_tf32x3_kernel"} if wide
+                else {"lse_tf32x3_kernel", "argmax_tf32x3_kernel"})
+    want = (set(K1_TF32_NAMES) if k1 else set()) | (k2_names if k2 else set())
+    log(f"[{where}] f32 instances by name: {sorted(want & names)} ran; CUDA-core f32 kernels of K1: "
         f"{sorted(set(F32_CC_NAMES) & names) or 'none'}")
     check(want <= names and not set(F32_CC_NAMES) & names,
           f"[{where}] the f32 path did not run K1/K2's split-TF32 instances alone: {sorted(names)}")
@@ -1647,8 +1747,10 @@ def phase7b(gen) -> dict:
     return {"max_abs_err": worst, "ms": both, "plain_ms": pboth, **b, "library_ms": None}
 
 
-K5_CC_NAMES = ("lse_kernel", "col_lse_reduce", "loss_cc_kernel", "gsum_cc_kernel", "colg_reduce",
-               "dfeat_cc_kernel")  # K5 above 576 channels: the CUDA cores on unpacked bf16 operands
+# K5 above 576 channels: K2's wide LSE pass (tensor cores) on the packed bf16 operands,
+# the rest on the CUDA cores on unpacked ones
+K5_CC_NAMES = ("pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "loss_cc_kernel",
+               "gsum_cc_kernel", "colg_reduce", "dfeat_cc_kernel")
 
 
 def phase7f(gen, smi: str) -> None:
@@ -1780,11 +1882,12 @@ def phase7c(d_model: int = 256) -> None:
         if dev == "cuda":  # the fused route's selection: K2's split-TF32 instance (no K1 in training)
             with torch.no_grad():
                 prof_rows, _, _ = device_rows(lambda: model(b, gt_pad_rows=rows.to(dev)), reps=2)
-            check_f32_instances(prof_rows, "7c", k1=False)
+            check_f32_instances(prof_rows, "7c", k1=False, wide=k2_instance(d_model, torch.float32) == "wide_tf32")
     (sg, gg, mg, ig, jg), (sc_, gc, mc, ic, jc) = res["cuda"], res["cpu"]
     same_slots = torch.equal(mg, mc) and torch.equal(ig[mg], ic[mc]) and torch.equal(jg[mg], jc[mc])
     rel = {k: abs(sg[k] - sc_[k]) / max(abs(sc_[k]), 1e-12) for k in sc_}
-    log(f"[7c] f32 micro-batch, coarse d_model {d_model} (K5 {k5_instance(d_model)[0]}), 2 frames of 128^2, "
+    log(f"[7c] f32 micro-batch, coarse d_model {d_model} (K5 {k5_instance(d_model)[0]}, K2 "
+        f"{k2_instance(d_model, torch.float32)}), 2 frames of 128^2, "
         f"500 points, fused route (K5 launched once forward, once backward): GPU {sg} vs CPU {sc_}; "
         f"same match slots {same_slots} ({int(mg.sum())} valid)")
     worst_norm, worst_max, bad = 0.0, 0.0, []
@@ -2885,7 +2988,7 @@ def main() -> int:
     gen.manual_seed(0)
     records = {"K1_encoder_layer": phase2_k1(gen), "K2_rowcol_stats": phase2_k2(gen),
                "K3_window_gather": phase2_k3(gen)}
-    phase2_k2_wide(gen)  # K2's CUDA-core f32 instance
+    phase2_k2_wide(gen, smi)  # K2 above 576 channels
     phase2_narrow(gen, smi)  # K3, K4, K6 at pixels of any width
     torch.cuda.empty_cache()
     # K6 at the SfM shapes here, early: 8a profiles every call, and late in
@@ -2916,6 +3019,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase7c()
     phase7c(512)  # a train config with a 512-channel coarse stage: K5 in two chunks
+    phase7c(1024)  # a 1024-channel coarse stage: K2's wide_tf32, K5's CUDA-core instance with the wide LSE
     train_counts, step_ms = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
     counts.update({k: v for k, v in train_counts.items() if k.startswith(("K4", "K5"))})
     torch.cuda.empty_cache()

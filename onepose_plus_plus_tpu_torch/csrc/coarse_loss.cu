@@ -6,8 +6,9 @@
 // f0, f1 already scaled by 1/sqrt(C) and rounded to bf16 (f32 accumulation):
 //   log conf[p, l] = min(2 s - colLSE[l] - rowLSE[p], LOGCAP)
 // The row/column LSEs come from K2's LSE pass (matching.cu: opp_dual_lse_bf16
-// on the tensor cores, opp_dual_lse_cc_bf16 on the CUDA cores), as the TPU
-// kernel shares pallas_matching._lse_kernel. Then:
+// on the resident tile, opp_dual_lse_wide_bf16 on the channel-streaming one
+// above 576 channels), as the TPU kernel shares pallas_matching._lse_kernel.
+// Then:
 //   loss_*_kernel    per-row pos/neg focal sums (times alpha, 1 - alpha) and
 //                    the per-row max conf; the wrapper sums rows.
 //   gsum_*_kernel    g = dL/dlogconf per element (zero where the LOGCAP cap is
@@ -685,7 +686,8 @@ extern "C" int opp_coarse_loss_bwd(const void* f0, const void* f1, const int* gt
 
 // The CUDA-core instance (576 < C <= 4096): f0 [B, P, C] and f1 [B, L, C]
 // bf16, already scaled and rounded, unpacked; the row and column LSEs from
-// opp_dual_lse_cc_bf16; the other arguments as opp_coarse_loss_fwd's.
+// opp_dual_lse_wide_bf16 over the same values; the other arguments as
+// opp_coarse_loss_fwd's.
 extern "C" int opp_coarse_loss_fwd_cc(const void* f0, const void* f1, const int* gt,
                                       const float* row_lse, const float* col_lse, float* pos,
                                       float* neg, float* mx, int B, int P, int L, int C,

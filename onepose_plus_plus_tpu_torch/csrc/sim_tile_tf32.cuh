@@ -51,6 +51,7 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int cp) {
 }
 
 struct Tf32Sim {
+  static constexpr int NC = TM;  // columns of s a product gives
   const float* res;        // the resident f0 tile
   float* img;              // images of chunk parity p: hi at img + 2 p CHUNK_FLOATS, lo after it
   uint64_t* bar;           // the resident tile's

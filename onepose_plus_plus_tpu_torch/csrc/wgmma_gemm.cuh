@@ -1,6 +1,7 @@
 // Tensor-core product loops for kernels that run a chain of products over
 // operands in device memory (K1's wide instances: bf16 in encoder_tcw.cu, f32
-// in split TF32 in encoder_tcw_tf32.cu, whose loop, run_tf32, closes the file). A block
+// in split TF32 in encoder_tcw_tf32.cu, whose loop is run_tf32; K2's above 576
+// channels in sim_tile_wide.cuh, on Ring and Ring32, which close the file). A block
 // of one warpgroup computes acc[64, NT] = sum over n chunks u of A_u B_u^T,
 // A_u a [64 rows, 64 k] chunk and B_u an [NT rows, 64 k] chunk (a torch
 // Linear weight's [out, in] orientation), both bf16 byte images of wgmma's
@@ -276,6 +277,195 @@ __device__ __forceinline__ void run_tf32(unsigned char* smem, int n, AOf a_of, B
   }
   epilogue(sum);
 }
+
+// ---------------------------------------------- one ring over many tiles
+// The loops above once per output tile of a sequence, on one ring whose chunk
+// counter runs on from one tile into the next (K2's wide instances: a block's
+// 64-row f0 tile against each 128-row f1 tile in turn). Chunk v of the
+// sequence (tile v / n, chunk v % n of its product) lands in stage v % NST,
+// so the next tile's first chunks are in flight while the caller's epilogue
+// of a tile runs (a tile's last stage is refilled before product returns);
+// the barriers are set once, at start. of(v,
+// a, b) sets chunk v's A and B device addresses (B: the bf16 chunk, or the
+// hi image with lo b_bytes further). Every thread calls start once and then
+// product for tiles 0, 1, ... in order; product returns the tile's sum,
+// complete. The epilogue between two products may use shared memory past the
+// ring (Smem::BYTES) and must not leave a thread behind a block barrier
+// that others have passed.
+
+// bf16 chunks (Smem<NT, NST>). PAIRS sums each pair of chunks (k = 128) in a
+// fresh accumulator that is then added into an f32 sum in registers, as
+// run_tf32 does; otherwise the tensor cores sum the whole k.
+template <int NT, int NST, bool PAIRS, class Of>
+struct Ring {
+  unsigned char* smem;
+  uint64_t* full;
+  int n, total;
+  uint32_t b_bytes;
+  Of of;
+
+  __device__ Ring(unsigned char* smem_, int n_, int tiles, uint32_t b_bytes_, Of of_)
+      : smem(smem_),
+        full(reinterpret_cast<uint64_t*>(smem_ + NST * Smem<NT, NST>::STAGE)),
+        n(n_),
+        total(n_ * tiles),
+        b_bytes(b_bytes_),
+        of(of_) {}
+
+  __device__ __forceinline__ void fetch(int v) const {
+    const void *a, *b;
+    of(v, a, b);
+    unsigned char* stage = smem + (v % NST) * Smem<NT, NST>::STAGE;
+    wg::mbar_expect_tx(full + v % NST, A_CHUNK + b_bytes);
+    wg::bulk_load(stage, a, A_CHUNK, full + v % NST);
+    wg::bulk_load(stage + A_CHUNK, b, b_bytes, full + v % NST);
+  }
+  __device__ __forceinline__ void start() const {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
+      wg::mbar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int v = 0; v < NST && v < total; ++v) fetch(v);
+  }
+  // chunk v's products are done in every warp: its stage takes chunk v + NST
+  __device__ __forceinline__ void refill(int v) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && v + NST < total) fetch(v + NST);
+  }
+  __device__ __forceinline__ void product(float (&out)[NT / 2], int tile) const {
+    float acc[NT / 2];
+#pragma unroll 1
+    for (int u = 0; u < n; ++u) {
+      const int v = tile * n + u, st = v % NST;
+      wg::mbar_wait(full + st, (v / NST) & 1);
+      const uint32_t a = wg::smem_u32(smem + st * Smem<NT, NST>::STAGE), b = a + A_CHUNK;
+      const bool fresh = PAIRS ? u % 2 == 0 : u == 0;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma<NT>(acc, wg::desc(a + kk * 2 * LBO, LBO, SBO), wg::desc(b + kk * 2 * LBO, LBO, SBO),
+                (!fresh || kk > 0) ? 1 : 0);
+      wg::commit();
+      if (u > 0) {
+        wg::wait<1>();
+        refill(v - 1);
+      }
+      if (PAIRS && (u % 2 == 1 || u == n - 1)) {
+        wg::wait<0>();
+        wg::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) out[i] = u < 2 ? acc[i] : out[i] + acc[i];
+      }
+    }
+    if (!PAIRS) {
+      wg::wait<0>();
+      wg::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) out[i] = acc[i];
+    }
+    refill(tile * n + n - 1);  // before the caller's epilogue
+  }
+};
+
+// Split-TF32 chunks (Smem32<NT, NST>, run_tf32's arithmetic and contract: n
+// even). A tile's first chunk is split once its products may start; within
+// a tile the next chunk's split overlaps the running products, as in run_tf32.
+template <int NT, int NST, class Of>
+struct Ring32 {
+  unsigned char* smem;
+  uint64_t* full;
+  int n, total;
+  uint32_t b_bytes;
+  Of of;
+
+  __device__ Ring32(unsigned char* smem_, int n_, int tiles, uint32_t b_bytes_, Of of_)
+      : smem(smem_),
+        full(reinterpret_cast<uint64_t*>(smem_ + NST * Smem32<NT, NST>::STAGE)),
+        n(n_),
+        total(n_ * tiles),
+        b_bytes(b_bytes_),
+        of(of_) {}
+
+  __device__ __forceinline__ void fetch(int v) const {
+    const void *a, *b;
+    of(v, a, b);
+    unsigned char* stage = smem + (v % NST) * Smem32<NT, NST>::STAGE;
+    const unsigned char* bh = static_cast<const unsigned char*>(b);
+    wg::mbar_expect_tx(full + v % NST, A_CHUNK + 2 * b_bytes);
+    wg::bulk_load(stage, a, A_CHUNK, full + v % NST);
+    wg::bulk_load(stage + A_CHUNK, bh, b_bytes, full + v % NST);
+    wg::bulk_load(stage + A_CHUNK + Smem32<NT, NST>::B_HALF, bh + b_bytes, b_bytes, full + v % NST);
+  }
+  __device__ __forceinline__ void start() const {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
+      wg::mbar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int v = 0; v < NST && v < total; ++v) fetch(v);
+  }
+  // chunk v's A fragments, split (run_tf32's split)
+  __device__ __forceinline__ void split(int v, uint32_t (&h)[4][4], uint32_t (&l)[4][4]) const {
+    const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3, st = v % NST;
+    wg::mbar_wait(full + st, (v / NST) & 1);
+    const float* a = reinterpret_cast<const float*>(smem + st * Smem32<NT, NST>::STAGE) +
+                     (2 * w * 1024 + g * 16 + t * 4) / 4;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg::tf32_split(a[64 * kk], h[kk][0], l[kk][0]);
+      wg::tf32_split(a[64 * kk + 256], h[kk][1], l[kk][1]);
+      wg::tf32_split(a[64 * kk + 32], h[kk][2], l[kk][2]);
+      wg::tf32_split(a[64 * kk + 288], h[kk][3], l[kk][3]);
+    }
+  }
+  // chunk v's twelve products (fresh at an even chunk of the tile), issued
+  __device__ __forceinline__ void products(float (&acc)[NT / 2], int v, bool fresh, const uint32_t (&h)[4][4],
+                                           const uint32_t (&l)[4][4]) const {
+    const uint32_t bh = wg::smem_u32(smem + (v % NST) * Smem32<NT, NST>::STAGE + A_CHUNK);
+    const uint32_t bl = bh + Smem32<NT, NST>::B_HALF;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dh = wg::desc(bh + kk * 2 * LBO, LBO, SBO), dl = wg::desc(bl + kk * 2 * LBO, LBO, SBO);
+      mma_tf32<NT>(acc, l[kk], dh, (!fresh || kk > 0) ? 1 : 0);
+      mma_tf32<NT>(acc, h[kk], dl, 1);
+      mma_tf32<NT>(acc, h[kk], dh, 1);
+    }
+    wg::commit();
+  }
+  // chunk v's products are done in every warp: its stage takes chunk v + NST
+  __device__ __forceinline__ void refill(int v) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && v + NST < total) fetch(v + NST);
+  }
+  __device__ __forceinline__ void product(float (&out)[NT / 2], int tile) const {
+    uint32_t ah[2][4][4], al[2][4][4];
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) out[i] = 0.f;
+    const int v0 = tile * n;
+    split(v0, ah[0], al[0]);
+#pragma unroll 1
+    for (int u = 0; u < n; u += 2) {
+      const int v = v0 + u;
+      products(acc, v, true, ah[0], al[0]);
+      if (u > 0) refill(v - 1);  // done at the last pair's wait<0>
+      split(v + 1, ah[1], al[1]);
+      products(acc, v + 1, false, ah[1], al[1]);
+      wg::wait<1>();
+      refill(v);
+      if (u + 2 < n) split(v + 2, ah[0], al[0]);
+      wg::wait<0>();
+      wg::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) out[i] += acc[i];
+    }
+    refill(v0 + n - 1);  // before the caller's epilogue
+  }
+};
 
 }  // namespace gemm
 }  // namespace opp

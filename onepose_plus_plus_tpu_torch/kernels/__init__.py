@@ -11,7 +11,8 @@ Each kernel's wrapper lives beside its plain PyTorch version in ``ops/``:
   at the rest up to 4096)
 - K2 ``ops/cuda_matching.py::dual_softmax_rowcol_stats`` (``csrc/matching.cu``: tensor
   cores for bf16 operands (``pack_operand``) and, in split TF32, for f32 ones up to
-  C = 576 (``pack_tf32_operand``); CUDA cores for wider f32)
+  C = 576 (``pack_tf32_operand``); above 576, both dtypes on the channel-streaming
+  tile of ``csrc/sim_tile_wide.cuh`` (``pack_wide_operand``, ``pack_tf32_hilo``))
 - K3 ``ops/cuda_gather.py::window_gather`` (``csrc/gather.cu``: 16-byte vectors where a pixel
   is a multiple of 16 bytes, else K6's span copy, ``csrc/span.cuh``)
 - K4 ``ops/cuda_gather.py::window_scatter`` (``csrc/scatter.cu``), K3's VJP: an index

@@ -45,17 +45,21 @@ _SIGNATURES = {
     "opp_encoder_tcw_scratch_bytes": [_I] * 6,
     "opp_encoder_layer_tcw_tf32": [_P] * 12 + [_I] * 5 + [_P],
     "opp_encoder_tcw_tf32_scratch_bytes": [_I] * 6,
-    "opp_rowcol_stats_f32": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_stats_tf32x3": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "opp_rowcol_stats_wide_bf16": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "opp_rowcol_stats_wide_tf32x3": [_P] * 12 + [_I] * 4 + [_F, _P],
     "opp_rowcol_row_tiles": [_I],
     "opp_pack_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_pack_operand_bf16": [_P] * 2 + [_I] * 3 + [_F, _P],
-    "opp_pack_tf32_operand_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
+    "opp_pack_tf32_operand_f32": [_P] * 2 + [_I] * 4 + [_F, _P],
+    "opp_pack_wide_f32": [_P] * 2 + [_I] * 4 + [_F, _P],
+    "opp_pack_wide_bf16": [_P] * 2 + [_I] * 4 + [_F, _P],
+    "opp_pack_wide_tf32_hilo_f32": [_P] * 2 + [_I] * 3 + [_F, _P],
     "opp_window_gather": [_P] * 3 + [_I] * 9 + [_P],
     "opp_window_span": [_P] * 3 + [_I] * 9 + [_P],
     "opp_dual_lse_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
-    "opp_dual_lse_cc_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "opp_dual_lse_wide_bf16": [_P] * 7 + [_I] * 4 + [_F, _P],
     "opp_window_scatter_index": [_P] * 3 + [_I] * 3 + [_P],
     "opp_window_scatter_f32": [_P] * 5 + [_I] * 9 + [_P],
     "opp_window_scatter_bf16": [_P] * 5 + [_I] * 9 + [_P],

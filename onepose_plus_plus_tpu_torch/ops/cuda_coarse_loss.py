@@ -36,11 +36,12 @@ transcendentals per similarity element. Two instances by width
   recomputes its similarity tiles (one more first product a chunk).
 - **576 < C <= 4096 (K1's widest), the CUDA cores.** The wrapper scales and
   rounds the features to bf16 in PyTorch (no pack: the tiles do not fit the
-  tensor-core block), the LSEs come from K2's CUDA-core LSE pass
-  (``opp_dual_lse_cc_bf16``), and the loss, g sums and feature gradients run
-  on ``csrc/sim_tile.cuh``'s f32 tile; the feature gradients add each
-  streamed tile's product into the block's own output rows, in order. Right
-  first, not tuned.
+  tensor-core block); the LSEs come from K2's wide bf16 LSE pass on the
+  tensor cores (``opp_dual_lse_wide_bf16``, ``csrc/sim_tile_wide.cuh``) over
+  those values packed for it (``pack_wide_operand``, two launches), and the
+  loss, g sums and feature gradients run on ``csrc/sim_tile.cuh``'s f32
+  tile; the feature gradients add each streamed tile's product into the
+  block's own output rows, in order. Right first, not tuned.
 
 The count normalisation and ``max_conf`` live in the wrapper, as in JAX; in
 data-parallel training their sums, counts and maximum are the global
@@ -54,7 +55,7 @@ import torch
 
 from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
 from ..parallel.comm import batch_max, batch_sum
-from .cuda_matching import TC_MAX_CHANNELS, pack_operand
+from .cuda_matching import PACK_ROWS, TC_MAX_CHANNELS, WIDE_COLS, pack_operand, pack_wide_operand
 
 LOGCAP = -1e-6  # log conf <= log(1 - ~1e-6): the negative term's log1p stays finite
 TC_CHUNK = 256  # output channels of one tensor-core feature-gradient block (csrc/coarse_loss.cu: MAXC)
@@ -131,7 +132,7 @@ def _operands(f0, f1, scale, instance):
 # C entries of each instance: (LSE pass, forward, backward)
 _ENTRIES = {
     "tc": ("opp_dual_lse_bf16", "opp_coarse_loss_fwd", "opp_coarse_loss_bwd"),
-    "cuda_cores": ("opp_dual_lse_cc_bf16", "opp_coarse_loss_fwd_cc", "opp_coarse_loss_bwd_cc"),
+    "cuda_cores": ("opp_dual_lse_wide_bf16", "opp_coarse_loss_fwd_cc", "opp_coarse_loss_bwd_cc"),
 }
 
 
@@ -151,7 +152,10 @@ class _CoarseFocalSums(torch.autograd.Function):
         pos, neg, mx = (torch.empty((b, p), dtype=f32, device=device) for _ in range(3))
         stream = stream_ptr(device)
         f0p, f1p = _operands(f0, f1, scale, instance)
-        lib.call(lse_entry, ptr(f0p), ptr(f1p), None, None, ptr(row_lse), ptr(col_lse),
+        l0, l1 = f0p, f1p
+        if instance == "cuda_cores":  # the LSE pass reads the same bf16 values packed for K2's wide tile
+            l0, l1 = pack_wide_operand(f0p, 1.0, PACK_ROWS), pack_wide_operand(f1p, 1.0, WIDE_COLS)
+        lib.call(lse_entry, ptr(l0), ptr(l1), None, None, ptr(row_lse), ptr(col_lse),
                  ptr(part), b, p, l, c, inv_temp, stream)
         lib.call(fwd_entry, ptr(f0p), ptr(f1p), ptr(gt), ptr(row_lse), ptr(col_lse),
                  ptr(pos), ptr(neg), ptr(mx), b, p, l, c, inv_temp, alpha, gamma, stream)

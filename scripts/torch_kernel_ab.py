@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K3-K7 of one checkout of the port, for A/B runs on one card.
 
-    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1]    # needs one CUDA GPU and nvcc
+    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1 | --k2] [--define NAME]    # needs one CUDA GPU and nvcc
 
 Imports ``onepose_plus_plus_tpu_torch`` from DIR (default: the checkout this
 script lies in), builds its kernels there, and times, on inputs made from a
@@ -37,8 +37,14 @@ only K1 (``fused_encoder_layer``) with bf16 and with f32 operands at self
 (median of 5), device time a call of every launch by name (templated kernels
 by instance, ``tcw32_gemm_kernel<2>``), and the instance the tree routes to
 where it names one (a tree from before the wide tensor-core instances runs
-these widths on its CUDA-core kernels, a fifth of a second a call at 2048). Prints one JSON
-line. Only entry points that every checkout
+these widths on its CUDA-core kernels, a fifth of a second a call at 2048). With ``--k2``,
+only K2 (``dual_softmax_rowcol_stats``) at [16, 7000] x [16, 4096] for C = 640, 1024 and
+2048 with bf16 and with f32 operands: whole call (median of 3), device time a call of every
+launch by name, the instance the tree routes to where it names one (a tree from before the
+wide instances runs these widths on its CUDA-core tile, over a second a call at 2048), and
+the mean distance of row_lse to float64 at [2, 1000] x [2, 700] x 2048 beside the plain
+version's. ``--define NAME`` builds the tree's kernels with ``-DNAME`` (a diagnostic
+variant, e.g. ``OPP_K2_WIDE_BF16_WHOLE_K``). Prints one JSON line. Only entry points that every checkout
 of the port has are called, so that two trees (an older commit unpacked
 beside this one) can be run in turns in one session on one card: parent,
 change, change, parent.
@@ -58,6 +64,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
     parser.add_argument("--k1", action="store_true", help="time only K1's bf16 and f32 layers at self [4, 4096, C]")
+    parser.add_argument("--k2", action="store_true", help="time only K2 at [16, 7000] x [16, 4096] x C")
+    parser.add_argument("--define", action="append", default=[], help="build the kernels with -DNAME")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -75,6 +83,9 @@ def main() -> int:
         raise RuntimeError("needs a CUDA GPU")
     if not kernels.__file__.startswith(str(tree)):
         raise RuntimeError(f"imported the port from {kernels.__file__}, not from {tree}")
+    if args.define:
+        build_module = sys.modules[kernels.build.__module__]
+        build_module.NVCC_FLAGS = build_module.NVCC_FLAGS + tuple(f"-D{d}" for d in args.define)
     lib = kernels.build()
 
     def whole_ms(fn, reps=20):
@@ -253,6 +264,35 @@ def main() -> int:
                 del x
                 torch.cuda.empty_cache()
         print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
+        return 0
+    if args.k2:
+        from onepose_plus_plus_tpu_torch.ops import cuda_matching
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rec = {}
+        for c in (640, 1024, 2048):
+            f0 = torch.randn(16, 7000, c, generator=gen, device="cuda")
+            f1 = torch.randn(16, 4096, c, generator=gen, device="cuda")
+            for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                call = lambda: cuda_matching.dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype)  # noqa: E731
+                named, dev = launches_ms(call, reps=2)
+                instance = getattr(cuda_matching, "k2_instance", lambda *a: None)(c, dtype)
+                rec[f"K2_{dt}_16x7000x4096_c{c}"] = {"whole_ms": whole_ms(call, reps=3), "device_ms": dev,
+                                                     "launches": named, "instance": instance}
+            del f0, f1
+            torch.cuda.empty_cache()
+        c, inv_temp = 2048, 1 / (0.08 + 1e-4)
+        f0 = torch.randn(2, 1000, c, generator=gen, device="cuda")
+        f1 = torch.randn(2, 700, c, generator=gen, device="cuda")
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            a0, a1 = (f0 * c ** -0.5).to(dtype), (f1 * c ** -0.5).to(dtype)
+            lse64 = torch.logsumexp(torch.einsum("bpc,blc->bpl", a0.double(), a1.double()) * inv_temp, dim=2)
+            got = cuda_matching.dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype)["row_lse"]
+            ref = cuda_matching.rowcol_stats_plain(a0, a1, inv_temp)["row_lse"]
+            rec[f"K2_{dt}_2x1000x700_c{c}_row_lse_to_float64"] = {
+                "kernel": (got.double() - lse64).abs().mean().item(),
+                "plain": (ref.double() - lse64).abs().mean().item()}
+        print(json.dumps({"tree": str(tree), "gpu": smi, "defines": args.define, **rec}))
         return 0
     gathers = {}
     for tag, dtype, c, n, k in (("K3_bf16_query", torch.bfloat16, 128, 16, 512),

@@ -420,7 +420,7 @@ def test_k2_f32_split_tf32_matches_plain_and_repeats_bitwise(gen, b, p, l, c):
     ref = rowcol_stats_plain(f0 * scale, f1 * scale, 1 / (0.08 + 1e-4), None, col_add)
     torch.cuda.synchronize()
     assert {"pack_tf32_operand_kernel", "lse_tf32x3_kernel", "argmax_tf32x3_kernel"} <= names, names
-    assert not {"lse_kernel", "argmax_kernel"} & names, names
+    assert not {"lse_wide_tf32x3_kernel", "argmax_wide_tf32x3_kernel"} & names, names
     for k in got:
         assert torch.equal(got[k], again[k]), k
     for k in ("row_lse", "col_lse", "row_best_val", "col_best_val"):
@@ -429,22 +429,33 @@ def test_k2_f32_split_tf32_matches_plain_and_repeats_bitwise(gen, b, p, l, c):
         assert (got[k] == ref[k]).float().mean().item() >= 0.999, k
 
 
-def test_k2_bf16_wider_than_the_tensor_core_tile_runs_the_f32_instance(gen):
-    """bf16 operands wider than the tensor-core tile takes (C > 576) run the
-    exact f32 instance on their bf16 values: held to the plain version on the
+K2_WIDE_NAMES = {
+    torch.bfloat16: {"pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "argmax_wide_bf16_kernel"},
+    torch.float32: {"pack_tf32_operand_kernel", "pack_tf32_hilo_kernel", "lse_wide_tf32x3_kernel",
+                    "argmax_wide_tf32x3_kernel"},
+}
+K2_RESIDENT_NAMES = {"lse_tc_kernel", "argmax_tc_kernel", "lse_tf32x3_kernel", "argmax_tf32x3_kernel"}
+
+
+def _row_lse64(a0, a1, col_add):
+    """Row LSE of s = a0 a1^T * inv_temp + col_add in float64 (a0, a1 the
+    operands after scaling and rounding)."""
+    sim = torch.einsum("bpc,blc->bpl", a0.double(), a1.double()) / (0.08 + 1e-4) + col_add.double()[:, None, :]
+    return torch.logsumexp(sim, dim=2)
+
+
+def test_k2_bf16_wider_than_the_resident_tile_runs_the_wide_instance(gen):
+    """bf16 operands wider than the resident tensor-core tile takes (C > 576)
+    run the channel-streaming bf16 instance: held to the plain version on the
     same bf16 values, and by the names of the launches."""
     b, p, l, c = 1, 333, 200, 640
     f0 = torch.randn(b, p, c, generator=gen, device="cuda")
     f1 = torch.randn(b, l, c, generator=gen, device="cuda")
     col_add = torch.where(torch.rand(b, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
     before = kernels.launch_counts()["K2_rowcol_stats"]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        got = dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add, dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-    assert kernels.launch_counts()["K2_rowcol_stats"] == before + 1
-    names = [e.key for e in prof.key_averages()]
-    assert any("lse_kernel" in n for n in names) and any("argmax_kernel" in n for n in names), names
-    assert not any("_tc_kernel" in n for n in names), names
+    got, names = _names(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add, dtype=torch.bfloat16))
+    assert kernels.launch_counts()["K2_rowcol_stats"] == before + 3
+    assert K2_WIDE_NAMES[torch.bfloat16] <= names and not K2_RESIDENT_NAMES & names, names
     scale = c ** -0.5
     ref = rowcol_stats_plain((f0 * scale).to(torch.bfloat16), (f1 * scale).to(torch.bfloat16),
                              1 / (0.08 + 1e-4), None, col_add)
@@ -453,6 +464,58 @@ def test_k2_bf16_wider_than_the_tensor_core_tile_runs_the_f32_instance(gen):
         assert (got[k] - ref[k]).abs().max().item() < 1e-3, k
     for k in ("row_best_j", "col_best_p"):
         assert (got[k] == ref[k]).float().mean().item() >= 0.999, k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,p,l,c", [
+    (2, 333, 200, 577), (2, 333, 200, 640), (2, 333, 200, 1000), (2, 1000, 700, 2048), (1, 333, 200, 4096),
+])
+def test_k2_wide_instances_match_plain_and_repeat_bitwise(gen, b, p, l, c, dtype):
+    """K2 above 576 channels on the channel-streaming tile (sim_tile_wide.cuh)
+    at ragged shapes (P not a multiple of the 64-row tile, L of the 128-row
+    one, C of 64), with a column mask: LSEs and best values within 1e-3 of the
+    plain version on the same values (bf16 values for bf16), argmaxes agreeing
+    on >= 99.9 %, two launches equal bit for bit, its kernels by name and no
+    resident-tile kernel. At C = 2048 the mean row-LSE distance to float64,
+    within 2x the plain version's (f32 sums of the same operands)."""
+    f0 = torch.randn(b, p, c, generator=gen, device="cuda")
+    f1 = torch.randn(b, l, c, generator=gen, device="cuda")
+    col_add = torch.where(torch.rand(b, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
+    got, names = _names(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add, dtype=dtype))
+    again = dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add, dtype=dtype)
+    scale = c ** -0.5
+    a0, a1 = (f0 * scale).to(dtype), (f1 * scale).to(dtype)
+    ref = rowcol_stats_plain(a0, a1, 1 / (0.08 + 1e-4), None, col_add)
+    torch.cuda.synchronize()
+    assert K2_WIDE_NAMES[dtype] <= names and not K2_RESIDENT_NAMES & names, names
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+    for k in ("row_lse", "col_lse", "row_best_val", "col_best_val"):
+        assert (got[k] - ref[k]).abs().max().item() < 1e-3, k
+    for k in ("row_best_j", "col_best_p"):
+        assert (got[k] == ref[k]).float().mean().item() >= 0.999, k
+    if c == 2048:
+        lse64 = _row_lse64(a0, a1, col_add)
+        kernel = (got["row_lse"].double() - lse64).abs().mean().item()
+        plain = (ref["row_lse"].double() - lse64).abs().mean().item()
+        print(f"K2 {dtype} at C = {c}: mean |row_lse - float64| kernel {kernel:.3e}, plain {plain:.3e}")
+        assert kernel <= 2 * plain, (kernel, plain)
+
+
+def test_k5_wide_instance_takes_its_lse_from_the_wide_tile(gen):
+    """K5 above 576 channels (its CUDA-core loss, g-sum and feature-gradient
+    passes) takes its row and column LSEs from K2's wide bf16 LSE pass."""
+    f0, f1, gt = _k5_inputs(gen, 2, 333, 200, 640)
+    assert k5_instance(640) == ("cuda_cores", 1)
+
+    def run():
+        a0, a1 = f0.clone().requires_grad_(), f1.clone().requires_grad_()
+        pos, neg, _ = coarse_focal_sums(a0, a1, gt, 1 / (0.08 + 1e-4), 0.5, 2.0)
+        return pos, neg
+
+    _, names = _names(run)
+    assert {"pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "loss_cc_kernel"} <= names, names
+    assert not {"lse_kernel", "lse_tc_kernel"} & names, names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

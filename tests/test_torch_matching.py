@@ -80,6 +80,59 @@ def test_k2_plain_stats_with_column_mask():
     assert not np.isin(got["row_best_j"].numpy()[0], np.nonzero(col_add[0])[0]).any()
 
 
+# Above 576 channels (the card's wide instances): make_feats' half-integers
+# scaled so that the operands after the feature norm are multiples of 1/32 or
+# 1/64 (exact in bf16, every similarity an exact f32 sum). 1/sqrt(640) is not a
+# power of two, so C = 640 passes feat_norm="none" to both packages with the
+# features scaled beforehand.
+WIDE = [(640, "none", 1 / 16), (1024, "sqrt_feat_dim", 1.0)]
+
+
+def _wide_inputs(c, factor, seed):
+    f0, f1 = make_feats(p=200, l=144, c=c, seed=seed)
+    col_mask = np.random.default_rng(seed).random((2, 144)) > 0.2
+    return f0 * factor, f1 * factor, col_mask
+
+
+@pytest.mark.parametrize("c,feat_norm,factor", WIDE)
+def test_k2_plain_bf16_stats_match_pallas_kernel_above_576_channels(c, feat_norm, factor):
+    """K2 at the widths the card's wide instances take, with a column mask: the
+    port's bf16 operands (the JAX kernel's precision) against the JAX kernel in
+    interpret mode. LSEs and best values within 1e-4, argmaxes equal. The
+    column statistics are compared at the unmasked columns: at a masked one
+    the JAX kernel's column LSE is its log(0 + 1e-30) guard, the port's the
+    -1e9 of the mask."""
+    f0, f1, col_mask = _wide_inputs(c, factor, seed=11)
+    col_add = np.where(col_mask, 0.0, -1e9).astype(np.float32)
+    ref = jax_stats(jnp.asarray(f0), jnp.asarray(f1), TEMP, col_add=jnp.asarray(col_add), r_tile=64,
+                    l_tile=128, feat_norm=feat_norm, interpret=True)
+    got = dual_softmax_rowcol_stats(torch.from_numpy(f0), torch.from_numpy(f1), TEMP,
+                                    col_add=torch.from_numpy(col_add), feat_norm=feat_norm,
+                                    dtype=torch.bfloat16)
+    for k in ("row_lse", "row_best_val"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=1e-4, err_msg=k)
+    for k in ("col_lse", "col_best_val"):
+        np.testing.assert_allclose(got[k].numpy()[col_mask], np.asarray(ref[k])[col_mask], atol=1e-4, err_msg=k)
+    for k in ("row_best_j", "col_best_p"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    assert not np.isin(got["row_best_j"].numpy()[0], np.nonzero(~col_mask[0])[0]).any()
+
+
+@pytest.mark.parametrize("c,feat_norm,factor", WIDE)
+def test_fused_select_matches_jax_above_576_channels(c, feat_norm, factor):
+    """The match set of the fused selection on bf16 operands above 576
+    channels, with a column mask, equals the JAX package's."""
+    f0, f1, col_mask = _wide_inputs(c, factor, seed=12)
+    ref = jax_fused_select(jnp.asarray(f0), jnp.asarray(f1), TEMP, (12, 12), 0.0, 2, 64, feat_norm=feat_norm,
+                           col_mask=jnp.asarray(col_mask), interpret=True)
+    got = fused_select_topk_matches(torch.from_numpy(f0), torch.from_numpy(f1), TEMP, (12, 12), 0.0, 2, 64,
+                                    feat_norm=feat_norm, col_mask=torch.from_numpy(col_mask),
+                                    dtype=torch.bfloat16)
+    sets = _match_sets(got)
+    assert sets == _match_sets(ref)
+    assert sum(len(m) for m in sets) > 20
+
+
 @pytest.mark.parametrize("two_sided", [False, True])
 def test_border_keep(two_sided):
     np.testing.assert_array_equal(

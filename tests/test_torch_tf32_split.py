@@ -15,9 +15,11 @@ import torch
 from onepose_plus_plus_tpu_torch.kernels import tf32_round, tf32_split, tf32x3_matmul
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import pack_weight_chunks_tf32
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
+    pack_tf32_hilo,
     pack_tf32_operand,
     pack_tf32_operand_plain,
     rowcol_stats_plain,
+    tf32_hilo_packed_shape,
     tf32_packed_shape,
 )
 
@@ -80,7 +82,7 @@ def test_tf32x3_matmul_keeps_f32_accuracy(seed):
 def _numpy_unpack_tf32(packed: np.ndarray, rows: int, c: int) -> np.ndarray:
     """Element (r, k) of batch element b read at byte (r // 64) * 256 Cp +
     (k // 32) * 8192 + ((r % 64) // 8) * 1024 + ((k % 32) // 4) * 128 +
-    (r % 8) * 16 + (k % 4) * 4 of its slab."""
+    (r % 8) * 16 + (k % 4) * 4 of its slab (Cp from the packed shape)."""
     b = packed.shape[0]
     cp = packed.shape[2] * 32
     flat = packed.reshape(b, -1)  # f32 words: byte offset / 4
@@ -111,6 +113,59 @@ def test_pack_tf32_operand_matches_the_byte_formula(c, rows):
     assert np.count_nonzero(words) == np.count_nonzero((feat * scale).numpy())
     full = _numpy_unpack_tf32(words, rows_pad, cp)
     assert not full[:, rows:].any() and not full[:, :, c:].any()
+
+
+@pytest.mark.parametrize("c", [600, 640, 1000])
+@pytest.mark.parametrize("rows", [7, 130])
+def test_pack_tf32_operand_at_the_wide_instances_padding(c, rows):
+    """The wide split-TF32 instance of K2 reads f0 in the same layout with the
+    channels padded to 64 (an even count of 32-channel chunks, as
+    wgmma_gemm.cuh's split-TF32 loop takes them), at any width."""
+    rng = np.random.default_rng(c + rows)
+    feat = torch.from_numpy(rng.standard_normal((2, rows, c)).astype(np.float32))
+    scale = 1.0 / c ** 0.5
+    packed = pack_tf32_operand(feat, scale, 64)
+    rows_pad, cp = -(-rows // 64) * 64, -(-c // 64) * 64
+    assert tuple(packed.shape) == tf32_packed_shape(2, rows, c, 64) == (2, rows_pad // 64, cp // 32, 8, 8, 8, 4)
+    words = packed.numpy()
+    np.testing.assert_array_equal(_numpy_unpack_tf32(words, rows, c), (feat * scale).numpy())
+    assert np.count_nonzero(words) == np.count_nonzero((feat * scale).numpy())
+    full = _numpy_unpack_tf32(words, rows_pad, cp)
+    assert not full[:, rows:].any() and not full[:, :, c:].any()
+
+
+@pytest.mark.parametrize("c", [600, 640, 1000])
+@pytest.mark.parametrize("rows", [7, 130, 300])
+def test_pack_tf32_hilo_matches_the_byte_formula(c, rows):
+    """The wide split-TF32 instance's f1: for each 128-row tile and 32-channel
+    chunk, the TF32 hi image and then the lo image (kernels.tf32_split of the
+    scaled value), element (r, k) of each at in_chunk32(r % 128, k % 32): byte
+    (r // 128) * 1024 Cp + (k // 32) * 32768 + half * 16384 + ((r % 128) // 8)
+    * 1024 + ((k % 32) // 4) * 128 + (r % 8) * 16 + (k % 4) * 4, channels padded
+    to 64 and rows to 128, zeros elsewhere."""
+    rng = np.random.default_rng(c + rows)
+    feat = torch.from_numpy(rng.standard_normal((2, rows, c)).astype(np.float32))
+    scale = 1.0 / c ** 0.5
+    packed = pack_tf32_hilo(feat, scale)
+    rows_pad, cp = -(-rows // 128) * 128, -(-c // 64) * 64
+    assert tuple(packed.shape) == tf32_hilo_packed_shape(2, rows, c) == (2, rows_pad // 128, cp // 32, 2, 16, 8, 8, 4)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    flat = packed.numpy().reshape(2, -1)
+
+    def unpack(half, n_rows, n_c):
+        r = np.arange(n_rows)[:, None]
+        k = np.arange(n_c)[None, :]
+        byte = ((r // 128) * 1024 * cp + (k // 32) * 32768 + half * 16384 + ((r % 128) // 8) * 1024
+                + ((k % 32) // 4) * 128 + (r % 8) * 16 + (k % 4) * 4)
+        return flat[:, byte // 4]
+
+    hi, lo = tf32_split(feat * scale)
+    np.testing.assert_array_equal(unpack(0, rows, c), hi.numpy())
+    np.testing.assert_array_equal(unpack(1, rows, c), lo.numpy())
+    assert np.count_nonzero(flat) == np.count_nonzero(hi.numpy()) + np.count_nonzero(lo.numpy())
+    for half in (0, 1):
+        full = unpack(half, rows_pad, cp)
+        assert not full[:, rows:].any() and not full[:, :, c:].any()
 
 
 @pytest.mark.parametrize("n,k", [(256, 256), (256, 512), (8, 16)])
@@ -162,3 +217,43 @@ def test_three_tf32_products_hold_k2_to_the_f32_tolerances_and_one_does_not():
           f"LSE max|d| {lse1:.3e}")
     assert lse3 < 1e-3 and agree3 >= 0.999
     assert lse1 >= 1e-3
+
+
+def _stats64(sim, inv_temp):
+    """K2's statistics of a similarity in float64: the LSEs and best values."""
+    s = sim.double() * inv_temp
+    row_lse, col_lse = torch.logsumexp(s, 2), torch.logsumexp(s, 1)
+    return {"row_lse": row_lse, "col_lse": col_lse,
+            "row_best_val": (2 * s - col_lse[:, None, :]).max(2).values,
+            "col_best_val": (2 * s - row_lse[:, :, None]).max(1).values}
+
+
+def test_wide_split_tf32_in_pairs_of_chunks_holds_k2_at_2048_channels():
+    """The wide split-TF32 instance's arithmetic at C = 2048 (csrc/wgmma_gemm.cuh,
+    Ring32): each 32-channel chunk split as the kernels split it, the three
+    products of a pair of chunks (64 channels) summed in a fresh accumulator
+    (emulated as one f32 product over the concatenated halves), the pairs added
+    into an f32 sum in order. Its LSEs and best values stay within the 1e-3 the
+    card holds K2's f32 instances to, measured from float64 (~2e-6 here), and
+    its mean row-LSE distance to float64 within 2x plain f32's; one TF32
+    product misses 1e-3 (~2e-3). Features of norm 2 (logits of std ~25, a
+    confident matcher's), inv_temp 1/0.0801."""
+    rng = np.random.default_rng(0)
+    c, inv_temp = 2048, 1.0 / 0.0801
+    f0 = torch.from_numpy(rng.standard_normal((2, 333, c)).astype(np.float32)) * (2 / c ** 0.5)
+    f1 = torch.from_numpy(rng.standard_normal((2, 200, c)).astype(np.float32)) * (2 / c ** 0.5)
+    t1 = lambda x: x.transpose(1, 2)  # noqa: E731
+    ref = _stats64(f0.double() @ t1(f1.double()), inv_temp)
+    pairs = torch.zeros(2, 333, 200)
+    for k0 in range(0, c, 64):
+        (h0, l0), (h1, l1) = tf32_split(f0[..., k0:k0 + 64]), tf32_split(f1[..., k0:k0 + 64])
+        pairs = pairs + torch.cat([l0, h0, h0], -1) @ t1(torch.cat([h1, l1, h1], -1))
+    runs = {"pairs": pairs, "single": tf32_round(f0) @ t1(tf32_round(f1)), "f32": f0 @ t1(f1)}
+    err, mean = {}, {}
+    for name, sim in runs.items():
+        got = _stats64(sim, inv_temp)
+        err[name] = max((got[k] - ref[k]).abs().max().item() for k in ref)
+        mean[name] = (got["row_lse"] - ref["row_lse"]).abs().mean().item()
+    print(f"max|d| from float64 {err}, mean row-LSE distance {mean}")
+    assert err["pairs"] < 1e-3 and err["single"] >= 1e-3
+    assert mean["pairs"] <= 2 * mean["f32"]
