@@ -11,8 +11,8 @@
 // the epilogue reduces this one.
 //
 //   - wide_bf16 (the JAX kernel's precision): A and B bf16 [rows, 64]
-//     chunks in gemm::in_chunk's layout; m64n128k16 products; each pair of
-//     chunks (k = 128) sums in a fresh accumulator added into an f32 sum.
+//     chunks in gemm::in_chunk's layout; m64n128k16 products, the whole k in
+//     one accumulator (gemm::Ring).
 //   - wide_tf32 (f32 operands, f32 tolerances): A an f32 [64, 32] chunk
 //     split into TF32 halves in registers, B a [128, 32] chunk as hi and lo
 //     images; three m64n128k8 products a k step, pairs of chunks promoted
@@ -50,13 +50,6 @@ constexpr int NC = 128;              // columns of s a product gives: rows of an
 constexpr int KP = 64;               // channel padding: an even count of 32-channel chunks
 constexpr int NST_BF16 = 4;          // ring stages: two blocks an SM (24 KB a stage)
 constexpr int NST_TF32 = 2;          // (40 KB a stage: A, B hi, B lo)
-// Each pair of bf16 chunks summed apart, then in f32 (-DOPP_K2_WIDE_BF16_WHOLE_K:
-// the tensor cores sum the whole k, for measuring what the pairs buy).
-#ifdef OPP_K2_WIDE_BF16_WHOLE_K
-constexpr bool BF16_PAIRS = false;
-#else
-constexpr bool BF16_PAIRS = true;
-#endif
 constexpr int SCRATCH_FLOATS = 2 * 2 * NWARP * NC;  // [tile parity][two quantities][warp][column]
 
 __host__ __device__ __forceinline__ int pad_channels(int c) { return (c + KP - 1) / KP * KP; }
@@ -82,7 +75,9 @@ struct WideSim {
 
   __device__ WideSim(const R& r, unsigned char* scratch_, int tiles_)
       : ring(r), scratch(reinterpret_cast<float*>(scratch_)), tiles(tiles_) {}
-  __device__ __forceinline__ void start() const { ring.start(); }
+  __device__ __forceinline__ void start() const {
+    ring.start([](unsigned char*) {});
+  }
   __device__ __forceinline__ int n_tiles() const { return tiles; }
   __device__ __forceinline__ void product(float (&acc)[NC / 2], int it) const { ring.product(acc, it); }
   // The cross-warp scratch of tile t: two [NWARP warps][128 columns] arrays.
@@ -103,7 +98,7 @@ __device__ __forceinline__ auto bf16_sim(unsigned char* smem, const __nv_bfloat1
     a = a0 + (size_t)u * gm::A_CHUNK;
     b = b0 + ((size_t)t * n + u) * gm::Smem<NC, NST_BF16>::B_CHUNK;
   };
-  using R = gm::Ring<NC, NST_BF16, BF16_PAIRS, decltype(of)>;
+  using R = gm::Ring<NC, NST_BF16, decltype(of)>;
   return WideSim<R>(R(smem, n, tiles, gm::Smem<NC, NST_BF16>::B_CHUNK, of),
                     smem + gm::Smem<NC, NST_BF16>::BYTES, tiles);
 }

@@ -1,7 +1,8 @@
-// Tensor-core product loops for kernels that run a chain of products over
-// operands in device memory (K1's wide instances: bf16 in encoder_tcw.cu, f32
-// in split TF32 in encoder_tcw_tf32.cu, whose loop is run_tf32; K2's above 576
-// channels in sim_tile_wide.cuh, on Ring and Ring32, which close the file). A block
+// Tensor-core product loops for kernels that run products over operands in
+// device memory: Ring (bf16) and Ring32 (f32 in split TF32) over a sequence
+// of output tiles (K2's instances above 576 channels, sim_tile_wide.cuh), and
+// run / run_tf32, one tile of them (K1's wide chains: encoder_tcw.cu,
+// encoder_tcw_tf32.cu). A block
 // of one warpgroup computes acc[64, NT] = sum over n chunks u of A_u B_u^T,
 // A_u a [64 rows, 64 k] chunk and B_u an [NT rows, 64 k] chunk (a torch
 // Linear weight's [out, in] orientation), both bf16 byte images of wgmma's
@@ -85,56 +86,108 @@ __device__ __forceinline__ void mma<136>(float (&d)[68], uint64_t a, uint64_t b,
   mma_n136(d, a, b, scale_d);
 }
 
-// The block's product over chunks 0..n-1 (n >= 1): a_of(u) / b_of(u) give the
-// device addresses of chunk u's A and B (16-byte aligned), b_bytes the bytes
-// of B to copy (at most Smem<NT, NST>::B_CHUNK; rows past them keep what the
-// prologue wrote). prologue(smem) runs once, before the first copy;
-// epilogue(acc) once the last product is in the registers. Every thread of
-// the warpgroup calls this.
+// ---------------------------------------------------------- the ring
+// A block's products for a sequence of output tiles of n chunks each, on one
+// ring whose chunk counter runs on from one tile into the next (K2's wide
+// instances: a block's 64-row f0 tile against each 128-row f1 tile in turn).
+// Chunk v of the sequence (tile v / n, chunk v % n of its product) lands in
+// stage v % NST, so the next tile's first chunks are in flight while the
+// caller's epilogue of a tile runs (a tile's last stage is refilled before
+// product returns); the barriers are set once, at start. of(v, a, b) sets
+// chunk v's A and B device addresses (16-byte aligned; B: the bf16 chunk, or
+// the hi image with lo b_bytes further), b_bytes the bytes of B to copy.
+// Every thread of the warpgroup calls start once and then product for tiles
+// 0, 1, ... in order; product returns the tile's sum, complete. An epilogue
+// between two products may use shared memory past the ring (Smem::BYTES)
+// and must not leave a thread behind a block barrier that others have passed.
+
+// bf16 chunks (Smem<NT, NST>): the tensor cores sum the whole k of a tile. (In
+// K2 at C = 2048 that sits 1.65x as far from float64 as the plain version's
+// f32 sums; pairs of chunks summed apart, as Ring32 does, bought 1.39x and
+// cost up to 17 % at C = 640, so bf16 does without.)
+template <int NT, int NST, class Of>
+struct Ring {
+  unsigned char* smem;
+  uint64_t* full;
+  int n, total;
+  uint32_t b_bytes;
+  Of of;
+
+  __device__ Ring(unsigned char* smem_, int n_, int tiles, uint32_t b_bytes_, Of of_)
+      : smem(smem_),
+        full(reinterpret_cast<uint64_t*>(smem_ + NST * Smem<NT, NST>::STAGE)),
+        n(n_),
+        total(n_ * tiles),
+        b_bytes(b_bytes_),
+        of(of_) {}
+
+  __device__ __forceinline__ void fetch(int v) const {
+    const void *a, *b;
+    of(v, a, b);
+    unsigned char* stage = smem + (v % NST) * Smem<NT, NST>::STAGE;
+    wg::mbar_expect_tx(full + v % NST, A_CHUNK + b_bytes);
+    wg::bulk_load(stage, a, A_CHUNK, full + v % NST);
+    wg::bulk_load(stage + A_CHUNK, b, b_bytes, full + v % NST);
+  }
+  // Sets the barriers, runs prologue(smem) (shared memory the copies leave
+  // alone, such as B rows past b_bytes) and starts the first copies.
+  template <class Pro>
+  __device__ __forceinline__ void start(Pro prologue) const {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
+      wg::mbar_init_fence();
+    }
+    prologue(smem);
+    wg::fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int v = 0; v < NST && v < total; ++v) fetch(v);
+  }
+  // chunk v's products are done in every warp: its stage takes chunk v + NST
+  __device__ __forceinline__ void refill(int v) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && v + NST < total) fetch(v + NST);
+  }
+  __device__ __forceinline__ void product(float (&acc)[NT / 2], int tile) const {
+#pragma unroll 1
+    for (int u = 0; u < n; ++u) {
+      const int v = tile * n + u, st = v % NST;
+      wg::mbar_wait(full + st, (v / NST) & 1);
+      const uint32_t a = wg::smem_u32(smem + st * Smem<NT, NST>::STAGE), b = a + A_CHUNK;
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma<NT>(acc, wg::desc(a + kk * 2 * LBO, LBO, SBO), wg::desc(b + kk * 2 * LBO, LBO, SBO),
+                (u > 0 || kk > 0) ? 1 : 0);
+      wg::commit();
+      if (u > 0) {
+        wg::wait<1>();
+        refill(v - 1);
+      }
+    }
+    wg::wait<0>();
+    wg::fence_regs(acc);
+    refill(tile * n + n - 1);  // before the caller's epilogue
+  }
+};
+
+// The block's product over chunks 0..n-1 (n >= 1), one tile of Ring: a_of(u) /
+// b_of(u) give the device addresses of chunk u's A and B (16-byte aligned),
+// b_bytes the bytes of B to copy (at most Smem<NT, NST>::B_CHUNK; rows past
+// them keep what the prologue wrote). prologue(smem) runs once, before the
+// first copy; epilogue(acc) once the last product is in the registers. Every
+// thread of the warpgroup calls this.
 template <int NT, int NST, class AOf, class BOf, class Pro, class Epi>
 __device__ __forceinline__ void run(unsigned char* smem, int n, AOf a_of, BOf b_of, uint32_t b_bytes,
                                     Pro prologue, Epi epilogue) {
-  using S = Smem<NT, NST>;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * S::STAGE);
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
-    wg::mbar_init_fence();
-  }
-  prologue(smem);
-  wg::fence_proxy_async();
-  __syncthreads();
-  const auto fetch = [&](int u) {
-    const int st = u % NST;
-    unsigned char* stage = smem + st * S::STAGE;
-    wg::mbar_expect_tx(full + st, A_CHUNK + b_bytes);
-    wg::bulk_load(stage, a_of(u), A_CHUNK, full + st);
-    wg::bulk_load(stage + A_CHUNK, b_of(u), b_bytes, full + st);
+  const auto of = [&](int u, const void*& a, const void*& b) {
+    a = a_of(u);
+    b = b_of(u);
   };
-  if (tid == 0)
-    for (int u = 0; u < NST && u < n; ++u) fetch(u);
-
+  const Ring<NT, NST, decltype(of)> ring(smem, n, 1, b_bytes, of);
+  ring.start(prologue);
   float acc[NT / 2];
-#pragma unroll 1
-  for (int u = 0; u < n; ++u) {
-    const int st = u % NST;
-    wg::mbar_wait(full + st, (u / NST) & 1);
-    const uint32_t a = wg::smem_u32(smem + st * S::STAGE), b = a + A_CHUNK;
-    wg::fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma<NT>(acc, wg::desc(a + kk * 2 * LBO, LBO, SBO), wg::desc(b + kk * 2 * LBO, LBO, SBO),
-              (u > 0 || kk > 0) ? 1 : 0);
-    wg::commit();
-    if (u > 0) {
-      // chunk u - 1's products are done in every warp: its stage takes chunk u - 1 + NST
-      wg::wait<1>();
-      __syncthreads();
-      if (tid == 0 && u - 1 + NST < n) fetch(u - 1 + NST);
-    }
-  }
-  wg::wait<0>();
-  wg::fence_regs(acc);
+  ring.product(acc, 0);
   epilogue(acc);
 }
 
@@ -150,7 +203,7 @@ __host__ __device__ __forceinline__ uint32_t in_chunk(int r, int k) {
 }
 
 // ------------------------------------------------------------ split TF32
-// The same loop for f32 operands in split TF32: A_u is a [64 rows, 32 k] f32
+// The same ring for f32 operands in split TF32: A_u is a [64 rows, 32 k] f32
 // chunk (8 KB) and B_u an [NT rows, 32 k] f32 chunk as two images, its TF32 hi
 // and lo halves (kernels.tf32_split), b_bytes each, hi then lo in device
 // memory; all in wgmma's K-major core-matrix layout of 4-byte values:
@@ -197,181 +250,9 @@ __device__ __forceinline__ void mma_tf32<144>(float (&d)[72], const uint32_t (&a
   wg::mma_rs_tf32_n144(d, a, b, scale_d);
 }
 
-// run's contract with split-TF32 chunks: a_of(u) / b_of(u) give chunk u's A
-// and its B hi image (lo follows b_bytes further, b_bytes at most
-// Smem32<NT, NST>::B_HALF), n >= 2 and even.
-template <int NT, int NST, class AOf, class BOf, class Pro, class Epi>
-__device__ __forceinline__ void run_tf32(unsigned char* smem, int n, AOf a_of, BOf b_of, uint32_t b_bytes,
-                                         Pro prologue, Epi epilogue) {
-  using S = Smem32<NT, NST>;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * S::STAGE);
-  const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
-  if (tid == 0) {
-    for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
-    wg::mbar_init_fence();
-  }
-  prologue(smem);
-  wg::fence_proxy_async();
-  __syncthreads();
-  const auto fetch = [&](int u) {
-    const int st = u % NST;
-    unsigned char* stage = smem + st * S::STAGE;
-    const unsigned char* b = static_cast<const unsigned char*>(b_of(u));
-    wg::mbar_expect_tx(full + st, A_CHUNK + 2 * b_bytes);
-    wg::bulk_load(stage, a_of(u), A_CHUNK, full + st);
-    wg::bulk_load(stage + A_CHUNK, b, b_bytes, full + st);
-    wg::bulk_load(stage + A_CHUNK + S::B_HALF, b + b_bytes, b_bytes, full + st);
-  };
-  if (tid == 0)
-    for (int u = 0; u < NST && u < n; ++u) fetch(u);
-
-  // A[16 w + g (+ 8)][8 kk + t (+ 4)] of a chunk: floats at a_off + 64 kk (+ 256) (+ 32)
-  const int a_off = (2 * w * 1024 + g * 16 + t * 4) / 4;
-  uint32_t ah[2][4][4], al[2][4][4];
-  const auto split = [&](int u, uint32_t(&h)[4][4], uint32_t(&l)[4][4]) {
-    const int st = u % NST;
-    wg::mbar_wait(full + st, (u / NST) & 1);
-    const float* a = reinterpret_cast<const float*>(smem + st * S::STAGE) + a_off;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wg::tf32_split(a[64 * kk], h[kk][0], l[kk][0]);
-      wg::tf32_split(a[64 * kk + 256], h[kk][1], l[kk][1]);
-      wg::tf32_split(a[64 * kk + 32], h[kk][2], l[kk][2]);
-      wg::tf32_split(a[64 * kk + 288], h[kk][3], l[kk][3]);
-    }
-  };
-  float acc[NT / 2], sum[NT / 2];
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) sum[i] = 0.f;
-  const auto products = [&](int u, const uint32_t(&h)[4][4], const uint32_t(&l)[4][4]) {
-    const uint32_t bh = wg::smem_u32(smem + (u % NST) * S::STAGE + A_CHUNK), bl = bh + S::B_HALF;
-    wg::fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dh = wg::desc(bh + kk * 2 * LBO, LBO, SBO), dl = wg::desc(bl + kk * 2 * LBO, LBO, SBO);
-      mma_tf32<NT>(acc, l[kk], dh, (u % 2 == 1 || kk > 0) ? 1 : 0);  // fresh at an even chunk
-      mma_tf32<NT>(acc, h[kk], dl, 1);
-      mma_tf32<NT>(acc, h[kk], dh, 1);
-    }
-    wg::commit();
-  };
-  // chunk v's products are done in every warp: its stage takes chunk v + NST
-  const auto refill = [&](int v) {
-    __syncthreads();
-    if (tid == 0 && v + NST < n) fetch(v + NST);
-  };
-  split(0, ah[0], al[0]);
-#pragma unroll 1
-  for (int u = 0; u < n; u += 2) {
-    products(u, ah[0], al[0]);
-    if (u > 0) refill(u - 1);  // done at the last pass's wait<0>
-    split(u + 1, ah[1], al[1]);
-    products(u + 1, ah[1], al[1]);
-    wg::wait<1>();
-    refill(u);
-    if (u + 2 < n) split(u + 2, ah[0], al[0]);
-    wg::wait<0>();
-    wg::fence_regs(acc);
-#pragma unroll
-    for (int i = 0; i < NT / 2; ++i) sum[i] += acc[i];
-  }
-  epilogue(sum);
-}
-
-// ---------------------------------------------- one ring over many tiles
-// The loops above once per output tile of a sequence, on one ring whose chunk
-// counter runs on from one tile into the next (K2's wide instances: a block's
-// 64-row f0 tile against each 128-row f1 tile in turn). Chunk v of the
-// sequence (tile v / n, chunk v % n of its product) lands in stage v % NST,
-// so the next tile's first chunks are in flight while the caller's epilogue
-// of a tile runs (a tile's last stage is refilled before product returns);
-// the barriers are set once, at start. of(v,
-// a, b) sets chunk v's A and B device addresses (B: the bf16 chunk, or the
-// hi image with lo b_bytes further). Every thread calls start once and then
-// product for tiles 0, 1, ... in order; product returns the tile's sum,
-// complete. The epilogue between two products may use shared memory past the
-// ring (Smem::BYTES) and must not leave a thread behind a block barrier
-// that others have passed.
-
-// bf16 chunks (Smem<NT, NST>). PAIRS sums each pair of chunks (k = 128) in a
-// fresh accumulator that is then added into an f32 sum in registers, as
-// run_tf32 does; otherwise the tensor cores sum the whole k.
-template <int NT, int NST, bool PAIRS, class Of>
-struct Ring {
-  unsigned char* smem;
-  uint64_t* full;
-  int n, total;
-  uint32_t b_bytes;
-  Of of;
-
-  __device__ Ring(unsigned char* smem_, int n_, int tiles, uint32_t b_bytes_, Of of_)
-      : smem(smem_),
-        full(reinterpret_cast<uint64_t*>(smem_ + NST * Smem<NT, NST>::STAGE)),
-        n(n_),
-        total(n_ * tiles),
-        b_bytes(b_bytes_),
-        of(of_) {}
-
-  __device__ __forceinline__ void fetch(int v) const {
-    const void *a, *b;
-    of(v, a, b);
-    unsigned char* stage = smem + (v % NST) * Smem<NT, NST>::STAGE;
-    wg::mbar_expect_tx(full + v % NST, A_CHUNK + b_bytes);
-    wg::bulk_load(stage, a, A_CHUNK, full + v % NST);
-    wg::bulk_load(stage + A_CHUNK, b, b_bytes, full + v % NST);
-  }
-  __device__ __forceinline__ void start() const {
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
-      wg::mbar_init_fence();
-    }
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int v = 0; v < NST && v < total; ++v) fetch(v);
-  }
-  // chunk v's products are done in every warp: its stage takes chunk v + NST
-  __device__ __forceinline__ void refill(int v) const {
-    __syncthreads();
-    if (threadIdx.x == 0 && v + NST < total) fetch(v + NST);
-  }
-  __device__ __forceinline__ void product(float (&out)[NT / 2], int tile) const {
-    float acc[NT / 2];
-#pragma unroll 1
-    for (int u = 0; u < n; ++u) {
-      const int v = tile * n + u, st = v % NST;
-      wg::mbar_wait(full + st, (v / NST) & 1);
-      const uint32_t a = wg::smem_u32(smem + st * Smem<NT, NST>::STAGE), b = a + A_CHUNK;
-      const bool fresh = PAIRS ? u % 2 == 0 : u == 0;
-      wg::fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma<NT>(acc, wg::desc(a + kk * 2 * LBO, LBO, SBO), wg::desc(b + kk * 2 * LBO, LBO, SBO),
-                (!fresh || kk > 0) ? 1 : 0);
-      wg::commit();
-      if (u > 0) {
-        wg::wait<1>();
-        refill(v - 1);
-      }
-      if (PAIRS && (u % 2 == 1 || u == n - 1)) {
-        wg::wait<0>();
-        wg::fence_regs(acc);
-#pragma unroll
-        for (int i = 0; i < NT / 2; ++i) out[i] = u < 2 ? acc[i] : out[i] + acc[i];
-      }
-    }
-    if (!PAIRS) {
-      wg::wait<0>();
-      wg::fence_regs(acc);
-#pragma unroll
-      for (int i = 0; i < NT / 2; ++i) out[i] = acc[i];
-    }
-    refill(tile * n + n - 1);  // before the caller's epilogue
-  }
-};
-
-// Split-TF32 chunks (Smem32<NT, NST>, run_tf32's arithmetic and contract: n
-// even). A tile's first chunk is split once its products may start; within
-// a tile the next chunk's split overlaps the running products, as in run_tf32.
+// Split-TF32 chunks (Smem32<NT, NST>; n even). A tile's first chunk is split
+// once its products may start; within a tile the next chunk's split overlaps
+// the running products.
 template <int NT, int NST, class Of>
 struct Ring32 {
   unsigned char* smem;
@@ -398,16 +279,21 @@ struct Ring32 {
     wg::bulk_load(stage + A_CHUNK, bh, b_bytes, full + v % NST);
     wg::bulk_load(stage + A_CHUNK + Smem32<NT, NST>::B_HALF, bh + b_bytes, b_bytes, full + v % NST);
   }
-  __device__ __forceinline__ void start() const {
+  // Sets the barriers, runs prologue(smem) (shared memory the copies leave
+  // alone, such as B rows past b_bytes) and starts the first copies.
+  template <class Pro>
+  __device__ __forceinline__ void start(Pro prologue) const {
     if (threadIdx.x == 0) {
       for (int i = 0; i < NST; ++i) wg::mbar_init(full + i, 1);
       wg::mbar_init_fence();
     }
+    prologue(smem);
+    wg::fence_proxy_async();
     __syncthreads();
     if (threadIdx.x == 0)
       for (int v = 0; v < NST && v < total; ++v) fetch(v);
   }
-  // chunk v's A fragments, split (run_tf32's split)
+  // chunk v's A fragments, read from its stage and split in registers
   __device__ __forceinline__ void split(int v, uint32_t (&h)[4][4], uint32_t (&l)[4][4]) const {
     const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3, st = v % NST;
     wg::mbar_wait(full + st, (v / NST) & 1);
@@ -466,6 +352,23 @@ struct Ring32 {
     refill(v0 + n - 1);  // before the caller's epilogue
   }
 };
+
+// run's contract with split-TF32 chunks, one tile of Ring32: a_of(u) / b_of(u)
+// give chunk u's A and its B hi image (lo follows b_bytes further, b_bytes at
+// most Smem32<NT, NST>::B_HALF), n >= 2 and even; epilogue(sum) gets the f32 sum.
+template <int NT, int NST, class AOf, class BOf, class Pro, class Epi>
+__device__ __forceinline__ void run_tf32(unsigned char* smem, int n, AOf a_of, BOf b_of, uint32_t b_bytes,
+                                         Pro prologue, Epi epilogue) {
+  const auto of = [&](int u, const void*& a, const void*& b) {
+    a = a_of(u);
+    b = b_of(u);
+  };
+  const Ring32<NT, NST, decltype(of)> ring(smem, n, 1, b_bytes, of);
+  ring.start(prologue);
+  float sum[NT / 2];
+  ring.product(sum, 0);
+  epilogue(sum);
+}
 
 }  // namespace gemm
 }  // namespace opp

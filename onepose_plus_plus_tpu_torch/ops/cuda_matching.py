@@ -44,9 +44,10 @@ units. Four instances, all on the tensor cores (:func:`k2_instance`):
   tile into the next; the same passes and epilogues as the other instances,
   over 128 columns. bf16 operands (:func:`pack_wide_operand`: f0 in 64-row,
   f1 in 128-row tiles, each [tile][64-channel chunk] image contiguous) at the
-  JAX kernel's precision, each pair of chunks summed in a fresh accumulator
-  and then in f32; f32 operands in split TF32, f0 as the split-TF32 pack at
-  64-channel padding and f1 as TF32 hi and lo images (:func:`pack_tf32_hilo`).
+  JAX kernel's precision, the whole k summed on the tensor cores; f32
+  operands in split TF32, f0 as the split-TF32 pack at 64-channel padding and
+  f1 as TF32 hi and lo images (:func:`pack_tf32_hilo`), each pair of chunks
+  summed in a fresh accumulator and then in f32.
 """
 from __future__ import annotations
 

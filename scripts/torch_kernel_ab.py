@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K3-K7 of one checkout of the port, for A/B runs on one card.
 
-    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1 | --k2] [--define NAME]    # needs one CUDA GPU and nvcc
+    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1 | --k2]    # needs one CUDA GPU and nvcc
 
 Imports ``onepose_plus_plus_tpu_torch`` from DIR (default: the checkout this
 script lies in), builds its kernels there, and times, on inputs made from a
@@ -43,8 +43,7 @@ only K2 (``dual_softmax_rowcol_stats``) at [16, 7000] x [16, 4096] for C = 640, 
 launch by name, the instance the tree routes to where it names one (a tree from before the
 wide instances runs these widths on its CUDA-core tile, over a second a call at 2048), and
 the mean distance of row_lse to float64 at [2, 1000] x [2, 700] x 2048 beside the plain
-version's. ``--define NAME`` builds the tree's kernels with ``-DNAME`` (a diagnostic
-variant, e.g. ``OPP_K2_WIDE_BF16_WHOLE_K``). Prints one JSON line. Only entry points that every checkout
+version's. Prints one JSON line. Only entry points that every checkout
 of the port has are called, so that two trees (an older commit unpacked
 beside this one) can be run in turns in one session on one card: parent,
 change, change, parent.
@@ -65,7 +64,6 @@ def main() -> int:
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
     parser.add_argument("--k1", action="store_true", help="time only K1's bf16 and f32 layers at self [4, 4096, C]")
     parser.add_argument("--k2", action="store_true", help="time only K2 at [16, 7000] x [16, 4096] x C")
-    parser.add_argument("--define", action="append", default=[], help="build the kernels with -DNAME")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -83,9 +81,6 @@ def main() -> int:
         raise RuntimeError("needs a CUDA GPU")
     if not kernels.__file__.startswith(str(tree)):
         raise RuntimeError(f"imported the port from {kernels.__file__}, not from {tree}")
-    if args.define:
-        build_module = sys.modules[kernels.build.__module__]
-        build_module.NVCC_FLAGS = build_module.NVCC_FLAGS + tuple(f"-D{d}" for d in args.define)
     lib = kernels.build()
 
     def whole_ms(fn, reps=20):
@@ -292,7 +287,7 @@ def main() -> int:
             rec[f"K2_{dt}_2x1000x700_c{c}_row_lse_to_float64"] = {
                 "kernel": (got.double() - lse64).abs().mean().item(),
                 "plain": (ref.double() - lse64).abs().mean().item()}
-        print(json.dumps({"tree": str(tree), "gpu": smi, "defines": args.define, **rec}))
+        print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
         return 0
     gathers = {}
     for tag, dtype, c, n, k in (("K3_bf16_query", torch.bfloat16, 128, 16, 512),

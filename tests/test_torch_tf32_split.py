@@ -2,11 +2,12 @@
 
 The f32 instances of K2 (``csrc/sim_tile_tf32.cuh``) and K1 (``csrc/encoder.cu``,
 namespace ``tf``) take each product x y as x_lo y_hi + x_hi y_lo + x_hi y_hi of
-TF32 halves on the tensor cores. What can be checked here: the plain version
-of the split (``kernels.tf32_split``, the rule of ``csrc/wgmma.cuh::tf32_split``),
-the byte layouts the kernels' operands are packed into, and, by emulating the
-three products in PyTorch, that the split keeps K2's statistics inside the f32
-tolerances where one TF32 product does not.
+TF32 halves on the tensor cores; above 576 channels K2's ``wide_tf32`` instance
+(``csrc/sim_tile_wide.cuh``) does the same in pairs of 32-channel chunks. What can
+be checked here: the plain version of the split (``kernels.tf32_split``, the rule
+of ``csrc/wgmma.cuh::tf32_split``), the byte layouts the kernels' operands are
+packed into, and, by emulating the three products in PyTorch, that the split
+keeps K2's statistics inside the f32 tolerances where one TF32 product does not.
 """
 import numpy as np
 import pytest
