@@ -74,13 +74,16 @@ phase 2, and phase 10, which runs right after phase 6:
      bound with K4's own index arrays), K5's launches split by kernel, bitwise
      repeatable and faster than its plain version;
      7f K5 at the coarse widths above 256 at the train shapes: C = 384 and 512
-     (tensor cores, feature gradients in 256-channel chunks), 640 and 1024
-     (CUDA cores, the LSEs from K2's wide bf16 pass), forward and backward
-     within 7b's tolerances, bitwise repeatable, split by launch;
+     (the resident tile, feature gradients in 256-channel chunks), 640, 1024,
+     2048 and 4096 (the wide instance: K2's channel-streaming tile, feature
+     gradients in thread-block clusters of 3-16 blocks), forward and backward
+     within 7b's tolerances, bitwise repeatable, split by launch, with the
+     cluster size;
      7c one f32 micro-batch on the GPU (kernels) against the same micro-batch
      on the CPU (plain versions), loss and every gradient, at the train
      config's coarse width (256), at 512 (K5 once forward, once backward,
-     in two chunks) and at 1024 (K2's wide_tf32, K5's CUDA-core instance);
+     in two chunks) and at 1024 (K2's wide_tf32, K5's wide instance: its
+     launches checked by name);
      7d the train config
      at full width (f32, 4 frames of 512^2, 7000 points, grad_accum 2), three
      optimizer updates on one batch: falling loss, launch counts, step time,
@@ -274,6 +277,9 @@ KERNELS = {
     "K5_coarse_loss": {
         "source": "onepose_plus_plus_tpu_torch/csrc/coarse_loss.cu",
         "replaces": "onepose_plus_plus_tpu/ops/pallas_coarse_loss.py:459",
+        # the record's numbers are the resident tile's at C = 256; phase 7f prints the wide instance's
+        "instances": {"tc": "onepose_plus_plus_tpu_torch/csrc/sim_tile_tc.cuh",
+                      "wide": "onepose_plus_plus_tpu_torch/csrc/sim_tile_wide.cuh"},
     },
     "K6_patch_gather": {
         "source": "onepose_plus_plus_tpu_torch/csrc/patch_gather.cu",
@@ -1747,24 +1753,30 @@ def phase7b(gen) -> dict:
     return {"max_abs_err": worst, "ms": both, "plain_ms": pboth, **b, "library_ms": None}
 
 
-# K5 above 576 channels: K2's wide LSE pass (tensor cores) on the packed bf16 operands,
-# the rest on the CUDA cores on unpacked ones
-K5_CC_NAMES = ("pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "loss_cc_kernel",
-               "gsum_cc_kernel", "colg_reduce", "dfeat_cc_kernel")
+# K5 above 576 channels: K2's wide pack and LSE pass, then the loss and g sums on its
+# channel-streaming tile and the feature gradients in thread-block clusters
+K5_WIDE_NAMES = ("pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "loss_wide_kernel",
+                 "gsum_wide_kernel", "colg_reduce", "dfeat_wide_kernel")
+K5_WIDE_PREVIOUS_MS = {640: 76.620, 1024: 116.082}  # the CUDA-core instance (NVIDIA H100 80GB HBM3, 700.00 W)
+
+
+def k5_names(c: int):
+    return K5_NAMES if k5_instance(c)[0] == "tc" else K5_WIDE_NAMES
 
 
 def phase7f(gen, smi: str) -> None:
     """K5 at the coarse widths above 256 that K1 takes, at the train shapes
-    [4, 7000] x [4, 4096]: C = 384 and 512 on the tensor cores (feature
-    gradients in 256-channel chunks), 640 and 1024 on the CUDA cores; forward
+    [4, 7000] x [4, 4096]: C = 384 and 512 on the resident tile (feature
+    gradients in 256-channel chunks), 640, 1024, 2048 and 4096 on the wide
+    instance (feature gradients in clusters of 256-channel slices); forward
     and backward against the plain version with 7b's tolerances, two launches
     bitwise equal, whole call and device time by launch beside the bound
-    (three products at the bf16 peak, as 7b's)."""
+    (three products at the bf16 peak, as 7b's) and the cluster size."""
     l = 4096
     inv_temp = 1.0 / (0.08 + 1e-4)
-    for c in (384, 512, 640, 1024):
-        instance, chunks = k5_instance(c)
-        names = K5_NAMES if instance == "tc" else K5_CC_NAMES
+    for c in (384, 512, 640, 1024, 2048, 4096):
+        instance, blocks = k5_instance(c)
+        names = k5_names(c)
         f0 = (torch.randn(TRAIN_B, TRAIN_P, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
         f1 = (torch.randn(TRAIN_B, l, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
         gt = torch.randint(0, l, (TRAIN_B, TRAIN_P), generator=gen, device="cuda", dtype=torch.int32)
@@ -1793,9 +1805,10 @@ def phase7f(gen, smi: str) -> None:
             cos = torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item()
             grads.append(f"{name} max|d| {err / scale:.2e} of max|grad| (< 2e-2), cosine {cos:.6f} (> 0.999)")
             ok = ok and err < 2e-2 * scale and cos > 0.999
-        log(f"[7f] K5 C = {c} ({instance}, {chunks} chunk(s)) f0{tuple(f0.shape)} f1{tuple(f1.shape)}: loss rel "
-            f"{loss_rel:.2e} (<= 2e-4), max_conf rel {mx_rel:.2e} (<= 2e-4), {'; '.join(grads)}; two launches "
-            f"bitwise equal {same}")
+        blocks_of = "chunk(s)" if instance == "tc" else "block(s) a cluster"
+        log(f"[7f] K5 C = {c} ({instance}, {blocks} {blocks_of}) f0{tuple(f0.shape)} f1{tuple(f1.shape)}: loss "
+            f"rel {loss_rel:.2e} (<= 2e-4), max_conf rel {mx_rel:.2e} (<= 2e-4), {'; '.join(grads)}; two "
+            f"launches bitwise equal {same}")
         check(ok, f"K5 at C = {c} disagrees with its plain version")
         del got, again, ref
         torch.cuda.empty_cache()
@@ -1806,10 +1819,12 @@ def phase7f(gen, smi: str) -> None:
         check(only_launches(k5_rows, names), f"K5 at C = {c} does not launch exactly {names}: {launch_names(rows)}")
         n_bytes = 2 * (f0.numel() + f1.numel()) * 2 + gt.numel() * 4
         b = bound(n_bytes, 3 * 2 * TRAIN_B * TRAIN_P * l * c, torch.bfloat16)
-        log(f"[7f] K5 C = {c}: forward + backward kernel {both:.3f} ms whole call, plain {pboth:.3f} ms "
-            f"(medians of 5 / 3); device time by launch: {launch_names(k5_rows)} "
-            f"({sum(r[0] for r in k5_rows) / 2:.3f} ms a call); bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}); no single PyTorch call computes the focal loss; on {smi}")
+        device = sum(r[0] for r in k5_rows) / 2
+        before = f" ({K5_WIDE_PREVIOUS_MS[c]} ms on the CUDA cores)" if c in K5_WIDE_PREVIOUS_MS else ""
+        log(f"[7f] K5 C = {c}: forward + backward kernel {both:.3f} ms whole call{before}, plain {pboth:.3f} ms "
+            f"(medians of 5 / 3); device time by launch: {launch_names(k5_rows)} ({device:.3f} ms a call, "
+            f"{100 * b['bound_ms'] / device:.1f} % of the bound); bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+            f"{blocks} {blocks_of}; no single PyTorch call computes the focal loss; on {smi}")
         del f0, f1, gt
         torch.cuda.empty_cache()
 
@@ -1883,6 +1898,18 @@ def phase7c(d_model: int = 256) -> None:
             with torch.no_grad():
                 prof_rows, _, _ = device_rows(lambda: model(b, gt_pad_rows=rows.to(dev)), reps=2)
             check_f32_instances(prof_rows, "7c", k1=False, wide=k2_instance(d_model, torch.float32) == "wide_tf32")
+
+            def step():
+                o = model(b, gt_pad_rows=rows.to(dev))
+                compute_losses(o, b, LossConfig(), cfg.fine.window_size)[0].backward()
+
+            names = set(k5_names(d_model)) - {"col_lse_reduce"}  # col_lse_reduce serves K2 too
+            others = set(K5_NAMES + K5_WIDE_NAMES) - names - {"col_lse_reduce"}
+            ran = {_short(r[2]) for r in device_rows(step, reps=2)[0]}
+            log(f"[7c] K5 at coarse d_model {d_model}, {k5_instance(d_model)[0]} instance, kernels by name: "
+                f"{sorted(names & ran)} ran; the other instance's: {sorted(others & ran) or 'none'}")
+            check(names <= ran and not others & ran, f"K5 at d_model {d_model} did not launch its instance's "
+                  f"kernels {sorted(names)}: {sorted(ran)}")
     (sg, gg, mg, ig, jg), (sc_, gc, mc, ic, jc) = res["cuda"], res["cpu"]
     same_slots = torch.equal(mg, mc) and torch.equal(ig[mg], ic[mc]) and torch.equal(jg[mg], jc[mc])
     rel = {k: abs(sg[k] - sc_[k]) / max(abs(sc_[k]), 1e-12) for k in sc_}
@@ -3019,7 +3046,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase7c()
     phase7c(512)  # a train config with a 512-channel coarse stage: K5 in two chunks
-    phase7c(1024)  # a 1024-channel coarse stage: K2's wide_tf32, K5's CUDA-core instance with the wide LSE
+    phase7c(1024)  # a 1024-channel coarse stage: K2's wide_tf32, K5's wide instance
     train_counts, step_ms = phase7d(smi)  # K1-K3 keep their inference counts (phase 5)
     counts.update({k: v for k, v in train_counts.items() if k.startswith(("K4", "K5"))})
     torch.cuda.empty_cache()

@@ -14,9 +14,9 @@
 //   gsum_*_kernel    g = dL/dlogconf per element (zero where the LOGCAP cap is
 //                    active), row sums kept in the block, column sums as
 //                    per-row-tile partials, merged in order by colg_reduce.
-//   dfeat_*_kernel   df0 = dsim f1, one block per row tile over the column
-//                    tiles, and df1 = dsim^T f0, one block per column tile over
-//                    the row tiles,
+//   dfeat_*_kernel   df0 = dsim f1, blocks owning row tiles of f0 over f1's
+//                    tiles, and df1 = dsim^T f0, blocks owning row tiles of f1
+//                    over f0's tiles (on the transposed tile s^T),
 // with dsim = (2 g - softmax_p * colsum_g - softmax_l * rowsum_g) * inv_temp
 // rounded to bf16 before both products (the TPU kernel's ds16), products in
 // f32. Every pass recomputes its similarity tiles (flash-attention style), so
@@ -25,7 +25,9 @@
 //
 // Bound: operations, seven P*L*C products (LSE, loss, gsum, and two for each
 // feature gradient), then ~14 transcendentals per similarity element over the
-// four passes. Two instances, by width (ops/cuda_coarse_loss.py::k5_instance):
+// four passes. Two instances, by width (ops/cuda_coarse_loss.py::k5_instance),
+// both on the tensor cores; the loss and g-sum passes are one epilogue each
+// (loss_pass, gsum_pass) over either tile, as K2's passes are:
 //
 // C <= 576 (three 64-row tiles fit a block's shared memory): every pass runs
 // on the tensor-core similarity tile of sim_tile_tc.cuh (operands packed once
@@ -43,21 +45,35 @@
 // chunk is a block of its own (blockIdx.z) that recomputes the similarity
 // tiles, so a chunk costs one more first product and nothing else changes.
 //
-// 576 < C <= 4096 (as wide as K1 goes): the same passes on the CUDA cores over
-// unpacked bf16 operands, on sim_tile.cuh's register-blocked f32 tile staged
-// in shared memory. A correctness instance, not tuned (see cc:: below).
-#include "sim_tile.cuh"
+// 576 < C <= 4096 (as wide as K1 goes): the loss and g-sum passes on K2's
+// channel-streaming tile (sim_tile_wide.cuh: a 64-row f0 tile against 128-row
+// f1 tiles, both streamed in 64-channel chunks through gemm::Ring, 128
+// columns a product), over the operands its LSE pass reads (packed once by
+// pack_wide_bf16_kernel). The feature gradients run in thread-block clusters
+// (dfeat_wide_kernel, wdf:: below) that form each similarity and each dsim
+// element once on the device: a cluster of n = ceil(Cp / 256) blocks owns one
+// 64-row tile, block j holds output channels [256 j, 256 j + 256) in its
+// accumulators and the products over that channel slice only; the partial
+// similarities of a tile are reduce-scattered through distributed shared
+// memory (summed in rank order), each block forms dsim for its share of the
+// tile and all-gathers it in bf16, and every block multiplies the whole dsim
+// tile with its own slice of the streamed tile.
+#include <cooperative_groups.h>
+
 #include "sim_tile_tc.cuh"
+#include "sim_tile_wide.cuh"
 
 namespace {
 
 using namespace opp::tc;
+namespace wd = opp::wide;
+namespace coop = cooperative_groups;
 
 using bf16 = __nv_bfloat16;
 constexpr float LOGCAP = -1e-6f;       // log conf <= log(1 - ~1e-6): log1p stays finite
 constexpr float CONF_CAP = 0.999999f;  // exp(LOGCAP) rounded down
 constexpr int MAXC = 256;              // channels the feature-gradient accumulators hold (a chunk)
-constexpr int MAXC_CC = 4096;          // the CUDA-core instance's widest operand (K1's widest)
+constexpr int MAX_C_WIDE = 4096;       // the wide instance's widest operand (K1's widest)
 
 struct Focal {
   float alpha, gamma;
@@ -99,8 +115,8 @@ __device__ __forceinline__ float elem_g(float raw, float conf, bool is_pos, floa
 
 // The batch element's packed operands and the stats the passes share.
 struct Args {
-  const bf16* f0;  // packed [B, P_pad / 8, Cp / 8, 8, 8]
-  const bf16* f1;  // packed [B, L_pad / 8, Cp / 8, 8, 8]
+  const bf16* f0;  // packed: [B, P_pad / 8, Cp / 8, 8, 8] (C <= 576), or the wide layout
+  const bf16* f1;  // (sim_tile_wide.cuh: f0 in 64-row, f1 in 128-row tiles)
   const int* gt;
   const float* row_lse;
   const float* col_lse;
@@ -113,75 +129,81 @@ struct Args {
   Focal focal;
 };
 
-// Block set-up of the row-tile passes (loss, gsum): f0's row tile resident, f1 streamed.
-struct RowPass {
-  int cp, p0, b, w, g, t;
-  __device__ RowPass(const Args& a)
-      : cp(pad_channels(a.C)), p0(blockIdx.x * TM), b(blockIdx.y), w(threadIdx.x >> 5),
-        g((threadIdx.x >> 2) & 7), t(threadIdx.x & 3) {}
-  __device__ int row(int h) const { return p0 + 16 * w + g + 8 * h; }
+// A thread's place in the accumulator fragment (wgmma.cuh): warp w, row group
+// g, column pair t; it holds rows 16 w + g + 8 h (h < 2) of the block's tile.
+struct Frag {
+  int w, g, t;
+  __device__ Frag() : w(threadIdx.x >> 5), g((threadIdx.x >> 2) & 7), t(threadIdx.x & 3) {}
+  __device__ int row(int h) const { return 16 * w + g + 8 * h; }
   __device__ int col(int q) const { return 8 * (q >> 1) + 2 * t + (q & 1); }  // within a tile
+};
+
+// The block's f0 rows: their LSE, GT column and whether they exist.
+struct OwnRows {
+  float rl[2];
+  int gt[2];
+  bool ok[2];
+  __device__ OwnRows(const Args& a, const Frag& fr, int p0, int b) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + fr.row(h);
+      ok[h] = p < a.P;
+      rl[h] = ok[h] ? a.row_lse[(size_t)b * a.P + p] : 0.f;
+      gt[h] = ok[h] ? a.gt[(size_t)b * a.P + p] : -2;
+    }
+  }
 };
 
 // ---------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(NT, 2)
-    loss_tc_kernel(Args a, float* __restrict__ pos_out, float* __restrict__ neg_out,
-                float* __restrict__ mx_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowPass rp(a);
-  const int P = a.P, L = a.L, cp = rp.cp, b = rp.b;
-  const Tiles tl(smem, cp, a.f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
-  tl.start(a.f0 + ((size_t)b * pad_rows(P) + rp.p0) * cp);
-  const uint32_t a_addr = tl.resident();
-  float rl[2];
-  int gtp[2];
-  bool okr[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = rp.row(h);
-    okr[h] = p < P;
-    rl[h] = okr[h] ? a.row_lse[(size_t)b * P + p] : 0.f;
-    gtp[h] = okr[h] ? a.gt[(size_t)b * P + p] : -2;
-  }
+// Per-row focal sums and max conf of the block's 64 f0 rows over every column
+// tile of `sim` (Bf16Sim: 64 columns a product; WideSim: 128): a thread holds
+// NC / 4 columns of each of its two rows.
+template <class Sim>
+__device__ __forceinline__ void loss_pass(const Sim& sim, const Args& a, float* __restrict__ pos_out,
+                                          float* __restrict__ neg_out, float* __restrict__ mx_out) {
+  constexpr int NC = Sim::NC, NQ = NC / 4;
+  const Frag fr;
+  const int L = a.L, b = blockIdx.y, p0 = blockIdx.x * TM;
+  const OwnRows own(a, fr, p0, b);
   float pos[2] = {0.f, 0.f}, neg[2] = {0.f, 0.f}, mx[2] = {0.f, 0.f};
 
 #pragma unroll 1
-  for (int it = 0; it < tl.n_tiles; ++it) {
-    const int l0 = it * TM;
-    float acc[32];
-    sim_product(acc, a_addr, tl.wait(it), cp);
-    float cl[16];
+  for (int it = 0; it < sim.n_tiles(); ++it) {
+    const int l0 = it * NC;
+    float acc[NC / 2];
+    sim.product(acc, it);
+    float cl[NQ];
 #pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const int l = l0 + rp.col(q);
+    for (int q = 0; q < NQ; ++q) {
+      const int l = l0 + fr.col(q);
       cl[q] = l < L ? a.col_lse[(size_t)b * L + l] : 0.f;
     }
     wg::wait<0>();
     wg::fence_regs(acc);
 #pragma unroll
-    for (int q = 0; q < 16; ++q)
+    for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int l = l0 + rp.col(q);
+        const int l = l0 + fr.col(q);
         const float s = acc[4 * (q >> 1) + 2 * h + (q & 1)] * a.inv_temp;
-        const float lc = fminf(2.f * s - cl[q] - rl[h], LOGCAP);
+        const float lc = fminf(2.f * s - cl[q] - own.rl[h], LOGCAP);
         const float conf = exp_fast(lc);
         float tp, tn;
         a.focal.terms(conf, lc, tp, tn);
-        const bool ok = okr[h] && l < L, is_pos = gtp[h] == l;
+        const bool ok = own.ok[h] && l < L, is_pos = own.gt[h] == l;
         pos[h] += ok && is_pos ? tp : 0.f;
         neg[h] += ok && !is_pos ? tn : 0.f;
         mx[h] = ok ? fmaxf(mx[h], conf) : mx[h];
       }
     __syncthreads();  // every warp's product has read the stage
-    tl.release(it);
+    sim.release(it);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float ps = quad_sum(pos[h]), ns = quad_sum(neg[h]), m = quad_max(mx[h]);
-    if (rp.t == 0 && okr[h]) {
-      const size_t o = (size_t)b * P + rp.row(h);
+    if (fr.t == 0 && own.ok[h]) {
+      const size_t o = (size_t)b * a.P + p0 + fr.row(h);
       pos_out[o] = a.focal.alpha * ps;
       neg_out[o] = (1.f - a.focal.alpha) * ns;
       mx_out[o] = m;
@@ -189,74 +211,110 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-// ---------------------------------------------------------- backward: sums
+// The resident tile (C <= 576).
+__global__ void __launch_bounds__(NT, 2)
+    loss_tc_kernel(Args a, float* __restrict__ pos_out, float* __restrict__ neg_out,
+                   float* __restrict__ mx_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(a.C), b = blockIdx.y;
+  Bf16Sim sim(smem, cp, a.f1 + (size_t)b * pad_rows(a.L) * cp, pad_rows(a.L) / TM);
+  sim.start(a.f0 + ((size_t)b * pad_rows(a.P) + blockIdx.x * TM) * cp);
+  loss_pass(sim, a, pos_out, neg_out, mx_out);
+}
+
+// K2's channel-streaming tile (C > 576), on the operands of its LSE pass.
+__device__ __forceinline__ auto wide_sim(unsigned char* smem, const Args& a) {
+  const int cp = wd::pad_channels(a.C);
+  const size_t b = blockIdx.y;
+  return wd::bf16_sim(smem, a.f0 + b * pad_rows(a.P) * cp, a.f1 + b * wd::pad_rows(a.L, wd::NC) * cp,
+                      blockIdx.x, cp, a.L);
+}
 
 __global__ void __launch_bounds__(NT, 2)
-    gsum_tc_kernel(Args a, float* __restrict__ rowg_out, float* __restrict__ colpart) {
+    loss_wide_kernel(Args a, float* __restrict__ pos_out, float* __restrict__ neg_out,
+                     float* __restrict__ mx_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowPass rp(a);
-  const int P = a.P, L = a.L, cp = rp.cp, b = rp.b, tid = threadIdx.x;
-  const Tiles tl(smem, cp, a.f1 + (size_t)b * pad_rows(L) * cp, pad_rows(L) / TM);
-  tl.start(a.f0 + ((size_t)b * pad_rows(P) + rp.p0) * cp);
-  const uint32_t a_addr = tl.resident();
+  const auto sim = wide_sim(smem, a);
+  sim.start();
+  loss_pass(sim, a, pos_out, neg_out, mx_out);
+}
+
+// ---------------------------------------------------------- backward: sums
+
+// g per element, its row sums (kept in the block) and its column sums as this
+// row tile's partials [B, row tiles, L], on the block's tiles of `sim`.
+template <class Sim>
+__device__ __forceinline__ void gsum_pass(const Sim& sim, const Args& a, float* __restrict__ rowg_out,
+                                          float* __restrict__ colpart) {
+  constexpr int NC = Sim::NC, NQ = NC / 4;
+  const Frag fr;
+  const int L = a.L, b = blockIdx.y, p0 = blockIdx.x * TM, tid = threadIdx.x;
+  const OwnRows own(a, fr, p0, b);
   float* cpart = colpart + ((size_t)b * gridDim.x + blockIdx.x) * L;
   const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
-  float rl[2];
-  int gtp[2];
-  bool okr[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = rp.row(h);
-    okr[h] = p < P;
-    rl[h] = okr[h] ? a.row_lse[(size_t)b * P + p] : 0.f;
-    gtp[h] = okr[h] ? a.gt[(size_t)b * P + p] : -2;
-  }
   float rowg[2] = {0.f, 0.f};
 
 #pragma unroll 1
-  for (int it = 0; it < tl.n_tiles; ++it) {
-    const int l0 = it * TM;
-    float acc[32];
-    sim_product(acc, a_addr, tl.wait(it), cp);
-    float cl[16];
+  for (int it = 0; it < sim.n_tiles(); ++it) {
+    const int l0 = it * NC;
+    float acc[NC / 2];
+    sim.product(acc, it);
+    float cl[NQ];
 #pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      const int l = l0 + rp.col(q);
+    for (int q = 0; q < NQ; ++q) {
+      const int l = l0 + fr.col(q);
       cl[q] = l < L ? a.col_lse[(size_t)b * L + l] : 0.f;
     }
     wg::wait<0>();
     wg::fence_regs(acc);
 #pragma unroll
-    for (int q = 0; q < 16; ++q)
+    for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int i = 4 * (q >> 1) + 2 * h + (q & 1), l = l0 + rp.col(q);
-        const float raw = 2.f * (acc[i] * a.inv_temp) - cl[q] - rl[h];
-        const float ge = elem_g(raw, exp_fast(raw), gtp[h] == l, pos_coef, neg_coef, a.focal);
-        acc[i] = okr[h] && l < L ? ge : 0.f;
+        const int i = 4 * (q >> 1) + 2 * h + (q & 1), l = l0 + fr.col(q);
+        const float raw = 2.f * (acc[i] * a.inv_temp) - cl[q] - own.rl[h];
+        const float ge = elem_g(raw, exp_fast(raw), own.gt[h] == l, pos_coef, neg_coef, a.focal);
+        acc[i] = own.ok[h] && l < L ? ge : 0.f;
         rowg[h] += acc[i];
       }
-    float* sc = tl.cols(it);
+    float* sc = sim.cols(it);
 #pragma unroll
-    for (int q = 0; q < 16; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const int i = 4 * (q >> 1) + (q & 1);
       const float v = col_sum(acc[i] + acc[i + 2]);
-      if (rp.g == 0) sc[rp.w * TM + rp.col(q)] = v;
+      if (fr.g == 0) sc[fr.w * NC + fr.col(q)] = v;
     }
     __syncthreads();
-    tl.release(it);
-    if (tid < TM && l0 + tid < L) {  // warps in order
+    sim.release(it);
+    if (tid < NC && l0 + tid < L) {  // warps in order
       float v = sc[tid];
 #pragma unroll
-      for (int u = 1; u < NWARP; ++u) v += sc[u * TM + tid];
+      for (int u = 1; u < NWARP; ++u) v += sc[u * NC + tid];
       cpart[l0 + tid] = v;
     }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float v = quad_sum(rowg[h]);
-    if (rp.t == 0 && okr[h]) rowg_out[(size_t)b * P + rp.row(h)] = v;
+    if (fr.t == 0 && own.ok[h]) rowg_out[(size_t)b * a.P + p0 + fr.row(h)] = v;
   }
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    gsum_tc_kernel(Args a, float* __restrict__ rowg_out, float* __restrict__ colpart) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cp = pad_channels(a.C), b = blockIdx.y;
+  Bf16Sim sim(smem, cp, a.f1 + (size_t)b * pad_rows(a.L) * cp, pad_rows(a.L) / TM);
+  sim.start(a.f0 + ((size_t)b * pad_rows(a.P) + blockIdx.x * TM) * cp);
+  gsum_pass(sim, a, rowg_out, colpart);
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    gsum_wide_kernel(Args a, float* __restrict__ rowg_out, float* __restrict__ colpart) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const auto sim = wide_sim(smem, a);
+  sim.start();
+  gsum_pass(sim, a, rowg_out, colpart);
 }
 
 __global__ void colg_reduce(const float* __restrict__ colpart, float* __restrict__ colg, int n_pt,
@@ -430,180 +488,267 @@ __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restri
   }
 }
 
-// ------------------------------------------ CUDA-core instance (C > 576)
+// --------------------------- feature gradients above 576: thread-block clusters
 //
-// The four passes on unpacked bf16 operands [B, rows, C] (the wrapper scales
-// and rounds them), for widths whose tiles do not fit the tensor-core block's
-// shared memory. Each pass is one block per 64-row tile of its own operand,
-// streaming the other's 64-row tiles: opp::sim_tile (sim_tile.cuh, 256
-// threads, f32 FMAs) leaves the similarity tile in shared memory, and thread
-// (g, q) reads row g, columns 16 q .. 16 q + 15 of it, as K2's CUDA-core LSE
-// pass. Row sums merge over the quad's four lanes, column sums over the
-// quad's rows 16 q .. 16 q + 15 and then its lanes, in a fixed order.
-//
-// The feature gradients keep no [64, C] accumulators (C goes to 4096): after
-// each streamed tile, dsim (rounded to bf16) replaces the tile in shared
-// memory and a thread per output channel multiplies it with the streamed
-// rows into 64 row sums, then adds them into the block's own rows of the f32
-// output (read, add, write; the block owns those rows, the tiles come in
-// order), so the result is the same bit for bit from run to run. Bound: the
-// similarity products on the CUDA cores at f32 rate; this instance is right
-// first and not tuned.
-namespace cc {
+// A cluster of n = ceil(Cp / S) blocks (Cp = C padded to 64, 3 <= n <= 16)
+// owns one 64-row tile of its own operand (f0 for df0, f1 for df1) and
+// streams the other operand's 128-row tiles (f1's, or pairs of f0's 64-row
+// tiles). Block j (its rank) holds output channels [S j, S j + w_j),
+// w_j = min(S, Cp - S j): its slice of the own tile stays resident, and each
+// streamed tile brings only that slice. A block is two warpgroups: the first
+// runs the products and holds the slice's accumulators, both form dsim. For
+// each streamed tile:
+//   1. the partial similarity over the slice, s_j = own[:, slice] x
+//      streamed[:, slice]^T (m64n128k16, one 64-channel chunk after another),
+//      goes to the block's exchange tile X (f32 [64, 128]), while the second
+//      warpgroup stages the next tile's column statistics;
+//   2. cluster barrier; the tile's 1024 groups of 8 columns are dealt out to
+//      the ranks in units of 32 (two rows of the tile, a warp's: unit u to
+//      rank u % n, so a block reads ~32 KB of partials and writes ~16 KB of
+//      dsim a tile whatever n is, and a warp's lanes hit distinct banks): a
+//      thread sums its group's n partials from the n blocks' X, in rank order
+//      (so s is the same for every launch), forms dsim there once on the whole device,
+//      rounds it to bf16 and stores it into every block's dsim tile D
+//      (distributed shared memory, 16 bytes a store), row-major with a padded
+//      row so that the wgmma A fragments load without bank conflicts;
+//   3. cluster barrier; out[:, slice] += D [64, 128] x streamed[:, slice]: the
+//      A fragments from D, B the streamed chunks read MN-major (the bytes of
+//      the first product's B, as in the tensor-core instance), m64n64k16 for
+//      each of the slice's 64-channel chunks.
+// One block an SM (its shared memory), so nothing else hides a warpgroup's
+// latency: the second warpgroup halves the epilogue's share of a tile (on an
+// H100 at C = 1024, B = 4, P = 7000, L = 4096: 3.8 -> 3.1 ms a side).
+// Each similarity element is one product over the channels (split by slice)
+// and each dsim element is formed once; no output is read back from device
+// memory, and the slice's accumulators (128 registers a thread) are written
+// once at the end. A ragged width has a narrower last slice (64, 128 or 192
+// channels: fewer chunks, the same code); the own tile's rows past the operand
+// and the streamed rows past the other's get dsim 0.
+namespace wdf {
 
-using opp::BL;
-using opp::BR;
+constexpr int S = 256;          // output channels a block holds (one warpgroup's accumulators)
+constexpr int WNT = 2 * NT;      // threads a block: the products' warpgroup and one that helps with the epilogue
+constexpr int MAX_CLUSTER = 16;  // C up to 4096; above 8 blocks a cluster is non-portable
+constexpr int NS = 128;          // rows of a streamed tile: columns of s a step gives
+constexpr int NCH = S / 64;      // 64-channel chunks of a slice
+constexpr uint32_t OWN_CHUNK = TM * 128;  // [64 rows, 64 channels] bf16 image
+constexpr uint32_t ST_CHUNK = NS * 128;   // [128 rows, 64 channels]
+constexpr uint32_t STAGE = NCH * ST_CHUNK;
+constexpr int XS = NS + 8;  // row stride of X (floats): two-way banks at most for the fragment's stores
+constexpr int DS = NS + 8;  // row stride of D (bf16, 272 bytes): conflict-free A fragment loads
+constexpr int GROUPS = TM * NS / 8;  // 8-column groups of a tile
+// shared memory: own slice, two stages, X, D, stats (own [3][64], streamed [2][3][128]), barriers
+constexpr uint32_t OFF_ST = NCH * OWN_CHUNK;
+constexpr uint32_t OFF_X = OFF_ST + 2 * STAGE;
+constexpr uint32_t OFF_D = OFF_X + TM * XS * 4;
+constexpr uint32_t OFF_STATS = OFF_D + TM * DS * 2;
+constexpr uint32_t OFF_BAR = OFF_STATS + (3 * TM + 2 * 3 * NS) * 4;
+constexpr size_t SMEM = OFF_BAR + 3 * 8;
+static_assert(SMEM <= 232448, "a block's shared memory");
+static_assert(OFF_D % 16 == 0 && OFF_BAR % 8 == 0, "alignment");
 
-// The per-row stats a pass needs of its own operand's row g.
-struct OwnRow {
-  bool ok;
-  float lse;
-  int gt;
-};
+__host__ __device__ __forceinline__ int cluster_size(int c) { return (wd::pad_channels(c) + S - 1) / S; }
+static_assert((MAX_C_WIDE + S - 1) / S <= MAX_CLUSTER, "the widest operand fits a cluster");
 
-__device__ __forceinline__ OwnRow own_row(const float* lse, const int* gt, int b, int n, int r) {
-  const bool ok = r < n;
-  return OwnRow{ok, ok ? lse[(size_t)b * n + r] : 0.f, ok && gt != nullptr ? gt[(size_t)b * n + r] : -2};
-}
+}  // namespace wdf
 
-__global__ void __launch_bounds__(opp::NT)
-    loss_cc_kernel(Args a, float* __restrict__ pos_out, float* __restrict__ neg_out,
-                   float* __restrict__ mx_out) {
-  __shared__ opp::TileSmem sm;
-  const int P = a.P, L = a.L, C = a.C, b = blockIdx.y, p0 = blockIdx.x * BR;
-  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const bf16* f0 = a.f0 + (size_t)b * P * C;
-  const bf16* f1 = a.f1 + (size_t)b * L * C;
-  const OwnRow row = own_row(a.row_lse, a.gt, b, P, p0 + g);
-  float pos = 0.f, neg = 0.f, mx = 0.f;
-  for (int l0 = 0; l0 < L; l0 += BL) {
-    opp::sim_tile<bf16>(f0, f1, nullptr, nullptr, p0, l0, P, L, C, a.inv_temp, sm);
-    for (int j = 0; j < 16; ++j) {
-      const int l = l0 + 16 * q + j;
-      if (!row.ok || l >= L) continue;
-      const float lc = fminf(2.f * sm.s[g][16 * q + j] - a.col_lse[(size_t)b * L + l] - row.lse,
-                             LOGCAP);
-      const float conf = expf(lc);
-      float tp, tn;
-      a.focal.terms(conf, lc, tp, tn);
-      if (row.gt == l)
-        pos += tp;
-      else
-        neg += tn;
-      mx = fmaxf(mx, conf);
-    }
-    __syncthreads();
-  }
-  pos = quad_sum(pos);
-  neg = quad_sum(neg);
-  mx = quad_max(mx);
-  if (q == 0 && row.ok) {
-    const size_t o = (size_t)b * P + p0 + g;
-    pos_out[o] = a.focal.alpha * pos;
-    neg_out[o] = (1.f - a.focal.alpha) * neg;
-    mx_out[o] = mx;
-  }
-}
-
-__global__ void __launch_bounds__(opp::NT)
-    gsum_cc_kernel(Args a, float* __restrict__ rowg_out, float* __restrict__ colpart) {
-  __shared__ opp::TileSmem sm;
-  const int P = a.P, L = a.L, C = a.C, b = blockIdx.y, p0 = blockIdx.x * BR;
-  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const bf16* f0 = a.f0 + (size_t)b * P * C;
-  const bf16* f1 = a.f1 + (size_t)b * L * C;
-  float* cpart = colpart + ((size_t)b * gridDim.x + blockIdx.x) * L;
-  const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
-  const OwnRow row = own_row(a.row_lse, a.gt, b, P, p0 + g);
-  float rowg = 0.f;
-  for (int l0 = 0; l0 < L; l0 += BL) {
-    opp::sim_tile<bf16>(f0, f1, nullptr, nullptr, p0, l0, P, L, C, a.inv_temp, sm);
-    float ge[16];
-    for (int j = 0; j < 16; ++j) {
-      const int l = l0 + 16 * q + j;
-      ge[j] = 0.f;
-      if (row.ok && l < L) {
-        const float raw = 2.f * sm.s[g][16 * q + j] - a.col_lse[(size_t)b * L + l] - row.lse;
-        ge[j] = elem_g(raw, expf(raw), row.gt == l, pos_coef, neg_coef, a.focal);
-      }
-      rowg += ge[j];
-    }
-    __syncthreads();  // every similarity is read
-    for (int j = 0; j < 16; ++j) sm.s[g][16 * q + j] = ge[j];
-    __syncthreads();
-    float cs = 0.f;  // column g over rows 16 q .. 16 q + 15, then the quad's lanes
-    for (int j = 0; j < 16; ++j) cs += sm.s[16 * q + j][g];
-    cs = quad_sum(cs);
-    if (q == 0 && l0 + g < L) cpart[l0 + g] = cs;
-    __syncthreads();
-  }
-  rowg = quad_sum(rowg);
-  if (q == 0 && row.ok) rowg_out[(size_t)b * P + p0 + g] = rowg;
-}
-
-// df0 (T1 = false): rows p of f0 own the block, f1's tiles stream,
-// out[b, p, :] = sum_l dsim[p, l] f1[l, :]. df1 (T1 = true): rows l of f1 own
-// it, f0's tiles stream, out[b, l, :] = sum_p dsim[p, l] f0[p, :], on s^T.
+// df0 (T1 = false): own rows p of f0 (64-row tiles), streamed f1 (128-row
+// tiles), out[b, p, :] = sum_l dsim[p, l] f1[l, :]. df1 (T1 = true): own rows l
+// of f1 (a half of a 128-row tile), streamed pairs of f0's 64-row tiles,
+// out[b, l, :] = sum_p dsim[p, l] f0[p, :]. Grid (own tiles * n, B), clusters of n.
 template <bool T1>
-__global__ void __launch_bounds__(opp::NT) dfeat_cc_kernel(Args a, float* __restrict__ out) {
-  __shared__ opp::TileSmem sm;
-  const int C = a.C, b = blockIdx.y, r0 = blockIdx.x * BR;
+__global__ void __launch_bounds__(wdf::WNT, 1) dfeat_wide_kernel(Args a, float* __restrict__ out, int n) {
+  using namespace wdf;
+  extern __shared__ __align__(128) unsigned char smem[];
+  coop::cluster_group cluster = coop::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cp = wd::pad_channels(a.C), nchk = cp / 64, c0 = rank * S;
+  const int nc = min(S, cp - c0) / 64;  // this block's chunks
+  const int own_t = blockIdx.x / n, b = blockIdx.y, tid = threadIdx.x;
+  const bool prod = tid < NT;  // the products' warpgroup; the other forms dsim beside it and stages stats
+  const Frag fr;
   const int own_n = T1 ? a.L : a.P, oth_n = T1 ? a.P : a.L;
-  const int g = threadIdx.x >> 2, q = threadIdx.x & 3, r = r0 + g;
-  const bf16* own = (T1 ? a.f1 : a.f0) + (size_t)b * own_n * C;
-  const bf16* oth = (T1 ? a.f0 : a.f1) + (size_t)b * oth_n * C;
+  const int n_f0 = pad_rows(a.P) / TM;  // f0's 64-row tiles
+  const int n_tiles = T1 ? (n_f0 + 1) / 2 : wd::pad_rows(a.L, NS) / NS;
+  const unsigned char* f0b =
+      reinterpret_cast<const unsigned char*>(a.f0 + (size_t)b * pad_rows(a.P) * cp);
+  const unsigned char* f1b =
+      reinterpret_cast<const unsigned char*>(a.f1 + (size_t)b * wd::pad_rows(a.L, NS) * cp);
+  // chunk u of f0's 64-row tile t / f1's 128-row tile t
+  const auto f0_chunk = [&](int t, int u) { return f0b + ((size_t)t * nchk + u) * OWN_CHUNK; };
+  const auto f1_chunk = [&](int t, int u) { return f1b + ((size_t)t * nchk + u) * ST_CHUNK; };
+  unsigned char* own = smem;
+  float* xs = reinterpret_cast<float*>(smem + OFF_X);
+  bf16* dsm = reinterpret_cast<bf16*>(smem + OFF_D);
+  float* own_st = reinterpret_cast<float*>(smem + OFF_STATS);  // [lse, sum of g, gt][64]
+  float* oth_st = own_st + 3 * TM;                              // [parity][lse, sum of g, gt][128]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + OFF_BAR);  // own, stage 0, stage 1
+  const float* own_lse = T1 ? a.col_lse : a.row_lse;
   const float* own_sum = T1 ? a.colg : a.rowg;
   const float* oth_lse = T1 ? a.row_lse : a.col_lse;
   const float* oth_sum = T1 ? a.rowg : a.colg;
+
+  // streamed tile it's slice into stage it % 2 (thread 0)
+  const auto fetch = [&](int it) {
+    unsigned char* dst = smem + OFF_ST + (it & 1) * STAGE;
+    uint64_t* bb = bar + 1 + (it & 1);
+    wg::mbar_expect_tx(bb, nc * ST_CHUNK);
+    if (!T1) {
+      wg::bulk_load(dst, f1_chunk(it, 4 * rank), nc * ST_CHUNK, bb);
+    } else {  // f0's tiles 2 it and 2 it + 1 as the two halves of each chunk image
+      const int t1 = min(2 * it + 1, n_f0 - 1);  // a missing second tile: rows masked below
+      for (int c = 0; c < nc; ++c) {
+        wg::bulk_load(dst + c * ST_CHUNK, f0_chunk(2 * it, 4 * rank + c), OWN_CHUNK, bb);
+        wg::bulk_load(dst + c * ST_CHUNK + OWN_CHUNK, f0_chunk(t1, 4 * rank + c), OWN_CHUNK, bb);
+      }
+    }
+  };
+  // the streamed tile's column stats (LSE, sum of g, GT of f0's rows for df1), by the helper warpgroup
+  const auto stage_stats = [&](int it) {
+    if (prod) return;
+    float* x = oth_st + (it & 1) * 3 * NS;
+    const int i = tid - NT, c = it * NS + i;
+    const bool ok = c < oth_n;
+    x[i] = ok ? oth_lse[(size_t)b * oth_n + c] : 0.f;
+    x[NS + i] = ok ? oth_sum[(size_t)b * oth_n + c] : 0.f;
+    reinterpret_cast<int*>(x)[2 * NS + i] = T1 && ok ? a.gt[(size_t)b * a.P + c] : -2;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) wg::mbar_init(bar + i, 1);
+    wg::mbar_init_fence();
+  }
+  if (tid < TM) {
+    const int r = own_t * TM + tid;
+    const bool ok = r < own_n;
+    own_st[tid] = ok ? own_lse[(size_t)b * own_n + r] : 0.f;
+    own_st[TM + tid] = ok ? own_sum[(size_t)b * own_n + r] : 0.f;
+    reinterpret_cast<int*>(own_st)[2 * TM + tid] = !T1 && ok ? a.gt[(size_t)b * a.P + r] : -2;
+  }
+  stage_stats(0);
+  __syncthreads();
+  if (tid == 0) {
+    wg::mbar_expect_tx(bar, nc * OWN_CHUNK);
+    if (!T1) {
+      wg::bulk_load(own, f0_chunk(own_t, 4 * rank), nc * OWN_CHUNK, bar);
+    } else {  // the half of f1's 128-row tile that holds these 64 rows
+      for (int c = 0; c < nc; ++c)
+        wg::bulk_load(own + c * OWN_CHUNK, f1_chunk(own_t >> 1, 4 * rank + c) + (own_t & 1) * OWN_CHUNK,
+                      OWN_CHUNK, bar);
+    }
+    for (int it = 0; it < 2 && it < n_tiles; ++it) fetch(it);
+  }
   const float pos_coef = a.coef[0] * a.focal.alpha, neg_coef = a.coef[1] * (1.f - a.focal.alpha);
-  const OwnRow row = own_row(T1 ? a.col_lse : a.row_lse, T1 ? nullptr : a.gt, b, own_n, r);
-  const float osum = row.ok ? own_sum[(size_t)b * own_n + r] : 0.f;
-  const int rows = min(BR, own_n - r0);
-  float* o = out + ((size_t)b * own_n + r0) * C;  // the block's own rows
-  for (int c0 = 0; c0 < oth_n; c0 += BL) {
-    opp::sim_tile<bf16>(own, oth, nullptr, nullptr, r0, c0, own_n, oth_n, C, a.inv_temp, sm);
-    float d[16];
-    for (int j = 0; j < 16; ++j) {
-      const int c = c0 + 16 * q + j;
-      d[j] = 0.f;
-      if (row.ok && c < oth_n) {
-        const float s = sm.s[g][16 * q + j];
-        const float xl = oth_lse[(size_t)b * oth_n + c], xs = oth_sum[(size_t)b * oth_n + c];
-        const float v =
-            T1 ? dsim(s, xl, row.lse, xs, osum, a.gt[(size_t)b * a.P + c] == r, pos_coef,
-                      neg_coef, a.inv_temp, a.focal)
-               : dsim(s, row.lse, xl, osum, xs, row.gt == c, pos_coef, neg_coef, a.inv_temp,
-                      a.focal);
-        d[j] = opp::round_to<bf16>(v);
-      }
+  float acc2[NCH][32];  // the products' warpgroup's
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc2[c][i] = 0.f;
+  const uint32_t own_addr = wg::smem_u32(own);
+  wg::mbar_wait(bar, 0);
+
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    const uint32_t st = wg::smem_u32(smem + OFF_ST + (it & 1) * STAGE);
+    if (prod) {
+      wg::mbar_wait(bar + 1 + (it & 1), (it >> 1) & 1);
+      // 1. the partial similarity over this block's slice
+      float acc[64];
+      wg::fence();
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if (c < nc)
+            wg::mma_n128(acc, wg::desc(own_addr + c * OWN_CHUNK + kk * 256, 128, 1024),
+                         wg::desc(st + c * ST_CHUNK + kk * 256, 128, 1024), (c > 0 || kk > 0) ? 1 : 0);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(acc);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(xs + fr.row(h) * XS + 8 * j + 2 * fr.t) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    } else if (it + 1 < n_tiles) {
+      stage_stats(it + 1);
     }
-    __syncthreads();  // every similarity is read
-    for (int j = 0; j < 16; ++j) sm.s[g][16 * q + j] = d[j];
-    __syncthreads();
-    const int nj = min(BL, oth_n - c0);
-    const bool first = c0 == 0, last = c0 + BL >= oth_n;
-    for (int k = threadIdx.x; k < C; k += opp::NT) {
-      float acc[BR];
+    cluster.sync();  // every rank's partial of this tile is in its X
+    // 2. this rank's groups: s summed in rank order, dsim formed and all-gathered
+    const float* x = oth_st + (it & 1) * 3 * NS;
+    for (int gi = (rank + n * (tid >> 5)) * 32 + (tid & 31); gi < GROUPS; gi += n * WNT) {
+      const int row = gi >> 4, col0 = (gi & 15) * 8, orow = own_t * TM + row;
+      float s[8];
 #pragma unroll
-      for (int i = 0; i < BR; ++i) acc[i] = 0.f;
-      for (int j = 0; j < nj; ++j) {
-        const float v = __bfloat162float(oth[(size_t)(c0 + j) * C + k]);
-#pragma unroll
-        for (int i = 0; i < BR; ++i) acc[i] = fmaf(sm.s[i][j], v, acc[i]);
+      for (int e = 0; e < 8; ++e) s[e] = 0.f;
+      for (int r = 0; r < n; ++r) {
+        const float* xr = cluster.map_shared_rank(xs, r) + row * XS + col0;
+        const float4 lo = *reinterpret_cast<const float4*>(xr);
+        const float4 hi = *reinterpret_cast<const float4*>(xr + 4);
+        s[0] += lo.x, s[1] += lo.y, s[2] += lo.z, s[3] += lo.w;
+        s[4] += hi.x, s[5] += hi.y, s[6] += hi.z, s[7] += hi.w;
       }
+      const float rl = own_st[row], rg = own_st[TM + row];
+      const int rgt = reinterpret_cast<const int*>(own_st)[2 * TM + row];
+      float d[8];
 #pragma unroll
-      for (int i = 0; i < BR; ++i) {
-        if (i >= rows) break;
-        float* dst = o + (size_t)i * C + k;
-        const float v = (first ? 0.f : *dst) + acc[i];
-        *dst = last ? v * a.grad_scale : v;
+      for (int e = 0; e < 8; ++e) {
+        const int cc = col0 + e, c = it * NS + cc;
+        const float xl = x[cc], xsum = x[NS + cc];
+        const int xg = reinterpret_cast<const int*>(x)[2 * NS + cc];
+        const float sv = s[e] * a.inv_temp;
+        const float v = T1 ? dsim(sv, xl, rl, xsum, rg, xg == orow, pos_coef, neg_coef, a.inv_temp, a.focal)
+                           : dsim(sv, rl, xl, rg, xsum, rgt == c, pos_coef, neg_coef, a.inv_temp, a.focal);
+        d[e] = orow < own_n && c < oth_n ? v : 0.f;
       }
+      const uint4 v = make_uint4(bf16_pair(d[0], d[1]), bf16_pair(d[2], d[3]), bf16_pair(d[4], d[5]),
+                                 bf16_pair(d[6], d[7]));
+      for (int r = 0; r < n; ++r)
+        *reinterpret_cast<uint4*>(cluster.map_shared_rank(dsm, r) + row * DS + col0) = v;
     }
-    __syncthreads();  // the dsim tile is read
+    cluster.sync();  // every rank's D holds the whole dsim tile; the X are read
+    // 3. out[:, slice] += dsim x streamed[:, slice]
+    if (prod) {
+      uint32_t af[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const bf16* d0 = dsm + fr.row(0) * DS + 16 * kk + 2 * fr.t;
+        af[kk][0] = *reinterpret_cast<const uint32_t*>(d0);
+        af[kk][1] = *reinterpret_cast<const uint32_t*>(d0 + 8 * DS);
+        af[kk][2] = *reinterpret_cast<const uint32_t*>(d0 + 8);
+        af[kk][3] = *reinterpret_cast<const uint32_t*>(d0 + 8 * DS + 8);
+      }
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          if (c < nc)  // MN-major: LBO steps along the streamed rows (1024), SBO along the channels (128)
+            wg::mma_rs_n64_tb(acc2[c], af[kk], wg::desc(st + c * ST_CHUNK + kk * 2048, 1024, 128), 1);
+      wg::commit();
+      wg::wait<0>();
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) wg::fence_regs(acc2[c]);
+    }
+    __syncthreads();  // every warp's products have read the stage
+    if (tid == 0 && it + 2 < n_tiles) fetch(it + 2);
+  }
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (c >= nc || !prod) break;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = own_t * TM + fr.row(h), col = c0 + 64 * c + 8 * jj + 2 * fr.t;
+        if (r >= own_n) continue;
+        float* o = out + ((size_t)b * own_n + r) * a.C;
+        if (col < a.C) o[col] = acc2[c][4 * jj + 2 * h] * a.grad_scale;
+        if (col + 1 < a.C) o[col + 1] = acc2[c][4 * jj + 2 * h + 1] * a.grad_scale;
+      }
   }
 }
-
-}  // namespace cc
 
 bool bad_shape(int B, int P, int L, int C, int max_c) {
   return B <= 0 || B > 65535 || P <= 0 || L <= 0 || C <= 0 || C > max_c;
@@ -632,6 +777,30 @@ void launch_dfeat_pieces(const Args& a, float* df0, float* df1, int B, cudaStrea
     launch_dfeat<16, CHUNKED>(a, df0, df1, B, st);
 }
 
+// One feature gradient of the wide instance: n_own 64-row tiles of its own
+// operand, a cluster of wdf::cluster_size(C) blocks each.
+template <bool T1>
+int launch_dfeat_wide(const Args& a, float* out, int n_own, int B, cudaStream_t st) {
+  const int n = wdf::cluster_size(a.C);
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(dfeat_wide_kernel<T1>, wdf::SMEM, have);
+  if (n > 8)  // 9-16 blocks a cluster: allowed on the H100, not portable
+    cudaFuncSetAttribute(dfeat_wide_kernel<T1>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_own * n, B);
+  cfg.blockDim = dim3(wdf::WNT);
+  cfg.dynamicSmemBytes = wdf::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, dfeat_wide_kernel<T1>, a, out, n);
+}
+
 Args make_args(const void* f0, const void* f1, const int* gt, const float* row_lse,
                const float* col_lse, const float* coef, const float* rowg, const float* colg,
                int P, int L, int C, float inv_temp, float alpha, float gamma,
@@ -639,6 +808,8 @@ Args make_args(const void* f0, const void* f1, const int* gt, const float* row_l
   return Args{static_cast<const bf16*>(f0), static_cast<const bf16*>(f1), gt, row_lse, col_lse,
               coef, rowg, colg, P, L, C, inv_temp, grad_scale, Focal{alpha, gamma}};
 }
+
+constexpr size_t WIDE_SMEM = wd::smem_bytes_bf16<wd::NST_BF16>();
 
 }  // namespace
 
@@ -684,41 +855,49 @@ extern "C" int opp_coarse_loss_bwd(const void* f0, const void* f1, const int* gt
   return (int)cudaGetLastError();
 }
 
-// The CUDA-core instance (576 < C <= 4096): f0 [B, P, C] and f1 [B, L, C]
-// bf16, already scaled and rounded, unpacked; the row and column LSEs from
-// opp_dual_lse_wide_bf16 over the same values; the other arguments as
+// The wide instance (576 < C <= 4096): f0 and f1 packed by opp_pack_wide_*
+// (f0 in 64-row, f1 in 128-row tiles, already scaled), the row and column
+// LSEs from opp_dual_lse_wide_bf16 over them; the other arguments as
 // opp_coarse_loss_fwd's.
-extern "C" int opp_coarse_loss_fwd_cc(const void* f0, const void* f1, const int* gt,
-                                      const float* row_lse, const float* col_lse, float* pos,
-                                      float* neg, float* mx, int B, int P, int L, int C,
-                                      float inv_temp, float alpha, float gamma, void* stream) {
-  if (bad_shape(B, P, L, C, MAXC_CC)) return (int)cudaErrorInvalidValue;
+extern "C" int opp_coarse_loss_fwd_wide(const void* f0, const void* f1, const int* gt,
+                                        const float* row_lse, const float* col_lse, float* pos,
+                                        float* neg, float* mx, int B, int P, int L, int C,
+                                        float inv_temp, float alpha, float gamma, void* stream) {
+  if (bad_shape(B, P, L, C, MAX_C_WIDE)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(f0, f1, gt, row_lse, col_lse, nullptr, nullptr, nullptr, P, L, C,
                            inv_temp, alpha, gamma, 1.f);
-  cc::loss_cc_kernel<<<dim3((P + opp::BR - 1) / opp::BR, B), opp::NT, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a, pos, neg, mx);
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(loss_wide_kernel, WIDE_SMEM, have);
+  loss_wide_kernel<<<dim3(pad_rows(P) / TM, B), NT, WIDE_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      a, pos, neg, mx);
   return (int)cudaGetLastError();
 }
 
-// Backward of the CUDA-core instance, the arguments as opp_coarse_loss_bwd's
-// on the unpacked operands of opp_coarse_loss_fwd_cc.
-extern "C" int opp_coarse_loss_bwd_cc(const void* f0, const void* f1, const int* gt,
-                                      const float* row_lse, const float* col_lse,
-                                      const float* coef, float* rowg, float* colg,
-                                      float* colpart, float* df0, float* df1, int B, int P,
-                                      int L, int C, float inv_temp, float alpha, float gamma,
-                                      float grad_scale, void* stream) {
-  if (bad_shape(B, P, L, C, MAXC_CC)) return (int)cudaErrorInvalidValue;
+// Backward of the wide instance, the arguments as opp_coarse_loss_bwd's on
+// the operands of opp_coarse_loss_fwd_wide.
+extern "C" int opp_coarse_loss_bwd_wide(const void* f0, const void* f1, const int* gt,
+                                        const float* row_lse, const float* col_lse,
+                                        const float* coef, float* rowg, float* colg,
+                                        float* colpart, float* df0, float* df1, int B, int P,
+                                        int L, int C, float inv_temp, float alpha, float gamma,
+                                        float grad_scale, void* stream) {
+  if (bad_shape(B, P, L, C, MAX_C_WIDE)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_pt = (P + opp::BR - 1) / opp::BR;
+  const int n_pt = pad_rows(P) / TM;
   const Args a = make_args(f0, f1, gt, row_lse, col_lse, coef, rowg, colg, P, L, C, inv_temp,
                            alpha, gamma, grad_scale);
-  cc::gsum_cc_kernel<<<dim3(n_pt, B), opp::NT, 0, st>>>(a, rowg, colpart);
+  static int have[opp::MAX_DEVICES];
+  opp::raise_smem_limit(gsum_wide_kernel, WIDE_SMEM, have);
+  gsum_wide_kernel<<<dim3(n_pt, B), NT, WIDE_SMEM, st>>>(a, rowg, colpart);
   colg_reduce<<<dim3((L + 255) / 256, B), 256, 0, st>>>(colpart, colg, n_pt, L);
-  cc::dfeat_cc_kernel<false><<<dim3(n_pt, B), opp::NT, 0, st>>>(a, df0);
-  cc::dfeat_cc_kernel<true><<<dim3((L + opp::BR - 1) / opp::BR, B), opp::NT, 0, st>>>(a, df1);
-  return (int)cudaGetLastError();
+  int rc = (int)cudaGetLastError();
+  if (rc == 0) rc = launch_dfeat_wide<false>(a, df0, n_pt, B, st);
+  if (rc == 0) rc = launch_dfeat_wide<true>(a, df1, (L + TM - 1) / TM, B, st);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
+
+// Blocks of a cluster of the wide instance's feature gradients at C channels.
+extern "C" int opp_coarse_loss_cluster_size(int C) { return wdf::cluster_size(C); }
 
 // Row tiles of the colpart scratch ([B, tiles, L]), both instances.
 extern "C" int opp_coarse_loss_row_tiles(int P) { return pad_rows(P) / TM; }

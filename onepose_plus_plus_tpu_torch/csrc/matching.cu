@@ -113,9 +113,7 @@ using opp::tc::pad_channels;
 using opp::tc::pad_rows;
 using opp::tc::quad_max;
 using opp::tc::quad_sum;
-using opp::tc::sim_product;
 using opp::tc::smem_bytes;
-using opp::tc::Tiles;
 using opp::tc::TM;
 using bf16 = __nv_bfloat16;
 
@@ -143,26 +141,7 @@ __global__ void pack_operand_kernel(const T* __restrict__ src, bf16* __restrict_
   *reinterpret_cast<uint4*>(dst + i * 8) = *reinterpret_cast<const uint4*>(out);
 }
 
-// The bf16 similarity tile (sim_tile_tc.cuh) as the passes read it.
-struct Bf16Sim {
-  static constexpr int NC = TM;  // columns of s a product gives
-  Tiles tl;
-  int cp;
-  uint32_t a_addr = 0;
-  __device__ Bf16Sim(unsigned char* smem, int cp_, const bf16* f1b, int n_tiles)
-      : tl(smem, cp_, f1b, n_tiles), cp(cp_) {}
-  __device__ __forceinline__ void start(const bf16* f0_tile) {
-    tl.start(f0_tile);
-    a_addr = tl.resident();
-  }
-  __device__ __forceinline__ int n_tiles() const { return tl.n_tiles; }
-  // issued and committed only: the caller waits
-  __device__ __forceinline__ void product(float (&acc)[32], int it) const {
-    sim_product(acc, a_addr, tl.wait(it), cp);
-  }
-  __device__ __forceinline__ float* cols(int it) const { return tl.cols(it); }
-  __device__ __forceinline__ void release(int it) const { tl.release(it); }
-};
+using opp::tc::Bf16Sim;  // the bf16 similarity tile (sim_tile_tc.cuh)
 
 // The split-TF32 tile (sim_tile_tf32.cuh): products complete on return.
 using opp::tf::Tf32Sim;

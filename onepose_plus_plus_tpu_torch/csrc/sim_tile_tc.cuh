@@ -132,6 +132,28 @@ __device__ __forceinline__ void sim_product(float (&acc)[32], uint32_t a, uint32
   wg::commit();
 }
 
+// The tile as the passes of K2 (matching.cu) and K5 (coarse_loss.cu) read it:
+// f0's 64-row tile resident, f1's tiles streamed; product(acc, it) is issued
+// and committed only, the caller waits (wg::wait<0>, fence_regs).
+struct Bf16Sim {
+  static constexpr int NC = TM;  // columns of s a product gives
+  Tiles tl;
+  int cp;
+  uint32_t a_addr = 0;
+  __device__ Bf16Sim(unsigned char* smem, int cp_, const __nv_bfloat16* f1b, int n_tiles)
+      : tl(smem, cp_, f1b, n_tiles), cp(cp_) {}
+  __device__ __forceinline__ void start(const __nv_bfloat16* f0_tile) {
+    tl.start(f0_tile);
+    a_addr = tl.resident();
+  }
+  __device__ __forceinline__ int n_tiles() const { return tl.n_tiles; }
+  __device__ __forceinline__ void product(float (&acc)[32], int it) const {
+    sim_product(acc, a_addr, tl.wait(it), cp);
+  }
+  __device__ __forceinline__ float* cols(int it) const { return tl.cols(it); }
+  __device__ __forceinline__ void release(int it) const { tl.release(it); }
+};
+
 // Reductions of the fragment: over the quad (a row's 4 lanes) and over the 8
 // quads of a warp (a column's 8 lanes), in a fixed order.
 __device__ __forceinline__ float quad_max(float v) {

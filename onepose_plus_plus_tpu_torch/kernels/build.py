@@ -65,8 +65,9 @@ _SIGNATURES = {
     "opp_window_scatter_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "opp_coarse_loss_fwd": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
     "opp_coarse_loss_bwd": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
-    "opp_coarse_loss_fwd_cc": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-    "opp_coarse_loss_bwd_cc": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
+    "opp_coarse_loss_fwd_wide": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
+    "opp_coarse_loss_bwd_wide": [_P] * 11 + [_I] * 4 + [_F] * 4 + [_P],
+    "opp_coarse_loss_cluster_size": [_I],
     "opp_coarse_loss_row_tiles": [_I],
     "opp_patch_gather_i32": [_P] * 4 + [_L] * 4 + [_I] * 7 + [_P],
     "opp_patch_gather_i64": [_P] * 4 + [_L] * 4 + [_I] * 7 + [_P],

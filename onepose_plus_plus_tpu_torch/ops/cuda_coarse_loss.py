@@ -18,9 +18,9 @@ bf16 before the two products with the features (f32 accumulation).
 What bounds it on the card: seven similarity-sized products on the tensor
 cores (2*B*P*L*C FLOP each, ~59 GFLOP at the train shapes), then ~14
 transcendentals per similarity element. Two instances by width
-(:func:`k5_instance`), as K1 and K2 have:
+(:func:`k5_instance`), as K1 and K2 have, both on the tensor cores:
 
-- **C <= 576, the tensor cores.** Every pass runs on the tile of
+- **C <= 576, the resident tile.** Every pass runs on the tile of
   ``csrc/sim_tile_tc.cuh`` over operands packed once per forward
   (``ops/cuda_matching.py::pack_operand``, two launches that also scale and
   round the features, the backward scaling their gradients), recomputing its
@@ -34,14 +34,18 @@ transcendentals per similarity element. Two instances by width
   column statistics. The second product's accumulators hold 256 output
   channels; above that each 256-channel chunk is a block of its own that
   recomputes its similarity tiles (one more first product a chunk).
-- **576 < C <= 4096 (K1's widest), the CUDA cores.** The wrapper scales and
-  rounds the features to bf16 in PyTorch (no pack: the tiles do not fit the
-  tensor-core block); the LSEs come from K2's wide bf16 LSE pass on the
-  tensor cores (``opp_dual_lse_wide_bf16``, ``csrc/sim_tile_wide.cuh``) over
-  those values packed for it (``pack_wide_operand``, two launches), and the
-  loss, g sums and feature gradients run on ``csrc/sim_tile.cuh``'s f32
-  tile; the feature gradients add each streamed tile's product into the
-  block's own output rows, in order. Right first, not tuned.
+- **576 < C <= 4096 (K1's widest), the channel-streaming tile.** The operands
+  are packed once by K2's wide pack (:func:`pack_wide_operand`: f0 in 64-row,
+  f1 in 128-row tiles of 64-channel chunks) and serve K2's wide LSE pass
+  (``opp_dual_lse_wide_bf16``) and K5's own passes alike. The loss and g sums
+  run the same epilogues on ``csrc/sim_tile_wide.cuh``'s tile (128 columns a
+  product). The feature gradients run in thread-block clusters of
+  ``ceil(Cp / 256)`` blocks (Cp: C padded to 64), one cluster per 64-row tile
+  of the own operand: each block holds 256 output channels and the products
+  over those channels, the partial similarities are summed across the cluster
+  in rank order through distributed shared memory, and each dsim element is
+  formed once, rounded to bf16 and shared with every block of the cluster
+  (``csrc/coarse_loss.cu``, ``dfeat_wide_kernel``).
 
 The count normalisation and ``max_conf`` live in the wrapper, as in JAX; in
 data-parallel training their sums, counts and maximum are the global
@@ -49,34 +53,50 @@ batch's (``parallel.comm``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr
 from ..parallel.comm import batch_max, batch_sum
-from .cuda_matching import PACK_ROWS, TC_MAX_CHANNELS, WIDE_COLS, pack_operand, pack_wide_operand
+from .cuda_matching import (PACK_ROWS, TC_MAX_CHANNELS, WIDE_CHANNELS, WIDE_COLS, pack_operand,
+                            pack_wide_operand)
 
 LOGCAP = -1e-6  # log conf <= log(1 - ~1e-6): the negative term's log1p stays finite
-TC_CHUNK = 256  # output channels of one tensor-core feature-gradient block (csrc/coarse_loss.cu: MAXC)
-CC_MAX_CHANNELS = 4096  # the CUDA-core instance's widest operand, K1's widest (csrc/coarse_loss.cu: MAXC_CC)
+TC_CHUNK = 256  # output channels of one tensor-core feature-gradient block (csrc/coarse_loss.cu: MAXC, wdf::S)
+WIDE_MAX_CHANNELS = 4096  # the wide instance's widest operand, K1's widest (csrc/coarse_loss.cu: MAX_C_WIDE)
 
 
 def k5_instance(c: int) -> Tuple[str, int]:
-    """The instance K5 runs at C channels on the card, and how many 256-channel
-    chunks its feature gradients take: ``("tc", ceil(Cp / 256))`` on the
-    tensor cores up to 576 channels (Cp: C padded to 16), ``("cuda_cores", 1)``
-    up to 4096. Wider raises: K1 stops at 4096 too, so no model past it can run
-    its coarse transformer on the card."""
+    """The instance K5 runs at C channels on the card, and how many blocks
+    share its feature gradients' output channels, 256 each:
+    ``("tc", ceil(Cp / 256))`` on the resident tile up to 576 channels (Cp: C
+    padded to 16; a block per 256-channel chunk), ``("wide", ceil(Cp / 256))``
+    up to 4096 (Cp: C padded to 64; the blocks of one thread-block cluster).
+    Wider raises: K1 stops at 4096 too, so no model past it can run its coarse
+    transformer on the card."""
     if c <= 0:
         raise ValueError(f"coarse focal loss kernel: C={c}")
     if c <= TC_MAX_CHANNELS:
         cp = -(-c // 16) * 16
         return "tc", -(-cp // TC_CHUNK)
-    if c <= CC_MAX_CHANNELS:
-        return "cuda_cores", 1
-    raise ValueError(f"coarse focal loss kernel: C={c} > {CC_MAX_CHANNELS}, the widest coarse layer "
+    if c <= WIDE_MAX_CHANNELS:
+        cp = -(-c // WIDE_CHANNELS) * WIDE_CHANNELS
+        return "wide", -(-cp // TC_CHUNK)
+    raise ValueError(f"coarse focal loss kernel: C={c} > {WIDE_MAX_CHANNELS}, the widest coarse layer "
                      f"K1 runs (ops/cuda_encoder.py); no model this wide runs on the card")
+
+
+def wide_slices(c: int) -> List[Tuple[int, int]]:
+    """(first channel, width) of each block's output slice in a cluster of the
+    wide instance's feature gradients (``csrc/coarse_loss.cu``: block j holds
+    [256 j, 256 j + w_j) of C padded to 64; the last slice may be 64, 128 or 192
+    wide). Its rank order is the order the partial similarities are summed in."""
+    instance, n = k5_instance(c)
+    if instance != "wide":
+        raise ValueError(f"coarse focal loss kernel: C={c} does not run the wide instance")
+    cp = -(-c // WIDE_CHANNELS) * WIDE_CHANNELS
+    return [(TC_CHUNK * j, min(TC_CHUNK, cp - TC_CHUNK * j)) for j in range(n)]
 
 
 def _focal_terms(conf: torch.Tensor, log_conf: torch.Tensor, gamma: float):
@@ -122,17 +142,17 @@ def _check(f0, f1, gt):
 
 
 def _operands(f0, f1, scale, instance):
-    """The kernels' operands: packed for the tensor cores (the pack scales and
-    rounds), else (f * scale) rounded to bf16 as the plain version rounds."""
+    """The kernels' operands, packed once (the pack scales and rounds to bf16):
+    the resident tile's layout up to 576 channels, K2's wide layout above."""
     if instance == "tc":
         return pack_operand(f0, scale), pack_operand(f1, scale)
-    return tuple((f * scale if scale != 1.0 else f).to(torch.bfloat16).contiguous() for f in (f0, f1))
+    return pack_wide_operand(f0, scale, PACK_ROWS), pack_wide_operand(f1, scale, WIDE_COLS)
 
 
 # C entries of each instance: (LSE pass, forward, backward)
 _ENTRIES = {
     "tc": ("opp_dual_lse_bf16", "opp_coarse_loss_fwd", "opp_coarse_loss_bwd"),
-    "cuda_cores": ("opp_dual_lse_wide_bf16", "opp_coarse_loss_fwd_cc", "opp_coarse_loss_bwd_cc"),
+    "wide": ("opp_dual_lse_wide_bf16", "opp_coarse_loss_fwd_wide", "opp_coarse_loss_bwd_wide"),
 }
 
 
@@ -152,10 +172,7 @@ class _CoarseFocalSums(torch.autograd.Function):
         pos, neg, mx = (torch.empty((b, p), dtype=f32, device=device) for _ in range(3))
         stream = stream_ptr(device)
         f0p, f1p = _operands(f0, f1, scale, instance)
-        l0, l1 = f0p, f1p
-        if instance == "cuda_cores":  # the LSE pass reads the same bf16 values packed for K2's wide tile
-            l0, l1 = pack_wide_operand(f0p, 1.0, PACK_ROWS), pack_wide_operand(f1p, 1.0, WIDE_COLS)
-        lib.call(lse_entry, ptr(l0), ptr(l1), None, None, ptr(row_lse), ptr(col_lse),
+        lib.call(lse_entry, ptr(f0p), ptr(f1p), None, None, ptr(row_lse), ptr(col_lse),
                  ptr(part), b, p, l, c, inv_temp, stream)
         lib.call(fwd_entry, ptr(f0p), ptr(f1p), ptr(gt), ptr(row_lse), ptr(col_lse),
                  ptr(pos), ptr(neg), ptr(mx), b, p, l, c, inv_temp, alpha, gamma, stream)
@@ -198,9 +215,8 @@ def coarse_focal_sums(
     """K5's core: (alpha * pos sum, (1 - alpha) * neg sum, max conf) of the
     operands ``(f0 * scale)`` and ``(f1 * scale)`` rounded to bf16,
     differentiable in f0 [B, P, C] and f1 [B, L, C] (float32 or bfloat16). On
-    the card the scale and the rounding happen in the operand pack (up to 576
-    channels) or in PyTorch before the CUDA-core instance. CPU tensors run the
-    plain version."""
+    the card the scale and the rounding happen in the operand pack. CPU tensors
+    run the plain version."""
     if f0.device.type == "cpu":
         f0, f1 = ((f * scale if scale != 1.0 else f).to(torch.bfloat16) for f in (f0, f1))
         return coarse_focal_sums_plain(f0, f1, gt, inv_temp, alpha, gamma)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K3-K7 of one checkout of the port, for A/B runs on one card.
 
-    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1 | --k2]    # needs one CUDA GPU and nvcc
+    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1 | --k2 | --k5]    # needs one CUDA GPU and nvcc
 
 Imports ``onepose_plus_plus_tpu_torch`` from DIR (default: the checkout this
 script lies in), builds its kernels there, and times, on inputs made from a
@@ -43,7 +43,11 @@ only K2 (``dual_softmax_rowcol_stats``) at [16, 7000] x [16, 4096] for C = 640, 
 launch by name, the instance the tree routes to where it names one (a tree from before the
 wide instances runs these widths on its CUDA-core tile, over a second a call at 2048), and
 the mean distance of row_lse to float64 at [2, 1000] x [2, 700] x 2048 beside the plain
-version's. Prints one JSON line. Only entry points that every checkout
+version's. With ``--k5``, only K5 (``coarse_focal_sums``, forward and backward) with bf16
+operands at the train shapes [4, 7000] x [4, 4096] for C = 640, 1024, 2048 and 4096: whole call
+(median of 3), device time a call of every launch by name (templated kernels by instance)
+and the instance the tree routes to (a tree from before the wide tensor-core instance runs
+these widths on its CUDA-core kernels, half a second a call at 4096). Prints one JSON line. Only entry points that every checkout
 of the port has are called, so that two trees (an older commit unpacked
 beside this one) can be run in turns in one session on one card: parent,
 change, change, parent.
@@ -64,6 +68,7 @@ def main() -> int:
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
     parser.add_argument("--k1", action="store_true", help="time only K1's bf16 and f32 layers at self [4, 4096, C]")
     parser.add_argument("--k2", action="store_true", help="time only K2 at [16, 7000] x [16, 4096] x C")
+    parser.add_argument("--k5", action="store_true", help="time only K5 forward + backward at [4, 7000] x [4, 4096] x C")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -287,6 +292,28 @@ def main() -> int:
             rec[f"K2_{dt}_2x1000x700_c{c}_row_lse_to_float64"] = {
                 "kernel": (got.double() - lse64).abs().mean().item(),
                 "plain": (ref.double() - lse64).abs().mean().item()}
+        print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
+        return 0
+    if args.k5:
+        from onepose_plus_plus_tpu_torch.ops import cuda_coarse_loss
+
+        rec = {}
+        for c in (640, 1024, 2048, 4096):
+            f0 = (torch.randn(4, 7000, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
+            f1 = (torch.randn(4, 4096, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
+            gt = torch.randint(-1, 4096, (4, 7000), generator=gen, device="cuda", dtype=torch.int32)
+
+            def call():
+                a0, a1 = f0.clone().requires_grad_(), f1.clone().requires_grad_()
+                pos, neg, _ = cuda_coarse_loss.coarse_focal_sums(a0, a1, gt, 1 / 0.0801, 0.5, 2.0)
+                (pos * 1e-4 + neg * 1e-8).backward()
+
+            named, dev = launches_ms(call, reps=2, templates=True)
+            rec[f"K5_bf16_4x7000x4096_c{c}"] = {"whole_ms": whole_ms(call, reps=3), "device_ms": dev,
+                                                "launches": named,
+                                                "instance": cuda_coarse_loss.k5_instance(c)}
+            del f0, f1
+            torch.cuda.empty_cache()
         print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
         return 0
     gathers = {}

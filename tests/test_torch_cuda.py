@@ -503,19 +503,22 @@ def test_k2_wide_instances_match_plain_and_repeat_bitwise(gen, b, p, l, c, dtype
 
 
 def test_k5_wide_instance_takes_its_lse_from_the_wide_tile(gen):
-    """K5 above 576 channels (its CUDA-core loss, g-sum and feature-gradient
-    passes) takes its row and column LSEs from K2's wide bf16 LSE pass."""
+    """K5 above 576 channels takes its row and column LSEs from K2's wide bf16
+    LSE pass over the operands its own passes read (one pack each), and runs
+    its loss, g sums and feature gradients on the wide instance's kernels."""
     f0, f1, gt = _k5_inputs(gen, 2, 333, 200, 640)
-    assert k5_instance(640) == ("cuda_cores", 1)
+    assert k5_instance(640) == ("wide", 3)
 
     def run():
         a0, a1 = f0.clone().requires_grad_(), f1.clone().requires_grad_()
         pos, neg, _ = coarse_focal_sums(a0, a1, gt, 1 / (0.08 + 1e-4), 0.5, 2.0)
+        (pos + neg).backward()
         return pos, neg
 
     _, names = _names(run)
-    assert {"pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "loss_cc_kernel"} <= names, names
-    assert not {"lse_kernel", "lse_tc_kernel"} & names, names
+    assert {"pack_wide_bf16_kernel", "lse_wide_bf16_kernel", "col_lse_reduce", "loss_wide_kernel",
+            "gsum_wide_kernel", "colg_reduce", "dfeat_wide_kernel"} <= names, names
+    assert not {"lse_kernel", "lse_tc_kernel", "loss_tc_kernel", "dfeat_tc_kernel"} & names, names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -744,14 +747,24 @@ def _k5_against_plain(gen, b, p, l, c):
         assert torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item() > 0.999
 
 
+def test_k5_wide_cluster_size_is_the_width_rule(gen):
+    """The wide instance's kernels size their clusters as k5_instance says, at
+    every width it takes."""
+    lib = kernels.build()
+    for c in range(577, 4097):
+        assert lib.lib.opp_coarse_loss_cluster_size(c) == k5_instance(c)[1], c
+
+
 @pytest.mark.parametrize("b,p,l,c,instance", [
     (2, 333, 200, 384, ("tc", 2)), (2, 333, 200, 512, ("tc", 2)), (1, 200, 130, 520, ("tc", 3)),
-    (2, 333, 200, 640, ("cuda_cores", 1)), (2, 333, 200, 1024, ("cuda_cores", 1)),
-    (1, 129, 65, 4096, ("cuda_cores", 1)),
+    (2, 333, 200, 640, ("wide", 3)), (2, 333, 200, 1024, ("wide", 4)),
+    (1, 129, 65, 4096, ("wide", 16)),
+    (3, 333, 201, 600, ("wide", 3)), (3, 333, 201, 1000, ("wide", 4)), (3, 129, 65, 4000, ("wide", 16)),
 ])
 def test_k5_wide_instances_match_plain_and_repeat_bitwise(gen, b, p, l, c, instance):
-    """K5 above 256 channels: the tensor cores in 256-channel output chunks up
-    to 576, the CUDA cores up to 4096 (K1's widest)."""
+    """K5 above 256 channels: the resident tile in 256-channel output chunks up
+    to 576, the wide instance's clusters of 256-channel slices up to 4096
+    (K1's widest), ragged widths (a narrower last slice) and ragged P and L."""
     assert k5_instance(c) == instance
     _k5_against_plain(gen, b, p, l, c)
 
