@@ -12,20 +12,19 @@ phase 2, and phase 10, which runs right after phase 6:
      (batch 16), f32 and bf16, with CUDA-event medians over 20 runs; K1 also
      at the LoFTR shape [8, 4096, 256], with masks and at a small ragged shape,
      timed with packed weights and split by launch, a bf16 and an f32 layer
-     at C = 64 through K1's CUDA-core instances, and K1 at the JAX kernel's
-     widths above 512, a one-head layer and its own tests' other widths
-     ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1), (256, 4), (128, 8))
-     in both dtypes and at head widths 24 and 8 ((384, 16), (128, 16)) in f32
-     (f32: the wide split-TF32 instance, max|d| <= 1e-4; bf16: the wide
-     tensor-core instance), bitwise repeatable, faster as whole calls than the
-     plain version and the CUDA-core instance of the operand type (timed in
-     turns with it, and held to the plain version itself: bitwise repeatable,
-     by kernel name), each with its device time, plain version and bound; the
-     wide instances at self [4, 4096, C] for C = 512, 1024 and 2048 with their
-     share of the operations bound (f32: of the f32 bound and of the 3xTF32
-     floor, beside the CUDA-core f32 instance's device time and error; at
-     C = 512 the mean distance to the layer in float64, within 2x plain
-     f32's, beside single TF32's); the wide chains at (256, 8)
+     at C = 64 through K1's tensor-core chains (C padded to 64 channels), and
+     K1 at the JAX kernel's widths above 512, a one-head layer, its own tests'
+     other widths ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1),
+     (256, 4), (128, 8)) and head widths 24 and 8 ((384, 16), (128, 16)), in
+     both dtypes (f32: the split-TF32 chain, max|d| <= 1e-4; bf16: the bf16
+     chain), bitwise repeatable, by kernel name, faster as whole calls than
+     the plain version, each with its device time, plain version and bound;
+     the chains at self [4, 4096, C] for C = 512, 1024 and 2048, bf16 at
+     (512, 64) (head width 8) and both dtypes at C = 64, 96 and 160 (8 heads),
+     bitwise repeatable, with their share of the operations bound (f32: of
+     the f32 bound and of the 3xTF32 floor; at C = 512 the mean distance to
+     the layer in float64, within 2x plain f32's, beside single TF32's); the
+     wide chains at (256, 8)
      through forced packs beside the instances that run that width ("tcw"
      against "tc", "tcw_tf32" against "tf32x3", self [16, 7000, 256]);
      K3 exact at the query shape (both
@@ -45,7 +44,7 @@ phase 2, and phase 10, which runs right after phase 6:
      train shape [4, ...], each with its f32 bound and 3xTF32 floor, split by
      launch name. Every phase that runs K1 or K2 in f32 at C = 256 (3, 7c, 7d,
      8b, 8d, 9e) checks by the profiler's kernel names that the split-TF32
-     instances ran and no CUDA-core f32 kernel of K1 or K2; 2n K3, K4 and K6
+     instances ran and no bf16 kernel of K1; 2n K3, K4 and K6
      at pixels no 16-byte vector divides (bf16 C = 196, 130, 33; f32 C = 130,
      33: K3's span copy window_span_kernel, K4's span sum window_sum_kernel,
      K6's span copy) at the query, train and sparse-FPN shapes, K3 and K6
@@ -476,7 +475,7 @@ K1_PREVIOUS_MS = 7.455  # the CUDA-core design at the recorded shape (NVIDIA H10
 
 def phase2_k1(gen) -> dict:
     """K1 against its plain version: the query step's two shapes, the LoFTR
-    shape, a masked and a small ragged case; f32 (CUDA cores) and bf16 operands
+    shape, a masked and a small ragged case; f32 (split TF32) and bf16 operands
     (tensor cores). Timed with packed weights, as the model calls it."""
     worst, rec = 0.0, {}
     cases = (("cross", B, 4096, 7000, False), ("self", B, 7000, None, False),
@@ -541,75 +540,59 @@ def phase2_k1(gen) -> dict:
 
 
 def phase2_k1_narrow(gen) -> None:
-    """A bf16 layer at a width the tensor-core instance does not take (C = 64, 8
-    heads, as the narrow configurations) runs K1's CUDA-core bf16 instance, an
-    f32 one its CUDA-core f32 instance (no split-TF32 chain takes C = 64)."""
-    torch.manual_seed(0)
-    layer = LoFTREncoderLayer(64, 8, "linear", dtype=torch.bfloat16).cuda().eval()
+    """A layer at a width no JAX kernel takes (C = 64, 8 heads, as the narrow
+    configurations), through the model's layer: bf16 operands on the bf16
+    chain, f32 on the split-TF32 chain (C padded to 64 channels, 16 rows of
+    head sums at head width 8), each held to the plain version, bitwise
+    repeatable, by kernel name, with its whole call, device time and bound."""
     x = torch.randn(4, 1000, 64, generator=gen, device="cuda")
     src = torch.randn(4, 700, 64, generator=gen, device="cuda")
-    with torch.no_grad():
-        before = kernels.launch_counts()["K1_encoder_layer"]
-        got = layer(x, src, fused=True)
-        launched = kernels.launch_counts()["K1_encoder_layer"] - before
-        ref = encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.bfloat16)
-        rows, busy, _ = device_rows(lambda: layer(x, src, fused=True), reps=5)
-    torch.cuda.synchronize()
-    d = (got - ref).abs()
-    log(f"[2] K1 bf16 at C = 64, 8 heads, x{tuple(x.shape)} src{tuple(src.shape)}: instance "
-        f"{layer.packed_weights().instance!r}, {launched} launch, max|d| {d.max().item():.3e} (<= 5e-2), "
-        f"mean|d| {d.mean().item():.3e} (<= 5e-3); launches {launch_names(rows)}")
-    check(layer.packed_weights().instance == "bf16" and launched == 1
-          and d.max().item() <= 5e-2 and d.mean().item() <= 5e-3 and bool(torch.isfinite(got).all()),
-          "K1's CUDA-core bf16 instance disagrees at C = 64")
-    check(only_launches(rows, K1_CC_NAMES), "a C = 64 bf16 layer launches something besides K1's CUDA-core kernels")
-    with torch.no_grad():
-        ms = time_ms(lambda: layer(x, src, fused=True))
-        pms = time_ms(lambda: encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.bfloat16))
-    b = bound(*k1_work(4, 1000, 700, c=64, w_bytes=2), torch.bfloat16)
-    log(f"[2] K1 bf16 at C = 64 (CUDA cores): kernel {ms:.4f} ms whole call, device {busy / 5:.4f} ms a call, "
-        f"plain {pms:.4f} ms (medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 989 TFLOP/s bf16), "
-        f"{100 * b['bound_ms'] / (busy / 5):.1f} % of it by device time; no single PyTorch call computes the layer")
-    torch.manual_seed(0)
-    layer = LoFTREncoderLayer(64, 8, "linear", dtype=torch.float32).cuda().eval()
-    with torch.no_grad():
-        before = kernels.launch_counts()["K1_encoder_layer"]
-        got = layer(x, src, fused=True)
-        launched = kernels.launch_counts()["K1_encoder_layer"] - before
-        again = layer(x, src, fused=True)
-        ref = encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.float32)
-        rows, busy, _ = device_rows(lambda: layer(x, src, fused=True), reps=5)
-        ms = time_ms(lambda: layer(x, src, fused=True))
-        pms = time_ms(lambda: encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=torch.float32))
-    torch.cuda.synchronize()
-    d = (got - ref).abs().max().item()
-    b = bound(*k1_work(4, 1000, 700, c=64, w_bytes=4), torch.float32)
-    log(f"[2] K1 f32 at C = 64, 8 heads, x{tuple(x.shape)} src{tuple(src.shape)}: instance "
-        f"{layer.packed_weights().instance!r}, {launched} launch, max|d| {d:.3e} (<= 1e-3), two launches bitwise "
-        f"equal {torch.equal(got, again)}; kernel {ms:.4f} ms whole call, device {busy / 5:.4f} ms a call, plain "
-        f"{pms:.4f} ms (medians of 20); bound {b['bound_ms']:.5f} ms ({b['bound_by']}, 67 TFLOP/s f32), "
-        f"{100 * b['bound_ms'] / (busy / 5):.1f} % of it by device time; launches {launch_names(rows)}")
-    check(layer.packed_weights().instance == "f32" and launched == 1 and d <= 1e-3
-          and bool(torch.isfinite(got).all()) and torch.equal(got, again),
-          "K1's CUDA-core f32 instance disagrees at C = 64")
-    check(only_launches(rows, K1_CC_NAMES), "a C = 64 f32 layer launches something besides K1's CUDA-core kernels")
+    for dt, dtype, instance, names in (("bf16", torch.bfloat16, "tcw", K1_TCW_NAMES),
+                                       ("f32", torch.float32, "tcw_tf32", K1_TCW32_NAMES)):
+        torch.manual_seed(0)
+        layer = LoFTREncoderLayer(64, 8, "linear", dtype=dtype).cuda().eval()
+        with torch.no_grad():
+            before = kernels.launch_counts()["K1_encoder_layer"]
+            got = layer(x, src, fused=True)
+            launched = kernels.launch_counts()["K1_encoder_layer"] - before
+            again = layer(x, src, fused=True)
+            ref = encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=dtype)
+            rows, busy, _ = device_rows(lambda: layer(x, src, fused=True), reps=5)
+            ms = time_ms(lambda: layer(x, src, fused=True))
+            pms = time_ms(lambda: encoder_layer_plain(x, src, *layer.kernel_weights(), nhead=8, dtype=dtype))
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        ok = d.max().item() <= TCW32_MAX_ERR if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
+        b = bound(*k1_work(4, 1000, 700, c=64, w_bytes=dtype.itemsize), dtype)
+        tol = f"(<= {TCW32_MAX_ERR:g})" if dt == "f32" else "(<= 5e-2)"
+        log(f"[2] K1 {dt} at C = 64, 8 heads, x{tuple(x.shape)} src{tuple(src.shape)}: instance "
+            f"{layer.packed_weights().instance!r}, {launched} launch, max|d| {d.max().item():.3e} {tol}, "
+            f"mean|d| {d.mean().item():.3e}{'' if dt == 'f32' else ' (<= 5e-3)'}")
+        log(f"[2] K1 {dt} at C = 64: two launches bitwise equal {torch.equal(got, again)}; kernel {ms:.4f} ms whole "
+            f"call, device {busy / 5:.4f} ms a call, plain {pms:.4f} ms (medians of 20); bound {b['bound_ms']:.5f} ms "
+            f"({b['bound_by']}, {'989 TFLOP/s bf16' if dt == 'bf16' else '67 TFLOP/s f32'}), "
+            f"{100 * b['bound_ms'] / (busy / 5):.1f} % of it by device time; launches {launch_names(rows)}; no single "
+            f"PyTorch call computes the layer")
+        check(layer.packed_weights().instance == instance and launched == 1 and ok
+              and bool(torch.isfinite(got).all()) and torch.equal(got, again),
+              f"K1's {instance} chain disagrees at C = 64")
+        check(only_launches(rows, names), f"a C = 64 {dt} layer launches {launch_names(rows)}")
 
 
 K1_WIDE = ((640, 8), (768, 8), (1024, 8), (2048, 16), (512, 1))  # (C, heads) the JAX kernel takes above 512 / wide heads
 K1_JAX_TEST_WIDTHS = ((256, 4), (128, 8))  # the JAX kernel's own tests' widths besides (256, 8)
-K1_NARROW_HEADS = ((384, 16), (128, 16))  # head widths 24 and 8: f32 on the tensor cores, bf16 on the CUDA cores
-K1_TCW_REALISTIC = ((512, 8), (1024, 8), (2048, 16))  # the wide instances at self [4, 4096, C]
+K1_NARROW_HEADS = ((384, 16), (128, 16))  # head widths 24 and 8: 16 heads a 128-column attention block
+K1_TCW_REALISTIC = ((512, 8), (1024, 8), (2048, 16))  # the chains at self [4, 4096, C]
+K1_HEAD8_REALISTIC = ((512, 64),)  # bf16 at head width 8 (16 sum rows) at self [4, 4096, C]
+# both dtypes below 128 and at C not a multiple of 64 (head widths 8, 12 and 20) at self [4, 4096, C]
+K1_NARROW_REALISTIC = ((64, 8), (96, 8), (160, 8))
 _W_KEYS = ("wq", "wk", "wv", "wmerge", "wmlp0", "wmlp1")
 
 
 def _forced_pack(packed: PackedEncoderWeights, ws: dict, instance: str) -> PackedEncoderWeights:
-    """The same layer packed for another K1 instance of its operand type, timed
-    beside the one the router picks: the CUDA-core instance ("bf16", "f32"),
-    which ran every width but (256, 8) before the wide tensor-core instances,
-    or another tensor-core chain."""
+    """The same layer packed for another tensor-core instance of its operand
+    type than the one the router picks, to time the two side by side."""
     loose = tuple(ws[k].to(packed.dtype).contiguous() for k in _W_KEYS)
-    if instance in ("bf16", "f32"):
-        return PackedEncoderWeights(packed.dtype, packed.nhead, packed.width, loose, packed.ln, instance=instance)
     return PackedEncoderWeights(packed.dtype, packed.nhead, packed.width, (), packed.ln,
                                 *chunk_images(instance, *loose), instance)
 
@@ -617,38 +600,20 @@ def _forced_pack(packed: PackedEncoderWeights, ws: dict, instance: str) -> Packe
 TCW32_MAX_ERR = 1e-4  # "tcw_tf32" against plain f32: split TF32 passes it, one TF32 product does not
 
 
-def _check_cuda_cores(call, ref, dt: str, where: str) -> float:
-    """K1's CUDA-core instance of dt, through a forced pack, held to the plain
-    version as when it ran these widths: f32 max|d| <= 1e-3, bf16 max 5e-2 and
-    mean 5e-3; two launches bitwise equal, its kernels and no other K1 kernel.
-    Its max|d|."""
-    got, again = call(), call()
-    torch.cuda.synchronize()
-    d = (got - ref).abs()
-    ok = d.max().item() <= 1e-3 if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
-    check(ok and bool(torch.isfinite(got).all()) and torch.equal(got, again),
-          f"K1's CUDA-core {dt} instance at {where} disagrees: max|d| {d.max().item():.3e}")
-    rows, _, _ = device_rows(call)
-    k1 = {_short(r[2]) for r in rows} & set(K1_NAMES)  # the wrapper also casts bool masks
-    check(k1 == set(K1_CC_NAMES), f"K1's CUDA-core {dt} instance launches {launch_names(rows)}")
-    return d.max().item()
-
-
 def phase2_k1_wide(gen) -> None:
     """K1 at the JAX kernel's widths above 512, at a head as wide as the layer,
     at its own tests' other widths (256, 4), (128, 8) and at head widths 24 and
-    8: f32 operands on the wide split-TF32 instance, bf16 operands on the wide
-    bf16 instance (where its 16-channel head step allows), held to the plain
-    version, bitwise repeatable, by kernel name, and timed as whole calls
-    beside the plain version and the CUDA-core instance of the operand type
-    that ran these widths before. Small shapes: seconds, not minutes."""
+    8 (16 heads a 128-column attention block): f32 operands on the split-TF32
+    chain, bf16 operands on the bf16 chain, held to the plain version, bitwise
+    repeatable, by kernel name, and timed as whole calls beside the plain
+    version (the CUDA-core kernels that ran some of these widths before are
+    timed against the chains by ``scripts/torch_kernel_ab.py --k1`` on an older
+    tree). Small shapes: seconds, not minutes."""
     for c, nhead in K1_WIDE + K1_JAX_TEST_WIDTHS + K1_NARROW_HEADS:
         x, src, w = _encoder_inputs(gen, 150, 97, c=c, n=2)
         masks = {"x_mask": torch.rand(2, 150, generator=gen, device="cuda") < 0.8,
                  "source_mask": torch.rand(2, 97, generator=gen, device="cuda") < 0.8}
         for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            if dt == "bf16" and (c, nhead) in K1_NARROW_HEADS:
-                continue
             ws = w if dtype == torch.float32 else {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
             packed = pack_encoder_weights(**ws, nhead=nhead, dtype=dtype)
             got = fused_encoder_layer_packed(x, src, packed, **masks)
@@ -659,18 +624,13 @@ def phase2_k1_wide(gen) -> None:
             tol = (TCW32_MAX_ERR, None) if dt == "f32" else (5e-2, 5e-3)
             instance, names = ("tcw_tf32", K1_TCW32_NAMES) if dt == "f32" else ("tcw", K1_TCW_NAMES)
             pms = time_ms(lambda: encoder_layer_plain(x, src, **ws, **masks, nhead=nhead, dtype=dtype), reps=5)
-            cc_packed = _forced_pack(packed, ws, dt)
-            ms, cc_ms = turns_ms(lambda: fused_encoder_layer_packed(x, src, packed, **masks),
-                                 lambda: fused_encoder_layer_packed(x, src, cc_packed, **masks))
+            ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed, **masks))
             rows, _, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed, **masks), reps=3)
             mine = [r for r in rows if _short(r[2]) in names]  # the wrapper also casts the bool masks
             check({_short(r[2]) for r in mine} == set(names)
                   and not {_short(r[2]) for r in rows} & set(K1_NAMES) - set(names),
                   f"K1 {dt} at C = {c} launches {launch_names(rows)}")
             dev = sum(r[0] for r in mine) / 3  # device ms a call
-            # profiled after the timed turns, as the chain itself is
-            cc_d = _check_cuda_cores(lambda: fused_encoder_layer_packed(x, src, cc_packed, **masks), ref, dt,
-                                     f"C = {c}, {nhead} heads")
             n_bytes, ops = k1_work(2, 150, 97, c=c, nhead=nhead, w_bytes=dtype.itemsize)
             b = bound(n_bytes, ops, dtype)
             floor = "" if dt == "bf16" else (f", 3xTF32 floor {1e3 * 3 * ops / TF32_OPS_PER_S:.5f} ms "
@@ -679,43 +639,44 @@ def phase2_k1_wide(gen) -> None:
                 f"{packed.instance!r}, max|d| {d.max().item():.3e} (<= {tol[0]:g}), mean|d| {d.mean().item():.3e}"
                 f"{'' if tol[1] is None else f' (<= {tol[1]:g})'}, two launches bitwise equal "
                 f"{torch.equal(got, again)}; kernel {ms:.3f} ms whole call, device "
-                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms, "
-                f"the CUDA-core {dt} instance {cc_ms:.3f} ms (max|d| {cc_d:.3e}; kernel and CUDA cores in four "
-                f"turns each, the least median of 10 calls; plain median of 5); bound {b['bound_ms']:.5f} ms "
+                f"{dev:.4f} ms a call of K1's kernels (every launch: {launch_names(rows)}), plain {pms:.3f} ms "
+                f"(kernel median of 20, plain of 5); bound {b['bound_ms']:.5f} ms "
                 f"({b['bound_by']}, {'67 TFLOP/s f32' if dt == 'f32' else '989 TFLOP/s bf16'}), "
                 f"{100 * b['bound_ms'] / dev:.1f} % of it by device time{floor}")
             check(packed.instance == instance and bool(torch.isfinite(got).all()) and d.max().item() <= tol[0]
                   and (tol[1] is None or d.mean().item() <= tol[1]) and torch.equal(got, again),
                   f"K1 {dt} at C = {c}, {nhead} heads disagrees")
-            check(ms < pms and ms < cc_ms, f"K1's wide {dt} tensor-core instance at C = {c}, {nhead} heads "
-                  f"({ms:.3f} ms) is not faster than its plain version ({pms:.3f}) and the CUDA cores ({cc_ms:.3f})")
+            check(ms < pms, f"K1's {dt} chain at C = {c}, {nhead} heads ({ms:.3f} ms) is not faster than its "
+                  f"plain version ({pms:.3f})")
     phase2_k1_tcw_realistic(gen)
     phase2_k1_tcw32_realistic(gen)
     phase2_k1_at_256(gen)
 
 
 def phase2_k1_tcw_realistic(gen) -> None:
-    """The wide bf16 instance at a shape that fills the card: self [4, 4096, C]
-    (256 row tiles), against the plain version, with its device time by launch
-    and its share of the operations bound."""
-    for c, nhead in K1_TCW_REALISTIC:
+    """The bf16 chain at a shape that fills the card: self [4, 4096, C] (256 row
+    tiles), against the plain version, bitwise repeatable, with its device time
+    by launch and its share of the operations bound; at head width 8 (64 heads
+    at C = 512) and at C = 64, 96 and 160 too."""
+    for c, nhead in K1_TCW_REALISTIC + K1_HEAD8_REALISTIC + K1_NARROW_REALISTIC:
         x, _, w = _encoder_inputs(gen, 4096, None, c=c, n=4)
         ws = {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
         packed = pack_encoder_weights(**ws, nhead=nhead, dtype=torch.bfloat16)
         got = fused_encoder_layer_packed(x, x, packed)
+        again = fused_encoder_layer_packed(x, x, packed)
         ref = encoder_layer_plain(x, x, **ws, nhead=nhead, dtype=torch.bfloat16)
         torch.cuda.synchronize()
         d = (got - ref).abs()
         check(packed.instance == "tcw" and bool(torch.isfinite(got).all()) and d.max().item() <= 5e-2
-              and d.mean().item() <= 5e-3, f"K1 bf16 self [4, 4096, {c}] disagrees")
-        del got, ref
+              and d.mean().item() <= 5e-3 and torch.equal(got, again), f"K1 bf16 self [4, 4096, {c}] disagrees")
+        del got, again, ref
         ms = time_ms(lambda: fused_encoder_layer_packed(x, x, packed), reps=10)
         pms = time_ms(lambda: encoder_layer_plain(x, x, **ws, nhead=nhead, dtype=torch.bfloat16), reps=5)
         rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
         check(only_launches(rows, K1_TCW_NAMES), f"K1 bf16 self [4, 4096, {c}] launches {launch_names(rows)}")
         b = bound(*k1_work(4, 4096, 4096, c=c, nhead=nhead, w_bytes=2), torch.bfloat16)
-        log(f"[2] K1 bf16 self [4, 4096, {c}], {nhead} heads (wide tensor-core instance): max|d| "
-            f"{d.max().item():.3e}, mean|d| {d.mean().item():.3e}; kernel {ms:.4f} ms whole call (median of 10), "
+        log(f"[2] K1 bf16 self [4, 4096, {c}], {nhead} heads (the bf16 chain): max|d| "
+            f"{d.max().item():.3e}, mean|d| {d.mean().item():.3e}, two launches bitwise equal; kernel {ms:.4f} ms whole call (median of 10), "
             f"device {busy / 3:.4f} ms a call (every launch: {launch_names(rows)}), plain {pms:.3f} ms (median of 5); "
             f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, 989 TFLOP/s bf16): {100 * b['bound_ms'] / (busy / 3):.1f} % "
             f"of it by device time, {100 * b['bound_ms'] / ms:.1f} % by whole call")
@@ -724,19 +685,21 @@ def phase2_k1_tcw_realistic(gen) -> None:
 
 
 def phase2_k1_tcw32_realistic(gen) -> None:
-    """The wide split-TF32 instance at self [4, 4096, C]: against the plain f32
-    version (TF32 off), its device time by launch, its share of the f32 bound
-    (67 TFLOP/s) and of the 3xTF32 floor (three products at 495 TFLOP/s), the
-    CUDA-core f32 instance's device time on the same inputs beside it."""
-    for c, nhead in K1_TCW_REALISTIC:
+    """The split-TF32 chain at self [4, 4096, C]: against the plain f32 version
+    (TF32 off), bitwise repeatable, its device time by launch, its share of the
+    f32 bound (67 TFLOP/s) and of the 3xTF32 floor (three products at 495
+    TFLOP/s); at C = 64, 96 and 160 too."""
+    for c, nhead in K1_TCW_REALISTIC + K1_NARROW_REALISTIC:
         x, _, w = _encoder_inputs(gen, 4096, None, c=c, n=4)
         packed = pack_encoder_weights(**w, nhead=nhead, dtype=torch.float32)
         got = fused_encoder_layer_packed(x, x, packed)
+        again = fused_encoder_layer_packed(x, x, packed)
         ref = encoder_layer_plain(x, x, **w, nhead=nhead)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        check(packed.instance == "tcw_tf32" and bool(torch.isfinite(got).all()) and err <= TCW32_MAX_ERR,
-              f"K1 f32 self [4, 4096, {c}] disagrees: {err}")
+        check(packed.instance == "tcw_tf32" and bool(torch.isfinite(got).all()) and err <= TCW32_MAX_ERR
+              and torch.equal(got, again), f"K1 f32 self [4, 4096, {c}] disagrees: {err}")
+        del again
         drift = ""
         if c == K1_TCW_REALISTIC[0][0]:  # the float64 layer's distance, at the first width
             exact = encoder_layer_plain(x, x, **w, nhead=nhead, dtype=torch.float64)
@@ -750,27 +713,20 @@ def phase2_k1_tcw32_realistic(gen) -> None:
             check(e_kernel <= 2 * e_plain, f"K1 f32 self [4, 4096, {c}] drifts from float64: {e_kernel} "
                   f"against plain f32's {e_plain}")
             del exact, single
-        cc_packed = _forced_pack(packed, w, "f32")
-        cc_err = _check_cuda_cores(lambda: fused_encoder_layer_packed(x, x, cc_packed), ref, "f32",
-                                   f"self [4, 4096, {c}]")
         del got, ref
         ms = time_ms(lambda: fused_encoder_layer_packed(x, x, packed), reps=10)
         pms = time_ms(lambda: encoder_layer_plain(x, x, **w, nhead=nhead), reps=5)
         rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
         check(only_launches(rows, K1_TCW32_NAMES), f"K1 f32 self [4, 4096, {c}] launches {launch_names(rows)}")
-        cc_rows, cc_busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, cc_packed), reps=2)
-        cc_busy /= 2
-        check(only_launches(cc_rows, K1_CC_NAMES), f"K1's CUDA-core f32 instance launches {launch_names(cc_rows)}")
         n_bytes, ops = k1_work(4, 4096, 4096, c=c, nhead=nhead, w_bytes=4)
         fb = bound(n_bytes, ops, torch.float32)
         floor = 1e3 * 3 * ops / TF32_OPS_PER_S
         dev = busy / 3
-        log(f"[2] K1 f32 self [4, 4096, {c}], {nhead} heads (wide split-TF32 instance): max|d| {err:.3e} "
-            f"(<= {TCW32_MAX_ERR:g}){drift}; kernel {ms:.4f} ms whole call (median of 10), device {dev:.4f} ms a call (every launch: "
-            f"{launch_names(rows)}), plain {pms:.3f} ms (median of 5); f32 bound {fb['bound_ms']:.4f} ms "
-            f"({fb['bound_by']}, 67 TFLOP/s): {100 * fb['bound_ms'] / dev:.1f} % of it by device time; 3xTF32 floor "
-            f"{floor:.4f} ms (495 TFLOP/s): {100 * floor / dev:.1f} %; the CUDA-core f32 instance {cc_busy:.3f} ms "
-            f"device ({cc_busy / dev:.1f}x; max|d| {cc_err:.3e} (<= 1e-3); {launch_names(cc_rows)})")
+        log(f"[2] K1 f32 self [4, 4096, {c}], {nhead} heads (the split-TF32 chain): max|d| {err:.3e} "
+            f"(<= {TCW32_MAX_ERR:g}), two launches bitwise equal{drift}; kernel {ms:.4f} ms whole call (median of 10), "
+            f"device {dev:.4f} ms a call (every launch: {launch_names(rows)}), plain {pms:.3f} ms (median of 5); f32 "
+            f"bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}, 67 TFLOP/s): {100 * fb['bound_ms'] / dev:.1f} % of it by "
+            f"device time; 3xTF32 floor {floor:.4f} ms (495 TFLOP/s): {100 * floor / dev:.1f} %")
         del x
         torch.cuda.empty_cache()
 
@@ -1549,33 +1505,33 @@ def launch_names(rows) -> str:
 
 K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")  # bf16, tensor cores
 K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")  # f32, C = 256
-K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")  # other widths, CUDA cores
 K1_TCW_NAMES = ("tcw_pack_kernel", "tcw_gemm_kernel", "tcw_kv_reduce_kernel", "tcw_ln_image_kernel",
-                "tcw_ln_residual_kernel")  # bf16 at the other tensor-core widths
+                "tcw_ln_residual_kernel")  # bf16 at every other width
 K1_TCW32_NAMES = ("tcw32_pack_kernel", "tcw32_gemm_kernel", "tcw32_kv_reduce_kernel", "tcw32_ln_image_kernel",
-                  "tcw32_ln_residual_kernel")  # f32 in split TF32 at the other tensor-core widths
-K1_NAMES = K1_CC_NAMES + K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES + K1_TCW32_NAMES
+                  "tcw32_ln_residual_kernel")  # f32 in split TF32 at every other width
+K1_NAMES = K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES + K1_TCW32_NAMES
 # K2's bf16 instance (tensor cores), its operand pack first; its f32 instance in
 # split TF32 (tensor cores), its pack first; above 576 channels K2_WIDE_NAMES
 K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")
 K2_TF32_NAMES = ("pack_tf32_operand_kernel", "lse_tf32x3_kernel", "col_lse_reduce", "argmax_tf32x3_kernel",
                  "col_argmax_reduce")
 K2_NAMES = tuple(dict.fromkeys(K2_TC_NAMES + K2_TF32_NAMES + K2_WIDE_NAMES["bf16"] + K2_WIDE_NAMES["f32"]))
-# the CUDA-core f32 kernels of K1, which no f32 path at C = 256 may launch (K2 has none)
-F32_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")
+# K1's bf16 kernels, which no f32 path may launch (K5 rounds its operands to
+# bf16 in every path, so K2's bf16 LSE pass runs in f32 training)
+K1_BF16_NAMES = K1_TC_NAMES + K1_TCW_NAMES
 
 
 def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True, wide: bool = False) -> None:
     """A profiled f32 path ran the split-TF32 instances of K1 and K2 (where it
     runs them: at C = 256, or K2's wide one above 576 channels) and none of
-    K1's CUDA-core f32 kernels."""
+    K1's bf16 kernels."""
     names = {_short(r[2]) for r in rows}
     k2_names = ({"lse_wide_tf32x3_kernel", "argmax_wide_tf32x3_kernel"} if wide
                 else {"lse_tf32x3_kernel", "argmax_tf32x3_kernel"})
     want = (set(K1_TF32_NAMES) if k1 else set()) | (k2_names if k2 else set())
-    log(f"[{where}] f32 instances by name: {sorted(want & names)} ran; CUDA-core f32 kernels of K1: "
-        f"{sorted(set(F32_CC_NAMES) & names) or 'none'}")
-    check(want <= names and not set(F32_CC_NAMES) & names,
+    log(f"[{where}] f32 instances by name: {sorted(want & names)} ran; bf16 kernels of K1: "
+        f"{sorted(set(K1_BF16_NAMES) & names) or 'none'}")
+    check(want <= names and not set(K1_BF16_NAMES) & names,
           f"[{where}] the f32 path did not run K1/K2's split-TF32 instances alone: {sorted(names)}")
 K3_NAMES = ("window_gather_kernel", "window_span_kernel")
 

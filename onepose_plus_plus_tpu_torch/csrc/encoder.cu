@@ -1,4 +1,5 @@
-// K1: one LoFTR linear-attention encoder layer (x attends to source).
+// K1: one LoFTR linear-attention encoder layer (x attends to source), at
+// C = 256 with 8 heads (both coarse transformers of the configurations).
 //
 // Replaces onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer
 // (_kv_stats_kernel + _apply_kernel). The TPU kernel carries the K'^T[V|1]
@@ -13,8 +14,8 @@
 //      layer in shared memory: Q projection, elu+1, msg = num / (den + 1e-6),
 //      merge, LayerNorm, FFN over concat(x, msg) with ReLU, LayerNorm, residual.
 // Every projection and FFN product is computed in the kernels' own bodies.
-// x and source are f32; the operand type (float or bf16) is the type of the
-// weights and of every product operand: as in the TPU kernel, each activation
+// x and source are f32; the operand type (float, in split TF32, or bf16) is
+// the type of the weights and of every product operand: as in the TPU kernel, each activation
 // that enters a product (x, source, K', V, Q', K'^T[V|1], msg, LN1 out, FFN
 // hidden) is rounded to it, products accumulate in f32, and the residual adds
 // the f32 x. The output is f32.
@@ -22,7 +23,7 @@
 // Bound: operations (20 C^2 per x row, 4 C^2 per source row; x in and y out
 // are a third of that time in bytes at the tensor cores' rate).
 //
-// Three designs, four entries.
+// Two designs, two entries.
 //
 // bf16 operands (C = 256, 8 heads: both coarse transformers): the tensor
 // cores, by wgmma (wgmma.cuh). One warpgroup per block and 64 rows per tile.
@@ -71,93 +72,17 @@
 // another 128 KB of B images. Bound: 3 x 20 C^2 operations an x row at the
 // TF32 rate, and the L2 traffic of the halves (5.2 MB a 64-row apply tile).
 //
-// f32 operands at other widths, any C that is a multiple of 32 up to 4096
-// and divisible by the heads (every width the JAX kernel takes up to there,
-// with any head count): exact f32 FMAs on the CUDA cores. A block has
-// min(C, 512) threads, each looping over the channels c, c + blockDim, ...;
-// operands are staged in shared memory and read as float4 broadcasts so one
-// shared load feeds four FMAs. The stats block takes TS = 32, 16, 8 or 4
-// source rows, the most whose three [TS, C] tiles fit (32 up to C = 512, 16
-// up to 1024, 8 up to 2048). The apply block takes TL = 16, 8, 4, 2 or 1 rows
-// beside the [C, hd + 1] K'^T[V|1] table where the table fits, up to C = 512
-// (16 up to C = 256 with 8 heads, 8 at C = 384 and 512); otherwise (wide heads,
-// or C above 512) it reads the table through L2 from device memory, where the
-// reduce kernel wrote it: the threads of one head read one table row's hd + 1
-// values side by side, and each value serves the block's TL rows. bf16
-// operands at any other width than the tensor-core instance's (C = 256, 8
-// heads) run the same CUDA-core kernels with bf16 weights, each product
-// operand rounded to bf16 as it is staged.
+// Every other width runs one of the two tensor-core chains of
+// encoder_tcw.cu (bf16) and encoder_tcw_tf32.cu (split TF32).
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int CC_THREADS = 512;  // the CUDA-core kernels' largest block; threads loop over channels
-constexpr int MAX_CC_C = 4096;   // their widest layer: 4 source rows a stats block, 2 rows an apply block
-constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block can have
 constexpr float EPS = 1e-6f;
 constexpr float LN_EPS = 1e-5f;
 using opp::MAX_DEVICES;
 using opp::raise_smem_limit;
-
-// acc[r] = sum_k in[r, k] * W[k, col] for the R rows staged in `in` (row
-// stride `ld`, K columns), W row-major [K, ldw].
-template <typename T, int R>
-__device__ __forceinline__ void matvec_rows(const float* __restrict__ in, int ld, int K,
-                                            const T* __restrict__ W, int ldw, int col,
-                                            float (&acc)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  opp::mac_rows<T, R>(in, ld, K, W, ldw, col, acc);
-}
-
-template <typename T, int TS>
-__global__ void __launch_bounds__(CC_THREADS) kv_partial_kernel(const float* __restrict__ src, const T* __restrict__ wk,
-                                  const T* __restrict__ wv, const float* __restrict__ smask,
-                                  float* __restrict__ part, int S, int C, int hd) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;         // [TS, C] source tile
-  float* ks = xs + TS * C;  // [TS, C] masked K'
-  float* vs = ks + TS * C;  // [TS, C] V
-  const int tile = blockIdx.x, b = blockIdx.y, nt = blockDim.x;
-  const int s0 = tile * TS;
-  const int rows = min(TS, S - s0);
-  const float* srcb = src + ((size_t)b * S + s0) * C;
-  for (int c = threadIdx.x; c < C; c += nt)
-    for (int r = 0; r < TS; ++r)
-      xs[r * C + c] = r < rows ? opp::round_to<T>(srcb[(size_t)r * C + c]) : 0.f;
-  __syncthreads();
-
-  for (int c = threadIdx.x; c < C; c += nt) {
-    float acc[TS];
-    matvec_rows<T, TS>(xs, C, C, wk, C, c, acc);
-#pragma unroll
-    for (int r = 0; r < TS; ++r) {
-      float m = r < rows ? 1.f : 0.f;  // rows past S add nothing (elu(0)+1 = 1 otherwise)
-      if (smask != nullptr && r < rows) m *= smask[(size_t)b * S + s0 + r];
-      ks[r * C + c] = opp::round_to<T>(opp::elu_p1(acc[r]) * m);
-    }
-    matvec_rows<T, TS>(xs, C, C, wv, C, c, acc);
-#pragma unroll
-    for (int r = 0; r < TS; ++r) vs[r * C + c] = opp::round_to<T>(acc[r]);
-  }
-  __syncthreads();
-
-  // channel c = (head h, dim d): KV[h][d][e] for every e of its head, and sum K'
-  const int n_el = (hd + 1) * C;
-  float* out = part + ((size_t)b * gridDim.x + tile) * n_el;
-  for (int c = threadIdx.x; c < C; c += nt) {
-    const int h0 = (c / hd) * hd;
-    float ksum = 0.f;
-    for (int r = 0; r < TS; ++r) ksum += ks[r * C + c];
-    for (int e = 0; e < hd; ++e) {
-      float a = 0.f;
-      for (int r = 0; r < TS; ++r) a = fmaf(ks[r * C + c], vs[r * C + h0 + e], a);
-      out[(size_t)e * C + c] = a;
-    }
-    out[(size_t)hd * C + c] = ksum;
-  }
-}
 
 // kv[b, c, e] = sum over tiles of part[b, tile, e, c] (tiles in order).
 __device__ __forceinline__ void kv_reduce(const float* __restrict__ part, float* __restrict__ kv,
@@ -172,223 +97,6 @@ __device__ __forceinline__ void kv_reduce(const float* __restrict__ part, float*
   const int e = i / C, c = i % C;
   kv[(size_t)b * n_el + (size_t)c * (hd + 1) + e] = a;
 }
-__global__ void kv_reduce_kernel(const float* __restrict__ part, float* __restrict__ kv,
-                                 int n_tiles, int C, int hd) {
-  kv_reduce(part, kv, n_tiles, C, hd);
-}
-
-// STAGED: the [C, hd + 1] table is copied into shared memory (rounded to T);
-// else each value is read from device memory (through L2) and rounded there.
-template <typename T, int TL, bool STAGED>
-__global__ void __launch_bounds__(CC_THREADS) apply_kernel(const float* __restrict__ x, const float* __restrict__ kv,
-                             const T* __restrict__ wq, const T* __restrict__ wm,
-                             const T* __restrict__ w0, const T* __restrict__ w1,
-                             const float* __restrict__ ln1s, const float* __restrict__ ln1b,
-                             const float* __restrict__ ln2s, const float* __restrict__ ln2b,
-                             const float* __restrict__ qmask, float* __restrict__ y, int L,
-                             int C, int hd) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;              // [TL, C]  x tile, rounded to T
-  float* qs = xs + TL * C;       // [TL, C]  Q', then merge output / LN1
-  float* ms = qs + TL * C;       // [TL, C]  msg, then FFN output / LN2
-  float* as = ms + TL * C;       // [TL, 2C] FFN hidden
-  float* kvs = as + TL * 2 * C;  // [C, hd + 1] per-head K'^T V | sum K' (STAGED)
-  const int tile = blockIdx.x, b = blockIdx.y, nt = blockDim.x;
-  const int l0 = tile * TL;
-  const int rows = min(TL, L - l0);
-  const float* xb = x + ((size_t)b * L + l0) * C;
-  for (int c = threadIdx.x; c < C; c += nt)
-    for (int r = 0; r < TL; ++r)
-      xs[r * C + c] = r < rows ? opp::round_to<T>(xb[(size_t)r * C + c]) : 0.f;
-  const int n_el = (hd + 1) * C;
-  const float* kvb = kv + (size_t)b * n_el;
-  if (STAGED)
-    for (int i = threadIdx.x; i < n_el; i += nt) kvs[i] = opp::round_to<T>(kvb[i]);
-  __syncthreads();
-
-  float acc[TL];
-  // Q projection, feature map, query mask
-  for (int c = threadIdx.x; c < C; c += nt) {
-    matvec_rows<T, TL>(xs, C, C, wq, C, c, acc);
-#pragma unroll
-    for (int r = 0; r < TL; ++r) {
-      float q = opp::elu_p1(acc[r]);
-      if (qmask != nullptr) q *= r < rows ? qmask[(size_t)b * L + l0 + r] : 0.f;
-      qs[r * C + c] = opp::round_to<T>(q);
-    }
-  }
-  __syncthreads();
-
-  // attention: channel c = (head h, value dim e); row d of the head's table
-  // serves the block's TL rows
-  for (int c = threadIdx.x; c < C; c += nt) {
-    const int h0 = (c / hd) * hd, e = c % hd;
-    float num[TL], den[TL];
-#pragma unroll
-    for (int r = 0; r < TL; ++r) num[r] = den[r] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float kve, kvn;
-      if (STAGED) {
-        const float* row = kvs + (h0 + d) * (hd + 1);
-        kve = row[e];
-        kvn = row[hd];
-      } else {
-        const float* row = kvb + (size_t)(h0 + d) * (hd + 1);
-        kve = opp::round_to<T>(__ldg(row + e));
-        kvn = opp::round_to<T>(__ldg(row + hd));
-      }
-#pragma unroll
-      for (int r = 0; r < TL; ++r) {
-        const float q = qs[r * C + h0 + d];
-        num[r] = fmaf(q, kve, num[r]);
-        den[r] = fmaf(q, kvn, den[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < TL; ++r) ms[r * C + c] = opp::round_to<T>(num[r] / (den[r] + EPS));
-  }
-  __syncthreads();
-
-  // merge + LayerNorm 1 (into qs, free since the attention pass)
-  for (int c = threadIdx.x; c < C; c += nt) {
-    matvec_rows<T, TL>(ms, C, C, wm, C, c, acc);
-#pragma unroll
-    for (int r = 0; r < TL; ++r) qs[r * C + c] = acc[r];
-  }
-  __syncthreads();
-  opp::layernorm_rows<T>(qs, TL, C, ln1s, ln1b, LN_EPS);
-  __syncthreads();
-
-  // FFN hidden: relu(concat(x, h1) @ W0), columns c and c + C
-  for (int c = threadIdx.x; c < C; c += nt) {
-    for (int half = 0; half < 2; ++half) {
-      const int j = c + half * C;
-      float acc2[TL];
-      matvec_rows<T, TL>(xs, C, C, w0, 2 * C, j, acc);
-      matvec_rows<T, TL>(qs, C, C, w0 + (size_t)C * 2 * C, 2 * C, j, acc2);
-#pragma unroll
-      for (int r = 0; r < TL; ++r) as[r * 2 * C + j] = opp::round_to<T>(fmaxf(acc[r] + acc2[r], 0.f));
-    }
-  }
-  __syncthreads();
-
-  // FFN out + LayerNorm 2 (into ms, free since the merge)
-  for (int c = threadIdx.x; c < C; c += nt) {
-    matvec_rows<T, TL>(as, 2 * C, 2 * C, w1, C, c, acc);
-#pragma unroll
-    for (int r = 0; r < TL; ++r) ms[r * C + c] = acc[r];
-  }
-  __syncthreads();
-  opp::layernorm_rows<float>(ms, TL, C, ln2s, ln2b, LN_EPS);
-  __syncthreads();
-
-  float* yb = y + ((size_t)b * L + l0) * C;
-  for (int c = threadIdx.x; c < C; c += nt)
-    for (int r = 0; r < rows; ++r) yb[(size_t)r * C + c] = xb[(size_t)r * C + c] + ms[r * C + c];
-}
-
-// Dynamic shared memory of the CUDA-core kernels: the stats block's three
-// [TS, C] tiles, and the apply block's five [TL, C] rows, beside the [C, hd + 1]
-// K'^T[V|1] table (which grows as C^2 / nhead) where it is staged.
-size_t stats_smem(int C, int ts) { return (size_t)3 * ts * C * sizeof(float); }
-size_t apply_smem(int C, int hd, int tl, bool staged) {
-  return ((size_t)tl * 5 * C + (staged ? (size_t)C * (hd + 1) : 0)) * sizeof(float);
-}
-// The stats block's source rows: the most of 32, 16, 8, 4 whose tiles fit; 0 if none does.
-int stats_rows(int C) {
-  for (int ts = 32; ts >= 4; ts /= 2)
-    if (stats_smem(C, ts) <= SMEM_LIMIT) return ts;
-  return 0;
-}
-// The apply block's rows and where its table lives. Up to C = 512 (the widths
-// the staged design took first, kept as they were): the most of 16, 8, 4, 2,
-// 1 rows beside the staged table (16 up to C = 256 with 8 heads, 8 at C = 384
-// and 512). Wider, or where not even one row fits beside the table: the most
-// rows without it, the table read from device memory (a staged table would
-// leave one or two rows at C = 640, and every row reads all the weights).
-// rows 0 if none fits.
-constexpr int STAGED_MAX_C = 512;
-struct ApplyPlan {
-  int rows;
-  bool staged;
-};
-ApplyPlan apply_plan(int C, int hd) {
-  for (int tl = 16; tl >= 1 && C <= STAGED_MAX_C; tl /= 2)
-    if (apply_smem(C, hd, tl, true) <= SMEM_LIMIT) return {tl, true};
-  for (int tl = 16; tl >= 1; tl /= 2)
-    if (apply_smem(C, hd, tl, false) <= SMEM_LIMIT) return {tl, false};
-  return {0, false};
-}
-
-int cc_threads(int C) { return C < CC_THREADS ? C : CC_THREADS; }
-
-template <typename T, int TS>
-void launch_partial(const float* src, const void* wk, const void* wv, const float* smask,
-                    float* part, int B, int S, int C, int hd, cudaStream_t stream) {
-  static int have[MAX_DEVICES];
-  const size_t smem = stats_smem(C, TS);
-  raise_smem_limit(kv_partial_kernel<T, TS>, smem, have);
-  kv_partial_kernel<T, TS><<<dim3((S + TS - 1) / TS, B), cc_threads(C), smem, stream>>>(
-      src, static_cast<const T*>(wk), static_cast<const T*>(wv), smask, part, S, C, hd);
-}
-
-template <typename T, int TL, bool STAGED>
-void launch_apply(const float* x, const float* kv, const void* wq, const void* wm, const void* w0,
-                  const void* w1, const float* ln1s, const float* ln1b, const float* ln2s,
-                  const float* ln2b, const float* qmask, float* y, int B, int L, int C, int hd,
-                  cudaStream_t stream) {
-  static int have[MAX_DEVICES];
-  const size_t smem = apply_smem(C, hd, TL, STAGED);
-  raise_smem_limit(apply_kernel<T, TL, STAGED>, smem, have);
-  apply_kernel<T, TL, STAGED><<<dim3((L + TL - 1) / TL, B), cc_threads(C), smem, stream>>>(
-      x, kv, static_cast<const T*>(wq), static_cast<const T*>(wm), static_cast<const T*>(w0),
-      static_cast<const T*>(w1), ln1s, ln1b, ln2s, ln2b, qmask, y, L, C, hd);
-}
-
-template <typename T>
-int launch_encoder_layer(const float* x, const float* src, const void* wq, const void* wk,
-                         const void* wv, const void* wm, const void* w0, const void* w1,
-                         const float* ln1s, const float* ln1b, const float* ln2s,
-                         const float* ln2b, const float* qmask, const float* smask, float* part,
-                         float* kv, float* y, int B, int L, int S, int C, int nhead,
-                         cudaStream_t stream) {
-  if (C % 32 != 0 || C > MAX_CC_C || nhead <= 0 || C % nhead != 0 || B <= 0 || L <= 0 || S <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int hd = C / nhead, ts = stats_rows(C);
-  const ApplyPlan plan = apply_plan(C, hd);
-  if (ts == 0 || plan.rows == 0) return (int)cudaErrorInvalidValue;
-  switch (ts) {
-    case 32: launch_partial<T, 32>(src, wk, wv, smask, part, B, S, C, hd, stream); break;
-    case 16: launch_partial<T, 16>(src, wk, wv, smask, part, B, S, C, hd, stream); break;
-    case 8: launch_partial<T, 8>(src, wk, wv, smask, part, B, S, C, hd, stream); break;
-    default: launch_partial<T, 4>(src, wk, wv, smask, part, B, S, C, hd, stream);
-  }
-  const int n_el = (hd + 1) * C;
-  kv_reduce_kernel<<<dim3((n_el + 255) / 256, B), 256, 0, stream>>>(part, kv, (S + ts - 1) / ts, C, hd);
-#define OPP_APPLY(TL, STAGED)                                                                   \
-  launch_apply<T, TL, STAGED>(x, kv, wq, wm, w0, w1, ln1s, ln1b, ln2s, ln2b, qmask, y, B, L, C, \
-                              hd, stream)
-  if (plan.staged) {
-    switch (plan.rows) {
-      case 16: OPP_APPLY(16, true); break;
-      case 8: OPP_APPLY(8, true); break;
-      case 4: OPP_APPLY(4, true); break;
-      case 2: OPP_APPLY(2, true); break;
-      default: OPP_APPLY(1, true);
-    }
-  } else {
-    switch (plan.rows) {
-      case 16: OPP_APPLY(16, false); break;
-      case 8: OPP_APPLY(8, false); break;
-      case 4: OPP_APPLY(4, false); break;
-      case 2: OPP_APPLY(2, false); break;
-      default: OPP_APPLY(1, false);
-    }
-  }
-#undef OPP_APPLY
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------- bf16, wgmma
 
@@ -1280,43 +988,6 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
 }  // namespace tf
 
 }  // namespace
-
-// f32 operands on the CUDA cores (the widths the split-TF32 instance does not
-// take), C a multiple of 32 up to 4096 and divisible by the heads: weights
-// [in, out] row-major f32. part is [B, tiles, hd + 1, C] with tiles =
-// opp_encoder_source_tiles(S, C), kv [B, C, hd + 1].
-extern "C" int opp_encoder_layer_f32(const float* x, const float* src, const void* wq,
-                                     const void* wk, const void* wv, const void* wm,
-                                     const void* w0, const void* w1, const float* ln1s,
-                                     const float* ln1b, const float* ln2s, const float* ln2b,
-                                     const float* qmask, const float* smask, float* part,
-                                     float* kv, float* y, int B, int L, int S, int C, int nhead,
-                                     void* stream) {
-  return launch_encoder_layer<float>(x, src, wq, wk, wv, wm, w0, w1, ln1s, ln1b, ln2s, ln2b,
-                                     qmask, smask, part, kv, y, B, L, S, C, nhead,
-                                     static_cast<cudaStream_t>(stream));
-}
-
-// bf16 operands on the CUDA cores, the widths of the f32 entry (all but the
-// tensor-core instance's): the f32 entry's arguments, weights [in, out]
-// row-major bf16.
-extern "C" int opp_encoder_layer_bf16(const float* x, const float* src, const void* wq,
-                                      const void* wk, const void* wv, const void* wm,
-                                      const void* w0, const void* w1, const float* ln1s,
-                                      const float* ln1b, const float* ln2s, const float* ln2b,
-                                      const float* qmask, const float* smask, float* part,
-                                      float* kv, float* y, int B, int L, int S, int C, int nhead,
-                                      void* stream) {
-  return launch_encoder_layer<__nv_bfloat16>(x, src, wq, wk, wv, wm, w0, w1, ln1s, ln1b, ln2s,
-                                             ln2b, qmask, smask, part, kv, y, B, L, S, C, nhead,
-                                             static_cast<cudaStream_t>(stream));
-}
-
-// Source tiles of the CUDA-core stats kernel at width C (the partials' second dimension).
-extern "C" int opp_encoder_source_tiles(int S, int C) {
-  const int ts = stats_rows(C);
-  return ts > 0 ? (S + ts - 1) / ts : 0;
-}
 
 // bf16 operands on the tensor cores, C = 256 and 8 heads. wkv: 8 packed
 // chunks (Wk, Wv), wapply: 32 (Wq, Wmerge, W0 by output half and input half,

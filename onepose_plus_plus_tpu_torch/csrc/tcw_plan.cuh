@@ -1,13 +1,29 @@
-// The chain that K1's two wide tensor-core instances share (encoder_tcw.cu,
-// bf16; encoder_tcw_tf32.cu, f32 in split TF32): its plan (64-row tiles,
-// 128-column product blocks, the heads a block touches, the LayerNorms from
-// per-block (mean, M2) partials), the product launches' parameters, the
-// epilogues that do not depend on the operand type, and the host side: the
-// scratch layout and the twelve launches in order. Each instance supplies the
-// rest as a traits class T: its chunk width and chunk sizes, and its kernels
-// (the product kernel in six kinds, pack, reduce, LN1 image, LN2 + residual),
-// which keep their own names. The plan's CPU mirrors are ops/cuda_encoder.py's
-// tcw_value_blocks, tcw_head_chunks and tcw32_head_chunks.
+// The chain that K1's two tensor-core instances at every width but (256, 8)
+// share (encoder_tcw.cu, bf16; encoder_tcw_tf32.cu, f32 in split TF32): its
+// plan (64-row tiles, 128-column product blocks, the heads a block touches,
+// the LayerNorms from per-block (mean, M2) partials), the product launches'
+// parameters, the epilogues that do not depend on the operand type, and the
+// host side: the scratch layout and the twelve launches in order. Each
+// instance supplies the rest as a traits class T: its chunk width and chunk
+// sizes, and its kernels (the product kernel in seven kinds, pack, reduce, LN1
+// image, LN2 + residual), which keep their own names. The plan's CPU mirrors
+// are ops/cuda_encoder.py's tcw_value_blocks, tcw_head_chunks,
+// tcw32_head_chunks and tcw_source_chunks.
+//
+// Widths: C a multiple of 32 from 32 to 4096, any head count dividing C.
+// Every activation image (x, source, Q', msg, the LN1 output) holds C padded
+// to a whole 64-channel tile (padded(C)), its channels past C zero, and every
+// weight chunk its input columns past C zero, so that padding adds nothing to
+// a product's k sum; output columns past C are computed (their weight rows
+// are zero) and never stored. The attention's B holds, besides the 128 value
+// columns of its block, the denominators: where the head width is a multiple
+// of 8, one row of sum K' for each of the at most 16 heads of a 128-column
+// block (N = 144, the epilogue picks a column's row by its head); at any other
+// head width (a head ends inside a thread's 8-column fragment group, and a
+// block may hold up to 128 heads), the blocks are 64 columns wide and B's rows
+// 64 + c hold column c's head sum K' on that head's channels (N = 128, the
+// denominator of column c is column 64 + c, in the same thread and register
+// row: the TPU kernel's replicated layout, independent of the head width).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +36,9 @@ namespace tcw_plan {
 
 constexpr int TM = 64;   // rows of a tile
 constexpr int BN = 128;  // output columns of a product block
+constexpr int BR = 64;   // output columns of an attention block with replicated denominators
+constexpr int SUMS = 16; // rows of head sums in the attention's B otherwise (N = BN + SUMS)
+constexpr int FILL = 132;  // stats blocks a launch should have at least: one an SM of an H100 SXM
 constexpr uint32_t CHUNK = gemm::A_CHUNK;  // 8192: an image chunk ([64, 64] bf16 or [64, 32] f32)
 constexpr float EPS = 1e-6f;
 constexpr float LN_EPS = 1e-5f;
@@ -28,27 +47,36 @@ __device__ __forceinline__ float elu_p1_fast(float x) {  // as encoder.cu's tc::
   return opp::wg::ex2_fast(fminf(x, 0.f) * 1.4426950408889634f) + fmaxf(x, 0.f);
 }
 
-// The 128-column blocks of V^T whose channels share a head with 64-channel tile i.
-__host__ __device__ __forceinline__ void value_blocks(int i, int hd, int& lo, int& hi) {
-  const int h_a = (TM * i) / hd, h_b = (TM * i + TM - 1) / hd;
+// C padded to a whole 64-channel tile: the channels of an activation image.
+__host__ __device__ __forceinline__ int padded(int C) { return (C + TM - 1) / TM * TM; }
+
+// Whether the attention keeps replicated denominators (64-column blocks)
+// rather than rows of head sums: head widths that are not a multiple of 8.
+__host__ __device__ __forceinline__ bool replicated(int hd) { return hd % 8 != 0; }
+
+// The 128-column blocks of V^T whose channels share a head with the channels
+// below C of 64-channel tile i.
+__host__ __device__ __forceinline__ void value_blocks(int i, int C, int hd, int& lo, int& hi) {
+  const int h_a = (TM * i) / hd, h_b = ((TM * i + TM < C ? TM * i + TM : C) - 1) / hd;
   lo = h_a * hd / BN;
   hi = ((h_b + 1) * hd - 1) / BN;
 }
 
-// The heads [h_first, h_last] of attention column block nb, and the k chunks
-// [k_lo, k_hi) of kw channels of Q' they read.
-__host__ __device__ __forceinline__ void head_chunks(int nb, int C, int hd, int kw, int& h_first, int& h_last,
-                                                     int& k_lo, int& k_hi) {
-  const int n0 = nb * BN;
+// The heads [h_first, h_last] of attention column block nb, bw columns wide,
+// and the k chunks [k_lo, k_hi) of kw channels of Q' they read.
+__host__ __device__ __forceinline__ void head_chunks(int nb, int bw, int C, int hd, int kw, int& h_first,
+                                                     int& h_last, int& k_lo, int& k_hi) {
+  const int n0 = nb * bw;
   h_first = n0 / hd;
-  h_last = ((n0 + BN < C ? n0 + BN : C) - 1) / hd;
+  h_last = ((n0 + bw < C ? n0 + bw : C) - 1) / hd;
   k_lo = h_first * hd / kw;
   k_hi = ((h_last + 1) * hd + kw - 1) / kw;
 }
 
 // The products of the chain: their kinds, in launch order, and what a product
 // launch reads and writes.
-enum Kind { KV_PROJ, STATS, QPROJ, ATT, RAW, RELU };
+// (ATT: the attention with rows of head sums; ATT_REP: with replicated denominators.)
+enum Kind { KV_PROJ, STATS, QPROJ, ATT, ATT_REP, RAW, RELU };
 
 struct Params {
   const unsigned char* a0;  // A image: chunks 0..ka0-1 of a row tile
@@ -61,7 +89,8 @@ struct Params {
   int n;                    // output columns
   int C, hd, rows, tiles;   // width, head width, valid rows of A, row tiles of the output image
   int G, n_src_chunks, nb;  // source groups, source chunks, 128-column blocks of C
-  int out_k;                // k chunks of the output image
+  int sg;                   // source chunks a stats block sums (the last group's may be fewer)
+  int out_k;                // k chunks of the output image (its columns past n are written as zeros)
   const float* mask;
   unsigned char* out0;      // output image (K'^T for KV_PROJ)
   unsigned char* out1;      // V^T (KV_PROJ)
@@ -79,7 +108,8 @@ __device__ __forceinline__ void row_mask(const Params& p, int b, int rt, const i
 }
 
 // The STATS epilogue: this source group's partials, part[b][grp][d][e - the
-// first channel of d's head], and sum K' (the B column 128) at [d][hd].
+// first channel of d's head], and sum K' (the B column 128) at [d][hd], for
+// the channels d below C (the last tile's rows past C are not written by K/V).
 template <int NT>
 __device__ __forceinline__ void store_stats(const Params& p, const float (&acc)[NT / 2], int b, int grp, int rt,
                                             int nb, int vb_lo, const int (&r_loc)[2], int t) {
@@ -87,6 +117,7 @@ __device__ __forceinline__ void store_stats(const Params& p, const float (&acc)[
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int d = rt * TM + r_loc[h], head0 = (d / p.hd) * p.hd;
+    if (d >= p.C) continue;
     float* row = out + (size_t)d * (p.hd + 1);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
@@ -174,37 +205,61 @@ __device__ __forceinline__ void ln_residual(const float* __restrict__ raw, const
 // ------------------------------------------------------------ host side
 // T, an instance's traits:
 //   KW          k columns of an image chunk (64 bf16, 32 f32)
-//   HEAD_STEP   the head widths it takes are multiples of this
-//   SG          source chunks a stats block sums
+//   SG          source chunks a stats block sums at most (even)
 //   W_BYTES     bytes a product copies of a weight or V^T chunk (split TF32:
 //               of one half)
 //   W_STRIDE    bytes from one such chunk to the next (split TF32: both halves)
-//   KV_BYTES, KV_STRIDE   the same of an attention B chunk
+//   KV_BYTES, KV_STRIDE   the same of an attention B chunk with head sums
+//                         (with replicated denominators: W_BYTES, W_STRIDE)
 //   gemm<KIND>(Params, grid, stream), pack(src, img, rows, C, tiles, B,
 //   stream), kv_reduce(part, kv, C, hd, G, B, stream), ln_image(raw, lnp,
 //   scale, bias, img, n_rows, tiles, C, nb, stream), ln_residual(raw, lnp,
 //   scale, bias, x, y, B, L, tiles, C, nb, stream): each launches its kernel
 //   and returns cudaGetLastError().
 
-template <class T>
-bool takes(int C, int nhead) {
-  return C % 64 == 0 && C >= 128 && C <= 4096 && nhead > 0 && C % nhead == 0 && (C / nhead) % T::HEAD_STEP == 0;
+inline bool takes(int C, int nhead) {
+  return C % 32 == 0 && C >= 32 && C <= 4096 && nhead > 0 && C % nhead == 0;
 }
 
 // The scratch of one call, carved from one buffer (every piece 128-byte aligned).
 template <class T>
 struct Layout {
-  int CK, KC, NB, LT, ST, SC, G, hd;  // 64-channel tiles, k chunks of C, column blocks, row tiles, source chunks
+  // 64-channel tiles of padded(C), its k chunks, k chunks of the FFN hidden
+  // (2C), 128-column blocks of C and of 2C, V^T's column blocks (every column
+  // the K/V product computes past C lands in one), attention blocks, row
+  // tiles, source chunks, value blocks a channel tile needs at most, source
+  // chunks of a group, source groups, head width
+  int CK, KC, KH, NB, NB2, NBV, NBA, LT, ST, SC, widest, SGC, G, hd;
+  bool rep;  // replicated denominators
   size_t sa, kt, vt, part, kv, xa, qa, ma, hid, raw, lnp, total;
   Layout(int B, int L, int S, int C, int nhead, bool self) {
-    CK = C / TM;
-    KC = C / T::KW;
+    CK = padded(C) / TM;
+    KC = padded(C) / T::KW;
+    KH = 2 * C / T::KW;
     NB = (C + BN - 1) / BN;
+    NB2 = (2 * C + BN - 1) / BN;
+    NBV = (NB2 * BN - C + BN - 1) / BN;
     LT = (L + TM - 1) / TM;
     ST = (S + TM - 1) / TM;
     SC = ST * (TM / T::KW);
-    G = (SC + T::SG - 1) / T::SG;
     hd = C / nhead;
+    widest = 0;
+    for (int i = 0; i < CK; ++i) {
+      int lo, hi;
+      value_blocks(i, C, hd, lo, hi);
+      widest = hi - lo + 1 > widest ? hi - lo + 1 : widest;
+    }
+    // groups of at most T::SG chunks, or, where those would give fewer than
+    // half the SMs a stats block, smaller ones (an even count, as the
+    // split-TF32 loop takes chunks in pairs) that give every SM one: a narrow
+    // layer has few channel tiles, and its stats blocks are (value blocks,
+    // channel tiles, batch x groups)
+    const int blocks = widest * CK * B, want = (FILL + blocks - 1) / blocks;
+    SGC = T::SG;
+    if (2 * blocks * ((SC + SGC - 1) / SGC) < FILL) SGC = ((SC + want - 1) / want + 1) / 2 * 2;
+    G = (SC + SGC - 1) / SGC;
+    rep = replicated(hd);
+    NBA = rep ? padded(C) / BR : NB;
     size_t at = 0;
     const auto take = [&](size_t bytes) {
       const size_t here = at;
@@ -215,12 +270,12 @@ struct Layout {
     xa = take(x_img);
     sa = self ? xa : take((size_t)B * ST * KC * CHUNK);
     kt = take((size_t)B * CK * SC * CHUNK);
-    vt = take((size_t)B * NB * SC * T::W_STRIDE);
+    vt = take((size_t)B * NBV * SC * T::W_STRIDE);
     part = take((size_t)B * G * C * (hd + 1) * 4);
-    kv = take((size_t)B * NB * KC * T::KV_STRIDE);
+    kv = take((size_t)B * NBA * KC * (rep ? T::W_STRIDE : T::KV_STRIDE));
     qa = take(x_img);  // Q', then the LN1 output
     ma = take(x_img);
-    hid = take(2 * x_img);
+    hid = take((size_t)B * LT * KH * CHUNK);
     raw = take((size_t)B * LT * TM * C * 4);
     lnp = take((size_t)B * LT * TM * NB * 8);
     total = at;
@@ -230,7 +285,7 @@ struct Layout {
 // Bytes of scratch a call needs (self: x and source are one tensor); 0 where the instance does not take C.
 template <class T>
 long long scratch_bytes(int B, int L, int S, int C, int nhead, bool self) {
-  if (B <= 0 || L <= 0 || S <= 0 || !takes<T>(C, nhead)) return 0;
+  if (B <= 0 || L <= 0 || S <= 0 || !takes(C, nhead)) return 0;
   return (long long)Layout<T>(B, L, S, C, nhead, self && L == S).total;
 }
 
@@ -240,17 +295,20 @@ long long scratch_bytes(int B, int L, int S, int C, int nhead, bool self) {
     if (e_ != cudaSuccess) return (int)e_; \
   } while (0)
 
-// The layer: wkv holds [Wk; Wv] as [C / 64 column blocks][C / KW k chunks],
-// wapply Wq and Wmerge ([ceil(C / 128)][C / KW] each), W0 ([C / 64][2 C / KW])
-// and W1 ([ceil(C / 128)][2 C / KW]), chunks W_STRIDE bytes apart.
+// The layer: wkv holds [Wk; Wv] as [ceil(2C / 128) column blocks][padded(C) /
+// KW k chunks], wapply Wq and Wmerge ([ceil(C / 128)][padded(C) / KW] each), W0
+// ([ceil(2C / 128)][2 padded(C) / KW]: its input columns of x, then those of
+// the LN1 output, each half padded) and W1 ([ceil(C / 128)][2C / KW]), chunks
+// W_STRIDE bytes apart, input columns past C and output rows past N zero.
 template <class T>
 int launch(const float* x, const float* src, const void* wkv, const void* wapply, const float* ln1s,
            const float* ln1b, const float* ln2s, const float* ln2b, const float* qmask, const float* smask,
            void* scratch, float* y, int B, int L, int S, int C, int nhead, cudaStream_t stream) {
-  if (B <= 0 || L <= 0 || S <= 0 || !takes<T>(C, nhead)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || S <= 0 || !takes(C, nhead)) return (int)cudaErrorInvalidValue;
   const bool self = x == src && L == S;
   const Layout<T> lay(B, L, S, C, nhead, self);
-  const int CK = lay.CK, KC = lay.KC, NB = lay.NB, LT = lay.LT, ST = lay.ST, SC = lay.SC, G = lay.G, hd = lay.hd;
+  const int CK = lay.CK, KC = lay.KC, KH = lay.KH, NB = lay.NB, NB2 = lay.NB2, NBA = lay.NBA, widest = lay.widest;
+  const int LT = lay.LT, ST = lay.ST, SC = lay.SC, G = lay.G, hd = lay.hd;
   unsigned char* base = static_cast<unsigned char*>(scratch);
   unsigned char *sa = base + lay.sa, *kt = base + lay.kt, *vt = base + lay.vt, *kv = base + lay.kv;
   unsigned char *xa = base + lay.xa, *qa = base + lay.qa, *ma = base + lay.ma, *hid = base + lay.hid;
@@ -260,7 +318,7 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
   const unsigned char* wq = static_cast<const unsigned char*>(wapply);
   const unsigned char* wm = wq + (size_t)NB * KC * T::W_STRIDE;
   const unsigned char* w0 = wm + (size_t)NB * KC * T::W_STRIDE;
-  const unsigned char* w1 = w0 + (size_t)CK * 2 * KC * T::W_STRIDE;
+  const unsigned char* w1 = w0 + (size_t)NB2 * 2 * KC * T::W_STRIDE;
 
   // source side: pack, K' and V (transposed), the stats, their reduction
   if (!self) OPP_TCW_CHECK(T::pack(src, sa, S, C, ST, B, stream));
@@ -270,7 +328,7 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
   p.hd = hd;
   p.G = G;
   p.n_src_chunks = SC;
-  p.nb = NB;
+  p.nb = lay.NBV;  // V^T's column blocks
   p.a0 = sa;
   p.ka0 = p.ka = KC;
   p.a_tiles = ST;
@@ -282,25 +340,20 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
   p.mask = smask;
   p.out0 = kt;
   p.out1 = vt;
-  OPP_TCW_CHECK(T::template gemm<KV_PROJ>(p, dim3(2 * C / BN, ST, B), stream));
+  OPP_TCW_CHECK(T::template gemm<KV_PROJ>(p, dim3(NB2, ST, B), stream));
 
-  int widest = 0;  // value blocks a channel tile needs, at most
-  for (int i = 0; i < CK; ++i) {
-    int lo, hi;
-    value_blocks(i, hd, lo, hi);
-    widest = hi - lo + 1 > widest ? hi - lo + 1 : widest;
-  }
   Params s{};
   s.C = C;
   s.hd = hd;
   s.G = G;
+  s.sg = lay.SGC;
   s.n_src_chunks = SC;
   s.nb = NB;
   s.a0 = kt;
   s.ka0 = s.ka = SC;
   s.a_tiles = CK;
   s.b = vt;
-  s.b_batch = (long long)NB * SC * T::W_STRIDE;
+  s.b_batch = (long long)lay.NBV * SC * T::W_STRIDE;
   s.kb = SC;
   s.b_bytes = T::W_BYTES;
   s.outf = part;
@@ -329,11 +382,17 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
 
   a.a0 = qa;
   a.b = kv;
-  a.b_batch = (long long)NB * KC * T::KV_STRIDE;
-  a.b_bytes = T::KV_BYTES;
   a.mask = nullptr;
   a.out0 = ma;
-  OPP_TCW_CHECK(T::template gemm<ATT>(a, dim3(NB, LT, B), stream));
+  if (lay.rep) {
+    a.b_batch = (long long)NBA * KC * T::W_STRIDE;
+    a.b_bytes = T::W_BYTES;
+    OPP_TCW_CHECK(T::template gemm<ATT_REP>(a, dim3(NBA, LT, B), stream));
+  } else {
+    a.b_batch = (long long)NBA * KC * T::KV_STRIDE;
+    a.b_bytes = T::KV_BYTES;
+    OPP_TCW_CHECK(T::template gemm<ATT>(a, dim3(NBA, LT, B), stream));
+  }
 
   a.a0 = ma;
   a.b = wm;
@@ -353,12 +412,13 @@ int launch(const float* x, const float* src, const void* wkv, const void* wapply
   a.kb = 2 * KC;
   a.n = 2 * C;
   a.out0 = hid;
-  a.out_k = 2 * KC;
-  OPP_TCW_CHECK(T::template gemm<RELU>(a, dim3(2 * C / BN, LT, B), stream));
+  a.out_k = KH;
+  OPP_TCW_CHECK(T::template gemm<RELU>(a, dim3(NB2, LT, B), stream));
 
   a.a0 = hid;
   a.a1 = nullptr;
-  a.ka0 = a.ka = 2 * KC;
+  a.ka0 = a.ka = KH;
+  a.kb = KH;
   a.b = w1;
   a.n = C;
   a.outf = raw;

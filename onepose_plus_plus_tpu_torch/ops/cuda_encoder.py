@@ -1,8 +1,9 @@
 """K1: one LoFTR linear-attention encoder layer as a hand-written CUDA kernel.
 
 Replaces ``onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer``
-(``_kv_stats_kernel`` and ``_apply_kernel``). Sources: ``csrc/encoder.cu``,
-``csrc/encoder_tcw.cu``, ``csrc/encoder_tcw_tf32.cu``.
+(``_kv_stats_kernel`` and ``_apply_kernel``). Sources: ``csrc/encoder.cu``
+(C = 256 with 8 heads), ``csrc/encoder_tcw.cu`` and ``csrc/encoder_tcw_tf32.cu``
+(every other width, on ``csrc/tcw_plan.cuh`` and ``csrc/wgmma_gemm.cuh``).
 
 The layer (reference ``loftr_module/transformer.py:7-58``): Q/K/V projection,
 elu+1 linear attention, merge, LayerNorm, FFN over concat(x, msg) with ReLU,
@@ -12,9 +13,9 @@ partials and summed by a second small launch (deterministic, no atomics), then
 one block per x tile runs the whole rest of the layer in shared memory.
 
 What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
-row), every product computed in the kernel's own body. Six instances, chosen
-by :func:`k1_instance` from the operand type and the width, all counted as
-``K1_encoder_layer``:
+row), every product computed in the kernel's own body, on the tensor cores.
+Four instances, chosen by :func:`k1_instance` from the operand type and the
+width, all counted as ``K1_encoder_layer``:
 
 - ``"tc"``: **bfloat16 operands at C = 256 with 8 heads** (both coarse
   transformers of the bench, inference and SfM configurations) run on the
@@ -28,48 +29,36 @@ by :func:`k1_instance` from the operand type and the width, all counted as
   (~2^-22 relative, f32 accuracy), activations as f32 tiles split into A
   fragments in registers, the weights packed once as hi and lo images; the
   per-head K'^T[V|1] and attention products in f32 FMAs on the CUDA cores.
-- ``"tcw"``: **bfloat16 operands at the other widths that the tensor cores
-  take** (C a multiple of 64 from 128 to 4096, head width a multiple of 16:
-  (128, 8), (256, 4), (512, 1), (640, 8), ..., (4096, 32)) run on the tensor
-  cores as a chain of products (``csrc/encoder_tcw.cu``): every launch works
-  on 64-row tiles, its operands bf16 images of ``wgmma`` chunks in device
-  memory, the weights packed once ([column block][k chunk][128 out x 64 in],
+- ``"tcw"``: **bfloat16 operands at every other width** (C a multiple of 32
+  from 32 to 4096, any head count that divides it) run on the tensor cores as
+  a chain of products (``csrc/encoder_tcw.cu``): every launch works on 64-row
+  tiles, its operands bf16 images of ``wgmma`` chunks in device memory, C
+  padded to 64 channels with zeros (:func:`tcw_padded`), the weights packed
+  once ([column block][k chunk][128 out x 64 in],
   :func:`pack_weight_chunks_tcw`) and streamed by bulk copies; the stats as
   per-group partials of K'^T[V|1] reduced in group order, the LayerNorms from
-  per-column-block (mean, M2) partials merged in block order.
-- ``"tcw_tf32"``: **float32 operands at the other widths that the tensor cores
-  take in split TF32** (C a multiple of 64 from 128 to 4096, head width a
-  multiple of 8, one TF32 ``wgmma`` k step: every f32 width of the JAX kernel
-  up to 4096 but (256, 8)) run the ``"tcw"`` chain with every product as three
-  TF32 products of hi / lo halves (``csrc/encoder_tcw_tf32.cu``): A operands
-  f32 images of [64 rows, 32 k] chunks split in registers, B operands packed
-  split, hi image then lo image ([column block][k chunk][128 out x 32 in],
-  :func:`pack_weight_chunks_tcw_tf32`; V^T and the attention's B written so by
-  their producers), the attention's B with 16 rows of head sums, its k range
-  over Q' an even number of chunks (:func:`tcw32_head_chunks`).
-- ``"bf16"``: **bfloat16 operands at the widths left** (C = 32, C = 64, a head
-  width that is not a multiple of 16, C not a multiple of 64) run the CUDA-core
-  kernels with bf16 weights, each product operand rounded to bf16 as it is
-  staged.
-- ``"f32"``: **float32 operands at the widths left** (C = 32, 64 or 96, C not
-  a multiple of 64, a head width that is not a multiple of 8) keep exact f32
-  FMAs on the CUDA cores (no TF32).
+  per-column-block (mean, M2) partials merged in block order; the attention's
+  denominators as 16 rows of head sums (a head width that is a multiple of 8)
+  or replicated per column over 64-column blocks (any other head width,
+  :func:`tcw_replicated`).
+- ``"tcw_tf32"``: **float32 operands at every other width** run the ``"tcw"``
+  chain with every product as three TF32 products of hi / lo halves
+  (``csrc/encoder_tcw_tf32.cu``): A operands f32 images of [64 rows, 32 k]
+  chunks split in registers, B operands packed split, hi image then lo image
+  ([column block][k chunk][128 out x 32 in], :func:`pack_weight_chunks_tcw_tf32`;
+  V^T and the attention's B written so by their producers), the attention's
+  k range over Q' an even number of chunks (:func:`tcw32_head_chunks`).
 
-The CUDA-core instances take C a multiple of 32 up to 4096, divisible by the
-heads (:func:`k1_instance`): every width the JAX kernel takes (C % 128 == 0,
-head width a multiple of 8) up to there, with any head count. A block's
-threads loop over the channels; where the apply block's [C, hd + 1]
-K'^T[V|1] table does not fit its shared memory beside one row (C above 512
-with 8 heads, wide heads below), the table is read from device memory through
-L2 instead. A width outside these has no instance: the wrapper raises
-``ValueError`` on the card, where the model's router
-(``models/transformer.py::routes_to_k1``) sends it all the same.
+Together they take every C that is a multiple of 32 up to 4096 with any head
+count that divides it: every width the JAX kernel takes (C % 128 == 0, head
+width a multiple of 8) up to there, and the port's narrower ones. A width
+outside these has no instance: the wrapper raises ``ValueError`` on the card,
+where the model's router (``models/transformer.py::routes_to_k1``) sends it
+all the same.
 
-The weights reach the kernels packed (:func:`pack_encoder_weights`): for the
-tensor-core instances as byte images of the shared-memory chunks they read,
-in the order the kernel consumes them (bf16, or the TF32 hi and lo halves;
-:func:`chunk_images`),
-for the CUDA-core instances as contiguous [in, out] matrices. A model
+The weights reach the kernels packed (:func:`pack_encoder_weights`) as byte
+images of the chunks the products read, in the order the kernels consume
+them (bf16, or the TF32 hi and lo halves; :func:`chunk_images`). A model
 packs each layer once (``LoFTREncoderLayer.packed_weights``); the loose-tensor
 entry :func:`fused_encoder_layer` packs at every call.
 
@@ -89,74 +78,97 @@ from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, 
 
 _EPS = 1e-6
 _LN_EPS = 1e-5
-_TC_WIDTH, _TC_HEADS = 256, 8  # the tensor-core instances' only width
+_TC_WIDTH, _TC_HEADS = 256, 8  # the 256-channel instances' only width
 _CHUNK_K = 64  # input columns of one packed bf16 weight chunk
 _TF32_CHUNK_K = 8  # input columns of one packed split-TF32 weight chunk
-_CC_MAX_WIDTH = 4096  # the CUDA-core instances' widest layer (csrc/encoder.cu::MAX_CC_C)
-TCW_BLOCK = 128  # output columns of a "tcw" product block (csrc/encoder_tcw.cu::BN)
+TCW_MAX_WIDTH = 4096  # K1's widest layer (csrc/tcw_plan.cuh::takes)
+TCW_BLOCK = 128  # output columns of a "tcw" product block (csrc/tcw_plan.cuh::BN)
+TCW_REP_BLOCK = 64  # output columns of an attention block with replicated denominators (BR)
 TCW_TILE = 64  # rows of a "tcw" tile, and channels of a k chunk
+TCW_SUMS = 16  # rows of head sums in the attention's B otherwise (SUMS): the heads a block holds
 TCW_SOURCE_GROUP = 16  # source chunks a "tcw" stats block sums (csrc/encoder_tcw.cu::SG)
 TCW32_CHUNK = 32  # k columns of a "tcw_tf32" chunk (csrc/encoder_tcw_tf32.cu::KW)
 TCW32_SOURCE_GROUP = 32  # source chunks a "tcw_tf32" stats block sums: 1024 rows, as "tcw"
-TCW32_SUMS = 16  # rows of head sums in the "tcw_tf32" attention's B (NTA - BN): heads a block holds
+TCW_FILL = 132  # stats blocks a launch should have at least: one an SM (csrc/tcw_plan.cuh::FILL)
 
 
 def tcw_takes(c: int, nhead: int) -> bool:
-    """Whether the wide tensor-core instance's kernels take (C, heads): C a
-    multiple of 64 from 128 to 4096 and a head width that is a multiple of 16
-    (one bf16 ``wgmma`` k step)."""
-    return c % 64 == 0 and 128 <= c <= 4096 and nhead > 0 and c % nhead == 0 and (c // nhead) % 16 == 0
-
-
-def tcw_tf32_takes(c: int, nhead: int) -> bool:
-    """Whether the wide split-TF32 instance's kernels take (C, heads): C a
-    multiple of 64 from 128 to 4096 and a head width that is a multiple of 8
-    (one TF32 ``wgmma`` k step)."""
-    return c % 64 == 0 and 128 <= c <= 4096 and nhead > 0 and c % nhead == 0 and (c // nhead) % 8 == 0
+    """Whether the tensor-core chains (``"tcw"``, ``"tcw_tf32"``) take
+    (C, heads): C a multiple of 32 from 32 to 4096 and any head count that
+    divides it (``tcw_plan.cuh::takes``)."""
+    return c % 32 == 0 and 32 <= c <= TCW_MAX_WIDTH and nhead > 0 and c % nhead == 0
 
 
 def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
     """The K1 instance that runs a layer of width ``c`` with ``nhead`` heads on
-    ``dtype`` operands: ``"tc"`` (tensor cores, bf16, C = 256 with 8 heads),
-    ``"tf32x3"`` (tensor cores, f32 in split TF32, the same width), ``"tcw"``
-    (tensor cores, bf16, the other widths :func:`tcw_takes` names),
-    ``"tcw_tf32"`` (tensor cores, f32 in split TF32, the other widths
-    :func:`tcw_tf32_takes` names), ``"bf16"`` / ``"f32"`` (CUDA cores, the
-    widths left; f32 exact), or None where no instance takes it."""
-    if (dtype not in KERNEL_DTYPES or nhead <= 0 or c % 32 != 0 or not 0 < c <= _CC_MAX_WIDTH
-            or c % nhead != 0):
+    ``dtype`` operands: ``"tc"`` (bf16, C = 256 with 8 heads), ``"tf32x3"`` (f32
+    in split TF32, the same width), ``"tcw"`` (bf16, every other width
+    :func:`tcw_takes` names), ``"tcw_tf32"`` (f32 in split TF32, the same
+    widths), all on the tensor cores; or None where no instance takes it."""
+    if dtype not in KERNEL_DTYPES or not tcw_takes(c, nhead):
         return None
     if (c, nhead) == (_TC_WIDTH, _TC_HEADS):
         return "tc" if dtype == torch.bfloat16 else "tf32x3"
-    if dtype == torch.bfloat16:
-        return "tcw" if tcw_takes(c, nhead) else "bf16"
-    return "tcw_tf32" if tcw_tf32_takes(c, nhead) else "f32"
+    return "tcw" if dtype == torch.bfloat16 else "tcw_tf32"
 
 
-def tcw_value_blocks(i: int, hd: int) -> Tuple[int, int]:
+def tcw_padded(c: int) -> int:
+    """C padded to a whole 64-channel tile: the channels of the chains'
+    activation images and the input columns of their weight chunks, zero past
+    C (``tcw_plan.cuh::padded``)."""
+    return -(-c // TCW_TILE) * TCW_TILE
+
+
+def tcw_replicated(hd: int) -> bool:
+    """Whether the chains' attention keeps replicated denominators over
+    64-column blocks (head widths that are not a multiple of 8) rather than 16
+    rows of head sums over 128-column blocks (``tcw_plan.cuh::replicated``)."""
+    return hd % 8 != 0
+
+
+def tcw_value_blocks(i: int, c: int, hd: int) -> Tuple[int, int]:
     """The 128-column blocks [lo, hi] of V^T whose channels share a head with
-    the "tcw" stats' 64-channel tile i (``encoder_tcw.cu::value_blocks``)."""
-    h_a, h_b = (TCW_TILE * i) // hd, (TCW_TILE * i + TCW_TILE - 1) // hd
+    the channels below C of the stats' 64-channel tile i
+    (``tcw_plan.cuh::value_blocks``)."""
+    h_a, h_b = (TCW_TILE * i) // hd, (min(TCW_TILE * i + TCW_TILE, c) - 1) // hd
     return h_a * hd // TCW_BLOCK, ((h_b + 1) * hd - 1) // TCW_BLOCK
 
 
-def tcw_head_chunks(nb: int, c: int, hd: int, chunk: int = TCW_TILE) -> Tuple[int, int, int, int]:
-    """(h_first, h_last, k_lo, k_hi): the heads of the "tcw" attention's column
-    block nb and the k chunks [k_lo, k_hi) of ``chunk`` channels of Q' it reads
-    (``tcw_plan.cuh::head_chunks``)."""
-    n0 = nb * TCW_BLOCK
-    h_first, h_last = n0 // hd, (min(n0 + TCW_BLOCK, c) - 1) // hd
+def tcw_source_chunks(c: int, nhead: int, n: int, s: int, chunk: int = TCW_TILE) -> int:
+    """Source chunks a stats block sums in the chain with ``chunk``-channel k
+    chunks (64: "tcw", 32: "tcw_tf32") for n batch elements of s source rows
+    (``tcw_plan.cuh::Layout``): at most :data:`TCW_SOURCE_GROUP` /
+    :data:`TCW32_SOURCE_GROUP`, fewer (an even count) where those groups would
+    give stats blocks to less than half of :data:`TCW_FILL` SMs, and then as
+    few as give every SM one."""
+    hd, ck = c // nhead, tcw_padded(c) // TCW_TILE
+    widest = max(hi - lo + 1 for lo, hi in (tcw_value_blocks(i, c, hd) for i in range(ck)))
+    sc = -(-s // TCW_TILE) * (TCW_TILE // chunk)
+    most = TCW32_SOURCE_GROUP if chunk == TCW32_CHUNK else TCW_SOURCE_GROUP
+    blocks = widest * ck * n
+    if 2 * blocks * -(-sc // most) >= TCW_FILL:
+        return most
+    return (-(-sc // -(-TCW_FILL // blocks)) + 1) // 2 * 2
+
+
+def tcw_head_chunks(nb: int, c: int, hd: int, chunk: int = TCW_TILE,
+                    block: int = TCW_BLOCK) -> Tuple[int, int, int, int]:
+    """(h_first, h_last, k_lo, k_hi): the heads of the attention's column block
+    nb (``block`` columns wide) and the k chunks [k_lo, k_hi) of ``chunk``
+    channels of Q' it reads (``tcw_plan.cuh::head_chunks``)."""
+    n0 = nb * block
+    h_first, h_last = n0 // hd, (min(n0 + block, c) - 1) // hd
     return h_first, h_last, h_first * hd // chunk, -(-((h_last + 1) * hd) // chunk)
 
 
-def tcw32_head_chunks(nb: int, c: int, hd: int) -> Tuple[int, int, int, int]:
+def tcw32_head_chunks(nb: int, c: int, hd: int, block: int = TCW_BLOCK) -> Tuple[int, int, int, int]:
     """:func:`tcw_head_chunks` of the "tcw_tf32" attention (32-channel chunks),
     its k range widened by one chunk where it spans an odd number, at the end
-    if there is room, else at the start (its product loop takes chunks in
-    pairs; ``encoder_tcw_tf32.cu::head_chunks32``)."""
-    h_first, h_last, k_lo, k_hi = tcw_head_chunks(nb, c, hd, TCW32_CHUNK)
+    if there is room in the padded width, else at the start (its product loop
+    takes chunks in pairs; ``encoder_tcw_tf32.cu::head_chunks32``)."""
+    h_first, h_last, k_lo, k_hi = tcw_head_chunks(nb, c, hd, TCW32_CHUNK, block)
     if (k_hi - k_lo) % 2:
-        if k_hi < c // TCW32_CHUNK:
+        if k_hi < tcw_padded(c) // TCW32_CHUNK:
             k_hi += 1
         else:
             k_lo -= 1
@@ -230,21 +242,18 @@ def encoder_layer_plain(
     return x32 + h2
 
 
-_TENSOR_CORE = ("tc", "tf32x3", "tcw", "tcw_tf32")  # the instances that read chunk images
-
-
 @dataclass(frozen=True)
 class PackedEncoderWeights:
     """One layer's weights as K1 reads them, for one operand type and device.
 
     ``width``: C. ``loose``: wq, wk, wv, wmerge, wmlp0, wmlp1 cast to ``dtype``
-    in the [in, out] layout (what the plain version and the CUDA-core instances
-    read; views where no copy was needed), empty where a tensor-core instance
-    reads the chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and
-    bias in f32. ``stats`` / ``apply``: the chunk images of a tensor-core
-    instance (bf16, or f32 TF32 halves; for ``"tcw"`` / ``"tcw_tf32"`` [Wk; Wv]
-    and Wq, Wmerge, W0, W1 in :func:`pack_weight_chunks_tcw`'s /
-    :func:`pack_weight_chunks_tcw_tf32`'s chunks; else None; :func:`chunk_images`).
+    in the [in, out] layout (what the plain version reads, on the CPU; views
+    where no copy was needed), empty on the card, where the kernels read the
+    chunk images instead. ``ln``: ln1 scale and bias, ln2 scale and bias in
+    f32. ``stats`` / ``apply``: the chunk images of the instance (bf16, or f32
+    TF32 halves; for ``"tcw"`` / ``"tcw_tf32"`` [Wk; Wv] and Wq, Wmerge, W0, W1
+    in :func:`pack_weight_chunks_tcw`'s / :func:`pack_weight_chunks_tcw_tf32`'s
+    chunks; None on the CPU; :func:`chunk_images`).
     ``instance``: :func:`k1_instance`'s choice (None on the CPU, where the
     plain version runs).
     """
@@ -275,17 +284,18 @@ def pack_weight_chunks(w_out_in: torch.Tensor) -> torch.Tensor:
 
 def pack_weight_chunks_tcw(w_out_in: torch.Tensor) -> torch.Tensor:
     """A weight [N, K] in torch's Linear layout ([out, in]) as the chunks the
-    "tcw" products copy: [ceil(N / 128), K / 64, 16, 8, 8, 8] indexed (column
-    block, k chunk, out group, in group, out % 8, in % 8), out rows past N zero,
-    so that element (n, k) lies in chunk (n // 128, k // 64) at byte
-    ``((n % 128) // 8) * 1024 + ((k % 64) // 8) * 128 + (n % 8) * 16 + (k % 8) * 2``
-    of its 16 KB: the ``wgmma`` K-major layout of a [128 out, 64 in] B operand."""
+    "tcw" products copy: [ceil(N / 128), ceil(K / 64), 16, 8, 8, 8] indexed
+    (column block, k chunk, out group, in group, out % 8, in % 8), out rows past
+    N and input columns past K zero, so that element (n, k) lies in chunk
+    (n // 128, k // 64) at byte ``((n % 128) // 8) * 1024 + ((k % 64) // 8) *
+    128 + (n % 8) * 16 + (k % 8) * 2`` of its 16 KB: the ``wgmma`` K-major
+    layout of a [128 out, 64 in] B operand."""
     n, k = w_out_in.shape
-    if n % 8 != 0 or k % TCW_TILE != 0:
-        raise ValueError(f"pack_weight_chunks_tcw: shape {(n, k)} needs N % 8 == 0 and K % 64 == 0")
-    nb = -(-n // TCW_BLOCK)
-    w = F.pad(w_out_in, (0, 0, 0, nb * TCW_BLOCK - n))
-    t = w.reshape(nb, TCW_BLOCK // 8, 8, k // TCW_TILE, 8, 8)  # [nb, ng, nr, kc, kg, kr]
+    if n % 8 != 0 or k % 8 != 0:
+        raise ValueError(f"pack_weight_chunks_tcw: shape {(n, k)} needs N % 8 == 0 and K % 8 == 0")
+    nb, kp = -(-n // TCW_BLOCK), tcw_padded(k)
+    w = F.pad(w_out_in, (0, kp - k, 0, nb * TCW_BLOCK - n))
+    t = w.reshape(nb, TCW_BLOCK // 8, 8, kp // TCW_TILE, 8, 8)  # [nb, ng, nr, kc, kg, kr]
     return t.permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
@@ -308,20 +318,21 @@ def pack_weight_chunks_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
 
 def pack_weight_chunks_tcw_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
     """A float32 weight [N, K] in torch's Linear layout ([out, in]) as the chunks
-    the "tcw_tf32" products copy: [ceil(N / 128), K / 32, 2, 16, 8, 8, 4] indexed
-    (column block, k chunk, half, out group, in group, out % 8, in % 4), half 0
-    the TF32 hi part and half 1 the lo part (:func:`kernels.tf32_split`), out
-    rows past N zero, so that element (n, k) of a half lies in chunk
-    (n // 128, k // 32) at byte ``((n % 128) // 8) * 1024 + ((k % 32) // 4) * 128
-    + (n % 8) * 16 + (k % 4) * 4`` of that half's 16 KB: the ``wgmma`` K-major
-    layout of a [128 out, 32 in] B operand of 4-byte values."""
+    the "tcw_tf32" products copy: [ceil(N / 128), Kp / 32, 2, 16, 8, 8, 4] with
+    Kp = K padded to a multiple of 64 (an even chunk count), indexed (column
+    block, k chunk, half, out group, in group, out % 8, in % 4), half 0 the TF32
+    hi part and half 1 the lo part (:func:`kernels.tf32_split`), out rows past
+    N and input columns past K zero, so that element (n, k) of a half lies in
+    chunk (n // 128, k // 32) at byte ``((n % 128) // 8) * 1024 + ((k % 32) //
+    4) * 128 + (n % 8) * 16 + (k % 4) * 4`` of that half's 16 KB: the ``wgmma``
+    K-major layout of a [128 out, 32 in] B operand of 4-byte values."""
     n, k = w_out_in.shape
-    if n % 8 != 0 or k % TCW32_CHUNK != 0:
-        raise ValueError(f"pack_weight_chunks_tcw_tf32: shape {(n, k)} needs N % 8 == 0 and K % 32 == 0")
-    nb = -(-n // TCW_BLOCK)
+    if n % 8 != 0 or k % 4 != 0:
+        raise ValueError(f"pack_weight_chunks_tcw_tf32: shape {(n, k)} needs N % 8 == 0 and K % 4 == 0")
+    nb, kp = -(-n // TCW_BLOCK), tcw_padded(k)
     halves = []
-    for half in tf32_split(F.pad(w_out_in.float(), (0, 0, 0, nb * TCW_BLOCK - n))):
-        t = half.reshape(nb, TCW_BLOCK // 8, 8, k // TCW32_CHUNK, 8, 4)  # [nb, ng, nr, kc, kg, kr]
+    for half in tf32_split(F.pad(w_out_in.float(), (0, kp - k, 0, nb * TCW_BLOCK - n))):
+        t = half.reshape(nb, TCW_BLOCK // 8, 8, kp // TCW32_CHUNK, 8, 4)  # [nb, ng, nr, kc, kg, kr]
         halves.append(t.permute(0, 3, 1, 4, 2, 5))
     return torch.stack(halves, dim=2).contiguous()
 
@@ -334,6 +345,8 @@ def chunk_images(instance: str, wq, wk, wv, wmerge, wmlp0, wmlp1) -> Tuple[torch
     if instance in ("tcw", "tcw_tf32"):
         pack = pack_weight_chunks_tcw if instance == "tcw" else pack_weight_chunks_tcw_tf32
         stats = pack(torch.cat([k, v]))  # K' and V: one product, N = 2C
+        c, cp = q.shape[0], tcw_padded(q.shape[0])
+        w0 = torch.cat([F.pad(w0[:, :c], (0, cp - c)), F.pad(w0[:, c:], (0, cp - c))], dim=1)  # [x | LN1], padded
         return stats, torch.cat([pack(w).reshape(-1) for w in (q, m, w0, w1)])
     pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
     c = q.shape[0]
@@ -375,10 +388,7 @@ def pack_encoder_weights(
     instance = k1_instance(c, nhead, dtype)
     if instance is None:
         raise ValueError(f"fused_encoder_layer: no K1 instance takes C = {c} with {nhead} heads "
-                         f"(C must be a multiple of 32 up to {_CC_MAX_WIDTH}, divisible by the heads)")
-    if instance not in _TENSOR_CORE:
-        return PackedEncoderWeights(dtype, nhead, c, tuple(w.contiguous() for w in loose), ln,
-                                    instance=instance)
+                         f"(C must be a multiple of 32 up to {TCW_MAX_WIDTH}, divisible by the heads)")
     return PackedEncoderWeights(dtype, nhead, c, (), ln, *chunk_images(instance, *loose), instance)
 
 
@@ -415,28 +425,16 @@ def fused_encoder_layer_packed(
     if masks[1] is not None and masks[1].shape != (n, s):
         raise ValueError("fused_encoder_layer: source_mask must be [N, S]")
     instance = packed.instance
-    tensor_cores = instance in _TENSOR_CORE
-    if tensor_cores:  # their bulk copies read 16-byte aligned rows
-        x = x if x.data_ptr() % 16 == 0 else x.clone()
-        source = source if source.data_ptr() % 16 == 0 else source.clone()
-    weights = (packed.stats, packed.apply) if tensor_cores else packed.loose
-    operands = [x, source, *weights, *ln] + [m for m in masks if m is not None]
+    # the bulk copies read 16-byte aligned rows
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
+    source = source if source.data_ptr() % 16 == 0 else source.clone()
+    operands = [x, source, packed.stats, packed.apply, *ln] + [m for m in masks if m is not None]
     device = check_cuda_operands("fused_encoder_layer", *operands)
 
     lib = build()
     hd = c // nhead
     y = torch.empty((n, l, c), dtype=torch.float32, device=device)
-    if not tensor_cores:
-        n_tiles = lib.lib.opp_encoder_source_tiles(s, c)
-        part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
-        kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
-        lib.call(
-            f"opp_encoder_layer_{instance}",
-            ptr(x), ptr(source), *(ptr(w) for w in weights),
-            ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
-            ptr(part), ptr(kv), ptr(y), n, l, s, c, nhead, stream_ptr(device),
-        )
-    elif instance in ("tcw", "tcw_tf32"):
+    if instance in ("tcw", "tcw_tf32"):
         self_layer = x.data_ptr() == source.data_ptr() and l == s
         scratch_bytes = getattr(lib.lib, f"opp_encoder_{instance}_scratch_bytes")
         scratch = torch.empty(scratch_bytes(n, l, s, c, nhead, int(self_layer)), dtype=torch.uint8, device=device)
@@ -500,10 +498,9 @@ def fused_encoder_layer(
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
     kernel does). It also routes (:func:`k1_instance`): C = 256 with 8 heads
-    to the tensor cores (bfloat16, or float32 in split TF32), the other widths
-    :func:`tcw_takes` (bfloat16) or :func:`tcw_tf32_takes` (float32) names to
-    the wide tensor-core instance of the operand type, any other width to the
-    CUDA-core instance of the operand type.
+    to the 256-channel tensor-core instance of the operand type (bfloat16, or
+    float32 in split TF32), every other width :func:`tcw_takes` names to the
+    tensor-core chain of the operand type.
     Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
     weights at every call; a caller that keeps its weights packs them once
     (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.

@@ -33,11 +33,15 @@ the bytes bound. Last, the host time of reading the current stream's handle
 (``torch.cuda.current_stream().cuda_stream``, and ``kernels.stream_ptr``
 where the tree has it), which every wrapper does once a call. With ``--k1``,
 only K1 (``fused_encoder_layer``) with bf16 and with f32 operands at self
-[4, 4096, C] for (C, heads) = (512, 8), (1024, 8) and (2048, 16): whole call
-(median of 5), device time a call of every launch by name (templated kernels
-by instance, ``tcw32_gemm_kernel<2>``), and the instance the tree routes to
-where it names one (a tree from before the wide tensor-core instances runs
-these widths on its CUDA-core kernels, a fifth of a second a call at 2048). With ``--k2``,
+[4, 4096, C] for (C, heads) = (512, 8), (1024, 8), (2048, 16), (512, 64), (64, 8),
+(96, 8) and (160, 8), at x [2, 150] against source [2, 97] with masks at
+(128, 16) and (384, 16) (head widths 8 and 24), and at x [4, 1000] against
+source [4, 700] at (64, 8), the weights packed once as a model packs them
+(``pack_encoder_weights``): whole call (median of 5), device time a call of
+every launch by name (templated kernels by instance, ``tcw32_gemm_kernel<2>``),
+and the instance the tree routes to where it names one (a tree from before the
+tensor-core chains took a width runs it on its CUDA-core kernels, a fifth of a
+second a call at 2048). With ``--k2``,
 only K2 (``dual_softmax_rowcol_stats``) at [16, 7000] x [16, 4096] for C = 640, 1024 and
 2048 with bf16 and with f32 operands: whole call (median of 3), device time a call of every
 launch by name, the instance the tree routes to where it names one (a tree from before the
@@ -249,19 +253,28 @@ def main() -> int:
 
         torch.backends.cuda.matmul.allow_tf32 = False
         rec = {}
+        # (tag, n, l, s (None: self), masks, C, heads)
+        cases = [("self_4x4096", 4, 4096, None, False, c, nhead)
+                 for c, nhead in ((512, 8), (1024, 8), (2048, 16), (512, 64), (64, 8), (96, 8), (160, 8))]
+        cases += [("x2x150_src97_masked", 2, 150, 97, True, c, nhead) for c, nhead in ((128, 16), (384, 16))]
+        cases += [("x4x1000_src700", 4, 1000, 700, False, 64, 8)]
         for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            for c, nhead in ((512, 8), (1024, 8), (2048, 16)):
+            for tag, n, l, s, masked, c, nhead in cases:
                 rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale  # noqa: E731
                 w = [rn(c, c, scale=c ** -0.5).to(dtype) for _ in range(4)]
                 w += [1 + rn(c, scale=0.1), rn(c, scale=0.1), rn(2 * c, 2 * c, scale=(2 * c) ** -0.5).to(dtype),
                       rn(2 * c, c, scale=(2 * c) ** -0.5).to(dtype), 1 + rn(c, scale=0.1), rn(c, scale=0.1)]
-                x = rn(4, 4096, c)
-                call = lambda: cuda_encoder.fused_encoder_layer(x, x, *w, nhead=nhead, dtype=dtype)  # noqa: E731
+                x = rn(n, l, c)
+                src = x if s is None else rn(n, s, c)
+                masks = [(torch.rand(n, k, generator=gen, device="cuda") < 0.8).float() if masked else None
+                         for k in (l, src.shape[1])]
+                packed = cuda_encoder.pack_encoder_weights(*w, nhead=nhead, dtype=dtype)
+                call = lambda: cuda_encoder.fused_encoder_layer_packed(x, src, packed, *masks)  # noqa: E731
                 named, dev = launches_ms(call, reps=3, templates=True)
                 instance = getattr(cuda_encoder, "k1_instance", lambda *a: None)(c, nhead, dtype)
-                rec[f"K1_{dt}_self_4x4096_c{c}_h{nhead}"] = {"whole_ms": whole_ms(call, reps=5), "device_ms": dev,
-                                                             "launches": named, "instance": instance}
-                del x
+                rec[f"K1_{dt}_{tag}_c{c}_h{nhead}"] = {"whole_ms": whole_ms(call, reps=5), "device_ms": dev,
+                                                       "launches": named, "instance": instance}
+                del x, src
                 torch.cuda.empty_cache()
         print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
         return 0

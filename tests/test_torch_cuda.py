@@ -163,13 +163,12 @@ def _names(fn):
 
 
 K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")
-K1_CC_NAMES = ("kv_partial_kernel", "kv_reduce_kernel", "apply_kernel")
 
 
 @pytest.mark.parametrize("l,s,masks", [(300, 450, True), (64, None, False)])
 def test_k1_f32_runs_the_split_tf32_instance_and_repeats_bitwise(gen, l, s, masks):
     """f32 operands at C = 256 with 8 heads run K1's split-TF32 kernels, by name,
-    and none of its CUDA-core kernels; two launches agree bit for bit."""
+    and none of the chains' kernels; two launches agree bit for bit."""
     x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.float32)
     packed = pack_encoder_weights(*w, nhead=8, dtype=torch.float32)
     assert packed.instance == "tf32x3"
@@ -177,7 +176,7 @@ def test_k1_f32_runs_the_split_tf32_instance_and_repeats_bitwise(gen, l, s, mask
     again = fused_encoder_layer_packed(x, src, packed, xm, sm)
     ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8)
     torch.cuda.synchronize()
-    assert set(K1_TF32_NAMES) <= names and not set(K1_CC_NAMES) & names, names
+    assert set(K1_TF32_NAMES) <= names and not set(K1_TCW32_NAMES) & names, names
     assert torch.equal(got, again)
     assert (got - ref).abs().max().item() < 1e-3
 
@@ -225,7 +224,7 @@ def test_k1_runs_the_jax_kernels_widths_above_512_and_wide_heads(gen, dtype, c, 
 
 
 TCW_WIDTHS = ((128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 8), (1024, 8), (2048, 16),
-              (4096, 16), (4096, 32))  # (C, heads) of the wide bf16 tensor-core instance
+              (4096, 16), (4096, 32), (128, 16), (384, 16), (4096, 512))  # the JAX kernel's: head widths 8 and 24 too
 K1_TCW_NAMES = ("tcw_pack_kernel", "tcw_gemm_kernel", "tcw_kv_reduce_kernel", "tcw_ln_image_kernel",
                 "tcw_ln_residual_kernel")
 
@@ -237,8 +236,9 @@ def test_k1_tcw_matches_plain_repeats_bitwise_and_launches_its_kernels(gen, c, n
     the plain version (max 5e-2, mean 5e-3: a rounded operand may land on the
     neighbouring bf16 value), two launches bitwise equal (partials summed in a
     fixed order, no atomics), the instance's kernels by name and none of the
-    CUDA-core ones; ragged rows (neither a multiple of 64), more than one
-    16-chunk source group (S = 1100), a self layer (source is x)."""
+    split-TF32 chain's; ragged rows (neither a multiple of 64), more than one
+    16-chunk source group (S = 1100), a self layer (source is x). Head widths
+    8 and 24 put up to 16 heads in a 128-column attention block."""
     x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.bfloat16, c=c)
     packed = pack_encoder_weights(*w, nhead=nhead, dtype=torch.bfloat16)
     assert packed.instance == "tcw"
@@ -251,7 +251,7 @@ def test_k1_tcw_matches_plain_repeats_bitwise_and_launches_its_kernels(gen, c, n
     assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
     d = (got - ref).abs()
     assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3, (d.max().item(), d.mean().item())
-    assert set(K1_TCW_NAMES) <= names and not set(K1_CC_NAMES) & names, names
+    assert set(K1_TCW_NAMES) <= names and not set(K1_TCW32_NAMES) & names, names
 
 
 def test_k1_tensor_core_instance_names_its_width(gen):
@@ -271,7 +271,7 @@ def test_k1_tensor_core_instance_names_its_width(gen):
         fused_encoder_layer(x, src, *w, nhead=8, dtype=torch.bfloat16)
 
 
-TCW32_WIDTHS = TCW_WIDTHS + ((384, 16), (128, 16))  # (C, heads) of the wide f32 split-TF32 instance, heads 24 and 8
+TCW32_WIDTHS = TCW_WIDTHS  # (C, heads) of the split-TF32 chain at the JAX kernel's widths
 K1_TCW32_NAMES = ("tcw32_pack_kernel", "tcw32_gemm_kernel", "tcw32_kv_reduce_kernel", "tcw32_ln_image_kernel",
                   "tcw32_ln_residual_kernel")
 
@@ -282,7 +282,7 @@ def test_k1_tcw_tf32_matches_plain_repeats_bitwise_and_launches_its_kernels(gen,
     """f32 operands at the wide split-TF32 instance's widths: within 1e-3 of the
     plain f32 version (TF32 off), two launches bitwise equal (partials summed in
     a fixed order, no atomics), the instance's kernels by name and none of the
-    CUDA-core ones; ragged rows, more than one source group (S = 1100), a self
+    bf16 chain's; ragged rows, more than one source group (S = 1100), a self
     layer (source is x)."""
     x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.float32, c=c)
     packed = pack_encoder_weights(*w, nhead=nhead, dtype=torch.float32)
@@ -295,11 +295,12 @@ def test_k1_tcw_tf32_matches_plain_repeats_bitwise_and_launches_its_kernels(gen,
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
     assert (got - ref).abs().max().item() <= 1e-3, (got - ref).abs().max().item()
-    assert set(K1_TCW32_NAMES) <= names and not set(K1_CC_NAMES) & names, names
+    assert set(K1_TCW32_NAMES) <= names and not set(K1_TCW_NAMES) & names, names
 
 
 @pytest.mark.parametrize("c,nhead,l,s,masks", [(512, 8, 1000, 1500, False), (1024, 8, 777, None, True),
-                                               (384, 16, 1000, 1500, True), (128, 16, 777, None, False)])
+                                               (384, 16, 1000, 1500, True), (128, 16, 777, None, False),
+                                               (96, 8, 1000, 1500, True), (640, 160, 777, None, False)])
 def test_k1_tcw_tf32_epilogues_do_not_drift(gen, c, nhead, l, s, masks):
     """The split-TF32 chain computes elu+1 through ex2.approx and divides by
     (den + 1e-6) through a reciprocal, and drops each product's lo x lo term
@@ -317,26 +318,47 @@ def test_k1_tcw_tf32_epilogues_do_not_drift(gen, c, nhead, l, s, masks):
     assert err_kernel <= 2 * err_plain
 
 
-@pytest.mark.parametrize("c,nhead", [(64, 8), (224, 8), (544, 8), (640, 160)])
-def test_k1_f32_cuda_cores_keep_the_widths_left(gen, c, nhead):
-    """f32 operands at widths no split-TF32 instance takes (C below 128 or not a
-    multiple of 64, a head width that is not a multiple of 8) run K1's
-    CUDA-core kernels, within 1e-3 of the plain version, bitwise repeatable."""
-    x, src, w, xm, sm = _k1_args(gen, 2, 97, 130, True, torch.float32, c=c)
-    packed = pack_encoder_weights(*w, nhead=nhead, dtype=torch.float32)
-    assert packed.instance == "f32"
+# (C, heads) outside the JAX kernel's widths: C below 128 or not a multiple of
+# 64, head widths 1, 3, 4, 12, 20, 28, 36, 68 and 508 (replicated denominators)
+# and 8, 16, 64 (rows of head sums)
+K1_NARROW = ((32, 8), (32, 32), (64, 8), (64, 1), (96, 8), (96, 32), (160, 8), (224, 8), (288, 8), (544, 8),
+             (640, 160), (4064, 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,nhead", K1_NARROW)
+@pytest.mark.parametrize("l,s,masks", [(97, 61, True), (200, None, True), (65, 1100, False)])
+def test_k1_chains_take_the_narrow_widths(gen, dtype, c, nhead, l, s, masks):
+    """The widths the CUDA-core kernels ran until the chains took them: the
+    chain of the operand type, within the plain version's tolerances (f32
+    1e-3, bf16 max 5e-2 / mean 5e-3), two launches bitwise equal, its own
+    kernels by name and none of the other chain's; ragged rows, a self layer,
+    more than one source group. C padded to 64 channels, the attention over
+    64-column blocks where the head width is not a multiple of 8."""
+    x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, dtype, c=c)
+    packed = pack_encoder_weights(*w, nhead=nhead, dtype=dtype)
+    bf16 = dtype == torch.bfloat16
+    assert packed.instance == ("tcw" if bf16 else "tcw_tf32")
+    before = kernels.launch_counts()["K1_encoder_layer"]
     got = fused_encoder_layer_packed(x, src, packed, xm, sm)
+    assert kernels.launch_counts()["K1_encoder_layer"] == before + 1
     again, names = _names(lambda: fused_encoder_layer_packed(x, src, packed, xm, sm))
-    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=torch.float32)
+    ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=nhead, dtype=dtype)
     torch.cuda.synchronize()
-    assert torch.equal(got, again) and (got - ref).abs().max().item() < 1e-3
-    assert set(K1_CC_NAMES) <= names and not set(K1_TCW32_NAMES) & names, names
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    d = (got - ref).abs()
+    if bf16:
+        assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3, (d.max().item(), d.mean().item())
+    else:
+        assert d.max().item() <= 1e-3, d.max().item()
+    mine, other = (K1_TCW_NAMES, K1_TCW32_NAMES) if bf16 else (K1_TCW32_NAMES, K1_TCW_NAMES)
+    assert set(mine) <= names and not set(other) & names, names
 
 
-def test_bf16_model_at_d_model_64_runs_k1_cuda_core_instance(gen):
+def test_bf16_model_at_d_model_64_runs_k1_on_the_tensor_cores(gen):
     """A bf16 coarse transformer at d_model 64 (the narrow test configurations)
-    routes every layer to K1 on the card, through its CUDA-core bf16 instance,
-    and agrees with the CPU (plain version)."""
+    routes every layer to K1 on the card, through the bf16 chain, and agrees
+    with the CPU (plain version)."""
     from onepose_plus_plus_tpu_torch.config import TransformerConfig
     from onepose_plus_plus_tpu_torch.models.transformer import LocalFeatureTransformer
 
@@ -350,7 +372,7 @@ def test_bf16_model_at_d_model_64_runs_k1_cuda_core_instance(gen):
         got = model.cuda()(f0, f1)
         torch.cuda.synchronize()
         assert kernels.launch_counts()["K1_encoder_layer"] == before + 8  # 4 layers, two streams
-        assert model.layers[0].packed_weights().instance == "bf16"
+        assert model.layers[0].packed_weights().instance == "tcw"
         ref = model.cpu()(f0.cpu(), f1.cpu())
     for g, r in zip(got, ref):
         d = (g.cpu() - r).abs()

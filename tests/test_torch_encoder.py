@@ -212,8 +212,8 @@ def test_k1_plain_matches_pallas_kernel_above_256(c, dtype, atol):
 @pytest.mark.parametrize("c,nhead", [(640, 8), (768, 8), (512, 1)])
 def test_k1_plain_matches_pallas_kernel_above_512_and_wide_heads(c, nhead, dtype, atol):
     """Widths above 512 and a head as wide as the layer, which the JAX kernel
-    takes and K1 runs (f32 operands on its wide split-TF32 instance, bf16
-    operands on its wide tensor-core instance): the port's layer through K1
+    takes and K1 runs (f32 operands on its split-TF32 chain, bf16 operands on
+    its bf16 chain): the port's layer through K1
     (its plain version on the CPU) agrees with the TPU kernel in interpret
     mode, at the tolerances of the widths up to 512."""
     x, src, xm, sm = _inputs(7, n=1, l=12, s=20, c=c, masks=True)
@@ -228,11 +228,53 @@ def test_k1_plain_matches_pallas_kernel_above_512_and_wide_heads(c, nhead, dtype
     np.testing.assert_allclose(out.numpy(), ref, atol=atol)
 
 
+@pytest.mark.parametrize("c,nhead", [(384, 16), (128, 16)])
+def test_k1_plain_bf16_matches_pallas_kernel_at_narrow_heads(c, nhead):
+    """Head widths 24 and 8, the JAX kernel's own widths that bf16 operands now
+    run on K1's tensor-core chain (16 heads a 128-column attention block): the
+    port's layer through K1 (its plain version on the CPU) with bf16 operands
+    against the TPU kernel in interpret mode, which rounds the same operands
+    at the same points: 2e-3, as at the other widths, but in a row where an f32
+    sum taken in another order puts a rounded operand on the neighbouring bf16
+    value (one row of 24 at (384, 16) here, 4.9e-3 off, which the LayerNorms
+    carry along the row; the other rows agree to 1e-6): at most one such row,
+    within 5e-3, and a mean within 1e-4."""
+    x, src, xm, sm = _inputs(11, n=1, l=24, s=40, c=c, masks=True)
+    _, p = _jax_layer(x, src, xm, sm, c=c, nhead=nhead)
+    ref = _pallas_layer(x, src, xm, sm, p, nhead=nhead)
+    port = LoFTREncoderLayer(c, nhead, dtype=torch.bfloat16).eval()
+    port.load_state_dict(state_dict_from_jax({"params": p}))
+    assert k1_instance(c, nhead, torch.bfloat16) == "tcw"
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
+    assert out.dtype == torch.float32
+    d = np.abs(out.numpy() - ref)
+    assert (d.max(axis=-1) > 2e-3).sum() <= 1 and d.max() <= 5e-3 and d.mean() <= 1e-4, (d.max(), d.mean())
+
+
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("c,nhead", [(64, 8), (96, 8), (32, 8)])
+def test_k1_plain_matches_xla_layer_f32_below_128(c, nhead, masks):
+    """Widths no JAX kernel takes (C below 128; head widths 8, 12 and 4), which
+    both operand types run on K1's tensor-core chains with C padded to 64
+    channels: the port's layer through K1 (its plain version on the CPU)
+    against the XLA ``LoFTREncoderLayer`` in f32 at the f32 tolerance (1e-5)."""
+    x, src, xm, sm = _inputs(12, n=2, l=30, s=44, c=c, masks=masks)
+    layer, p = _jax_layer(x, src, xm, sm, c=c, nhead=nhead)
+    ref = layer.apply({"params": p}, x, src, xm, sm)
+    port = LoFTREncoderLayer(c, nhead, dtype=torch.float32).eval()
+    port.load_state_dict(state_dict_from_jax({"params": p}))
+    assert k1_instance(c, nhead, torch.float32) == "tcw_tf32" and k1_instance(c, nhead, torch.bfloat16) == "tcw"
+    with torch.no_grad():
+        out = port(torch.from_numpy(x), torch.from_numpy(src), _opt(xm), _opt(sm), fused=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+
+
 @pytest.mark.parametrize("masks", [False, True])
 @pytest.mark.parametrize("c,nhead", [(384, 16), (128, 16)])
 def test_k1_plain_matches_xla_layer_f32_at_narrow_heads(c, nhead, masks):
     """Head widths 24 and 8 (32-channel chunks straddled; 16 heads a 128-column
-    block), which f32 operands run on K1's wide split-TF32 instance: the port's
+    block), which f32 operands run on K1's split-TF32 chain: the port's
     layer through K1 (its plain version on the CPU) against the XLA
     ``LoFTREncoderLayer`` in f32 at the f32 tolerance (1e-5)."""
     x, src, xm, sm = _inputs(8, n=1, l=30, s=44, c=c, masks=masks)

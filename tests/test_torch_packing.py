@@ -21,8 +21,8 @@ from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     k1_instance,
     pack_encoder_weights,
     pack_weight_chunks,
+    tcw_padded,
     tcw_takes,
-    tcw_tf32_takes,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
     scatter_index,
@@ -282,22 +282,22 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
 
 @pytest.mark.parametrize("c,nhead,dtype,expected", [
     (256, 8, "bfloat16", "tc"),     # both coarse transformers of the bf16 configurations
-    (64, 8, "bfloat16", "bf16"),    # the narrow test configurations: CUDA cores, bf16 operands
-    (256, 4, "bfloat16", "tcw"),    # the tensor-core instance's width with other heads: the wide instance
-    (224, 8, "bfloat16", "bf16"),
-    (64, 8, "float32", "f32"),
+    (64, 8, "bfloat16", "tcw"),     # the narrow test configurations: the bf16 chain, C padded to 64 channels
+    (256, 4, "bfloat16", "tcw"),    # the 256-channel instance's width with other heads: the chain
+    (224, 8, "bfloat16", "tcw"),    # not a multiple of 64, head width 28: replicated denominators
+    (64, 8, "float32", "tcw_tf32"),
     (256, 8, "float32", "tf32x3"),  # the demo's coarse width: tensor cores in split TF32
     (48, 8, "bfloat16", None),      # not a multiple of 32
-    (288, 8, "float32", "f32"),     # above 256: the CUDA-core instances reach 4096
+    (288, 8, "float32", "tcw_tf32"),  # above 256: the chains reach 4096
     (384, 8, "bfloat16", "tcw"),    # the JAX kernel's widths above 256
     (512, 8, "float32", "tcw_tf32"),  # f32 at the JAX kernel's other widths: tensor cores in split TF32
-    (544, 8, "float32", "f32"),     # not a multiple of 64: the CUDA cores, whose threads loop over the channels
-    (512, 4, "float32", "tcw_tf32"),  # a [C, C / heads + 1] table the CUDA-core block could not hold
-    (128, 16, "float32", "tcw_tf32"),  # head width 8: one TF32 k step (bf16 needs 16)
-    (128, 16, "bfloat16", "bf16"),
+    (544, 8, "float32", "tcw_tf32"),  # not a multiple of 64: the last k chunk partial
+    (512, 4, "float32", "tcw_tf32"),  # a [C, C / heads + 1] table of 128-wide heads
+    (128, 16, "float32", "tcw_tf32"),  # head width 8: 16 heads a 128-column attention block
+    (128, 16, "bfloat16", "tcw"),
     (384, 16, "float32", "tcw_tf32"),  # head width 24: heads straddle 32-channel chunks
-    (96, 1, "float32", "f32"),      # below 128
-    (640, 160, "float32", "f32"),   # head width 4: not a TF32 k step
+    (96, 1, "float32", "tcw_tf32"),  # below 128
+    (640, 160, "float32", "tcw_tf32"),  # head width 4: replicated denominators
     (4128, 8, "float32", None),     # above 4096
     (96, 5, "bfloat16", None),      # heads do not divide C
 ])
@@ -319,19 +319,18 @@ def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, 
 
 
 def _other_instance(c, nhead, dtype):
-    """The instance of a width other than (256, 8): the wide tensor-core instance
-    of the operand type where C is a multiple of 64 from 128 and the head width
-    a multiple of its k step (bf16 16, TF32 8), else the CUDA cores."""
-    if dtype == torch.float32:
-        return "tcw_tf32" if c % 64 == 0 and c >= 128 and (c // nhead) % 8 == 0 else "f32"
-    return "tcw" if c % 64 == 0 and c >= 128 and (c // nhead) % 16 == 0 else "bf16"
+    """The instance of a width other than (256, 8): the tensor-core chain of the
+    operand type, at every width K1 takes."""
+    return "tcw_tf32" if dtype == torch.float32 else "tcw"
 
 
 TCW_WIDTHS = [(128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 8), (1024, 8), (2048, 16),
               (4096, 16), (4096, 32)]
-CUDA_CORE_BF16_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (128, 16), (192, 8), (224, 8), (256, 32),
-                         (320, 40), (640, 16), (4096, 512)]
-CUDA_CORE_F32_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (224, 8), (288, 8), (640, 160), (4064, 8)]
+# the widths the chains took from the CUDA-core kernels: C below 128 or not a
+# multiple of 64, head widths that are not a multiple of 16 (bf16) or 8 (f32)
+NARROW_BF16_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (128, 16), (192, 8), (224, 8), (256, 32),
+                      (320, 40), (640, 16), (4096, 512)]
+NARROW_F32_WIDTHS = [(32, 1), (64, 8), (64, 1), (96, 2), (224, 8), (288, 8), (640, 160), (4064, 8)]
 
 
 def _meta_weights(c):
@@ -339,70 +338,62 @@ def _meta_weights(c):
     return (ww(c, c), ww(c, c), ww(c, c), ww(c, c), ww(c), ww(c), ww(2 * c, 2 * c), ww(2 * c, c), ww(c), ww(c))
 
 
-@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + CUDA_CORE_BF16_WIDTHS)
+@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + NARROW_BF16_WIDTHS)
 def test_k1_tcw_routing_and_packing_agree(c, nhead):
-    """bf16 operands take the wide tensor-core instance exactly where C is a
-    multiple of 64 from 128 to 4096 and the head width a multiple of 16, but
-    (256, 8); every other width keeps an instance (the CUDA cores), so no width
-    starts to raise. The model routes every one of them to K1, and the packing
-    (run on meta tensors: the CPU keeps the loose weights) names the same
-    instance and packs the wide one's chunks: [Wk; Wv] as 2C / 128 column
-    blocks of C / 64 chunks, then Wq, Wmerge, W0, W1."""
-    want = "tcw" if (c, nhead) in TCW_WIDTHS else "bf16"
-    assert k1_instance(c, nhead, torch.bfloat16) == want
-    assert tcw_takes(c, nhead) == (want == "tcw")
-    assert k1_instance(c, nhead, torch.float32) == ("f32" if (c, nhead) in CUDA_CORE_F32_WIDTHS else "tcw_tf32")
+    """bf16 operands take the tensor-core chain at every width but (256, 8),
+    the JAX kernel's and the narrower ones alike, so no width starts or stops
+    to raise. The model routes every one of them to K1, and the packing (run
+    on meta tensors: the CPU keeps the loose weights) names the same instance
+    and packs the chain's chunks, input columns padded to Cp (C to a multiple
+    of 64): [Wk; Wv] as ceil(2C / 128) column blocks of Cp / 64 chunks, then
+    Wq, Wmerge (ceil(C / 128) blocks of Cp / 64), W0 (ceil(2C / 128) blocks of
+    2 Cp / 64), W1 (ceil(C / 128) blocks of 2C / 64)."""
+    assert k1_instance(c, nhead, torch.bfloat16) == "tcw" and tcw_takes(c, nhead)
+    assert k1_instance(c, nhead, torch.float32) == "tcw_tf32"
     cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype="bfloat16", layer_iter_n=1)
     assert routes_to_k1(cfg, False, 256, 300)
     packed = pack_encoder_weights(*_meta_weights(c), nhead=nhead, dtype=torch.bfloat16)
-    assert packed.instance == want and packed.width == c
-    if want == "bf16":
-        assert packed.stats is None and len(packed.loose) == 6
-        return
-    nb, ck = -(-c // 128), c // 64
-    assert packed.loose == () and packed.stats.shape == (2 * c // 128, ck, 16, 8, 8, 8)
-    assert packed.apply.numel() == (2 * nb * ck + ck * 2 * ck + nb * 2 * ck) * 128 * 64
+    assert packed.instance == "tcw" and packed.width == c
+    nb, nb2, kc, kh = -(-c // 128), -(-2 * c // 128), tcw_padded(c) // 64, 2 * c // 64
+    assert packed.loose == () and packed.stats.shape == (nb2, kc, 16, 8, 8, 8)
+    assert packed.apply.numel() == (2 * nb * kc + nb2 * 2 * kc + nb * kh) * 128 * 64
 
 
-@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + CUDA_CORE_BF16_WIDTHS + CUDA_CORE_F32_WIDTHS)
+@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + NARROW_BF16_WIDTHS + NARROW_F32_WIDTHS)
 def test_k1_tcw_tf32_routing_and_packing_agree(c, nhead):
-    """f32 operands take the wide split-TF32 instance exactly where C is a
-    multiple of 64 from 128 to 4096 and the head width a multiple of 8, but
-    (256, 8); the model routes every width to K1, and the packing (meta
-    tensors) names the same instance and packs its chunks: [Wk; Wv] as 2C / 128
-    column blocks of C / 32 chunks of [128 out, 32 in], hi and lo, then Wq,
-    Wmerge, W0, W1."""
-    want = "f32" if (c, nhead) in CUDA_CORE_F32_WIDTHS else "tcw_tf32"
-    assert k1_instance(c, nhead, torch.float32) == want
-    assert tcw_tf32_takes(c, nhead) == (want == "tcw_tf32")
+    """f32 operands take the split-TF32 chain at every width but (256, 8); the
+    model routes every width to K1, and the packing (meta tensors) names the
+    same instance and packs its chunks of [128 out, 32 in], hi and lo, input
+    columns padded to Cp (C to a multiple of 64, an even chunk count): [Wk; Wv]
+    as ceil(2C / 128) column blocks of Cp / 32 chunks, then Wq, Wmerge, W0,
+    W1."""
+    assert k1_instance(c, nhead, torch.float32) == "tcw_tf32" and tcw_takes(c, nhead)
     cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype="float32", layer_iter_n=1)
     assert routes_to_k1(cfg, False, 256, 300)
     packed = pack_encoder_weights(*_meta_weights(c), nhead=nhead, dtype=torch.float32)
-    assert packed.instance == want and packed.width == c
-    if want == "f32":
-        assert packed.stats is None and len(packed.loose) == 6
-        return
-    nb, kc = -(-c // 128), c // 32
-    assert packed.loose == () and packed.stats.shape == (2 * c // 128, kc, 2, 16, 8, 8, 4)
-    assert packed.apply.numel() == (2 * nb * kc + (c // 64) * 2 * kc + nb * 2 * kc) * 2 * 128 * 32
+    assert packed.instance == "tcw_tf32" and packed.width == c
+    nb, nb2, kc, kh = -(-c // 128), -(-2 * c // 128), tcw_padded(c) // 32, 2 * c // 32
+    assert kc % 2 == 0 and kh % 2 == 0  # the split-TF32 loop takes chunks in pairs
+    assert packed.loose == () and packed.stats.shape == (nb2, kc, 2, 16, 8, 8, 4)
+    assert packed.apply.numel() == (2 * nb * kc + nb2 * 2 * kc + nb * kh) * 2 * 128 * 32
 
 
 def test_k1_instance_reads_the_f32_rule_at_every_width():
     """Every (C, heads) K1 takes in f32 (C a multiple of 32 up to 4096, heads
-    dividing C): the split-TF32 instances exactly where C % 64 == 0, C >= 128
-    and the head width is a multiple of 8 ("tf32x3" at (256, 8), "tcw_tf32" at
-    the rest), the CUDA cores ("f32") only outside that set."""
-    seen = {"tf32x3": 0, "tcw_tf32": 0, "f32": 0}
+    dividing C) runs on the tensor cores in split TF32: "tf32x3" at (256, 8),
+    "tcw_tf32" at the other 2469; both dtypes name an instance at exactly the
+    same pairs."""
+    seen = {"tf32x3": 0, "tcw_tf32": 0}
     for c in range(32, 4097, 32):
         for nhead in range(1, c + 1):
             if c % nhead:
                 continue
             got = k1_instance(c, nhead, torch.float32)
-            tensor_cores = c % 64 == 0 and c >= 128 and (c // nhead) % 8 == 0
-            want = "tf32x3" if (c, nhead) == (256, 8) else "tcw_tf32" if tensor_cores else "f32"
+            want = "tf32x3" if (c, nhead) == (256, 8) else "tcw_tf32"
             assert got == want, (c, nhead, got)
+            assert k1_instance(c, nhead, torch.bfloat16) == ("tc" if got == "tf32x3" else "tcw")
             seen[got] += 1
-    assert seen == {"tf32x3": 1, "tcw_tf32": 758, "f32": 1711}, seen
+    assert seen == {"tf32x3": 1, "tcw_tf32": 2469}, seen
 
 
 def _jax_widths(c_max):
@@ -415,9 +406,8 @@ def _jax_widths(c_max):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
     """Up to C = 512, K1 has an instance for every (C, nhead) the JAX kernel
-    takes, the wide heads whose [C, C / heads + 1] K'^T[V|1] table no block
-    holds (head widths of 128 and more at C = 512, 192 at C = 384, 256 at
-    C = 256) included: their apply block reads the table through L2."""
+    takes, the wide heads (head widths of 128 and more at C = 512, 192 at
+    C = 384, 256 at C = 256) included."""
     seen = [(c, nhead, k1_instance(c, nhead, dtype)) for c, nhead in _jax_widths(512)]
     assert all(got is not None for _, _, got in seen), [(c, n) for c, n, g in seen if g is None]
     assert ("tc" if dtype == torch.bfloat16 else "tf32x3") in {g for c, n, g in seen if (c, n) == (256, 8)}
@@ -429,10 +419,9 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
     """Above 512 too: every (C, nhead) the JAX kernel takes up to C = 2048 (170
-    pairs) has an instance (f32: the wide split-TF32 one; bf16: the wide one
-    where the head width is a multiple of 16, else the CUDA cores), and the
-    model routes each to K1 by the JAX rule, so that no such width reaches a
-    wrapper that raises."""
+    pairs) has a tensor-core instance (f32: the split-TF32 chain; bf16: the
+    bf16 chain, head widths 8 and 24 included), and the model routes each to K1
+    by the JAX rule, so that no such width reaches a wrapper that raises."""
     widths = _jax_widths(2048)
     assert len(widths) == 170
     tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
@@ -442,3 +431,16 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
         assert k1_instance(c, nhead, dtype) == want, (c, nhead)
         cfg = TransformerConfig(d_model=c, nhead=nhead, compute_dtype=name, layer_iter_n=1)
         assert routes_to_k1(cfg, False, 256, 300) and not routes_to_k1(cfg, True, 256, 300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_4096(dtype):
+    """Every (C, nhead) the JAX kernel takes up to C = 4096 (the widest K1
+    layer) runs on the tensor cores: "tc" / "tf32x3" at (256, 8), the chain of
+    the operand type at the rest."""
+    widths = _jax_widths(4096)
+    tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
+    got = {(c, nhead): k1_instance(c, nhead, dtype) for c, nhead in widths}
+    assert got.pop((256, 8)) == tc
+    assert set(got.values()) == {_other_instance(0, 1, dtype)}, {k: v for k, v in got.items() if v is None}
+    assert any((c // nhead) % 16 == 8 for c, nhead in got)  # head widths 8, 24, ...: the 16 sum rows
