@@ -5,7 +5,7 @@
 
 Phases, all run every time (each prints its own lines; any failure raises and
 exits non-zero), in this order but for 8a and 9a, which run right after
-phase 2, and phase 10, which runs right after phase 6:
+phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
   0  device: GPU name and power limit, torch and CUDA versions
   1  build the CUDA kernels from csrc/ (nvcc, -Xptxas -v report)
   2  each kernel against its plain PyTorch version at main-path shapes
@@ -97,8 +97,8 @@ phase 2, and phase 10, which runs right after phase 6:
      (configs/preprocess/sfm_inference_onepose.yaml, bf16, pair batch 8, 1024
      slots, LM) at full width on a 20-frame plane-rendered object of 512^2:
      every stage of run_sfm in its order, on in-memory images with the match
-     gallery, PLY and h5 exports off (the card's machine has no matplotlib and
-     no h5py), launch counts, stage walls, pairs/s, peak memory and each
+     gallery, PLY and h5 exports off (the staged timing; phase 11 runs the
+     SfM CLI with them), launch counts, stage walls, pairs/s, peak memory and each
      stage's peak, then descriptor extraction at its shape through the
      self-pair refine it ran before (fine stage included) and through
      extract, wall and peak memory of each, outputs bitwise equal; 8d the same
@@ -133,6 +133,16 @@ phase 2, and phase 10, which runs right after phase 6:
      the match sets' Jaccard) and the backbone's time int8 against bf16; 10d
      ResNetFPN_16_4 (default widths), ResNet18_C at stages 2 and 3 (both block
      types) and the LayerNorm keypoint encoder, the card against the CPU
+ 11  the user's CLI chains through each CLI's main(argv) with the shipped
+     configs at full width, no device= argument (each CLI's default, cuda),
+     random weights: 11a the demo pipeline of scripts/torch_demo_pipeline.sh
+     (a synthetic ARKit capture of 50 + 20 frames -> parse_scanned_data ->
+     sfm +preprocess=sfm_demo -> demo), 11b the evaluation chain on 8c's
+     object (sfm +preprocess=sfm_inference_onepose with its match gallery and
+     h5 exports -> inference +experiment=inference_onepose -> merge); every
+     file each stage writes, both h5 files read back with the port's reader
+     against raw_matches.pkl, each stage's launches against the counts its
+     matcher calls, frames and steps imply, its wall and peak memory
 
 Every kernel's record carries its time, its plain version's, the time of one
 PyTorch call that computes the same function where there is one, and its
@@ -2956,6 +2966,291 @@ def phase10d() -> None:
     check(err <= 1e-4, "the LayerNorm keypoint encoder on the card differs from the CPU")
 
 
+# ----------------------------------------------------------------- phase 11
+
+
+def _arkit_capture(seq_dir: str, angles_deg, seed: int, size=(640, 480), fx: float = 600.0) -> None:
+    """A synthetic ARKit capture as the iOS app records one and
+    parse_scanned_data reads it: Frames.m4v (mp4v), Frames.txt (per-frame
+    intrinsics), ARposes.txt (camera to world in ARKit's axes: y up, the
+    camera looking down -z) and Box.txt (the object box at the world origin,
+    0.3 x 0.3 x 0.1 m). The object is a textured plane (z = 0, 0.5 m wide)
+    rendered in each frame through its plane-induced homography, seen from
+    0.6 m by a camera orbiting it at ``angles_deg`` about the vertical axis."""
+    import cv2
+    from scipy.spatial.transform import Rotation
+
+    os.makedirs(seq_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    w, h = size
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    tex = (np.kron(rng.random((32, 32)), np.ones((16, 16))) * 255).astype(np.uint8)
+    S = np.array([[512 / 0.5, 0, 256], [0, 512 / 0.5, 256], [0, 0, 1.0]])  # plane metres -> texture pixels
+    flip = np.diag([1.0, -1.0, -1.0])  # OpenCV camera axes <-> ARKit's
+    video = cv2.VideoWriter(os.path.join(seq_dir, "Frames.m4v"), cv2.VideoWriter_fourcc(*"mp4v"), 10, (w, h))
+    poses, intrinsics = [], []
+    for i, a in enumerate(np.deg2rad(np.asarray(angles_deg, np.float64))):
+        center = 0.6 * np.array([np.sin(a), 0.05 * np.sin(3 * a), -np.cos(a)])
+        z = -center / np.linalg.norm(center)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])  # object (= world) -> camera, OpenCV axes
+        H = K @ np.stack([R[:, 0], R[:, 1], -R @ center], axis=1) @ np.linalg.inv(S)
+        video.write(cv2.cvtColor(cv2.warpPerspective(tex, H, (w, h)), cv2.COLOR_GRAY2BGR))
+        qx, qy, qz, qw = Rotation.from_matrix(R.T @ flip).as_quat()  # camera -> world, ARKit axes
+        poses.append(f"{i / 10},{center[0]},{center[1]},{center[2]},{qw},{qx},{qy},{qz}\n")
+        intrinsics.append(f"{i},{i / 10},{fx},{fx},{w / 2},{h / 2}\n")
+    video.release()
+    with open(os.path.join(seq_dir, "ARposes.txt"), "w") as f:
+        f.writelines(poses)
+    with open(os.path.join(seq_dir, "Frames.txt"), "w") as f:
+        f.writelines(intrinsics)
+    with open(os.path.join(seq_dir, "Box.txt"), "w") as f:
+        f.write("# px,py,pz,ex,ey,ez,qw,qx,qy,qz\n0,0,0,0.3,0.3,0.1,1,0,0,0\n")
+
+
+def _write_plane_object(root: str, obj: str, n_frames: int, img: int, seed: int) -> None:
+    """Phase 8c's object (``_plane_object``) in the OnePose layout the SfM and
+    evaluation CLIs read: ``color/``, ``intrin_ba/``, ``poses_ba/`` and
+    ``box3d_corners.txt``."""
+    import cv2
+
+    images, Ks, poses, corners = _plane_object(n_frames, img, seed)
+    seq = os.path.join(root, obj, obj.split("-", 1)[1] + "-1")
+    for sub in ("color", "intrin_ba", "poses_ba"):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+    for i, frame in images.items():
+        cv2.imwrite(os.path.join(seq, "color", f"{i:04d}.png"), np.round(frame * 255).astype(np.uint8))
+        np.savetxt(os.path.join(seq, "intrin_ba", f"{i:04d}.txt"), Ks[i])
+        np.savetxt(os.path.join(seq, "poses_ba", f"{i:04d}.txt"), poses[i])
+    np.savetxt(os.path.join(root, obj, "box3d_corners.txt"), corners)
+
+
+class _Tee(io.TextIOBase):
+    """Writes to stdout and keeps a copy (a CLI's own lines)."""
+
+    def __init__(self):
+        self.kept = io.StringIO()
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return self.kept.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def _cli_stage(main_fn, argv, walls, peaks, counts, name: str) -> str:
+    """One CLI's ``main(argv)``: its launches counted from 0, its wall
+    (synchronised) and peak device memory (the counter reset before it).
+    Returns what the CLI printed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tee = _Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts[name] = kernels.launch_counts()
+    return tee.kept.getvalue()
+
+
+def _check_hloc_exports(root: Path, names: dict) -> int:
+    """Both h5 files, read with the port's reader, hold raw_matches.pkl's
+    matches: per image the raw end points rounded to pixels (merged) with their
+    summed confidences, per pair one index match per distinct rounded raw
+    match with its largest confidence. Returns the number of pairs."""
+    import pickle
+
+    from onepose_plus_plus_tpu_torch.data.image_io import grouped_load_h5
+
+    with open(root / "raw_matches.pkl", "rb") as f:
+        raw = pickle.load(f)["raw"]
+    feats, matches = grouped_load_h5(str(root / "feats-loftr.h5")), grouped_load_h5(str(root / "matches-loftr.h5"))
+    ends = {}
+    for pm in raw:
+        for img, pts in zip(pm.pair, (pm.pts0, pm.pts1)):
+            for p, c in zip(map(tuple, np.round(pts)), pm.conf):
+                ends[img, p] = ends.get((img, p), 0.0) + c
+    check(set(feats) == {names[i] for i, _ in ends}, "feats-loftr.h5 holds other images than raw_matches.pkl")
+    for i, name in names.items():
+        if name not in feats:
+            continue
+        f = feats[name]
+        kp = {tuple(p): s for p, s in zip(f["keypoints"].astype(np.float64), f["scores"])}
+        check(kp.keys() == {p for j, p in ends if j == i} and len(kp) == len(f["keypoints"])
+              and np.allclose([kp[p] for p in kp], [ends[i, p] for p in kp], rtol=1e-6)
+              and f["descriptors"].shape == (256, len(kp)) and not f["descriptors"].any(),
+              f"feats-loftr.h5's {name} differs from raw_matches.pkl")
+    check(set(matches) == {f"{names[i]}_{names[j]}" for i, j in (pm.pair for pm in raw)},
+          "matches-loftr.h5 holds other pairs than raw_matches.pkl")
+    for pm in raw:
+        (i, j), m = pm.pair, matches[f"{names[pm.pair[0]]}_{names[pm.pair[1]]}"]
+        got = np.c_[feats[names[i]]["keypoints"][m["matches"][:, 0]], feats[names[j]]["keypoints"][m["matches"][:, 1]]]
+        best = {}
+        for row, c in zip(map(tuple, np.c_[np.round(pm.pts0), np.round(pm.pts1)]), pm.conf):
+            best[row] = max(best.get(row, -1.0), c)
+        rows = [tuple(r) for r in got.astype(np.float64)]
+        check(m["matches"].dtype == np.int64 and len(rows) == len(best) and set(rows) == set(best)
+              and np.allclose(m["matching_scores"], [best[r] for r in rows], rtol=1e-6),
+              f"matches-loftr.h5's pair {pm.pair} differs from raw_matches.pkl")
+    return len(raw)
+
+
+def _sfm_files(root: Path, gallery: int) -> list:
+    files = ["raw_matches.pkl", "feats-loftr.h5", "matches-loftr.h5", "stats.json", "model/cameras.bin",
+             "model/images.bin", "model/points3D.bin", "anno/anno_3d_average.npz",
+             "anno/anno_3d_average_coarse.npz", "anno/anno_2d.json", "vis3d/point_cloud_pre_filter.ply",
+             "vis3d/point_cloud_post_filter.ply"]
+    missing = [f for f in files if not (root / f).is_file()]
+    pngs = sorted((root / "vis3d" / "matches").glob("*.png")) if gallery else []
+    check(not missing and len(pngs) == gallery, f"the SfM's files in {root}: missing {missing}, "
+          f"{len(pngs)} gallery PNGs (expected {gallery})")
+    return files + [f"vis3d/matches/{p.name}" for p in pngs]
+
+
+def _counted_surfaces(calls: dict):
+    """``make_loftr_fns`` whose three surfaces count their calls in ``calls``
+    (the SfM CLI's matcher calls, from which its launches follow)."""
+    def make(matcher):
+        return tuple(_counted(fn, calls, name)
+                     for fn, name in zip(make_loftr_fns(matcher), ("coarse", "refine", "extract")))
+    return make
+
+
+def _sfm_stage(argv, root_of, walls, peaks, counts, name: str, gallery: int, names_of, smi: str) -> dict:
+    """The SfM CLI through ``main(argv)`` on the card, its matcher surfaces
+    counted: the launches against its calls, its files, its h5 exports
+    against raw_matches.pkl, its model statistics."""
+    from onepose_plus_plus_tpu_torch.sfm import cli as sfm_cli
+
+    calls = {"coarse": 0, "refine": 0, "extract": 0}
+    sfm_cli.make_loftr_fns = _counted_surfaces(calls)
+    try:
+        out = _cli_stage(sfm_cli.main, argv, walls, peaks, counts, name)
+    finally:
+        sfm_cli.make_loftr_fns = make_loftr_fns
+    check("mapping 1 object(s) on cuda" in out, f"[{name}] the SfM CLI did not map one object on cuda")
+    root = root_of()
+    files = _sfm_files(root, gallery)
+    n_pairs = _check_hloc_exports(root, names_of())
+    stats = json.loads((root / "stats.json").read_text())
+    _, model_images, _ = colmap_model.read_model(str(root / "model"))
+    per_forward = 16  # both streams of LoFTR's 4 (self, cross) coarse layers
+    expected = {k: 0 for k in counts[name]} | {
+        "K1_encoder_layer": per_forward * sum(calls.values()), "K2_rowcol_stats": calls["coarse"],
+        "K6_patch_gather": 2 * calls["refine"]}
+    log(f"[{name}] {walls[name]:.3f} s wall, peak {peaks[name]:.2f} GiB; matcher calls {calls} ({n_pairs} pairs in "
+        f"batches of 8, {len(model_images)} images in batches of 8); launches {counts[name]} (expected {expected}); "
+        f"{stats['num_points3D']} points, {stats['num_reg_images']} registered frames, mean track length "
+        f"{stats['mean_track_length']:.3f}; h5 exports read back equal to raw_matches.pkl; files {files}; on {smi}")
+    check(counts[name] == expected and calls["coarse"] == -(-n_pairs // 8) and calls["refine"] > 0
+          and calls["extract"] == -(-len(model_images) // 8),
+          f"[{name}] the SfM CLI did not run the kernels as its matcher calls imply")
+    check(stats["num_points3D"] > 0 and stats["num_reg_images"] >= 2, f"[{name}] the SfM registered too little")
+    return stats
+
+
+def phase11(tmp: str, smi: str) -> None:
+    """The user's CLI chains on the card through each CLI's own ``main(argv)``
+    with the shipped configs at full width, random weights (each CLI draws
+    its own, seed 666), no ``device=`` argument (each CLI's default: cuda).
+    11a the demo pipeline as scripts/torch_demo_pipeline.sh runs it: a
+    synthetic ARKit capture (50 annotate frames and 20 test frames of 640x480
+    of a textured plane) -> parse_scanned_data -> sfm +preprocess=sfm_demo
+    (every 5th frame: 10) -> demo +experiment=inference_demo (its frames and
+    video written under the phase's directory). 11b the evaluation chain on
+    phase 8c's object (20 frames of 512^2): sfm +preprocess=sfm_inference_onepose
+    (all 20 frames, its 6-pair match gallery and 4096 keypoint slots) ->
+    inference +experiment=inference_onepose on that SfM's annotation -> merge
+    +preprocess=merge_anno. Both SfM runs lower model.match_coarse.thr to
+    1e-6, as 8c does: random weights find no match at the shipped threshold.
+    Poses are not scored (random LoFTR descriptors against a random 2D-3D
+    matcher); 9d and 9e hold poses to GT."""
+    from onepose_plus_plus_tpu_torch import merge, parse_scanned_data
+    from onepose_plus_plus_tpu_torch.sfm import cli as sfm_cli
+
+    torch.backends.cudnn.benchmark = False  # as a fresh CLI process
+    walls, peaks, counts = {}, {}, {}
+    thr = "model.match_coarse.thr=0.000001"
+
+    # 11a: the demo pipeline
+    data, obj = Path(tmp, "demo"), "0001-plane"
+    t0 = time.perf_counter()
+    _arkit_capture(str(data / obj / "plane-annotate"), np.linspace(-40, 40, 50), seed=110)
+    _arkit_capture(str(data / obj / "plane-test"), np.linspace(-30, 30, 20), seed=110)
+    log(f"[11a] synthetic capture: 50 + 20 frames of 640x480 (mp4v) in {time.perf_counter() - t0:.3f} s, "
+        f"on {smi}")
+    _cli_stage(parse_scanned_data.main, ["--scanned_object_path", str(data / obj)], walls, peaks, counts, "11a parse")
+    n_test = len(os.listdir(data / obj / "plane-test" / "color"))
+    check(len(os.listdir(data / obj / "plane-annotate" / "color")) == 50 and n_test == 20,
+          "parse_scanned_data did not write every frame")
+    log(f"[11a parse] {walls['11a parse']:.3f} s wall, 50 + 20 frames cropped to 512^2, on {smi}")
+    sfm = data / "sfm_model"
+    annotate = sfm_cli.load_sequence(str(data / obj / "plane-annotate"))[0][::5]  # sfm_demo: down_ratio 5
+    _sfm_stage(["+preprocess=sfm_demo", f"dataset.data_dir={data}", f"dataset.outputs_dir={sfm}", thr],
+               lambda: sfm / obj, walls, peaks, counts, "11a sfm (sfm_demo)", 0,
+               lambda: {i: os.path.basename(p) for i, p in enumerate(annotate)}, smi)
+    frames, video = Path(tmp, "demo_frames"), Path(tmp, "demo.mp4")
+    out = _cli_stage(demo.main, ["+experiment=inference_demo", f"dataset.data_dir={data}",
+                                 f"dataset.sfm_outputs_dir={sfm}", f"demo.frames_dir={frames}",
+                                 f"demo.output_video={video}"], walls, peaks, counts, "11a demo")
+    c = counts["11a demo"]
+    detects = c["K2_rowcol_stats"] - n_test  # one match_coarse over the DB views a detect frame
+    expected = {k: 0 for k in c} | {"K1_encoder_layer": 12 * n_test + 16 * detects,
+                                    "K2_rowcol_stats": n_test + detects, "K3_window_gather": n_test}
+    log(f"[11a demo] {walls['11a demo']:.3f} s wall, peak {peaks['11a demo']:.2f} GiB; {n_test} frames, {detects} "
+        f"detect frames; launches {c} (expected {expected}: 12 K1 and one K2, K3 a frame, 16 K1 and one K2 a "
+        f"detection); {len(os.listdir(frames))} frames and {video.stat().st_size if video.exists() else 0} bytes "
+        f"of video; on {smi}")
+    check(f"demo: {obj} on cuda" in out, "the demo did not run on cuda")
+    check(c == expected and 1 <= detects <= n_test, "the demo did not run the kernels as its frames imply")
+    check(sorted(os.listdir(frames)) == [f"{i:06d}.png" for i in range(n_test)] and video.stat().st_size > 0,
+          "the demo's frames or video are missing")
+
+    # 11b: SfM -> evaluation -> merge on 8c's object
+    data, obj = Path(tmp, "objects"), "0001-plane"
+    _write_plane_object(str(data), obj, 20, 512, seed=82)
+    sfm, results = Path(tmp, "sfm_outputs"), Path(tmp, "results")
+    _sfm_stage(["+preprocess=sfm_inference_onepose", "ids=null", f"dataset.data_dir={data}",
+                f"dataset.outputs_dir={sfm}", "dataset.down_ratio=1", thr],
+               lambda: sfm / obj, walls, peaks, counts, "11b sfm (sfm_inference_onepose)", 6,
+               lambda: {i: f"{i:04d}.png" for i in range(20)}, smi)
+    out = _cli_stage(inference_cli.main, ["+experiment=inference_onepose", "ids=null", f"dataset.data_dir={data}",
+                                          f"dataset.sfm_outputs_dir={sfm}", f"output_dir={results}"],
+                     walls, peaks, counts, "11b inference")
+    c, steps = counts["11b inference"], -(-20 // 16)  # frame_batch 16
+    expected = {k: 0 for k in c} | {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps,
+                                    "K3_window_gather": steps}
+    errors = json.loads((results / f"errors_{obj}.json").read_text())
+    metrics = (results / "metrics.txt").read_text().splitlines()
+    log(f"[11b inference] {walls['11b inference']:.3f} s wall, peak {peaks['11b inference']:.2f} GiB; launches {c} "
+        f"(expected {expected} for {steps} steps of 16 frames); files {sorted(os.listdir(results))}, "
+        f"{len(errors['frames'])} frames; on {smi}")
+    check("evaluating 1 object(s) on cuda" in out, "the evaluation CLI did not run on cuda")
+    check(c == expected, "the evaluation CLI did not run the kernels as its steps imply")
+    check(len(errors["frames"]) == 20 and metrics[-1].startswith("ALL: {")
+          and all(np.isfinite(errors["R_errs_deg"])) and all(np.isfinite(errors["t_errs_cm"])),
+          "the evaluation CLI's files are incomplete")
+    merged = Path(tmp, "train_anno.json")
+    _cli_stage(merge.main, ["+preprocess=merge_anno", f"dataset.sfm_outputs_dir={sfm}",
+                            f"dataset.out_train_file={merged}", "dataset.out_val_file=null"],
+               walls, peaks, counts, "11b merge")
+    blob = json.loads(merged.read_text())
+    n_anno2d = len(json.loads((sfm / obj / "anno" / "anno_2d.json").read_text()))
+    log(f"[11b merge] {walls['11b merge']:.3f} s wall; {len(blob['images'])} images, {len(blob['annotations'])} "
+        f"annotations (anno_2d.json: {n_anno2d}); on {smi}")
+    check(len(blob["images"]) == len(blob["annotations"]) == n_anno2d > 0
+          and not any(counts["11b merge"].values()), "the merged COCO file does not hold the SfM's annotation")
+    log("[11] stage walls (s, synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; total {sum(walls.values()):.3f}; on {smi}")
+    log("[11] peak device memory by stage (GiB, the counter reset before each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + f"; on {smi}")
+
+
 K4_NAMES = ("scatter_index_kernel", "window_sum_kernel")
 # K5 on the tensor cores: the operand pack, K2's LSE pass, the loss, g sums and feature gradients
 K5_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "loss_tc_kernel", "gsum_tc_kernel",
@@ -3027,6 +3322,9 @@ def main() -> int:
         phase9d(tmp, smi)
         torch.cuda.empty_cache()
         phase9e(tmp, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase11(tmp, smi)  # the user's CLI chains
     check("jax" not in sys.modules, "the port loaded JAX")
     reference = kernels.__name__.split(".")[0].removesuffix("_torch")  # the JAX package
     check(not any(m.split(".")[0] == reference for m in sys.modules), "the port loaded the JAX package")

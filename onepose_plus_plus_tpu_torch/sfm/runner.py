@@ -322,9 +322,9 @@ def save_match_gallery(
 ) -> None:
     """Confidence-colored match plots for the top-N pairs by match count
     (reference ``src/utils/plot_utils.py`` make_matching_plot gallery)."""
-    from ..utils.plotting import figure_to_array, plot_image_pair_matches
-
     import cv2
+
+    from ..utils.plotting import plot_image_pair_matches
 
     os.makedirs(out_dir, exist_ok=True)
     ranked = sorted(raw, key=lambda pm: -len(pm.conf))[:top_n]
@@ -335,18 +335,14 @@ def save_match_gallery(
         p1 = pm.pts1 / np.asarray(scales[j])[None, :]
         conf = pm.conf
         cmax = float(conf.max()) if len(conf) else 1.0
-        fig = plot_image_pair_matches(
+        arr = plot_image_pair_matches(
             images[i], images[j], p0, p1, mconf=conf / max(cmax, 1e-9)
         )
-        arr = figure_to_array(fig)
         n0 = os.path.splitext(names.get(i, str(i)))[0]
         n1 = os.path.splitext(names.get(j, str(j)))[0]
         cv2.imwrite(
             os.path.join(out_dir, f"{n0}_{n1}.png"), arr[..., ::-1]
         )
-        import matplotlib.pyplot as plt
-
-        plt.close(fig)
 
 
 def export_hloc_artifacts(scene, names: Dict[int, str], out_dir: str) -> None:

@@ -2,8 +2,8 @@
 figure and the learning rate (port of ``onepose_plus_plus_tpu/train/callbacks.py``;
 reference ``src/callbacks/wandb_callbacks.py`` and the figures of
 ``OnePosePlus_lightning_model.py:73-79``), logged to a TensorBoard
-``SummaryWriter`` or the CLI's ``ScalarFileWriter``. matplotlib is imported
-when a figure is drawn.
+``SummaryWriter`` or the CLI's ``ScalarFileWriter``. The figure is drawn with
+cv2 (``utils/plotting.py``) and logged as an image.
 """
 from __future__ import annotations
 
@@ -115,6 +115,8 @@ class TrainMatchFigureCallback(Callback):
         return (out["mkpts_query_f"][0], out["i_ids"][0], out["mconf"][0], out["match_mask"][0]), batch1
 
     def make_figure(self, step: int):
+        """The reprojection figure as [H, W, 3] uint8 RGB, or None when no
+        slot has a supervised GT projection."""
         (mkpts_f, i_ids, _, mask), batch1 = self.forward()
         from ..utils.plotting import plot_reprojection_comparison
 
@@ -132,17 +134,14 @@ class TrainMatchFigureCallback(Callback):
         if writer is None or step % self.every or self._batch is None:
             return
         try:
-            fig = self.make_figure(step)
+            image = self.make_figure(step)
         except Exception as e:  # plotting must never kill a training run
             import warnings
 
             warnings.warn(f"train figure failed at step {step}: {e!r}")
             return
-        if fig is not None:
-            writer.add_figure(self.tag, fig, step)
-            import matplotlib.pyplot as plt
-
-            plt.close(fig)
+        if image is not None:
+            writer.add_image(self.tag, image, step, dataformats="HWC")
 
 
 class LearningRateCallback(Callback):

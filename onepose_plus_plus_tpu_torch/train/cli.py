@@ -90,7 +90,7 @@ def _epoch_generator(device: torch.device, seed: int, epoch: int) -> torch.Gener
 
 class ScalarFileWriter:
     """The writer where TensorBoard is not installed: scalars appended to
-    ``scalars.jsonl``, figures saved as PNG files, in ``log_dir``."""
+    ``scalars.jsonl``, images saved as PNG files, in ``log_dir``."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
@@ -100,8 +100,15 @@ class ScalarFileWriter:
         with open(os.path.join(self.log_dir, "scalars.jsonl"), "a") as f:
             f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
 
-    def add_figure(self, tag: str, fig, step: int) -> None:
-        fig.savefig(os.path.join(self.log_dir, f"{tag.replace('/', '_')}_{step}.png"))
+    def add_image(self, tag: str, image: np.ndarray, step: int, dataformats: str = "HWC") -> None:
+        """Write an [H, W, 3] uint8 RGB image (``SummaryWriter.add_image``'s
+        arguments, HWC only) as ``<tag>_<step>.png``."""
+        import cv2
+
+        if dataformats != "HWC":
+            raise ValueError(f"ScalarFileWriter.add_image takes HWC images, not {dataformats}")
+        path = os.path.join(self.log_dir, f"{tag.replace('/', '_')}_{step}.png")
+        cv2.imwrite(path, np.ascontiguousarray(np.asarray(image)[..., ::-1]))
 
     def close(self) -> None:
         pass

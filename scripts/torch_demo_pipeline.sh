@@ -4,7 +4,6 @@
 # tracking demo on the test sequence, all through the port's entry points.
 #   bash scripts/torch_demo_pipeline.sh <object-name>            # on the GPU
 #   DEVICE=cpu bash scripts/torch_demo_pipeline.sh <object-name> # on the CPU
-# The SfM writes its features with h5py: run it where h5py is installed.
 set -e
 PROJECT_DIR="$(pwd)"
 OBJ_NAME=$1

@@ -120,6 +120,49 @@ def write_db_model(sfm_dir, obj, image_names, size):
     cm.write_model(cams, imgs, {}, os.path.join(sfm_dir, obj, "model"))
 
 
+def write_arkit_capture(seq_dir, angles_deg, seed=0, size=(320, 240), fx=300.0):
+    """A synthetic ARKit capture, as the iOS app records one and
+    ``parse_scanned_data`` reads it: ``Frames.m4v`` (mp4v), ``Frames.txt``
+    (per-frame intrinsics), ``ARposes.txt`` (camera to world in ARKit's axes:
+    y up, the camera looking down -z) and ``Box.txt`` (the object box at the
+    world origin, 0.3 x 0.3 x 0.1 m). The object is a textured plane (z = 0,
+    0.5 m wide) that each frame renders through its plane-induced homography,
+    seen from 0.6 m by a camera orbiting it at ``angles_deg`` about the
+    vertical axis, so that a matcher's correspondences satisfy the poses."""
+    import os
+
+    import cv2
+    from scipy.spatial.transform import Rotation
+
+    os.makedirs(seq_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    w, h = size
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    tex = (np.kron(rng.random((32, 32)), np.ones((16, 16))) * 255).astype(np.uint8)
+    S = np.array([[512 / 0.5, 0, 256], [0, 512 / 0.5, 256], [0, 0, 1.0]])  # plane metres -> texture pixels
+    flip = np.diag([1.0, -1.0, -1.0])  # OpenCV camera axes <-> ARKit's
+    video = cv2.VideoWriter(os.path.join(seq_dir, "Frames.m4v"), cv2.VideoWriter_fourcc(*"mp4v"), 10, (w, h))
+    poses, intrinsics = [], []
+    for i, a in enumerate(np.deg2rad(np.asarray(angles_deg, np.float64))):
+        center = 0.6 * np.array([np.sin(a), 0.05 * np.sin(3 * a), -np.cos(a)])
+        z = -center / np.linalg.norm(center)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])  # object (= world) -> camera, OpenCV axes
+        H = K @ np.stack([R[:, 0], R[:, 1], -R @ center], axis=1) @ np.linalg.inv(S)
+        video.write(cv2.cvtColor(cv2.warpPerspective(tex, H, (w, h)), cv2.COLOR_GRAY2BGR))
+        qx, qy, qz, qw = Rotation.from_matrix(R.T @ flip).as_quat()  # camera -> world, ARKit axes
+        poses.append(f"{i / 10},{center[0]},{center[1]},{center[2]},{qw},{qx},{qy},{qz}\n")
+        intrinsics.append(f"{i},{i / 10},{fx},{fx},{w / 2},{h / 2}\n")
+    video.release()
+    with open(os.path.join(seq_dir, "ARposes.txt"), "w") as f:
+        f.writelines(poses)
+    with open(os.path.join(seq_dir, "Frames.txt"), "w") as f:
+        f.writelines(intrinsics)
+    with open(os.path.join(seq_dir, "Box.txt"), "w") as f:
+        f.write("# px,py,pz,ex,ey,ez,qw,qx,qy,qz\n0,0,0,0.3,0.3,0.1,1,0,0,0\n")
+
+
 @functools.lru_cache(maxsize=None)
 def load_short_encoder_experiment():
     """``experiments/pallas_short_encoder.py`` as a fresh module.

@@ -31,6 +31,7 @@ from onepose_plus_plus_tpu.config import (
 from onepose_plus_plus_tpu.models.onepose_plus import OnePosePlusModel as JaxModel
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel
 from onepose_plus_plus_tpu_torch.train import callbacks as cb
+from onepose_plus_plus_tpu_torch.utils import plotting
 from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables
 from port_helpers import perturbed, to_port_config
 from test_torch_parallel import _global_batch
@@ -49,13 +50,14 @@ CFG = OnePosePlusConfig(
 
 class Writer:
     def __init__(self):
-        self.scalars, self.figures = [], []
+        self.scalars, self.images = [], []
 
     def add_scalar(self, tag, value, step):
         self.scalars.append((tag, float(value), step))
 
-    def add_figure(self, tag, fig, step):
-        self.figures.append((tag, step))
+    def add_image(self, tag, image, step, dataformats="CHW"):
+        assert dataformats == "HWC" and image.dtype == np.uint8 and image.ndim == 3 and image.shape[2] == 3
+        self.images.append((tag, step))
 
 
 @pytest.fixture(scope="module")
@@ -98,24 +100,25 @@ def test_figure_forward_matches_jax_and_leaves_buffers(models):
 
 
 def test_figure_callback_draws_and_is_seeded(models):
-    pytest.importorskip("matplotlib")
     _, _, port, batch = models
     fig = cb.TrainMatchFigureCallback(port, every=2)
     fig.set_batch({k: torch.from_numpy(v) for k, v in batch.items()})
     w = Writer()
     for step in (1, 2, 3, 4):
         fig.on_step(step, {}, w)
-    assert w.figures == [("train_match/reprojection", 2), ("train_match/reprojection", 4)]
+    assert w.images == [("train_match/reprojection", 2), ("train_match/reprojection", 4)]
     a, b = fig.forward()[0], fig.forward()[0]  # generator seeded 0 each time
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     fig.on_step(2, {}, None)  # no writer: nothing runs
-    assert len(w.figures) == 2
+    assert len(w.images) == 2
 
 
 def test_figure_failure_warns_after_the_forward(models, monkeypatch):
-    """Without matplotlib (the card's machine) the forward runs, the buffers
-    stay, and the failure is a warning, as in the JAX callback."""
+    """Without matplotlib (the card's machine) the figure is drawn (cv2). A
+    failure while drawing comes after the forward: the buffers stay bit for
+    bit, the failure is a warning, as in the JAX callback, and the next step
+    goes on."""
     _, _, port, batch = models
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
@@ -129,10 +132,43 @@ def test_figure_failure_warns_after_the_forward(models, monkeypatch):
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         fig.on_step(1, {}, w)
-    assert ran and not w.figures
-    assert any("train figure failed at step 1" in str(c.message) for c in caught)
+    assert ran == [1] and w.images == [("train_match/reprojection", 1)]
+    assert not any("train figure failed" in str(c.message) for c in caught)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("drawing failed")
+
+    monkeypatch.setattr(plotting, "plot_reprojection_comparison", broken)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fig.on_step(2, {}, w)
+    assert ran == [1, 1] and w.images == [("train_match/reprojection", 1)]
+    assert any("train figure failed at step 2" in str(c.message) and "drawing failed" in str(c.message)
+               for c in caught)
     for n, b in port.named_buffers():
         assert torch.equal(b, before[n]), n
+    monkeypatch.undo()
+    fig.on_step(3, {}, w)  # the run goes on: the next figure is drawn
+    assert w.images[-1] == ("train_match/reprojection", 3)
+
+
+def test_scalar_file_writer_writes_images(tmp_path):
+    """The CLI's writer without TensorBoard: ``add_image`` of an HWC uint8 RGB
+    array writes ``<tag>_<step>.png`` (BGR on disk, as cv2 writes PNGs)."""
+    import cv2
+
+    from onepose_plus_plus_tpu_torch.train.cli import ScalarFileWriter
+
+    w = ScalarFileWriter(str(tmp_path))
+    image = np.zeros((6, 8, 3), np.uint8)
+    image[..., 0] = 200  # red
+    image[2, 3] = (1, 2, 3)
+    w.add_image("train_match/reprojection", image, 7, dataformats="HWC")
+    png = cv2.imread(str(tmp_path / "train_match_reprojection_7.png"))
+    np.testing.assert_array_equal(png[..., ::-1], image)
+    with pytest.raises(ValueError):
+        w.add_image("x", image.transpose(2, 0, 1), 1, dataformats="CHW")
+    assert not hasattr(w, "add_figure")
 
 
 def test_gradient_stats_match_jax():
@@ -176,11 +212,12 @@ def test_checkpoint_artifacts_copy_and_keep_last(tmp_path):
     assert (art / "epoch_2" / "last_state.pt").read_bytes() == bytes([2]) * 20
 
 
-def _run_cli(args, block_tensorboard=False):
+def _run_cli(args, block_tensorboard=False, block_matplotlib=False):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     code = ("import runpy, sys\n"
             "sys.modules['tensorflow'] = None\n"
             + ("sys.modules['torch.utils.tensorboard'] = None\n" if block_tensorboard else "")
+            + ("sys.modules['matplotlib'] = sys.modules['matplotlib.pyplot'] = None\n" if block_matplotlib else "")
             + "sys.argv = ['train'] + sys.argv[1:]\n"
             "runpy.run_module('onepose_plus_plus_tpu_torch.train', run_name='__main__')\n")
     return subprocess.run([sys.executable, "-c", code, *args], cwd=REPO, env=env,
@@ -198,12 +235,11 @@ def _common(tmp_path, manifest):
 
 def test_cli_runs_every_callback_without_tensorboard(tmp_path):
     """Every callback on; without TensorBoard the CLI logs to scalars.jsonl
-    and PNG figures."""
-    pytest.importorskip("matplotlib")
+    and PNG figures, and without matplotlib (the card's set) it draws them."""
     manifest = _capture(tmp_path)
     r = _run_cli(_common(tmp_path, manifest) + [
         "trainer.batch_size=2", "trainer.enable_plotting=true",
-        "trainer.callbacks=[grad_stats,lr,checkpoint_artifacts]"], block_tensorboard=True)
+        "trainer.callbacks=[grad_stats,lr,checkpoint_artifacts]"], block_tensorboard=True, block_matplotlib=True)
     assert r.returncode == 0, r.stderr[-4000:]
     logs = tmp_path / "logs" / "onepose_plus_train"
     tags = {json.loads(line)["tag"] for line in (logs / "scalars.jsonl").read_text().splitlines()}

@@ -6,6 +6,8 @@ that package in a string (as ``importlib.util.find_spec("onepose_plus_plus_tpu")
 or ``import_module`` would): the host modules it needs are its own copies. At
 run time: a fresh interpreter that imports every port module, the CLIs
 included, leaves ``jax`` and ``onepose_plus_plus_tpu`` out of ``sys.modules``.
+And no port source imports a third-party package outside what the card's
+machine has (``CARD_SET``): no h5py, no matplotlib.
 """
 import ast
 import os
@@ -20,6 +22,9 @@ PORT = ROOT / "onepose_plus_plus_tpu_torch"
 JAX_PACKAGE = "onepose_plus_plus_tpu"
 SHARED = set()  # modules of the JAX package the port may import: none
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax")
+# the third-party packages of the card's machine that the port may import
+CARD_SET = {"torch", "numpy", "scipy", "einops", "yaml", "cv2", "PIL", "triton"}
+GUARDED = "torch.utils.tensorboard"  # optional: imported only under an ImportError guard
 
 
 def _port_sources():
@@ -59,6 +64,57 @@ def test_static_imports(path):
     if PORT in path.parents:
         named = list(_names_the_jax_package(path))
         assert not named, f"{path.name} names the JAX package in {named}"
+
+
+def _import_nodes(path):
+    """(module name, the import node's enclosing ``try`` nodes) of every absolute import."""
+    def walk(node, tries):
+        for child in ast.iter_child_nodes(node):
+            inner = tries + [node] if isinstance(node, ast.Try) and child in node.body else tries
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name, inner
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.module, inner
+            yield from walk(child, inner)
+    yield from walk(ast.parse(path.read_text(), str(path)), [])
+
+
+def _catches_import_error(try_node):
+    for h in try_node.handlers:
+        names = [h.type] if not isinstance(h.type, ast.Tuple) else list(h.type.elts)
+        if any(isinstance(n, ast.Name) and n.id in ("ImportError", "ModuleNotFoundError") for n in names):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_stay_in_the_card_set(path):
+    """Every absolute import of the port and of ``chip_smoke.py`` is the
+    standard library, the port itself or a package of ``CARD_SET``;
+    ``torch.utils.tensorboard`` only inside a ``try`` that catches ImportError."""
+    for name, tries in _import_nodes(path):
+        top = name.split(".")[0]
+        assert top in sys.stdlib_module_names or top == PORT.name or top in CARD_SET, (
+            f"{path.name} imports {name}, which the card's machine does not have")
+        if name == GUARDED or name.startswith(GUARDED + "."):
+            assert any(_catches_import_error(t) for t in tries), f"{path.name} imports {name} unguarded"
+
+
+def test_the_card_set_scan_sees_what_it_forbids(tmp_path):
+    """The scan fails a module that imports h5py or matplotlib, or TensorBoard
+    outside its guard, and passes the guarded import."""
+    bad = {"import h5py\n": "h5py", "from matplotlib import pyplot\n": "matplotlib",
+           "def f():\n    import matplotlib.pyplot as plt\n": "matplotlib",
+           "from torch.utils.tensorboard import SummaryWriter\n": "unguarded"}
+    for i, (src, why) in enumerate(bad.items()):
+        path = tmp_path / f"m{i}.py"
+        path.write_text(src)
+        with pytest.raises(AssertionError, match=why):
+            test_imports_stay_in_the_card_set(path)
+    ok = tmp_path / "ok.py"
+    ok.write_text("try:\n    from torch.utils.tensorboard import SummaryWriter\nexcept ImportError:\n    pass\n")
+    test_imports_stay_in_the_card_set(ok)
 
 
 def test_importing_the_port_loads_no_jax():
