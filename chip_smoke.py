@@ -23,10 +23,10 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
      (512, 64) (head width 8) and both dtypes at C = 64, 96 and 160 (8 heads),
      bitwise repeatable, with their share of the operations bound (f32: of
      the f32 bound and of the 3xTF32 floor; at C = 512 the mean distance to
-     the layer in float64, within 2x plain f32's, beside single TF32's); the
-     wide chains at (256, 8)
-     through forced packs beside the instances that run that width ("tcw"
-     against "tc", "tcw_tf32" against "tf32x3", self [16, 7000, 256]);
+     the layer in float64, within 2x plain f32's, beside single TF32's); at
+     (256, 8), self [16, 7000, 256], the bf16 chain through a forced pack
+     beside "tc" in turns, and the routed split-TF32 chain against plain f32,
+     bitwise repeatable, within 2x plain f32's distance to float64;
      K3 exact at the query shape (both
      dtypes) and the train shape (f32), ids at the grid's corners and out of
      range, whole call and device time beside index_select; K2's bf16 (tensor-core)
@@ -44,7 +44,7 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
      train shape [4, ...], each with its f32 bound and 3xTF32 floor, split by
      launch name. Every phase that runs K1 or K2 in f32 at C = 256 (3, 7c, 7d,
      8b, 8d, 9e) checks by the profiler's kernel names that the split-TF32
-     instances ran and no bf16 kernel of K1; 2n K3, K4 and K6
+     instances ran (K1's chain) and no bf16 kernel of K1; 2n K3, K4 and K6
      at pixels no 16-byte vector divides (bf16 C = 196, 130, 33; f32 C = 130,
      33: K3's span copy window_span_kernel, K4's span sum window_sum_kernel,
      K6's span copy) at the query, train and sparse-FPN shapes, K3 and K6
@@ -55,7 +55,8 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
      or zero_ + index_add_
   3  the query-pose forward in f32 on the GPU (kernels) against the same
      forward on the CPU (plain versions): full-width default config, 2 frames
-     of 512^2, a 7000-point cloud, 512 match slots, thr 0; then K2's bf16
+     of 512^2, a 7000-point cloud, 512 match slots, thr 0, with K1's f32
+     launches and device time in that forward; then K2's bf16
      instance on that forward's coarse features against the plain bf16 version:
      the same match set
   4  batched RANSAC-PnP on the GPU: 16 frames, 512 noisy correspondences each
@@ -67,7 +68,9 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
      the eager fine transformer's device time at the step's fine shapes and
      its share of the step
   7  training: 7a K4 and 7b K5 against their plain versions at the train
-     shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256), K4's
+     shapes (map [4,256,256,128] with 1228 slots; [4,7000]x[4,4096]x256), K5's
+     feature gradients bf16 values times the scale from both instances (the
+     resident tile at C = 256, the wide one at 1024, feat_norm on and off), K4's
      index launch exactly equal to the plain index preparation and its two
      launches timed apart (as in 2n: host time a call, zero_ + index_add_, the
      bound with K4's own index arrays), K5's launches split by kernel, bitwise
@@ -193,7 +196,12 @@ from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
 from onepose_plus_plus_tpu_torch.models.position_encoding import KeypointEncoder, sine_position_encoding
-from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import coarse_focal_sums, coarse_focal_sums_plain, k5_instance
+from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import (
+    coarse_focal_sums,
+    coarse_focal_sums_plain,
+    fused_coarse_focal_loss,
+    k5_instance,
+)
 from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     PackedEncoderWeights,
     chunk_images,
@@ -742,44 +750,66 @@ def phase2_k1_tcw32_realistic(gen) -> None:
 
 
 def phase2_k1_at_256(gen) -> None:
-    """The wide chains at the width the 256-channel instances run, measured and
-    not routed: at self [16, 7000, 256], 8 heads, "tcw" (forced pack) beside
-    "tc" with bf16 operands and "tcw_tf32" beside "tf32x3" with f32 operands,
-    each held to the plain version, whole calls in turns (routed, wide, wide,
-    routed) and device time."""
+    """K1 at (256, 8), self [16, 7000, 256]: with bf16 operands the bf16 chain
+    "tcw" (forced pack, measured and not routed) beside the routed "tc", whole
+    calls in turns (routed, wide, wide, routed) and device time; with f32
+    operands the routed split-TF32 chain "tcw_tf32" against the plain f32
+    version, bitwise repeatable, by kernel name, its mean distance to the layer
+    in float64 within 2x plain f32's, its whole call and device time."""
     x, _, w = _encoder_inputs(gen, 7000, None, n=B)
     wb = {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
-    for dt, dtype, ws, names in (("bf16", torch.bfloat16, wb, (K1_TC_NAMES, K1_TCW_NAMES)),
-                                 ("f32", torch.float32, w, (K1_TF32_NAMES, K1_TCW32_NAMES))):
-        routed = pack_encoder_weights(**ws, nhead=8, dtype=dtype)
-        check(routed.instance == ("tc" if dt == "bf16" else "tf32x3"), f"K1 {dt} at (256, 8) routes to {routed.instance}")
-        wide = _forced_pack(routed, ws, "tcw" if dt == "bf16" else "tcw_tf32")
-        ref = encoder_layer_plain(x, x, **ws, nhead=8, dtype=dtype)
-        res = {}
-        for tag, packed, kernel_names in (("routed", routed, names[0]), ("wide", wide, names[1])):
-            got = fused_encoder_layer_packed(x, x, packed)
-            torch.cuda.synchronize()
-            d = (got - ref).abs()
-            lim = TCW32_MAX_ERR if packed.instance == "tcw_tf32" else 1e-3
-            ok = d.max().item() <= lim if dt == "f32" else d.max().item() <= 5e-2 and d.mean().item() <= 5e-3
-            check(ok and bool(torch.isfinite(got).all()), f"K1 {dt} {packed.instance} at (256, 8) disagrees")
-            rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
-            check(only_launches(rows, kernel_names), f"K1 {packed.instance} launches {launch_names(rows)}")
-            res[tag] = {"max": d.max().item(), "dev": busy / 3, "ms": []}
-            del got
-        for tag in ("routed", "wide", "wide", "routed"):
-            packed = routed if tag == "routed" else wide
-            res[tag]["ms"].append(time_ms(lambda: fused_encoder_layer_packed(x, x, packed)))
-        _, ops = k1_work(B, 7000, 7000)
-        ref_bound = 1e3 * ops / PEAK_OPS_PER_S[torch.bfloat16] if dt == "bf16" else 1e3 * 3 * ops / TF32_OPS_PER_S
-        log(f"[2] K1 {dt} at (256, 8), self [{B}, 7000, 256]: {routed.instance!r} (routed) whole call "
-            f"{res['routed']['ms'][0]:.4f} / {res['routed']['ms'][1]:.4f} ms, device {res['routed']['dev']:.4f} ms, "
-            f"max|d| {res['routed']['max']:.3e}; {wide.instance!r} (forced pack) whole call {res['wide']['ms'][0]:.4f} / "
-            f"{res['wide']['ms'][1]:.4f} ms, device {res['wide']['dev']:.4f} ms, max|d| {res['wide']['max']:.3e} "
-            f"(medians of 20 in turns: routed, wide, wide, routed); "
-            f"{'bf16 bound' if dt == 'bf16' else '3xTF32 floor'} {ref_bound:.4f} ms: "
-            f"{100 * ref_bound / res['routed']['dev']:.1f} % / {100 * ref_bound / res['wide']['dev']:.1f} % of it")
-        del ref
+    _, ops = k1_work(B, 7000, 7000)
+    routed = pack_encoder_weights(**wb, nhead=8, dtype=torch.bfloat16)
+    check(routed.instance == "tc", f"K1 bf16 at (256, 8) routes to {routed.instance}")
+    wide = _forced_pack(routed, wb, "tcw")
+    ref = encoder_layer_plain(x, x, **wb, nhead=8, dtype=torch.bfloat16)
+    res = {}
+    for tag, packed, kernel_names in (("routed", routed, K1_TC_NAMES), ("wide", wide, K1_TCW_NAMES)):
+        got = fused_encoder_layer_packed(x, x, packed)
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        check(d.max().item() <= 5e-2 and d.mean().item() <= 5e-3 and bool(torch.isfinite(got).all()),
+              f"K1 bf16 {packed.instance} at (256, 8) disagrees")
+        rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
+        check(only_launches(rows, kernel_names), f"K1 {packed.instance} launches {launch_names(rows)}")
+        res[tag] = {"max": d.max().item(), "dev": busy / 3, "ms": []}
+        del got
+    for tag in ("routed", "wide", "wide", "routed"):
+        packed = routed if tag == "routed" else wide
+        res[tag]["ms"].append(time_ms(lambda: fused_encoder_layer_packed(x, x, packed)))
+    bf = 1e3 * ops / PEAK_OPS_PER_S[torch.bfloat16]
+    log(f"[2] K1 bf16 at (256, 8), self [{B}, 7000, 256]: 'tc' (routed) whole call "
+        f"{res['routed']['ms'][0]:.4f} / {res['routed']['ms'][1]:.4f} ms, device {res['routed']['dev']:.4f} ms, "
+        f"max|d| {res['routed']['max']:.3e}; 'tcw' (forced pack) whole call {res['wide']['ms'][0]:.4f} / "
+        f"{res['wide']['ms'][1]:.4f} ms, device {res['wide']['dev']:.4f} ms, max|d| {res['wide']['max']:.3e} "
+        f"(medians of 20 in turns: routed, wide, wide, routed); bf16 bound {bf:.4f} ms: "
+        f"{100 * bf / res['routed']['dev']:.1f} % / {100 * bf / res['wide']['dev']:.1f} % of it")
+    del ref, wb, routed, wide
+    torch.cuda.empty_cache()
+    # f32: the chain is the routed instance at this width
+    packed = pack_encoder_weights(**w, nhead=8, dtype=torch.float32)
+    check(packed.instance == "tcw_tf32", f"K1 f32 at (256, 8) routes to {packed.instance}")
+    got = fused_encoder_layer_packed(x, x, packed)
+    again = fused_encoder_layer_packed(x, x, packed)
+    ref = encoder_layer_plain(x, x, **w, nhead=8)
+    exact = encoder_layer_plain(x, x, **w, nhead=8, dtype=torch.float64)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    e_kernel, e_plain = ((y.double() - exact).abs().mean().item() for y in (got, ref))
+    same = torch.equal(got, again)
+    del got, again, ref, exact
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: fused_encoder_layer_packed(x, x, packed))
+    rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, x, packed), reps=3)
+    floor = 1e3 * 3 * ops / TF32_OPS_PER_S
+    log(f"[2] K1 f32 at (256, 8), self [{B}, 7000, 256]: {packed.instance!r} (routed): max|d| {err:.3e} "
+        f"(<= {TCW32_MAX_ERR:g}), two launches bitwise equal {same}; mean|y - y64| kernel {e_kernel:.3e} "
+        f"(<= 2x plain f32's), plain f32 {e_plain:.3e} ({e_kernel / e_plain:.2f}x); whole call {ms:.4f} ms "
+        f"(median of 20), device {busy / 3:.4f} ms a call (every launch: {launch_names(rows)}); 3xTF32 floor "
+        f"{floor:.4f} ms: {100 * floor / (busy / 3):.1f} % of it")
+    check(err <= TCW32_MAX_ERR and same and e_kernel <= 2 * e_plain,
+          f"K1 f32 at (256, 8) disagrees: max|d| {err}, float64 distance {e_kernel} against plain f32's {e_plain}")
+    check(only_launches(rows, K1_TCW32_NAMES), f"K1 f32 at (256, 8) launches {launch_names(rows)}")
     del x
     torch.cuda.empty_cache()
 
@@ -979,25 +1009,23 @@ def phase2_f32(gen) -> None:
                 continue
             x, src, w = _encoder_inputs(gen, l, s_, n=n)
             packed = pack_encoder_weights(**w, nhead=8, dtype=torch.float32)
-            check(packed.instance == "tf32x3", f"K1 f32 at C = 256 takes instance {packed.instance}")
+            check(packed.instance == "tcw_tf32", f"K1 f32 at C = 256 takes instance {packed.instance}")
             ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed))
             pms = time_ms(lambda: encoder_layer_plain(x, src, **w, nhead=8), reps=5)
-            rows, _, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed), reps=5)
+            rows, busy, _ = device_rows(lambda: fused_encoder_layer_packed(x, src, packed), reps=5)
             n_bytes, ops = k1_work(n, l, src.shape[1])
             fb = bound(n_bytes, ops, torch.float32)
             floor = 1e3 * 3 * ops / TF32_OPS_PER_S
             prev = f" ({K1_F32_PREVIOUS_MS} ms on the CUDA cores)" if n == B else ""
             log(f"[2] K1 f32 {tag} x[{n}, {l}, 256]: kernel {ms:.3f} ms{prev}, plain {pms:.3f} ms; f32 bound "
                 f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}, 67 TFLOP/s), 3xTF32 floor {floor:.4f} ms "
-                f"(495 TFLOP/s); launches {launch_names(rows)} ({sum(r[0] / r[1] for r in rows):.3f} ms a "
-                f"call, the mean launch of each name)")
-            # the profiler can miss a call's first launches: every launch it saw is K1's, the apply kernel among them
-            names = {_short(r[2]) for r in rows}
-            check(names <= set(K1_TF32_NAMES) and "apply_tf32x3_kernel" in names,
-                  f"K1 f32 launches something besides {K1_TF32_NAMES}: {sorted(names)}")
-            k1_total[(n, tag)] = ms
-    frame = 3 * sum(v for (n, _), v in k1_total.items() if n == 1)
-    log(f"[2] K1 f32 for a tracking frame (3 x the four batch-1 shapes, 12 launches): {frame:.3f} ms")
+                f"(495 TFLOP/s); device {busy / 5:.4f} ms a call, launches {launch_names(rows)}")
+            check(only_launches(rows, K1_TCW32_NAMES), f"K1 f32 launches something besides {K1_TCW32_NAMES}: "
+                  f"{launch_names(rows)}")
+            k1_total[(n, tag)] = (ms, busy / 5, sum(r[1] for r in rows) / 5)
+    frame = [3 * sum(v[i] for (n, _), v in k1_total.items() if n == 1) for i in range(3)]
+    log(f"[2] K1 f32 for a tracking frame (3 x the four batch-1 shapes, 12 layer calls): {frame[0]:.3f} ms whole "
+        f"calls, {frame[1]:.3f} ms device time, {frame[2]:.0f} kernel launches")
     # K2: the query step's selection at batch 16 and 1, training's at batch 4
     for n in (B, 1, TRAIN_B):
         f0 = torch.randn(n, 7000, 256, generator=gen, device="cuda")
@@ -1022,6 +1050,14 @@ def phase2_f32(gen) -> None:
             f"equal {same}; launches {launch_names(rows)} ({busy / 3:.3f} ms a call)")
         check(lse <= 1e-3 and agree >= 0.999 and same, f"K2 f32 at batch {n} disagrees")
         check(only_launches(rows, K2_TF32_NAMES), f"K2 f32 launches something besides {K2_TF32_NAMES}")
+        if n == 1:  # the resident tile's distance to float64 at a tracking frame's shape
+            lse64 = torch.logsumexp(torch.einsum("bpc,blc->bpl", f0.double() / 16.0, f1.double() / 16.0)
+                                    / (0.08 + 1e-4), dim=2)
+            kernel, plain = ((r["row_lse"].double() - lse64).abs().mean().item() for r in (got, ref))
+            log(f"[2] K2 f32 [1,7000]x[1,4096]x256: mean |row_lse - float64| kernel {kernel:.3e}, plain f32 "
+                f"{plain:.3e} ({kernel / plain:.2f}x, <= 2x)")
+            check(kernel <= 2 * plain, f"K2's f32 resident tile drifts from float64: {kernel} against {plain}")
+            del lse64
         del f0, f1, got, again, ref
 
 
@@ -1324,7 +1360,10 @@ def phase3() -> None:
         if dev == "cuda":
             gpu_batch = {k: v.to(dev) for k, v in batch.items()}
             with torch.no_grad():
-                rows, _, _ = device_rows(lambda: model(gpu_batch))
+                rows, busy, _ = device_rows(lambda: model(gpu_batch))
+            k1_rows = [r for r in rows if _short(r[2]) in K1_NAMES]
+            log(f"[3] the f32 forward's K1 (12 layer calls): device {group_ms(rows, K1_NAMES):.3f} ms of "
+                f"{busy:.3f} ms, launches {launch_names(k1_rows)}")
             check_f32_instances(rows, "3")
     g, c = outs["cuda"], outs["cpu"]
     for k in ("mkpts_query_f", "expec_f", "mconf", "mkpts_3d"):
@@ -1514,12 +1553,11 @@ def launch_names(rows) -> str:
 
 
 K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")  # bf16, tensor cores
-K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")  # f32, C = 256
 K1_TCW_NAMES = ("tcw_pack_kernel", "tcw_gemm_kernel", "tcw_kv_reduce_kernel", "tcw_ln_image_kernel",
                 "tcw_ln_residual_kernel")  # bf16 at every other width
 K1_TCW32_NAMES = ("tcw32_pack_kernel", "tcw32_gemm_kernel", "tcw32_kv_reduce_kernel", "tcw32_ln_image_kernel",
-                  "tcw32_ln_residual_kernel")  # f32 in split TF32 at every other width
-K1_NAMES = K1_TC_NAMES + K1_TF32_NAMES + K1_TCW_NAMES + K1_TCW32_NAMES
+                  "tcw32_ln_residual_kernel")  # f32 in split TF32 at every width
+K1_NAMES = K1_TC_NAMES + K1_TCW_NAMES + K1_TCW32_NAMES
 # K2's bf16 instance (tensor cores), its operand pack first; its f32 instance in
 # split TF32 (tensor cores), its pack first; above 576 channels K2_WIDE_NAMES
 K2_TC_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "argmax_tc_kernel", "col_argmax_reduce")
@@ -1532,16 +1570,18 @@ K1_BF16_NAMES = K1_TC_NAMES + K1_TCW_NAMES
 
 
 def check_f32_instances(rows, where: str, k1: bool = True, k2: bool = True, wide: bool = False) -> None:
-    """A profiled f32 path ran the split-TF32 instances of K1 and K2 (where it
-    runs them: at C = 256, or K2's wide one above 576 channels) and none of
-    K1's bf16 kernels."""
+    """A profiled f32 path ran the split-TF32 instances of K1 (its chain) and
+    K2 (at C = 256, or K2's wide one above 576 channels) where it runs them,
+    none of K1's bf16 kernels and no ``*_tf32x3_kernel`` but K2's."""
     names = {_short(r[2]) for r in rows}
     k2_names = ({"lse_wide_tf32x3_kernel", "argmax_wide_tf32x3_kernel"} if wide
                 else {"lse_tf32x3_kernel", "argmax_tf32x3_kernel"})
-    want = (set(K1_TF32_NAMES) if k1 else set()) | (k2_names if k2 else set())
+    want = (set(K1_TCW32_NAMES) if k1 else set()) | (k2_names if k2 else set())
+    k2_all = set(K2_NAMES)
+    stray = {n for n in names if n.endswith("_tf32x3_kernel") and n not in k2_all}
     log(f"[{where}] f32 instances by name: {sorted(want & names)} ran; bf16 kernels of K1: "
-        f"{sorted(set(K1_BF16_NAMES) & names) or 'none'}")
-    check(want <= names and not set(K1_BF16_NAMES) & names,
+        f"{sorted(set(K1_BF16_NAMES) & names) or 'none'}; other *_tf32x3_kernel: {sorted(stray) or 'none'}")
+    check(want <= names and not set(K1_BF16_NAMES) & names and not stray,
           f"[{where}] the f32 path did not run K1/K2's split-TF32 instances alone: {sorted(names)}")
 K3_NAMES = ("window_gather_kernel", "window_span_kernel")
 
@@ -1716,7 +1756,36 @@ def phase7b(gen) -> dict:
         f"PyTorch launches: {launch_names([r for r in rows if r not in k5_rows])})")
     check(only_launches(k5_rows, K5_NAMES), f"K5 does not launch exactly its kernels {K5_NAMES}")
     check(both < pboth, f"K5 ({both:.3f} ms) is not faster than its plain version ({pboth:.3f} ms)")
+    del f0, f1, gt
+    torch.cuda.empty_cache()
+    k5_df_rounding(gen)
     return {"max_abs_err": worst, "ms": both, "plain_ms": pboth, **b, "library_ms": None}
+
+
+def k5_df_rounding(gen) -> None:
+    """Both K5 instances round each finished feature gradient to bf16 before
+    the operands' scale (the TPU kernel's df.astype(bf16), then the chain
+    rule in f32): on f32 features through fused_coarse_focal_loss at a
+    power-of-two scale (1/16 at C = 256, 1/32 at C = 1024, 1 without the
+    norm), every element of df / scale is a bf16 value."""
+    for c, n, p, l in ((256, TRAIN_B, TRAIN_P, 4096), (1024, 2, 1000, 700)):
+        for feat_norm in ("sqrt_feat_dim", "none"):
+            scale = c ** -0.5 if feat_norm == "sqrt_feat_dim" else 1.0
+            mag = 1.0 if feat_norm == "sqrt_feat_dim" else c ** -0.5  # the same similarities either way
+            f0 = (torch.randn(n, p, c, generator=gen, device="cuda") * mag).requires_grad_()
+            f1 = (torch.randn(n, l, c, generator=gen, device="cuda") * mag).requires_grad_()
+            gt = torch.randint(0, l, (n, p), generator=gen, device="cuda", dtype=torch.int32)
+            gt = torch.where(torch.rand(n, p, generator=gen, device="cuda") < 0.5, gt, -1)
+            loss, _ = fused_coarse_focal_loss(f0, f1, gt, 0.08, feat_norm=feat_norm)
+            loss.backward()
+            torch.cuda.synchronize()
+            off = [int((g / scale != (g / scale).to(torch.bfloat16).float()).sum()) for g in (f0.grad, f1.grad)]
+            nonzero = [int((g != 0).sum()) for g in (f0.grad, f1.grad)]
+            log(f"[7b] K5 {k5_instance(c)[0]} instance, C = {c}, feat_norm {feat_norm!r} (scale {scale:g}), "
+                f"f0[{n}, {p}, {c}] f1[{n}, {l}, {c}]: elements of df0 / scale, df1 / scale that are not bf16 "
+                f"values {off} (0), nonzero {nonzero}")
+            check(off == [0, 0] and min(nonzero) > 0, f"K5 {k5_instance(c)[0]} at C = {c} does not round df to bf16")
+            del f0, f1, gt, loss
 
 
 # K5 above 576 channels: K2's wide pack and LSE pass, then the loss and g sums on its

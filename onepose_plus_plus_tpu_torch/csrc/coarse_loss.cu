@@ -19,9 +19,11 @@
 //                    over f0's tiles (on the transposed tile s^T),
 // with dsim = (2 g - softmax_p * colsum_g - softmax_l * rowsum_g) * inv_temp
 // rounded to bf16 before both products (the TPU kernel's ds16), products in
-// f32. Every pass recomputes its similarity tiles (flash-attention style), so
-// no [P, L] tensor and no [B, n_row_tiles, L, C] partial is ever stored, and
-// no pass needs atomics: the result is the same bit for bit from run to run.
+// f32, each finished df element rounded to bf16 before the operands' scale
+// (df_out). Every pass recomputes its similarity tiles (flash-attention
+// style), so no [P, L] tensor and no [B, n_row_tiles, L, C] partial is ever
+// stored, and no pass needs atomics: the result is the same bit for bit from
+// run to run.
 //
 // Bound: operations, seven P*L*C products (LSE, loss, gsum, and two for each
 // feature gradient), then ~14 transcendentals per similarity element over the
@@ -128,6 +130,13 @@ struct Args {
   float grad_scale;  // df0 and df1 are written times this (the operands' scale)
   Focal focal;
 };
+
+// One finished df element as it leaves a feature-gradient block: rounded to
+// bf16 (the TPU kernel's df.astype(bf16) in _core_bwd), then times the
+// operands' scale in f32 (the chain rule through the pack's scale).
+__device__ __forceinline__ float df_out(float df, float grad_scale) {
+  return __bfloat162float(__float2bfloat16_rn(df)) * grad_scale;
+}
 
 // A thread's place in the accumulator fragment (wgmma.cuh): warp w, row group
 // g, column pair t; it holds rows 16 w + g + 8 h (h < 2) of the block's tile.
@@ -482,8 +491,8 @@ __global__ void __launch_bounds__(NT, 1) dfeat_tc_kernel(Args a, float* __restri
         const int col = ch0 + ch * NC + 8 * jj + 2 * t;
         if (orow[h] >= own_n) continue;
         float* o = out + ((size_t)b * own_n + orow[h]) * a.C;
-        if (col < a.C) o[col] = acc2[ch][4 * jj + 2 * h] * a.grad_scale;
-        if (col + 1 < a.C) o[col + 1] = acc2[ch][4 * jj + 2 * h + 1] * a.grad_scale;
+        if (col < a.C) o[col] = df_out(acc2[ch][4 * jj + 2 * h], a.grad_scale);
+        if (col + 1 < a.C) o[col + 1] = df_out(acc2[ch][4 * jj + 2 * h + 1], a.grad_scale);
       }
   }
 }
@@ -744,8 +753,8 @@ __global__ void __launch_bounds__(wdf::WNT, 1) dfeat_wide_kernel(Args a, float* 
         const int r = own_t * TM + fr.row(h), col = c0 + 64 * c + 8 * jj + 2 * fr.t;
         if (r >= own_n) continue;
         float* o = out + ((size_t)b * own_n + r) * a.C;
-        if (col < a.C) o[col] = acc2[c][4 * jj + 2 * h] * a.grad_scale;
-        if (col + 1 < a.C) o[col + 1] = acc2[c][4 * jj + 2 * h + 1] * a.grad_scale;
+        if (col < a.C) o[col] = df_out(acc2[c][4 * jj + 2 * h], a.grad_scale);
+        if (col + 1 < a.C) o[col + 1] = df_out(acc2[c][4 * jj + 2 * h + 1], a.grad_scale);
       }
   }
 }

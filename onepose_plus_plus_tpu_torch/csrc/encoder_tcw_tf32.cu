@@ -1,13 +1,15 @@
-// K1's f32 instance on the tensor cores, in split TF32, at the widths the
-// 256-channel one (encoder.cu, namespace tf) does not take: C a multiple of 32
-// from 32 to 4096 with any head count that divides it, all but (256, 8).
+// K1's f32 instance on the tensor cores, in split TF32, at every width: C a
+// multiple of 32 from 32 to 4096 with any head count that divides it, (256, 8)
+// included (the configurations' coarse width in f32: the demo, the f32 parity
+// paths).
 //
 // Replaces onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer
-// (_kv_stats_kernel + _apply_kernel) at those widths, with the f32 rule of the
-// 256-channel split-TF32 instance: every product runs as three TF32 products
-// of hi / lo halves (hi hi + hi lo + lo hi, wg::tf32_split, ~2^-22 relative),
-// sums in f32, the LayerNorms and the residual f32 on the f32 x, the output
-// f32.
+// (_kv_stats_kernel + _apply_kernel) with f32 operands: every product runs as
+// three TF32 products of hi / lo halves (hi hi + hi lo + lo hi,
+// wg::tf32_split, ~2^-22 relative), each pair of k chunks summed in a fresh
+// accumulator and added into an f32 register sum (wgmma_gemm.cuh's run_tf32:
+// within 2x plain f32's distance to a float64 layer), the LayerNorms and the
+// residual f32 on the f32 x, the output f32.
 //
 // Bound: operations (20 C^2 an x row, 4 C^2 a source row, the attention's
 // 2 C (hd + 1) each), three TF32 products each. The design is the bf16 chain's
@@ -362,8 +364,8 @@ struct Chain {
 }  // namespace tcw32
 }  // namespace
 
-// f32 operands on the tensor cores in split TF32 at the other widths (C a
-// multiple of 32 from 32 to 4096, any head count dividing it). With Cp = C
+// f32 operands on the tensor cores in split TF32 at every width (C a multiple
+// of 32 from 32 to 4096, any head count dividing it). With Cp = C
 // padded to a multiple of 64: wkv: [Wk; Wv] as [ceil(2C / 128) column
 // blocks][Cp / 32 k chunks] of [128 out, 32 in] chunks, each the TF32 hi image
 // then the lo image (16 KB each); wapply: Wq and Wmerge ([ceil(C / 128)][Cp /

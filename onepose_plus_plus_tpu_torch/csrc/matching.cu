@@ -42,7 +42,8 @@
 //
 // f32 operands up to C = 576 (the demo and the train config): the same passes
 // and epilogues on the tensor cores in split TF32 (sim_tile_tf32.cuh: three
-// TF32 products a product, f32 accuracy; lse_tf32x3_kernel,
+// TF32 products a product, each pair of 32-channel chunks in a fresh
+// accumulator added in f32, f32 accuracy; lse_tf32x3_kernel,
 // argmax_tf32x3_kernel). The wrapper packs f0 and f1 as scaled f32 in 32-channel
 // chunks (pack_tf32_operand_kernel). Bound: the three products at the TF32
 // rate, 3 x 2 P L C / 495 TFLOP/s a pass, and the L2 rate of the streamed

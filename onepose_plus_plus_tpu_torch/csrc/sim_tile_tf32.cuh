@@ -12,7 +12,11 @@
 //   - the f1 tiles stream as f32 in 32-channel chunks (8 KB): the threads
 //     load chunk c + 2 into registers and split chunk c + 1 into hi and lo
 //     images (the B operands, double-buffered in shared memory) while chunk
-//     c's twelve products run, one block barrier a chunk.
+//     c's twelve products run, one block barrier a chunk;
+//   - each pair of chunks sums in a fresh accumulator, added into the f32
+//     sum in registers (the tensor cores' own f32 sum over a long k is not
+//     cuBLAS-accurate: 5.7x plain f32's distance to a float64 row LSE at
+//     C = 256 and 576 when the whole k summed there).
 //
 // Operands are packed beforehand (matching.cu, opp_pack_tf32_operand_f32):
 // f32, scaled, the channels zero-padded to Cp (a multiple of 32), the rows to
@@ -110,10 +114,15 @@ struct Tf32Sim {
     __syncthreads();
   }
 
-  // acc = f0 tile [64, Cp] x f1 tile it [64, Cp]^T, complete on return.
+  // acc = f0 tile [64, Cp] x f1 tile it [64, Cp]^T, complete on return. Each
+  // pair of chunks is summed in a fresh accumulator on the tensor cores and
+  // added into acc in f32 in registers, as Ring32 does.
   __device__ __forceinline__ void product(float (&acc)[32], int it) {
     const int tid = threadIdx.x, w = tid >> 5, g = (tid >> 2) & 7, t = tid & 3;
     const int total = tiles * nch;
+    float part[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 #pragma unroll 1
     for (int j = 0; j < nch; ++j) {
       const int c = it * nch + j, p = c & 1;
@@ -136,9 +145,9 @@ struct Tf32Sim {
         const uint64_t bh = wg::desc(hi_addr + s * 2 * LBO, LBO, SBO);
         const uint64_t bl = wg::desc(lo_addr + s * 2 * LBO, LBO, SBO);
         // the two small cross products first, then the large one
-        wg::mma_rs_tf32_n64(acc, al[s], bh, (j > 0 || s > 0) ? 1 : 0);
-        wg::mma_rs_tf32_n64(acc, ah[s], bl, 1);
-        wg::mma_rs_tf32_n64(acc, ah[s], bh, 1);
+        wg::mma_rs_tf32_n64(part, al[s], bh, ((j & 1) || s > 0) ? 1 : 0);
+        wg::mma_rs_tf32_n64(part, ah[s], bl, 1);
+        wg::mma_rs_tf32_n64(part, ah[s], bh, 1);
       }
       wg::commit();
       // while they run: the next chunk into the other images (whose products
@@ -149,7 +158,11 @@ struct Tf32Sim {
         wg::fence_proxy_async();
       }
       wg::wait<0>();
-      wg::fence_regs(acc);
+      wg::fence_regs(part);
+      if ((j & 1) || j + 1 == nch) {  // a pair is complete (or the odd last chunk)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += part[i];
+      }
       __syncthreads();
     }
   }

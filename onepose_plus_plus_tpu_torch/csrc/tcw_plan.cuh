@@ -1,5 +1,6 @@
-// The chain that K1's two tensor-core instances at every width but (256, 8)
-// share (encoder_tcw.cu, bf16; encoder_tcw_tf32.cu, f32 in split TF32): its
+// The chain that K1's two tensor-core chains share (encoder_tcw.cu, bf16 at
+// every width but (256, 8); encoder_tcw_tf32.cu, f32 in split TF32 at every
+// width): its
 // plan (64-row tiles, 128-column product blocks, the heads a block touches,
 // the LayerNorms from per-block (mean, M2) partials), the product launches'
 // parameters, the epilogues that do not depend on the operand type, and the

@@ -36,7 +36,6 @@ _F = ctypes.c_float
 # exported C functions: name -> argument types (all return int but those in _RESTYPES)
 _SIGNATURES = {
     "opp_encoder_layer_tc": [_P] * 13 + [_I] * 3 + [_P],
-    "opp_encoder_layer_tf32x3": [_P] * 14 + [_I] * 3 + [_P],
     "opp_encoder_tc_source_tiles": [_I],
     "opp_encoder_layer_tcw": [_P] * 12 + [_I] * 5 + [_P],
     "opp_encoder_tcw_scratch_bytes": [_I] * 6,

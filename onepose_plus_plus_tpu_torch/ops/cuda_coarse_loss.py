@@ -13,7 +13,9 @@ the TPU kernel's precision: f0 and f1 are scaled by 1/sqrt(C) and rounded to
 bf16, similarities accumulate in f32. The backward is analytic, with
 g = dL/dlogconf (zero where the cap is active),
 ``dL/ds = 2 g - softmax_p * colsum(g) - softmax_l * rowsum(g)``, rounded to
-bf16 before the two products with the features (f32 accumulation).
+bf16 before the two products with the features (f32 accumulation), and the
+feature gradients rounded to bf16 before they are carried back through the
+operands' scale in f32 (the TPU kernel's ``df.astype(bf16)`` in ``_core_bwd``).
 
 What bounds it on the card: seven similarity-sized products on the tensor
 cores (2*B*P*L*C FLOP each, ~59 GFLOP at the train shapes), then ~14
@@ -109,6 +111,28 @@ def _focal_terms(conf: torch.Tensor, log_conf: torch.Tensor, gamma: float):
     return -pg * log_conf, -ng * torch.log1p(-conf)
 
 
+class _Similarity(torch.autograd.Function):
+    """s = f0 f1^T * inv_temp in f32, whose backward rounds as the TPU kernel's
+    ``_dfeat_kernel`` and ``_core_bwd`` do: dsim = inv_temp * dL/ds rounded to
+    bf16, the two products with the features in f32, each df rounded to bf16
+    (then to the operands' type: the autograd of the cast that made them
+    carries it on through the operands' scale in f32)."""
+
+    @staticmethod
+    def forward(ctx, f0, f1, inv_temp):
+        ctx.save_for_backward(f0, f1)
+        ctx.inv_temp = inv_temp
+        return torch.einsum("bpc,blc->bpl", f0.float(), f1.float()) * inv_temp
+
+    @staticmethod
+    def backward(ctx, g_sim):
+        f0, f1 = ctx.saved_tensors
+        dsim = (g_sim * ctx.inv_temp).to(torch.bfloat16).float()
+        df0 = torch.einsum("bpl,blc->bpc", dsim, f1.float())
+        df1 = torch.einsum("bpl,bpc->blc", dsim, f0.float())
+        return (df0.to(torch.bfloat16).to(f0.dtype), df1.to(torch.bfloat16).to(f1.dtype), None)
+
+
 def coarse_focal_sums_plain(
     f0: torch.Tensor, f1: torch.Tensor, gt: torch.Tensor, inv_temp: float, alpha: float, gamma: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -117,8 +141,9 @@ def coarse_focal_sums_plain(
     f0 [B, P, C], f1 [B, L, C] already scaled and cast; gt [B, P] the GT column
     of each row (-1 = none). Returns (alpha * sum of positive terms,
     (1 - alpha) * sum of negative terms, max conf). Materialises [B, P, L].
+    The feature gradients round as the kernels' do (:class:`_Similarity`).
     """
-    sim = torch.einsum("bpc,blc->bpl", f0.float(), f1.float()) * inv_temp
+    sim = _Similarity.apply(f0, f1, inv_temp)
     raw = 2.0 * sim - torch.logsumexp(sim, dim=1, keepdim=True) - torch.logsumexp(sim, dim=2, keepdim=True)
     log_conf = torch.clamp(raw, max=LOGCAP)
     conf = torch.exp(log_conf)

@@ -2,8 +2,9 @@
 
 Replaces ``onepose_plus_plus_tpu/ops/pallas_encoder.py::fused_encoder_layer``
 (``_kv_stats_kernel`` and ``_apply_kernel``). Sources: ``csrc/encoder.cu``
-(C = 256 with 8 heads), ``csrc/encoder_tcw.cu`` and ``csrc/encoder_tcw_tf32.cu``
-(every other width, on ``csrc/tcw_plan.cuh`` and ``csrc/wgmma_gemm.cuh``).
+(bf16 at C = 256 with 8 heads), ``csrc/encoder_tcw.cu`` (bf16 at every other
+width) and ``csrc/encoder_tcw_tf32.cu`` (f32 at every width), the chains on
+``csrc/tcw_plan.cuh`` and ``csrc/wgmma_gemm.cuh``.
 
 The layer (reference ``loftr_module/transformer.py:7-58``): Q/K/V projection,
 elu+1 linear attention, merge, LayerNorm, FFN over concat(x, msg) with ReLU,
@@ -14,7 +15,7 @@ one block per x tile runs the whole rest of the layer in shared memory.
 
 What bounds it on the card: operations (20 C^2 per x row, 4 C^2 per source
 row), every product computed in the kernel's own body, on the tensor cores.
-Four instances, chosen by :func:`k1_instance` from the operand type and the
+Three instances, chosen by :func:`k1_instance` from the operand type and the
 width, all counted as ``K1_encoder_layer``:
 
 - ``"tc"``: **bfloat16 operands at C = 256 with 8 heads** (both coarse
@@ -23,12 +24,6 @@ width, all counted as ``K1_encoder_layer``:
   shared memory, accumulators and every epilogue (elu+1, masks, division,
   LayerNorms, ReLU) in registers, the weights streamed from L2 by bulk copies
   into a ring of a few stages.
-- ``"tf32x3"``: **float32 operands at C = 256 with 8 heads** (the demo, the
-  f32 parity paths) run the same layer on the tensor cores in split TF32:
-  each projection and FFN product as three TF32 products of hi / lo halves
-  (~2^-22 relative, f32 accuracy), activations as f32 tiles split into A
-  fragments in registers, the weights packed once as hi and lo images; the
-  per-head K'^T[V|1] and attention products in f32 FMAs on the CUDA cores.
 - ``"tcw"``: **bfloat16 operands at every other width** (C a multiple of 32
   from 32 to 4096, any head count that divides it) run on the tensor cores as
   a chain of products (``csrc/encoder_tcw.cu``): every launch works on 64-row
@@ -41,13 +36,17 @@ width, all counted as ``K1_encoder_layer``:
   denominators as 16 rows of head sums (a head width that is a multiple of 8)
   or replicated per column over 64-column blocks (any other head width,
   :func:`tcw_replicated`).
-- ``"tcw_tf32"``: **float32 operands at every other width** run the ``"tcw"``
+- ``"tcw_tf32"``: **float32 operands at every width**, C = 256 with 8 heads
+  included (the demo, the f32 parity paths), run the ``"tcw"``
   chain with every product as three TF32 products of hi / lo halves
   (``csrc/encoder_tcw_tf32.cu``): A operands f32 images of [64 rows, 32 k]
   chunks split in registers, B operands packed split, hi image then lo image
   ([column block][k chunk][128 out x 32 in], :func:`pack_weight_chunks_tcw_tf32`;
   V^T and the attention's B written so by their producers), the attention's
-  k range over Q' an even number of chunks (:func:`tcw32_head_chunks`).
+  k range over Q' an even number of chunks (:func:`tcw32_head_chunks`). Each
+  pair of k chunks sums in a fresh accumulator that is added into an f32
+  register sum, so the layer stays within twice plain f32's distance to a
+  float64 layer.
 
 Together they take every C that is a multiple of 32 up to 4096 with any head
 count that divides it: every width the JAX kernel takes (C % 128 == 0, head
@@ -78,9 +77,8 @@ from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, 
 
 _EPS = 1e-6
 _LN_EPS = 1e-5
-_TC_WIDTH, _TC_HEADS = 256, 8  # the 256-channel instances' only width
+_TC_WIDTH, _TC_HEADS = 256, 8  # the 256-channel bf16 instance's only width
 _CHUNK_K = 64  # input columns of one packed bf16 weight chunk
-_TF32_CHUNK_K = 8  # input columns of one packed split-TF32 weight chunk
 TCW_MAX_WIDTH = 4096  # K1's widest layer (csrc/tcw_plan.cuh::takes)
 TCW_BLOCK = 128  # output columns of a "tcw" product block (csrc/tcw_plan.cuh::BN)
 TCW_REP_BLOCK = 64  # output columns of an attention block with replicated denominators (BR)
@@ -101,15 +99,15 @@ def tcw_takes(c: int, nhead: int) -> bool:
 
 def k1_instance(c: int, nhead: int, dtype: torch.dtype) -> Optional[str]:
     """The K1 instance that runs a layer of width ``c`` with ``nhead`` heads on
-    ``dtype`` operands: ``"tc"`` (bf16, C = 256 with 8 heads), ``"tf32x3"`` (f32
-    in split TF32, the same width), ``"tcw"`` (bf16, every other width
-    :func:`tcw_takes` names), ``"tcw_tf32"`` (f32 in split TF32, the same
-    widths), all on the tensor cores; or None where no instance takes it."""
+    ``dtype`` operands: ``"tc"`` (bf16, C = 256 with 8 heads), ``"tcw"`` (bf16,
+    every other width :func:`tcw_takes` names), ``"tcw_tf32"`` (f32 in split
+    TF32, every width it names), all on the tensor cores; or None where no
+    instance takes it."""
     if dtype not in KERNEL_DTYPES or not tcw_takes(c, nhead):
         return None
-    if (c, nhead) == (_TC_WIDTH, _TC_HEADS):
-        return "tc" if dtype == torch.bfloat16 else "tf32x3"
-    return "tcw" if dtype == torch.bfloat16 else "tcw_tf32"
+    if dtype == torch.float32:
+        return "tcw_tf32"
+    return "tc" if (c, nhead) == (_TC_WIDTH, _TC_HEADS) else "tcw"
 
 
 def tcw_padded(c: int) -> int:
@@ -299,23 +297,6 @@ def pack_weight_chunks_tcw(w_out_in: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 4, 2, 5).contiguous()
 
 
-def pack_weight_chunks_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
-    """A float32 weight [N, K] in torch's Linear layout ([out, in]) as the chunks
-    the split-TF32 instance copies into shared memory: [K / 8, 2, N / 8, 2, 8, 4]
-    indexed (chunk, half, out group, in group, out % 8, in % 4), half 0 the TF32
-    hi part and half 1 the lo part (:func:`kernels.tf32_split`), so that element
-    (n, k) of a chunk's half lies at byte ``(n // 8) * 256 + ((k % 8) // 4) * 128
-    + (n % 8) * 16 + (k % 4) * 4``: the ``wgmma`` K-major layout of 4-byte values."""
-    n, k = w_out_in.shape
-    if n % 8 != 0 or k % _TF32_CHUNK_K != 0:
-        raise ValueError(f"pack_weight_chunks_tf32: shape {(n, k)} needs N % 8 == 0 and K % 8 == 0")
-    halves = []
-    for half in tf32_split(w_out_in.float()):
-        t = half.reshape(n // 8, 8, k // 8, 2, 4)  # [ng, nr, chunk, kg, kc]
-        halves.append(t.permute(2, 0, 3, 1, 4))
-    return torch.stack(halves, dim=1).contiguous()
-
-
 def pack_weight_chunks_tcw_tf32(w_out_in: torch.Tensor) -> torch.Tensor:
     """A float32 weight [N, K] in torch's Linear layout ([out, in]) as the chunks
     the "tcw_tf32" products copy: [ceil(N / 128), Kp / 32, 2, 16, 8, 8, 4] with
@@ -348,11 +329,11 @@ def chunk_images(instance: str, wq, wk, wv, wmerge, wmlp0, wmlp1) -> Tuple[torch
         c, cp = q.shape[0], tcw_padded(q.shape[0])
         w0 = torch.cat([F.pad(w0[:, :c], (0, cp - c)), F.pad(w0[:, c:], (0, cp - c))], dim=1)  # [x | LN1], padded
         return stats, torch.cat([pack(w).reshape(-1) for w in (q, m, w0, w1)])
-    pack = pack_weight_chunks if instance == "tc" else pack_weight_chunks_tf32
     c = q.shape[0]
-    # in the kernel's order: Q, merge, the FFN's first product by output half
-    # (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
-    return torch.cat([pack(k), pack(v)]), torch.cat([pack(q), pack(m), pack(w0[:c]), pack(w0[c:]), pack(w1)])
+    # "tc", in its kernels' order: Q, merge, the FFN's first product by output
+    # half (its input columns 0..C-1 meet x, C..2C-1 the LN1 output), its second
+    return (torch.cat([pack_weight_chunks(w) for w in (k, v)]),
+            torch.cat([pack_weight_chunks(w) for w in (q, m, w0[:c], w0[c:], w1)]))
 
 
 def pack_encoder_weights(
@@ -444,18 +425,6 @@ def fused_encoder_layer_packed(
             ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
             ptr(scratch), ptr(y), n, l, s, c, nhead, stream_ptr(device),
         )
-    elif instance == "tf32x3":
-        n_tiles = lib.lib.opp_encoder_tc_source_tiles(s)
-        part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
-        kv = torch.empty((n, c, hd + 1), dtype=torch.float32, device=device)
-        hid = torch.empty((n, lib.lib.opp_encoder_tc_source_tiles(l), 64, c), dtype=torch.float32,
-                          device=device)
-        lib.call(
-            "opp_encoder_layer_tf32x3",
-            ptr(x), ptr(source), ptr(packed.stats), ptr(packed.apply),
-            ptr(ln[0]), ptr(ln[1]), ptr(ln[2]), ptr(ln[3]), ptr(masks[0]), ptr(masks[1]),
-            ptr(part), ptr(kv), ptr(hid), ptr(y), n, l, s, stream_ptr(device),
-        )
     else:
         n_tiles = lib.lib.opp_encoder_tc_source_tiles(s)
         part = torch.empty((n, n_tiles, hd + 1, c), dtype=torch.float32, device=device)
@@ -497,10 +466,10 @@ def fused_encoder_layer(
     dtype when it is bfloat16, else float32) is the product operand type: the
     weights are cast to it and every product operand is rounded to it, while
     x and source are read as f32 and the residual adds the f32 x (as the TPU
-    kernel does). It also routes (:func:`k1_instance`): C = 256 with 8 heads
-    to the 256-channel tensor-core instance of the operand type (bfloat16, or
-    float32 in split TF32), every other width :func:`tcw_takes` names to the
-    tensor-core chain of the operand type.
+    kernel does). It also routes (:func:`k1_instance`): bfloat16 operands at
+    C = 256 with 8 heads to the 256-channel tensor-core instance, at every
+    other width :func:`tcw_takes` names to the bf16 chain, and float32 operands
+    at every such width to the split-TF32 chain.
     Returns [N, L, C] float32. CPU tensors run the plain version. Packs the
     weights at every call; a caller that keeps its weights packs them once
     (:func:`pack_encoder_weights`) and calls :func:`fused_encoder_layer_packed`.

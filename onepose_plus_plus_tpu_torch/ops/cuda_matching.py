@@ -34,8 +34,10 @@ units. Four instances, all on the tensor cores (:func:`k2_instance`):
   + x_hi y_hi``, ~2^-22 relative), so the f32 tolerances hold. The wrapper
   packs each operand once (:func:`pack_tf32_operand`): scaled f32 in
   32-channel chunks of 64-row tiles; the kernel keeps the f0 tile f32 and
-  splits its A fragments in registers, and splits each streamed f1 chunk into
-  hi and lo images in shared memory.
+  splits its A fragments in registers, splits each streamed f1 chunk into
+  hi and lo images in shared memory, and sums each pair of chunks in a fresh
+  accumulator that is added into an f32 register sum (within twice plain
+  f32's distance to a float64 LSE).
 - **above 576 channels, at any width** (``"wide_bf16"``, ``"wide_tf32"``):
   ``csrc/sim_tile_wide.cuh``, the channel-streaming product loops of
   ``csrc/wgmma_gemm.cuh``. No tile stays resident: a block owns a 64-row f0

@@ -6,7 +6,7 @@
 For random layers (weights and inputs from a seed, as tests/test_torch_cuda.py
 makes them) at (C, heads) = (256, 8), (512, 8), (1024, 8) and (128, 16), batch
 4, prints the mean |y - y64| of: the kernel the router picks for f32 operands
-(``tf32x3`` at (256, 8), ``tcw_tf32`` elsewhere), the plain version in f32 on
+(``tcw_tf32`` at every width), the plain version in f32 on
 cuBLAS with TF32 off, the plain version with every two-operand product split
 into three TF32 products of hi / lo halves as the kernels split them
 (``kernels.tf32x3_matmul``, on cuBLAS, so f32 sums), and the plain version

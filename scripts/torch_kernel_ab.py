@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K3-K7 of one checkout of the port, for A/B runs on one card.
 
-    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1 | --k2 | --k5]    # needs one CUDA GPU and nvcc
+    python3 scripts/torch_kernel_ab.py [--tree DIR] [--k1] [--k2] [--k5]    # needs one CUDA GPU and nvcc
 
 Imports ``onepose_plus_plus_tpu_torch`` from DIR (default: the checkout this
 script lies in), builds its kernels there, and times, on inputs made from a
@@ -31,24 +31,28 @@ C = 33 (512 int32 corners); each also with the device time of every launch of
 the call, the host time a call, ``index_select`` on precomputed indices and
 the bytes bound. Last, the host time of reading the current stream's handle
 (``torch.cuda.current_stream().cuda_stream``, and ``kernels.stream_ptr``
-where the tree has it), which every wrapper does once a call. With ``--k1``,
-only K1 (``fused_encoder_layer``) with bf16 and with f32 operands at self
+where the tree has it), which every wrapper does once a call. The flags
+``--k1``, ``--k2`` and ``--k5`` (any of them, together in that order) time
+only those kernels instead. ``--k1``:
+K1 (``fused_encoder_layer``) with bf16 and with f32 operands at self
 [4, 4096, C] for (C, heads) = (512, 8), (1024, 8), (2048, 16), (512, 64), (64, 8),
 (96, 8) and (160, 8), at x [2, 150] against source [2, 97] with masks at
 (128, 16) and (384, 16) (head widths 8 and 24), and at x [4, 1000] against
-source [4, 700] at (64, 8), the weights packed once as a model packs them
+source [4, 700] at (64, 8), and at (256, 8) at self [16, 7000] and the four
+layer shapes of a tracking frame (batch 1: self 7000, self 4096, 7000 against
+4096, 4096 against 7000), the weights packed once as a model packs them
 (``pack_encoder_weights``): whole call (median of 5), device time a call of
 every launch by name (templated kernels by instance, ``tcw32_gemm_kernel<2>``),
 and the instance the tree routes to where it names one (a tree from before the
 tensor-core chains took a width runs it on its CUDA-core kernels, a fifth of a
-second a call at 2048). With ``--k2``,
-only K2 (``dual_softmax_rowcol_stats``) at [16, 7000] x [16, 4096] for C = 640, 1024 and
+second a call at 2048). ``--k2``:
+K2 (``dual_softmax_rowcol_stats``) at [16, 7000] x [16, 4096] for C = 256, 640, 1024 and
 2048 with bf16 and with f32 operands: whole call (median of 3), device time a call of every
 launch by name, the instance the tree routes to where it names one (a tree from before the
 wide instances runs these widths on its CUDA-core tile, over a second a call at 2048), and
-the mean distance of row_lse to float64 at [2, 1000] x [2, 700] x 2048 beside the plain
-version's. With ``--k5``, only K5 (``coarse_focal_sums``, forward and backward) with bf16
-operands at the train shapes [4, 7000] x [4, 4096] for C = 640, 1024, 2048 and 4096: whole call
+the mean distance of row_lse to float64 at [2, 1000] x [2, 700] x 256 and 2048 beside the
+plain version's. ``--k5``: K5 (``coarse_focal_sums``, forward and backward) with bf16
+operands at the train shapes [4, 7000] x [4, 4096] for C = 256, 640, 1024, 2048 and 4096: whole call
 (median of 3), device time a call of every launch by name (templated kernels by instance)
 and the instance the tree routes to (a tree from before the wide tensor-core instance runs
 these widths on its CUDA-core kernels, half a second a call at 4096). Prints one JSON line. Only entry points that every checkout
@@ -70,9 +74,10 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
-    parser.add_argument("--k1", action="store_true", help="time only K1's bf16 and f32 layers at self [4, 4096, C]")
-    parser.add_argument("--k2", action="store_true", help="time only K2 at [16, 7000] x [16, 4096] x C")
-    parser.add_argument("--k5", action="store_true", help="time only K5 forward + backward at [4, 7000] x [4, 4096] x C")
+    parser.add_argument("--k1", action="store_true", help="time K1's bf16 and f32 layers (self [4, 4096, C], "
+                        "(256, 8) at self [16, 7000] and a tracking frame's shapes, ...)")
+    parser.add_argument("--k2", action="store_true", help="time K2 at [16, 7000] x [16, 4096] x C")
+    parser.add_argument("--k5", action="store_true", help="time K5 forward + backward at [4, 7000] x [4, 4096] x C")
     args = parser.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -248,16 +253,20 @@ def main() -> int:
     gen.manual_seed(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    rec = {}
     if args.k1:
         from onepose_plus_plus_tpu_torch.ops import cuda_encoder
 
         torch.backends.cuda.matmul.allow_tf32 = False
-        rec = {}
         # (tag, n, l, s (None: self), masks, C, heads)
         cases = [("self_4x4096", 4, 4096, None, False, c, nhead)
                  for c, nhead in ((512, 8), (1024, 8), (2048, 16), (512, 64), (64, 8), (96, 8), (160, 8))]
         cases += [("x2x150_src97_masked", 2, 150, 97, True, c, nhead) for c, nhead in ((128, 16), (384, 16))]
         cases += [("x4x1000_src700", 4, 1000, 700, False, 64, 8)]
+        # (256, 8): the main path's self shape, and a tracking frame's four layer shapes at batch 1
+        cases += [("self_16x7000", 16, 7000, None, False, 256, 8), ("self_1x7000", 1, 7000, None, False, 256, 8),
+                  ("self_1x4096", 1, 4096, None, False, 256, 8), ("x1x7000_src4096", 1, 7000, 4096, False, 256, 8),
+                  ("x1x4096_src7000", 1, 4096, 7000, False, 256, 8)]
         for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             for tag, n, l, s, masked, c, nhead in cases:
                 rn = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale  # noqa: E731
@@ -276,14 +285,11 @@ def main() -> int:
                                                        "launches": named, "instance": instance}
                 del x, src
                 torch.cuda.empty_cache()
-        print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
-        return 0
     if args.k2:
         from onepose_plus_plus_tpu_torch.ops import cuda_matching
 
         torch.backends.cuda.matmul.allow_tf32 = False
-        rec = {}
-        for c in (640, 1024, 2048):
+        for c in (256, 640, 1024, 2048):
             f0 = torch.randn(16, 7000, c, generator=gen, device="cuda")
             f1 = torch.randn(16, 4096, c, generator=gen, device="cuda")
             for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -294,24 +300,22 @@ def main() -> int:
                                                      "launches": named, "instance": instance}
             del f0, f1
             torch.cuda.empty_cache()
-        c, inv_temp = 2048, 1 / (0.08 + 1e-4)
-        f0 = torch.randn(2, 1000, c, generator=gen, device="cuda")
-        f1 = torch.randn(2, 700, c, generator=gen, device="cuda")
-        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            a0, a1 = (f0 * c ** -0.5).to(dtype), (f1 * c ** -0.5).to(dtype)
-            lse64 = torch.logsumexp(torch.einsum("bpc,blc->bpl", a0.double(), a1.double()) * inv_temp, dim=2)
-            got = cuda_matching.dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype)["row_lse"]
-            ref = cuda_matching.rowcol_stats_plain(a0, a1, inv_temp)["row_lse"]
-            rec[f"K2_{dt}_2x1000x700_c{c}_row_lse_to_float64"] = {
-                "kernel": (got.double() - lse64).abs().mean().item(),
-                "plain": (ref.double() - lse64).abs().mean().item()}
-        print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
-        return 0
+        inv_temp = 1 / (0.08 + 1e-4)
+        for c in (256, 2048):
+            f0 = torch.randn(2, 1000, c, generator=gen, device="cuda")
+            f1 = torch.randn(2, 700, c, generator=gen, device="cuda")
+            for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                a0, a1 = (f0 * c ** -0.5).to(dtype), (f1 * c ** -0.5).to(dtype)
+                lse64 = torch.logsumexp(torch.einsum("bpc,blc->bpl", a0.double(), a1.double()) * inv_temp, dim=2)
+                got = cuda_matching.dual_softmax_rowcol_stats(f0, f1, 0.08, dtype=dtype)["row_lse"]
+                ref = cuda_matching.rowcol_stats_plain(a0, a1, inv_temp)["row_lse"]
+                rec[f"K2_{dt}_2x1000x700_c{c}_row_lse_to_float64"] = {
+                    "kernel": (got.double() - lse64).abs().mean().item(),
+                    "plain": (ref.double() - lse64).abs().mean().item()}
     if args.k5:
         from onepose_plus_plus_tpu_torch.ops import cuda_coarse_loss
 
-        rec = {}
-        for c in (640, 1024, 2048, 4096):
+        for c in (256, 640, 1024, 2048, 4096):
             f0 = (torch.randn(4, 7000, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
             f1 = (torch.randn(4, 4096, c, generator=gen, device="cuda") / c ** 0.5).to(torch.bfloat16)
             gt = torch.randint(-1, 4096, (4, 7000), generator=gen, device="cuda", dtype=torch.int32)
@@ -327,6 +331,7 @@ def main() -> int:
                                                 "instance": cuda_coarse_loss.k5_instance(c)}
             del f0, f1
             torch.cuda.empty_cache()
+    if rec:
         print(json.dumps({"tree": str(tree), "gpu": smi, **rec}))
         return 0
     gathers = {}

@@ -158,17 +158,20 @@ def test_k5_wide_slices_cover_the_padded_channels_once(c):
         wide_slices(576)
 
 
-def _cluster_feature_grads(f0, f1, gt, inv_temp, coefs, alpha=0.5, gamma=2.0):
-    """df0, df1 in the wide instance's arithmetic, in PyTorch: s as the sum of
-    each block's partial product over its channel slice, in rank order; dsim
-    formed once from it (the plain version's formula of dL/ds), rounded to
-    bf16; the products in f32. The LSEs and g sums from the plain forward."""
-    from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import LOGCAP, wide_slices
+def _emulated_feature_grads(f0, f1, gt, inv_temp, coefs, alpha=0.5, gamma=2.0, slices=None):
+    """df0, df1 in the TPU kernel's arithmetic, in PyTorch (``_dfeat_kernel``
+    and ``_core_bwd``): s = f0 f1^T * inv_temp in f32 over the bf16 operands
+    (with ``slices``, as the sum of each slice's partial product in their
+    order: the wide instance's cluster); the LSEs, g = dL/dlogconf and its row
+    and column sums from it; dsim = (2 g - softmax_p * colsum(g) - softmax_l *
+    rowsum(g)) * inv_temp rounded to bf16; the two products in f32; each df
+    rounded to bf16. Returns f32 tensors holding bf16 values (before the
+    operands' scale)."""
+    from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import LOGCAP
 
     a0, a1 = f0.float(), f1.float()
-    c = a0.shape[-1]
     s = None
-    for c0, w in wide_slices(c):
+    for c0, w in slices or [(0, a0.shape[-1])]:
         part = torch.einsum("bpc,blc->bpl", a0[..., c0:c0 + w], a1[..., c0:c0 + w])
         s = part if s is None else s + part
     s = s * inv_temp
@@ -184,7 +187,31 @@ def _cluster_feature_grads(f0, f1, gt, inv_temp, coefs, alpha=0.5, gamma=2.0):
     sm_p, sm_l = torch.exp(s - col_lse), torch.exp(s - row_lse)
     dsim = ((2.0 * g - sm_p * g.sum(1, keepdim=True) - sm_l * g.sum(2, keepdim=True)) * inv_temp)
     dsim = dsim.to(torch.bfloat16).float()
-    return torch.einsum("bpl,blc->bpc", dsim, a1), torch.einsum("bpl,bpc->blc", dsim, a0)
+    df0, df1 = torch.einsum("bpl,blc->bpc", dsim, a1), torch.einsum("bpl,bpc->blc", dsim, a0)
+    return df0.to(torch.bfloat16).float(), df1.to(torch.bfloat16).float()
+
+
+def _cluster_feature_grads(f0, f1, gt, inv_temp, coefs, alpha=0.5, gamma=2.0):
+    """df0, df1 in the wide instance's arithmetic, in PyTorch: s as the sum of
+    each block's partial product over its channel slice, in rank order; dsim
+    formed once from it (the plain version's formula of dL/ds), rounded to
+    bf16; the products in f32; each df rounded to bf16 as the blocks store it.
+    The LSEs and g sums from the plain forward."""
+    from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import wide_slices
+
+    return _emulated_feature_grads(f0, f1, gt, inv_temp, coefs, alpha, gamma, slices=wide_slices(f0.shape[-1]))
+
+
+def _rounding_distance(got, ref):
+    """(share of elements that differ, largest |got - ref| in units of
+    2^-7 |ref| (one bf16 step of ref is at most that), mean |got - ref| as a
+    share of max|ref|): two gradients that round their dsim and df to bf16
+    alike differ only where an f32 difference in the order of sums tips a
+    rounding to the neighbouring bf16 value."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    d = np.abs(got - ref)
+    steps = (d / np.maximum(2.0 ** -7 * np.abs(ref), 1e-30)).max()
+    return float((d > 0).mean()), float(steps), float(d.mean() / np.abs(ref).max())
 
 
 @pytest.mark.parametrize("b,p,l,c", [(2, 70, 130, 640), (1, 65, 129, 1000), (1, 40, 33, 4000)])
@@ -205,3 +232,55 @@ def test_k5_cluster_arithmetic_matches_the_plain_gradients(b, p, l, c):
     (coefs[0] * pos + coefs[1] * neg).backward()
     got = _cluster_feature_grads(f0, f1, gt, inv_temp, coefs)
     _assert_grads_close([x.numpy() for x in got], [a0.grad.float().numpy(), a1.grad.float().numpy()])
+
+
+def _flips_bounded(got, ref, share, mean):
+    for g, r in zip(got, ref):
+        differ, _, mean_d = _rounding_distance(g, r)
+        assert differ <= share and mean_d <= mean, (differ, mean_d)
+
+
+def test_k5_plain_gradients_round_as_jax_does():
+    """The plain version's feature gradients round dsim and df to bf16 where
+    the TPU kernel does, so they equal JAX's (interpret mode) but where an f32
+    sum in another order tips one rounding to the neighbouring bf16 value: at
+    most 1 % of the elements differ and the mean |difference| stays within
+    1e-6 of max|grad| (measured: 8.1e-4 / 9.8e-5 of the elements, 1.9e-8 /
+    1.6e-8). A path that rounds only df, or only dsim, misses both bounds by
+    far (one that keeps dsim in f32: 41 % / 40 % of the elements, 9.6e-5 /
+    1.3e-4); no element is more than one bf16 step of max|grad| off."""
+    feat0, feat1, gt = _inputs(1, 300, 160, 640, seed=640)
+    _, _, ref = _jax(feat0, feat1, gt, 0.08, 2.0)
+    _, _, got = _port(feat0, feat1, gt, 0.08, 2.0)
+    _flips_bounded(got, ref, share=1e-2, mean=1e-6)
+    for g, r in zip(got, ref):
+        assert np.abs(g - r).max() <= 2.0 ** -7 * np.abs(r).max()
+
+
+@pytest.mark.parametrize("feat_norm", ["sqrt_feat_dim", "none"])
+@pytest.mark.parametrize("c", [256, 640, 1024])
+def test_k5_plain_gradients_follow_the_dfeat_arithmetic(c, feat_norm):
+    """The plain version's feature gradients (autograd of the dense path, its
+    similarity's backward rounding dsim and df) against the TPU kernel's
+    arithmetic written out (:func:`_emulated_feature_grads`: dsim from the
+    LSEs and g sums, rounded to bf16, f32 products, df rounded to bf16, times
+    the operands' scale) on the same inputs. The two form dsim by different
+    f32 sums, so a rounding may tip: at most 1 % of the elements differ and
+    the mean |difference| stays within 1e-7 of max|grad| (measured at most
+    7.6e-4 of the elements and 1.0e-8 at C = 1024, none at 256 and 640)."""
+    from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import fused_coarse_focal_loss as port_loss
+
+    b, p, l = 1, 200, 130
+    feat0, feat1, gt = _inputs(b, p, l, c, seed=c + 1)
+    if feat_norm == "none":  # the same magnitudes of s without the scale
+        feat0, feat1 = feat0 / c ** 0.5, feat1 / c ** 0.5
+    scale = c ** -0.5 if feat_norm == "sqrt_feat_dim" else 1.0
+    f0 = torch.from_numpy(feat0).requires_grad_()
+    f1 = torch.from_numpy(feat1).requires_grad_()
+    loss, _ = port_loss(f0, f1, torch.from_numpy(gt), 0.08, feat_norm=feat_norm)
+    loss.backward()
+    n_pos = int((gt >= 0).sum())
+    coefs = (1.0 / max(n_pos, 1), 1.0 / (b * p * l - n_pos))  # the loss's count normalisation
+    a0, a1 = ((torch.from_numpy(f) * scale).to(torch.bfloat16) for f in (feat0, feat1))
+    emu = _emulated_feature_grads(a0, a1, torch.from_numpy(gt), 1.0 / (0.08 + 1e-4), coefs)
+    _flips_bounded([f0.grad.numpy(), f1.grad.numpy()], [(e * scale).numpy() for e in emu], share=1e-2, mean=1e-7)

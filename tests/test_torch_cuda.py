@@ -162,21 +162,22 @@ def _names(fn):
     return out, names
 
 
-K1_TF32_NAMES = ("kv_partial_tf32x3_kernel", "kv_reduce_tf32x3_kernel", "apply_tf32x3_kernel")
+K1_TC_NAMES = ("kv_partial_tc_kernel", "kv_reduce_tc_kernel", "apply_tc_kernel")
 
 
 @pytest.mark.parametrize("l,s,masks", [(300, 450, True), (64, None, False)])
 def test_k1_f32_runs_the_split_tf32_instance_and_repeats_bitwise(gen, l, s, masks):
-    """f32 operands at C = 256 with 8 heads run K1's split-TF32 kernels, by name,
-    and none of the chains' kernels; two launches agree bit for bit."""
+    """f32 operands at C = 256 with 8 heads run K1's split-TF32 chain, by name,
+    and none of the bf16 kernels; two launches agree bit for bit."""
     x, src, w, xm, sm = _k1_args(gen, 2, l, s, masks, torch.float32)
     packed = pack_encoder_weights(*w, nhead=8, dtype=torch.float32)
-    assert packed.instance == "tf32x3"
+    assert packed.instance == "tcw_tf32"
     got, names = _names(lambda: fused_encoder_layer_packed(x, src, packed, xm, sm))
     again = fused_encoder_layer_packed(x, src, packed, xm, sm)
     ref = encoder_layer_plain(x, src, *w, xm, sm, nhead=8)
     torch.cuda.synchronize()
-    assert set(K1_TF32_NAMES) <= names and not set(K1_TCW32_NAMES) & names, names
+    assert set(K1_TCW32_NAMES) <= names and not set(K1_TC_NAMES + K1_TCW_NAMES) & names, names
+    assert not {n for n in names if n.endswith("_tf32x3_kernel")}, names  # K1 has none; K2 does not run here
     assert torch.equal(got, again)
     assert (got - ref).abs().max().item() < 1e-3
 
@@ -300,7 +301,8 @@ def test_k1_tcw_tf32_matches_plain_repeats_bitwise_and_launches_its_kernels(gen,
 
 @pytest.mark.parametrize("c,nhead,l,s,masks", [(512, 8, 1000, 1500, False), (1024, 8, 777, None, True),
                                                (384, 16, 1000, 1500, True), (128, 16, 777, None, False),
-                                               (96, 8, 1000, 1500, True), (640, 160, 777, None, False)])
+                                               (96, 8, 1000, 1500, True), (640, 160, 777, None, False),
+                                               (256, 8, 1000, 1500, False), (256, 8, 777, None, True)])
 def test_k1_tcw_tf32_epilogues_do_not_drift(gen, c, nhead, l, s, masks):
     """The split-TF32 chain computes elu+1 through ex2.approx and divides by
     (den + 1e-6) through a reciprocal, and drops each product's lo x lo term
@@ -464,6 +466,29 @@ def _row_lse64(a0, a1, col_add):
     operands after scaling and rounding)."""
     sim = torch.einsum("bpc,blc->bpl", a0.double(), a1.double()) / (0.08 + 1e-4) + col_add.double()[:, None, :]
     return torch.logsumexp(sim, dim=2)
+
+
+@pytest.mark.parametrize("b,p,l,c", [(2, 1000, 700, 256), (2, 1000, 700, 576)])
+def test_k2_f32_resident_tile_stays_near_float64(gen, b, p, l, c):
+    """K2's f32 resident tile (sim_tile_tf32.cuh, up to 576 channels) sums the
+    whole k of each split-TF32 product on the tensor cores: its mean row-LSE
+    distance to float64 stays within 2x the plain version's (f32 sums of the
+    same operands), the bar the wide tile and K1's chain meet."""
+    f0 = torch.randn(b, p, c, generator=gen, device="cuda")
+    f1 = torch.randn(b, l, c, generator=gen, device="cuda")
+    col_add = torch.where(torch.rand(b, l, generator=gen, device="cuda") > 0.1, 0.0, -1e9)
+    got, names = _names(lambda: dual_softmax_rowcol_stats(f0, f1, 0.08, col_add=col_add))
+    scale = c ** -0.5
+    a0, a1 = f0 * scale, f1 * scale
+    ref = rowcol_stats_plain(a0, a1, 1 / (0.08 + 1e-4), None, col_add)
+    lse64 = _row_lse64(a0, a1, col_add)
+    torch.cuda.synchronize()
+    assert {"lse_tf32x3_kernel", "argmax_tf32x3_kernel"} <= names, names
+    kernel = (got["row_lse"].double() - lse64).abs().mean().item()
+    plain = (ref["row_lse"].double() - lse64).abs().mean().item()
+    print(f"K2 f32 resident tile at C = {c}: mean |row_lse - float64| kernel {kernel:.3e}, plain {plain:.3e} "
+          f"({kernel / plain:.2f}x)")
+    assert kernel <= 2 * plain, (kernel, plain)
 
 
 def test_k2_bf16_wider_than_the_resident_tile_runs_the_wide_instance(gen):
@@ -843,6 +868,35 @@ def test_k5_scales_and_rounds_in_the_pack(gen, feat_norm):
         scale = r.abs().max().item()
         assert (g - r).abs().max().item() < 2e-2 * scale
         assert torch.nn.functional.cosine_similarity(g.flatten(), r.flatten(), dim=0).item() > 0.999
+
+
+@pytest.mark.parametrize("b,p,l,c,instance", [(2, 333, 200, 256, "tc"), (2, 333, 200, 512, "tc"),
+                                               (2, 333, 200, 1024, "wide")])
+@pytest.mark.parametrize("feat_norm", ["sqrt_feat_dim", "none"])
+def test_k5_feature_gradients_are_bf16_values_times_the_scale(gen, b, p, l, c, instance, feat_norm):
+    """Both K5 instances round each finished df element to bf16 before the
+    operands' scale, as the TPU kernel's _core_bwd does: at a power-of-two
+    scale (1/16 at C = 256, 1/32 at 1024, 1 without the norm) df / scale is
+    bf16-valued; two launches are bitwise equal."""
+    assert k5_instance(c)[0] == instance
+    scale = c ** -0.5 if feat_norm == "sqrt_feat_dim" else 1.0
+    f0 = torch.randn(b, p, c, generator=gen, device="cuda") * (1.0 if feat_norm == "sqrt_feat_dim" else c ** -0.5)
+    f1 = torch.randn(b, l, c, generator=gen, device="cuda") * (1.0 if feat_norm == "sqrt_feat_dim" else c ** -0.5)
+    gt = torch.randint(0, l, (b, p), generator=gen, device="cuda", dtype=torch.int32)
+    gt = torch.where(torch.rand(b, p, generator=gen, device="cuda") < 0.3, gt, -1)
+    runs = []
+    for _ in range(2):
+        a0, a1 = f0.clone().requires_grad_(), f1.clone().requires_grad_()
+        loss, _ = fused_coarse_focal_loss(a0, a1, gt, 0.08, feat_norm=feat_norm)
+        loss.backward()
+        runs.append((a0.grad, a1.grad))
+    torch.cuda.synchronize()
+    for g, again in zip(*runs):
+        assert torch.equal(g, again)
+        if c in (256, 1024) or scale == 1.0:  # a power of two: df / scale is exact
+            unscaled = g / scale
+            assert torch.equal(unscaled.to(torch.bfloat16).float(), unscaled)
+        assert g.abs().max().item() > 0
 
 
 def test_window_gather_autograd_runs_k3_forward_k4_backward(gen):

@@ -1,7 +1,7 @@
-"""K1's tensor-core chains on the CPU: bf16 (``"tcw"``, ``csrc/encoder_tcw.cu``)
-and f32 in split TF32 (``"tcw_tf32"``, ``csrc/encoder_tcw_tf32.cu``), at every
-width but (256, 8): their weight packs, their tile plans, and their order of
-sums.
+"""K1's tensor-core chains on the CPU: bf16 (``"tcw"``, ``csrc/encoder_tcw.cu``,
+every width but (256, 8)) and f32 in split TF32 (``"tcw_tf32"``,
+``csrc/encoder_tcw_tf32.cu``, every width, (256, 8) included): their weight
+packs, their tile plans, and their order of sums.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
 phase 2). What surrounds them is held here: the packed [128 out, 64 in] chunks
@@ -58,7 +58,7 @@ TCW_WIDTHS = [(128, 8), (256, 4), (384, 8), (512, 8), (512, 1), (640, 8), (768, 
               (4096, 16), (4096, 32), (192, 12), (320, 20)] + NARROW_WIDTHS
 # the split-TF32 chain's widths with head widths 8, 24, 40, 80 and 128 besides
 TCW32_WIDTHS = TCW_WIDTHS + [(128, 16), (256, 32), (4096, 512), (384, 16), (192, 8), (1920, 80), (640, 16),
-                             (320, 8), (640, 8), (1280, 16), (512, 4), (4096, 32)]
+                             (320, 8), (640, 8), (1280, 16), (512, 4), (4096, 32), (256, 8)]
 
 
 @pytest.mark.parametrize("n,k", [(640, 640), (1280, 640), (192, 128), (256, 512), (192, 96), (64, 32), (136, 160),
@@ -122,8 +122,13 @@ def test_tcw_plan_covers_every_same_head_pair(c, nhead):
         assert k_lo * TCW_TILE <= ch.min() and ch.max() < k_hi * TCW_TILE <= tcw_padded(c)
 
 
-@pytest.mark.parametrize("n,k", [(640, 640), (1280, 640), (192, 128), (256, 512), (136, 96), (64, 32), (192, 160),
-                                 (320, 480)])
+# the (256, 8) layer's f32 weights as the chain packs them: [Wk; Wv], Wq and
+# Wmerge, W0, W1 ([N out, K in])
+F32_AT_256 = [(512, 256), (256, 256), (512, 512), (256, 512)]
+
+
+@pytest.mark.parametrize("n,k", [(640, 640), (1280, 640), (192, 128), (136, 96), (64, 32), (192, 160),
+                                 (320, 480)] + F32_AT_256)
 def test_tcw_tf32_weight_pack_matches_the_byte_formula(n, k):
     """Element (n, k) of a [N out, K in] f32 weight lies in chunk (n // 128, k // 32)
     of 2 x 16 KB, its TF32 hi part in the first half and its lo part in the
@@ -148,6 +153,14 @@ def test_tcw_tf32_weight_pack_matches_the_byte_formula(n, k):
     assert (hi.view(torch.int32) & 0x1FFF).eq(0).all() and (lo.view(torch.int32) & 0x1FFF).eq(0).all()
     assert ((hi.double() + lo.double() - w.double()).abs() <= 2.0 ** -21 * w.double().abs()).all()
     assert np.count_nonzero(words) == int(hi.ne(0).sum() + lo.ne(0).sum())  # the rest is zero padding
+
+
+@pytest.mark.parametrize("shape", [(12, 8), (8, 6)])
+def test_tcw_tf32_weight_pack_rejects_what_its_chunks_cannot_hold(shape):
+    """N must be a multiple of 8 (a core matrix's rows) and K of 4 (a 16-byte
+    row of 4-byte values)."""
+    with pytest.raises(ValueError, match="pack_weight_chunks_tcw_tf32"):
+        pack_weight_chunks_tcw_tf32(torch.zeros(*shape))
 
 
 @pytest.mark.parametrize("c,nhead", TCW32_WIDTHS)
@@ -329,7 +342,8 @@ def test_tcw_order_of_sums_reproduces_the_plain_version(c, nhead, dtype):
         assert d.max().item() <= 5e-2 and d.mean().item() <= 5e-3, (d.max().item(), d.mean().item())
 
 
-@pytest.mark.parametrize("c,nhead", [(384, 16), (640, 8), (128, 16), (320, 40), (64, 8), (96, 12), (32, 8)])
+@pytest.mark.parametrize("c,nhead", [(384, 16), (640, 8), (128, 16), (320, 40), (64, 8), (96, 12), (32, 8),
+                                     (256, 8)])
 def test_tcw32_order_of_sums_and_split_products_reproduce_the_plain_version(c, nhead):
     """The split-TF32 chain's plan (32-channel chunks, heads straddling them at
     head widths 24 and 80, 16 heads a block at head width 8, the attention's k

@@ -286,7 +286,7 @@ def test_pack_encoder_weights_rejects_wrong_shapes_and_types():
     (256, 4, "bfloat16", "tcw"),    # the 256-channel instance's width with other heads: the chain
     (224, 8, "bfloat16", "tcw"),    # not a multiple of 64, head width 28: replicated denominators
     (64, 8, "float32", "tcw_tf32"),
-    (256, 8, "float32", "tf32x3"),  # the demo's coarse width: tensor cores in split TF32
+    (256, 8, "float32", "tcw_tf32"),  # the demo's coarse width: the split-TF32 chain
     (48, 8, "bfloat16", None),      # not a multiple of 32
     (288, 8, "float32", "tcw_tf32"),  # above 256: the chains reach 4096
     (384, 8, "bfloat16", "tcw"),    # the JAX kernel's widths above 256
@@ -320,7 +320,7 @@ def test_k1_instance_and_the_models_routing_agree(monkeypatch, c, nhead, dtype, 
 
 def _other_instance(c, nhead, dtype):
     """The instance of a width other than (256, 8): the tensor-core chain of the
-    operand type, at every width K1 takes."""
+    operand type, at every width K1 takes (f32's at (256, 8) too)."""
     return "tcw_tf32" if dtype == torch.float32 else "tcw"
 
 
@@ -359,10 +359,10 @@ def test_k1_tcw_routing_and_packing_agree(c, nhead):
     assert packed.apply.numel() == (2 * nb * kc + nb2 * 2 * kc + nb * kh) * 128 * 64
 
 
-@pytest.mark.parametrize("c,nhead", TCW_WIDTHS + NARROW_BF16_WIDTHS + NARROW_F32_WIDTHS)
+@pytest.mark.parametrize("c,nhead", [(256, 8)] + TCW_WIDTHS + NARROW_BF16_WIDTHS + NARROW_F32_WIDTHS)
 def test_k1_tcw_tf32_routing_and_packing_agree(c, nhead):
-    """f32 operands take the split-TF32 chain at every width but (256, 8); the
-    model routes every width to K1, and the packing (meta tensors) names the
+    """f32 operands take the split-TF32 chain at every width, (256, 8) (the
+    configurations' coarse width) included; the model routes every width to K1, and the packing (meta tensors) names the
     same instance and packs its chunks of [128 out, 32 in], hi and lo, input
     columns padded to Cp (C to a multiple of 64, an even chunk count): [Wk; Wv]
     as ceil(2C / 128) column blocks of Cp / 32 chunks, then Wq, Wmerge, W0,
@@ -380,20 +380,19 @@ def test_k1_tcw_tf32_routing_and_packing_agree(c, nhead):
 
 def test_k1_instance_reads_the_f32_rule_at_every_width():
     """Every (C, heads) K1 takes in f32 (C a multiple of 32 up to 4096, heads
-    dividing C) runs on the tensor cores in split TF32: "tf32x3" at (256, 8),
-    "tcw_tf32" at the other 2469; both dtypes name an instance at exactly the
-    same pairs."""
-    seen = {"tf32x3": 0, "tcw_tf32": 0}
+    dividing C) runs on the tensor cores in split TF32, on one instance: the
+    chain "tcw_tf32" at all 2470, (256, 8) included; both dtypes name an
+    instance at exactly the same pairs."""
+    seen = {"tcw_tf32": 0}
     for c in range(32, 4097, 32):
         for nhead in range(1, c + 1):
             if c % nhead:
                 continue
             got = k1_instance(c, nhead, torch.float32)
-            want = "tf32x3" if (c, nhead) == (256, 8) else "tcw_tf32"
-            assert got == want, (c, nhead, got)
-            assert k1_instance(c, nhead, torch.bfloat16) == ("tc" if got == "tf32x3" else "tcw")
+            assert got == "tcw_tf32", (c, nhead, got)
+            assert k1_instance(c, nhead, torch.bfloat16) == ("tc" if (c, nhead) == (256, 8) else "tcw")
             seen[got] += 1
-    assert seen == {"tf32x3": 1, "tcw_tf32": 2469}, seen
+    assert seen == {"tcw_tf32": 2470}, seen
 
 
 def _jax_widths(c_max):
@@ -410,7 +409,7 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_512(dtype):
     C = 384, 256 at C = 256) included."""
     seen = [(c, nhead, k1_instance(c, nhead, dtype)) for c, nhead in _jax_widths(512)]
     assert all(got is not None for _, _, got in seen), [(c, n) for c, n, g in seen if g is None]
-    assert ("tc" if dtype == torch.bfloat16 else "tf32x3") in {g for c, n, g in seen if (c, n) == (256, 8)}
+    assert ("tc" if dtype == torch.bfloat16 else "tcw_tf32") in {g for c, n, g in seen if (c, n) == (256, 8)}
     for c, nhead, got in seen:
         if (c, nhead) != (256, 8):
             assert got == _other_instance(c, nhead, dtype), (c, nhead, got)
@@ -424,7 +423,7 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
     by the JAX rule, so that no such width reaches a wrapper that raises."""
     widths = _jax_widths(2048)
     assert len(widths) == 170
-    tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
+    tc = "tc" if dtype == torch.bfloat16 else "tcw_tf32"
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     for c, nhead in widths:
         want = tc if (c, nhead) == (256, 8) else _other_instance(c, nhead, dtype)
@@ -436,10 +435,10 @@ def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_2048(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_instance_takes_every_width_of_the_jax_kernel_up_to_4096(dtype):
     """Every (C, nhead) the JAX kernel takes up to C = 4096 (the widest K1
-    layer) runs on the tensor cores: "tc" / "tf32x3" at (256, 8), the chain of
-    the operand type at the rest."""
+    layer) runs on the tensor cores: bf16 on "tc" at (256, 8) and the bf16
+    chain at the rest, f32 on the split-TF32 chain at all of them."""
     widths = _jax_widths(4096)
-    tc = "tc" if dtype == torch.bfloat16 else "tf32x3"
+    tc = "tc" if dtype == torch.bfloat16 else "tcw_tf32"
     got = {(c, nhead): k1_instance(c, nhead, dtype) for c, nhead in widths}
     assert got.pop((256, 8)) == tc
     assert set(got.values()) == {_other_instance(0, 1, dtype)}, {k: v for k, v in got.items() if v is None}

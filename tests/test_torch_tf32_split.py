@@ -1,9 +1,11 @@
 """The split-TF32 (3xTF32) instances of K1 and K2 without a GPU.
 
-The f32 instances of K2 (``csrc/sim_tile_tf32.cuh``) and K1 (``csrc/encoder.cu``,
-namespace ``tf``) take each product x y as x_lo y_hi + x_hi y_lo + x_hi y_hi of
-TF32 halves on the tensor cores; above 576 channels K2's ``wide_tf32`` instance
-(``csrc/sim_tile_wide.cuh``) does the same in pairs of 32-channel chunks. What can
+The f32 instances of K2 (``csrc/sim_tile_tf32.cuh``) and K1 (the chain of
+``csrc/encoder_tcw_tf32.cu``, whose packs and order of sums
+``tests/test_torch_encoder_tcw.py`` holds) take each product x y as
+x_lo y_hi + x_hi y_lo + x_hi y_hi of TF32 halves on the tensor cores; above 576
+channels K2's ``wide_tf32`` instance (``csrc/sim_tile_wide.cuh``) does the same
+in pairs of 32-channel chunks, as K1's chain does at every width. What can
 be checked here: the plain version of the split (``kernels.tf32_split``, the rule
 of ``csrc/wgmma.cuh::tf32_split``), the byte layouts the kernels' operands are
 packed into, and, by emulating the three products in PyTorch, that the split
@@ -14,7 +16,6 @@ import pytest
 import torch
 
 from onepose_plus_plus_tpu_torch.kernels import tf32_round, tf32_split, tf32x3_matmul
-from onepose_plus_plus_tpu_torch.ops.cuda_encoder import pack_weight_chunks_tf32
 from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     pack_tf32_hilo,
     pack_tf32_operand,
@@ -167,26 +168,6 @@ def test_pack_tf32_hilo_matches_the_byte_formula(c, rows):
     for half in (0, 1):
         full = unpack(half, rows_pad, cp)
         assert not full[:, rows:].any() and not full[:, :, c:].any()
-
-
-@pytest.mark.parametrize("n,k", [(256, 256), (256, 512), (8, 16)])
-def test_pack_weight_chunks_tf32_layout(n, k):
-    """K1's split-TF32 weight chunks: per 8 input columns, the hi and then the
-    lo image [N, 8] in the K-major layout of 4-byte values; hi + lo is the weight."""
-    rng = np.random.default_rng(n + k)
-    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32))
-    chunks = pack_weight_chunks_tf32(w)
-    assert chunks.shape == (k // 8, 2, n // 8, 2, 8, 4) and chunks.is_contiguous()
-    flat = chunks.reshape(k // 8, 2, -1)
-    hi, lo = tf32_split(w)
-    for row, col in ((0, 0), (n - 1, k - 1), (n // 2 + 3, k // 2 + 5), (7, 3), (n - 8, 6 % k)):
-        kk = col % 8
-        word = ((row // 8) * 256 + (kk // 4) * 128 + (row % 8) * 16 + (kk % 4) * 4) // 4
-        assert flat[col // 8, 0, word] == hi[row, col] and flat[col // 8, 1, word] == lo[row, col]
-    unpacked = chunks.permute(1, 2, 4, 0, 3, 5).reshape(2, n, k)  # [half, ng, nr, chunk, kg, kc]
-    assert torch.equal(unpacked[0], hi) and torch.equal(unpacked[1], lo)
-    with pytest.raises(ValueError):
-        pack_weight_chunks_tf32(torch.zeros(12, 8))
 
 
 def _k2_errors(stats, ref):
