@@ -63,6 +63,10 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
   5  run_inference at the bench configuration (bf16, 512 slots, 48 frames of
      512^2, frame_batch 16, 7000 points, GT poses): launch counts of every
      kernel, finite poses, poses/s and peak memory
+  5m phase 5's run through run_inference(mesh=): make_mesh("cuda", 0, 1), NCCL
+     at world 1 (one rank a GPU; world 1 needs one), the result bitwise equal to
+     phase 5's, launch counts, poses/s, peak memory and the wall of the one
+     gather; release_mesh() before any later phase makes its process group
   6  where the time goes in one bf16 step of phase 5 (16 frames): step wall,
      model forward, device time per kernel (torch.profiler), idle share, and
      the eager fine transformer's device time at the step's fine shapes and
@@ -189,6 +193,7 @@ from onepose_plus_plus_tpu_torch.geometry.residuals import depth_residual_and_de
 from onepose_plus_plus_tpu_torch.geometry.rotations import matrix_to_angle_axis
 from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
 from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
+from onepose_plus_plus_tpu_torch.inference import pipeline
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
 from onepose_plus_plus_tpu_torch.models.backbone import build_backbone
 from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, build_onepose_model, make_loftr_fns
@@ -196,6 +201,7 @@ from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
 from onepose_plus_plus_tpu_torch.models.position_encoding import KeypointEncoder, sine_position_encoding
+from onepose_plus_plus_tpu_torch.parallel.mesh import make_mesh, release_mesh
 from onepose_plus_plus_tpu_torch.ops.cuda_coarse_loss import (
     coarse_focal_sums,
     coarse_focal_sums_plain,
@@ -1470,7 +1476,58 @@ def phase5(smi: str):
         f"{n_frames / wall:.2f} poses/s ({wall:.3f} s wall, synchronised), peak memory "
         f"{peak:.2f} GiB, ok {int(res.ok.sum())}/{n_frames}, median matches "
         f"{int(np.median(res.num_matches))} on {smi}")
-    return counts, model, frames, anno
+    return counts, model, frames, anno, res
+
+
+def phase5m(model, frames, anno, res5, smi: str) -> dict:
+    """Phase 5's run through run_inference's mesh path: world 1 over NCCL (one
+    rank a GPU; world 1 needs one), held bitwise to phase 5's result (same
+    device, same draws), with its launches, poses/s, peak memory and the wall
+    of the one gather an object. Leaves the process group before any later
+    phase makes its own."""
+    m = make_mesh("cuda", 0, 1)
+    gather, walls = pipeline._gather_frames, []
+
+    def timed_gather(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(*args)  # ends in a copy to the host
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    pipeline._gather_frames = timed_gather
+    run_inference(model, frames[:16], anno, shape3d=7000, frame_batch=16, mesh=m)  # warm-up: NCCL's first call
+    first_gather = walls[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_inference(model, frames, anno, shape3d=7000, frame_batch=16, mesh=m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(3):  # later objects' gathers: one batch each
+        run_inference(model, frames[:16], anno, shape3d=7000, frame_batch=16, mesh=m)
+    pipeline._gather_frames = gather
+    release_mesh()
+    steps = len(frames) // 16
+    expected = {"K1_encoder_layer": 12 * steps, "K2_rowcol_stats": steps, "K3_window_gather": steps,
+                "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
+                "K6_patch_gather": 0, "K7_short_encoder": 0}
+    log(f"[5m] launches in the mesh run: {counts} (expected {expected})")
+    check(counts == expected, "a kernel of the mesh path was not launched as the step implies")
+    same = {k: bool(np.array_equal(getattr(res, k), getattr(res5, k)))
+            for k in ("poses", "num_inliers", "ok", "num_matches", "R_errs", "t_errs")}
+    check(all(getattr(res, k).dtype == getattr(res5, k).dtype for k in same), "the mesh run's dtypes differ")
+    log(f"[5m] run_inference(mesh=make_mesh('cuda', 0, 1)), NCCL world 1, {len(frames)} frames, frame_batch 16: "
+        f"bitwise equal to phase 5 {same}, metrics equal {res.metrics == res5.metrics}")
+    check(all(same.values()) and res.metrics == res5.metrics, "the mesh run differs from phase 5's")
+    log(f"[5m] {len(frames) / wall:.2f} poses/s ({wall:.3f} s wall, synchronised), peak memory {peak:.2f} GiB, "
+        f"the one gather {walls[-4] * 1e3:.3f} ms ({len(frames)} frames; the warm-up's, NCCL's first call, "
+        f"{first_gather * 1e3:.3f} ms; three later objects' of 16 frames "
+        f"{', '.join(f'{w * 1e3:.3f}' for w in walls[-3:])} ms) on {smi}")
+    return counts
 
 
 # torch.profiler's sessions in this run: how many, how many had to be profiled
@@ -3349,7 +3406,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase3()
     phase4()
-    counts, model, frames, anno = phase5(smi)
+    counts, model, frames, anno, res5 = phase5(smi)
+    # the mesh path at world 1; it releases its process group before 7e and 11 make theirs
+    for name, n in phase5m(model, frames, anno, res5, smi).items():
+        counts[name] += n
     phase6(model, frames, anno, smi)
     del model
     torch.cuda.empty_cache()

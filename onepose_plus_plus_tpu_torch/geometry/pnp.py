@@ -337,15 +337,21 @@ def sample_hypotheses(
     num_hypotheses: int = 512,
     sample_size: int = 6,
     prescore_subset: int = 128,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Gumbel top-k sampling over the valid slots of each frame.
 
     Returns sample indices [B, H, S] (distinct valid slots per hypothesis,
     drawn as S rounds of masked argmax) and the prescore subset [B, n_sub]
-    (None when ``prescore_subset`` is 0 or not below N).
+    (None when ``prescore_subset`` is 0 or not below N). ``rows`` (first,
+    total): these B frames are rows [first, first + B) of a batch of
+    ``total``; the noise is drawn for the whole batch and these rows kept,
+    so a frame's samples do not depend on how the batch is split.
     """
     b, n = valid.shape
-    scores = torch.where(valid[:, None, :], _gumbel((b, num_hypotheses, n), generator, valid.device),
+    first, total = rows if rows is not None else (0, b)
+    noise = lambda *shape: _gumbel((total, *shape), generator, valid.device)[first:first + b]  # noqa: E731
+    scores = torch.where(valid[:, None, :], noise(num_hypotheses, n),
                          torch.full((), float("-inf"), device=valid.device))
     idxs = []
     for _ in range(sample_size):
@@ -354,7 +360,7 @@ def sample_hypotheses(
         scores = scores.scatter(-1, i[..., None], float("-inf"))
     sub_idx = None
     if prescore_subset and prescore_subset < n:
-        gs = torch.where(valid, _gumbel((b, n), generator, valid.device),
+        gs = torch.where(valid, noise(n),
                          torch.full((), float("-inf"), device=valid.device))
         sub_idx = topk_stable(gs, prescore_subset)[1]
     return torch.stack(idxs, dim=-1), sub_idx
@@ -451,14 +457,15 @@ def ransac_pnp(
     min_inliers: int = 4,
     prescore_subset: int = 128,
     rescore_top: int = 64,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> PnPResult:
     """Batched RANSAC PnP: pts3d [B, N, 3], pts2d [B, N, 2] pixels, K [B, 3, 3],
     valid [B, N]; ``generator`` lives on the tensors' device. Same options and
     semantics as the JAX ``ransac_pnp`` (pixel-space threshold with the mean
     focal, best hypothesis by inlier count, Gauss-Newton refinement, at least
-    ``min_inliers`` inliers for ``ok``)."""
+    ``min_inliers`` inliers for ``ok``). ``rows``: see :func:`sample_hypotheses`."""
     sample_idx, sub_idx = sample_hypotheses(
-        valid, generator, num_hypotheses, sample_size, prescore_subset
+        valid, generator, num_hypotheses, sample_size, prescore_subset, rows
     )
     return ransac_pnp_from_samples(
         pts3d, pts2d, K, valid, sample_idx, sub_idx,

@@ -4,18 +4,25 @@ One step takes a batch of query frames through the matcher forward
 (``OnePosePlusModel``, kernels K1-K3), batched RANSAC-PnP and the pose errors,
 all on the model's device; frames stream through in batches of
 ``frame_batch`` and the host only stacks inputs and copies results back.
+
+Over a data-parallel mesh (``parallel.mesh.Mesh``: one process a rank, one
+device each) every rank runs its share of each batch, as the JAX package's
+mesh run shards the batch over its devices, and every rank returns the whole
+result.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.preprocessing import pad_point_cloud
 from ..eval.metrics import aggregate_metrics, batched_pose_errors
 from ..geometry.pnp import ransac_pnp
+from ..parallel.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -42,19 +49,22 @@ def make_query_step(
 ):
     """Build the batched (match + PnP [+ errors]) step.
 
-    Returns ``step(batch, generator, pose_gt or None)`` ->
+    Returns ``step(batch, generator, pose_gt or None, rows=None)`` ->
     (poses [B, 4, 4], num_inliers [B], ok [B], R_err [B], t_err [B],
     num_matches [B]), tensors on the batch's device; GT errors are NaN when
     pose_gt is None. ``batch`` carries query_image [B, H, W, 1] (float, or
     uint8 normalised here), keypoints3d, descriptors3d and optional
     descriptors3d_coarse ([B, S, ...], or [S, ...] for one object shared by
     every frame), and intrinsics [B, 3, 3]. ``generator`` is a
-    ``torch.Generator`` on the batch's device (RANSAC sampling).
+    ``torch.Generator`` on the batch's device (RANSAC sampling). ``rows``
+    (first, total): the batch is rows [first, first + B) of a batch of
+    ``total`` split over ranks; RANSAC draws the whole batch's samples and
+    keeps these rows.
     """
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor], generator: torch.Generator,
-             pose_gt: Optional[torch.Tensor]):
+             pose_gt: Optional[torch.Tensor], rows: Optional[Tuple[int, int]] = None):
         batch = dict(batch)
         img = batch["query_image"]
         if img.dtype == torch.uint8:
@@ -71,6 +81,7 @@ def make_query_step(
             reproj_threshold_px=reproj_threshold_px, num_hypotheses=num_hypotheses,
             planar_hypotheses=planar_hypotheses, p3p_hypotheses=p3p_hypotheses,
             p3p_samples=p3p_samples, prescore_subset=prescore_subset, rescore_top=rescore_top,
+            rows=rows,
         )
         poses = torch.eye(4, dtype=torch.float32, device=img.device).repeat(b, 1, 1)
         poses[:, :3, :3] = res.R
@@ -95,6 +106,7 @@ def run_inference(
     num_hypotheses: int = 512,
     pose_thresholds=(1, 3, 5),
     rng_seed: int = 0,
+    mesh: Optional[Mesh] = None,
     step=None,
     device: Optional[torch.device] = None,
 ) -> InferenceResult:
@@ -106,9 +118,19 @@ def run_inference(
             ``K`` [3, 3] and optional ``pose_gt`` [4, 4].
         annotation: the object's SfM annotation, ``keypoints3d`` [m, 3],
             ``descriptors3d`` [m, Cf], optional ``descriptors3d_coarse`` [m, C].
+        mesh: this rank of a data-parallel mesh (``parallel.mesh.make_mesh``;
+            every rank calls with the same frames, and the caller owns the
+            process group). The model and the point cloud live on
+            ``mesh.device``; rank r runs frames [r b, (r + 1) b) of each
+            padded batch, b = frame_batch / world (every rank runs the whole
+            batch where world does not divide frame_batch), and the results
+            are gathered once, so that every rank returns the whole result,
+            equal to a single process's.
         step: a prebuilt :func:`make_query_step` step to reuse across objects.
     """
-    if device is None:
+    if mesh is not None:
+        device = mesh.device
+    elif device is None:
         device = next(model.parameters()).device
     gen = np.random.default_rng(rng_seed)
     fine = pad_point_cloud(annotation["keypoints3d"], annotation["descriptors3d"],
@@ -129,11 +151,17 @@ def run_inference(
     has_gt = all("pose_gt" in f for f in frames)
     generator = torch.Generator(device=device)
     generator.manual_seed(rng_seed)
+    # this rank's rows of each padded batch; every rank runs the whole batch
+    # where the world does not divide it (JAX's shard_batch replicates it)
+    split = mesh is not None and frame_batch % mesh.world == 0
+    b = frame_batch // mesh.world if split else frame_batch
+    first = mesh.rank * b if split else 0
+    rows = (first, frame_batch) if split else None
 
     outs = []
     for s in range(0, len(frames), frame_batch):
         chunk = frames[s:s + frame_batch]
-        chunk_p = chunk + [chunk[-1]] * (frame_batch - len(chunk))
+        chunk_p = (chunk + [chunk[-1]] * (frame_batch - len(chunk)))[first:first + b]
         imgs = np.stack([f["image"][..., None] for f in chunk_p], 0)
         if imgs.dtype != np.uint8:
             imgs = imgs.astype(np.float32)
@@ -145,8 +173,11 @@ def run_inference(
         }
         gt = (torch.from_numpy(np.stack([f["pose_gt"] for f in chunk_p]).astype(np.float32)).to(device)
               if has_gt else None)
-        res = step(batch, generator, gt)
-        outs.append([r[:len(chunk)].cpu().numpy() for r in res])
+        res = step(batch, generator, gt, rows)
+        # a rank's shards stay on its device until the one gather below
+        outs.append(res if split else [r[:len(chunk)].cpu().numpy() for r in res])
+    if split and outs:
+        outs = [_gather_frames(outs, len(frames), mesh.world)]
 
     cat = lambda i, empty: np.concatenate([o[i] for o in outs]) if outs else empty  # noqa: E731
     result = InferenceResult(
@@ -160,3 +191,30 @@ def run_inference(
         result.metrics = aggregate_metrics(result.R_errs, result.t_errs,
                                            pose_thresholds=pose_thresholds)
     return result
+
+
+_POSE_WORDS = 16  # a frame's row in the gather: the pose's 16 words, then one word per other output
+
+
+def _gather_frames(outs: List[Sequence[torch.Tensor]], n_frames: int, world: int) -> List[np.ndarray]:
+    """Every rank's rows of every batch, in frame order, without the padding.
+
+    ``outs`` are this rank's step outputs, one tuple a batch. Each frame
+    becomes one int32 row (float32 outputs as their bits, so the gather is
+    exact) and all batches go in one all-gather of fixed shape."""
+    local = torch.cat([
+        torch.cat([poses.reshape(len(poses), _POSE_WORDS).view(torch.int32)]
+                  + [(x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32))[:, None]
+                     for x in rest], dim=1)
+        for poses, *rest in outs])
+    parts = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(parts, local)
+    # [rank, batch, row] -> [batch, rank, row]: rank r holds rows [r b, (r + 1) b) of every batch
+    cols = local.shape[1]
+    table = torch.stack(parts).reshape(world, len(outs), -1, cols).transpose(0, 1).reshape(-1, cols)
+    table = table[:n_frames].cpu()
+    f32 = lambda c: table[:, c].view(torch.float32).numpy()  # noqa: E731
+    p = _POSE_WORDS
+    return [table[:, :p].contiguous().view(torch.float32).reshape(-1, 4, 4).numpy(),
+            table[:, p].numpy(), table[:, p + 1].bool().numpy(), f32(p + 2), f32(p + 3),
+            table[:, p + 4].numpy()]

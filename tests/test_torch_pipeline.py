@@ -23,34 +23,9 @@ from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables
 from synthetic_scenes import make_scene
 from test_inference import MockMatcherModel
 from test_torch_model import NARROW, _forward_inputs, _perturbed
+from torch_mock_matcher import TorchMockMatcher
 
 torch.set_num_threads(2)
-
-
-class TorchMockMatcher:
-    """'Matches' by projecting the 3D points with a hidden GT pose per frame."""
-
-    def __init__(self, gt_poses, noise=0.5, n_matches=128):
-        self.gt_poses, self.noise, self.n_matches = gt_poses, noise, n_matches
-
-    def __call__(self, batch):
-        kpts3d, K = batch["keypoints3d"], batch["intrinsics"]
-        b, s, _ = kpts3d.shape
-        rng = np.random.default_rng(0)
-        k = self.n_matches
-        idx = np.stack([rng.choice(s, k, replace=False) for _ in range(b)])
-        noise = rng.normal(0, self.noise, (b, k, 2)).astype(np.float32)
-        Ts = torch.tensor(np.stack([self.gt_poses[i % len(self.gt_poses)] for i in range(b)]),
-                          dtype=torch.float32)
-        pts = torch.gather(kpts3d, 1, torch.from_numpy(idx)[..., None].expand(-1, -1, 3))
-        pc = torch.einsum("bij,bkj->bki", Ts[:, :3, :3], pts) + Ts[:, None, :3, 3]
-        uvw = torch.einsum("bij,bkj->bki", K, pc)
-        return {
-            "mkpts_3d": pts,
-            "mkpts_query_f": uvw[..., :2] / uvw[..., 2:3] + torch.from_numpy(noise),
-            "mconf": torch.ones(b, k),
-            "match_mask": torch.ones(b, k, dtype=torch.bool),
-        }
 
 
 def _rot_err_deg(Ra, Rb):
