@@ -1,0 +1,3 @@
+"""Share of the traced window's device timeline (first operation to last) in
+which no operation ran, in the SfM matching cell."""
+from benchmark.readers import idle_pct as read  # noqa: F401
