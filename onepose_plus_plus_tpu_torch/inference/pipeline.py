@@ -23,6 +23,7 @@ from ..data.preprocessing import pad_point_cloud
 from ..eval.metrics import aggregate_metrics, batched_pose_errors
 from ..geometry.pnp import ransac_pnp
 from ..parallel.mesh import Mesh
+from ..utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -65,33 +66,36 @@ def make_query_step(
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor], generator: torch.Generator,
              pose_gt: Optional[torch.Tensor], rows: Optional[Tuple[int, int]] = None):
-        batch = dict(batch)
-        img = batch["query_image"]
-        if img.dtype == torch.uint8:
-            batch["query_image"] = img.float() / 255.0
-        b = img.shape[0]
-        for k in ("keypoints3d", "descriptors3d", "descriptors3d_coarse"):
-            # the object's point cloud is frame-invariant: accept it unbatched
-            if k in batch and batch[k].dim() == 2:
-                batch[k] = batch[k][None].expand(b, *batch[k].shape)
-        out = model(batch)
-        mask = out["match_mask"].bool() & (out["mconf"] > conf_threshold)
-        res = ransac_pnp(
-            out["mkpts_3d"], out["mkpts_query_f"], batch["intrinsics"], mask, generator,
-            reproj_threshold_px=reproj_threshold_px, num_hypotheses=num_hypotheses,
-            planar_hypotheses=planar_hypotheses, p3p_hypotheses=p3p_hypotheses,
-            p3p_samples=p3p_samples, prescore_subset=prescore_subset, rescore_top=rescore_top,
-            rows=rows,
-        )
-        poses = torch.eye(4, dtype=torch.float32, device=img.device).repeat(b, 1, 1)
-        poses[:, :3, :3] = res.R
-        poses[:, :3, 3] = res.t
-        n_match = mask.sum(dim=-1).to(torch.int32)
-        if pose_gt is None:
-            nan = torch.full((b,), float("nan"), device=img.device)
-            return poses, res.num_inliers, res.ok, nan, nan, n_match
-        R_err, t_err = batched_pose_errors(poses, pose_gt)
-        return poses, res.num_inliers, res.ok, R_err, t_err, n_match
+        with annotate("query_step"):
+            batch = dict(batch)
+            img = batch["query_image"]
+            b = img.shape[0]
+            with annotate("query_step.forward"):
+                if img.dtype == torch.uint8:
+                    batch["query_image"] = img.float() / 255.0
+                for k in ("keypoints3d", "descriptors3d", "descriptors3d_coarse"):
+                    # the object's point cloud is frame-invariant: accept it unbatched
+                    if k in batch and batch[k].dim() == 2:
+                        batch[k] = batch[k][None].expand(b, *batch[k].shape)
+                out = model(batch)
+            with annotate("query_step.pnp"):
+                mask = out["match_mask"].bool() & (out["mconf"] > conf_threshold)
+                res = ransac_pnp(
+                    out["mkpts_3d"], out["mkpts_query_f"], batch["intrinsics"], mask, generator,
+                    reproj_threshold_px=reproj_threshold_px, num_hypotheses=num_hypotheses,
+                    planar_hypotheses=planar_hypotheses, p3p_hypotheses=p3p_hypotheses,
+                    p3p_samples=p3p_samples, prescore_subset=prescore_subset, rescore_top=rescore_top,
+                    rows=rows,
+                )
+                poses = torch.eye(4, dtype=torch.float32, device=img.device).repeat(b, 1, 1)
+                poses[:, :3, :3] = res.R
+                poses[:, :3, 3] = res.t
+                n_match = mask.sum(dim=-1).to(torch.int32)
+            if pose_gt is None:
+                nan = torch.full((b,), float("nan"), device=img.device)
+                return poses, res.num_inliers, res.ok, nan, nan, n_match
+            R_err, t_err = batched_pose_errors(poses, pose_gt)
+            return poses, res.num_inliers, res.ok, R_err, t_err, n_match
 
     return step
 
@@ -132,65 +136,68 @@ def run_inference(
         device = mesh.device
     elif device is None:
         device = next(model.parameters()).device
-    gen = np.random.default_rng(rng_seed)
-    fine = pad_point_cloud(annotation["keypoints3d"], annotation["descriptors3d"],
-                           annotation.get("scores3d"), shape3d, gen)
-    pc = {
-        "keypoints3d": torch.from_numpy(fine["keypoints3d"]).to(device),
-        "descriptors3d": torch.from_numpy(fine["descriptors3d"]).to(device),
-    }
-    if "descriptors3d_coarse" in annotation:
-        coarse = pad_point_cloud(annotation["keypoints3d"], annotation["descriptors3d_coarse"],
-                                 annotation.get("scores3d_coarse"), shape3d,
-                                 np.random.default_rng(rng_seed))  # same subsample as fine
-        pc["descriptors3d_coarse"] = torch.from_numpy(coarse["descriptors3d"]).to(device)
-    if step is None:
-        step = make_query_step(model, reproj_threshold_px=reproj_threshold_px,
-                               num_hypotheses=num_hypotheses)
     frames = list(frames)
-    has_gt = all("pose_gt" in f for f in frames)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(rng_seed)
-    # this rank's rows of each padded batch; every rank runs the whole batch
-    # where the world does not divide it (JAX's shard_batch replicates it)
-    split = mesh is not None and frame_batch % mesh.world == 0
-    b = frame_batch // mesh.world if split else frame_batch
-    first = mesh.rank * b if split else 0
-    rows = (first, frame_batch) if split else None
+    with annotate("run_inference", frames=len(frames)):
+        with annotate("run_inference.cloud"):
+            gen = np.random.default_rng(rng_seed)
+            fine = pad_point_cloud(annotation["keypoints3d"], annotation["descriptors3d"],
+                                   annotation.get("scores3d"), shape3d, gen)
+            pc = {
+                "keypoints3d": torch.from_numpy(fine["keypoints3d"]).to(device),
+                "descriptors3d": torch.from_numpy(fine["descriptors3d"]).to(device),
+            }
+            if "descriptors3d_coarse" in annotation:
+                coarse = pad_point_cloud(annotation["keypoints3d"], annotation["descriptors3d_coarse"],
+                                         annotation.get("scores3d_coarse"), shape3d,
+                                         np.random.default_rng(rng_seed))  # same subsample as fine
+                pc["descriptors3d_coarse"] = torch.from_numpy(coarse["descriptors3d"]).to(device)
+        if step is None:
+            step = make_query_step(model, reproj_threshold_px=reproj_threshold_px,
+                                   num_hypotheses=num_hypotheses)
+        has_gt = all("pose_gt" in f for f in frames)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(rng_seed)
+        # this rank's rows of each padded batch; every rank runs the whole batch
+        # where the world does not divide it (JAX's shard_batch replicates it)
+        split = mesh is not None and frame_batch % mesh.world == 0
+        b = frame_batch // mesh.world if split else frame_batch
+        first = mesh.rank * b if split else 0
+        rows = (first, frame_batch) if split else None
 
-    outs = []
-    for s in range(0, len(frames), frame_batch):
-        chunk = frames[s:s + frame_batch]
-        chunk_p = (chunk + [chunk[-1]] * (frame_batch - len(chunk)))[first:first + b]
-        imgs = np.stack([f["image"][..., None] for f in chunk_p], 0)
-        if imgs.dtype != np.uint8:
-            imgs = imgs.astype(np.float32)
-        batch = {
-            "query_image": torch.from_numpy(imgs).to(device),
-            "intrinsics": torch.from_numpy(
-                np.stack([f["K"] for f in chunk_p]).astype(np.float32)).to(device),
-            **pc,
-        }
-        gt = (torch.from_numpy(np.stack([f["pose_gt"] for f in chunk_p]).astype(np.float32)).to(device)
-              if has_gt else None)
-        res = step(batch, generator, gt, rows)
-        # a rank's shards stay on its device until the one gather below
-        outs.append(res if split else [r[:len(chunk)].cpu().numpy() for r in res])
-    if split and outs:
-        outs = [_gather_frames(outs, len(frames), mesh.world)]
+        outs = []
+        for s in range(0, len(frames), frame_batch):
+            chunk = frames[s:s + frame_batch]
+            chunk_p = (chunk + [chunk[-1]] * (frame_batch - len(chunk)))[first:first + b]
+            with annotate("run_inference.batch", frames=len(chunk_p)):
+                with annotate("run_inference.stack"):
+                    imgs = np.stack([f["image"][..., None] for f in chunk_p], 0)
+                    if imgs.dtype != np.uint8:
+                        imgs = imgs.astype(np.float32)
+                    K = np.stack([f["K"] for f in chunk_p]).astype(np.float32)
+                    gt = np.stack([f["pose_gt"] for f in chunk_p]).astype(np.float32) if has_gt else None
+                with annotate("run_inference.h2d"):
+                    batch = {"query_image": torch.from_numpy(imgs).to(device),
+                             "intrinsics": torch.from_numpy(K).to(device), **pc}
+                    gt = torch.from_numpy(gt).to(device) if has_gt else None
+                res = step(batch, generator, gt, rows)
+                # a rank's shards stay on its device until the one gather below
+                outs.append(res if split else [r[:len(chunk)].cpu().numpy() for r in res])
+        if split and outs:
+            with annotate("run_inference.gather"):
+                outs = [_gather_frames(outs, len(frames), mesh.world)]
 
-    cat = lambda i, empty: np.concatenate([o[i] for o in outs]) if outs else empty  # noqa: E731
-    result = InferenceResult(
-        poses=cat(0, np.zeros((0, 4, 4))),
-        num_inliers=cat(1, np.zeros(0, np.int32)),
-        ok=cat(2, np.zeros(0, bool)),
-        num_matches=cat(5, np.zeros(0, np.int32)),
-    )
-    if has_gt and frames:
-        result.R_errs, result.t_errs = cat(3, None), cat(4, None)
-        result.metrics = aggregate_metrics(result.R_errs, result.t_errs,
-                                           pose_thresholds=pose_thresholds)
-    return result
+        cat = lambda i, empty: np.concatenate([o[i] for o in outs]) if outs else empty  # noqa: E731
+        result = InferenceResult(
+            poses=cat(0, np.zeros((0, 4, 4))),
+            num_inliers=cat(1, np.zeros(0, np.int32)),
+            ok=cat(2, np.zeros(0, bool)),
+            num_matches=cat(5, np.zeros(0, np.int32)),
+        )
+        if has_gt and frames:
+            result.R_errs, result.t_errs = cat(3, None), cat(4, None)
+            result.metrics = aggregate_metrics(result.R_errs, result.t_errs,
+                                               pose_thresholds=pose_thresholds)
+        return result
 
 
 _POSE_WORDS = 16  # a frame's row in the gather: the pose's 16 words, then one word per other output

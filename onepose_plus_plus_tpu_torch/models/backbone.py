@@ -43,6 +43,7 @@ from ..config import ResNetFPNConfig
 from ..ops.cuda_patch_gather import patch_gather
 from ..ops.quant import quant_conv
 from ..parallel import comm
+from ..utils.profiling import annotate
 
 
 class _Conv(nn.Conv2d):
@@ -243,16 +244,18 @@ class ResNetFPN_8_2(nn.Module):
         return x1, x2_out, x3_out
 
     def forward(self, img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x1, x2_out, x3_out = self._trunk_and_mid(img)
-        x1_out = self.layer1_outconv2(self.layer1_outconv(x1) + _upsample2x(x2_out))
-        return _nhwc(x3_out), _nhwc(x1_out)
+        with annotate("model.backbone", frames=img.shape[0]):
+            x1, x2_out, x3_out = self._trunk_and_mid(img)
+            x1_out = self.layer1_outconv2(self.layer1_outconv(x1) + _upsample2x(x2_out))
+            return _nhwc(x3_out), _nhwc(x1_out)
 
     def coarse_and_ctx(self, img: torch.Tensor):
         """(coarse [N, H/8, W/8, d2] NHWC, ctx): ctx holds the 1/2 trunk map and
         the 1/4 FPN output that :meth:`fine_windows` takes once the matched
         cells are known."""
-        x1, x2_out, x3_out = self._trunk_and_mid(img)
-        return _nhwc(x3_out), (x1, x2_out)
+        with annotate("model.backbone", frames=img.shape[0]):
+            x1, x2_out, x3_out = self._trunk_and_mid(img)
+            return _nhwc(x3_out), (x1, x2_out)
 
     def fine_windows(self, ctx, cell_ids: torch.Tensor, grid_hw: Tuple[int, int], stride: int,
                      window: int) -> torch.Tensor:

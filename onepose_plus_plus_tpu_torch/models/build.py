@@ -25,6 +25,7 @@ from ..config import (
     ResNetFPNConfig,
     TransformerConfig,
 )
+from ..utils.profiling import annotate
 from .loftr import LoFTRMatcher
 from .onepose_plus import OnePosePlusModel
 
@@ -148,12 +149,19 @@ def make_loftr_fns(model: LoFTRMatcher) -> Tuple[Callable, Callable, Callable]:
 
     @torch.inference_mode()
     def coarse_match_fn(img0, img1):
-        return _to_host(model.match_coarse(dev(img0), dev(img1)))
+        with annotate("sfm.h2d"):
+            args = dev(img0), dev(img1)
+        out = model.match_coarse(*args)
+        with annotate("sfm.d2h"):
+            return _to_host(out)
 
     @torch.inference_mode()
     def refine_fn(img0, img1, mkpts0, mkpts1, mask):
-        return _to_host(model.refine(dev(img0), dev(img1), dev(mkpts0), dev(mkpts1), dev(mask),
-                                     extract_features=True))
+        with annotate("sfm.h2d"):
+            args = dev(img0), dev(img1), dev(mkpts0), dev(mkpts1), dev(mask)
+        out = model.refine(*args, extract_features=True)
+        with annotate("sfm.d2h"):
+            return _to_host(out)
 
     @torch.inference_mode()
     def extract_fn(img, kpts, mask):

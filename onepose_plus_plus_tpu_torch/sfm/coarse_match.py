@@ -23,6 +23,8 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 Pair = Tuple[int, int]
 
 
@@ -74,22 +76,25 @@ def run_pairs(
             "run_pairs requires uniform image shapes for device batching, got "
             f"{sorted(shapes)}; resize via load_gray_resize_divisible(resize_max=...)"
         )
-    for s in range(0, len(pairs), pair_batch):
-        chunk = pairs[s : s + pair_batch]
-        pad = pair_batch - len(chunk)
-        chunk_p = chunk + [chunk[-1]] * pad
-        img0 = np.stack([images[i][..., None] for i, _ in chunk_p])
-        img1 = np.stack([images[j][..., None] for _, j in chunk_p])
-        res = coarse_match_fn(img0, img1)
-        mk0 = np.asarray(res["mkpts0_c"])
-        mk1 = np.asarray(res["mkpts1_c"])
-        conf = np.asarray(res["mconf"])
-        mask = np.asarray(res["match_mask"]).astype(bool)
-        for b, (i, j) in enumerate(chunk):
-            m = mask[b]
-            p0 = mk0[b][m] * scales[i][None, :]
-            p1 = mk1[b][m] * scales[j][None, :]
-            out.append(PairMatches((i, j), p0, p1, conf[b][m]))
+    with annotate("run_pairs", pairs=len(pairs)):
+        for s in range(0, len(pairs), pair_batch):
+            chunk = pairs[s : s + pair_batch]
+            pad = pair_batch - len(chunk)
+            chunk_p = chunk + [chunk[-1]] * pad
+            with annotate("sfm.stack"):
+                img0 = np.stack([images[i][..., None] for i, _ in chunk_p])
+                img1 = np.stack([images[j][..., None] for _, j in chunk_p])
+            res = coarse_match_fn(img0, img1)
+            with annotate("sfm.unpack"):
+                mk0 = np.asarray(res["mkpts0_c"])
+                mk1 = np.asarray(res["mkpts1_c"])
+                conf = np.asarray(res["mconf"])
+                mask = np.asarray(res["match_mask"]).astype(bool)
+                for b, (i, j) in enumerate(chunk):
+                    m = mask[b]
+                    p0 = mk0[b][m] * scales[i][None, :]
+                    p1 = mk1[b][m] * scales[j][None, :]
+                    out.append(PairMatches((i, j), p0, p1, conf[b][m]))
     return out
 
 

@@ -36,6 +36,7 @@ from ..data.colmap_model import Camera, Image, Point3D
 from ..geometry.levenberg_marquardt import first_order_solve, lm_solve_scalar
 from ..geometry.residuals import depth_residual_track
 from ..geometry.rotations import matrix_to_angle_axis
+from ..utils.profiling import annotate
 
 Pair = Tuple[int, int]
 
@@ -184,30 +185,33 @@ def run_fine_refinement(
     """
     out: Dict[Pair, dict] = {}
     pairs = list(pairs)
-    for s in range(0, len(pairs), pair_batch):
-        chunk = pairs[s : s + pair_batch]
-        pad = pair_batch - len(chunk)
-        chunk_p = chunk + [chunk[-1]] * pad
-        b = len(chunk_p)
-        img0 = np.stack([images_px[p.pair[0]][..., None] for p in chunk_p])
-        img1 = np.stack([images_px[p.pair[1]][..., None] for p in chunk_p])
-        mk0 = np.zeros((b, match_capacity, 2), np.float32)
-        mk1 = np.zeros((b, match_capacity, 2), np.float32)
-        mask = np.zeros((b, match_capacity), bool)
-        for bi, p in enumerate(chunk_p):
-            m = min(len(p.mkpts0), match_capacity)
-            mk0[bi, :m] = p.mkpts0[:m]
-            mk1[bi, :m] = p.mkpts1[:m]
-            mask[bi, :m] = True
-        res = refine_fn(img0, img1, mk0, mk1, mask)
-        mk1f = np.asarray(res["mkpts1_f"])
-        for bi, p in enumerate(chunk):
-            m = min(len(p.mkpts0), match_capacity)
-            out[p.pair] = {
-                "mkpts0": p.mkpts0[:m],
-                "mkpts1_f": mk1f[bi, :m],
-                "point3d_ids": p.point3d_ids[:m],
-            }
+    with annotate("run_fine_refinement", pairs=len(pairs)):
+        for s in range(0, len(pairs), pair_batch):
+            chunk = pairs[s : s + pair_batch]
+            pad = pair_batch - len(chunk)
+            chunk_p = chunk + [chunk[-1]] * pad
+            b = len(chunk_p)
+            with annotate("sfm.stack"):
+                img0 = np.stack([images_px[p.pair[0]][..., None] for p in chunk_p])
+                img1 = np.stack([images_px[p.pair[1]][..., None] for p in chunk_p])
+                mk0 = np.zeros((b, match_capacity, 2), np.float32)
+                mk1 = np.zeros((b, match_capacity, 2), np.float32)
+                mask = np.zeros((b, match_capacity), bool)
+                for bi, p in enumerate(chunk_p):
+                    m = min(len(p.mkpts0), match_capacity)
+                    mk0[bi, :m] = p.mkpts0[:m]
+                    mk1[bi, :m] = p.mkpts1[:m]
+                    mask[bi, :m] = True
+            res = refine_fn(img0, img1, mk0, mk1, mask)
+            with annotate("sfm.unpack"):
+                mk1f = np.asarray(res["mkpts1_f"])
+                for bi, p in enumerate(chunk):
+                    m = min(len(p.mkpts0), match_capacity)
+                    out[p.pair] = {
+                        "mkpts0": p.mkpts0[:m],
+                        "mkpts1_f": mk1f[bi, :m],
+                        "point3d_ids": p.point3d_ids[:m],
+                    }
     return out
 
 

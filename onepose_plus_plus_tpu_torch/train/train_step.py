@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..parallel.comm import global_batch
+from ..utils.profiling import annotate
 from .losses import LossConfig, compute_losses
 
 
@@ -174,16 +175,21 @@ def train_step(
     ``loss``, ``loss_c``, ``loss_f``, ``max_conf`` (the global batch's) as
     detached 0-d tensors on the model's device (reading them synchronises).
     """
-    ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
-    net = model.module if ddp else model
-    net.train()
-    group = optimizer.param_groups[0]
-    n_acc = group["mini_step"]
-    _scale_running_mean(group["params"], n_acc)
-    sync = not ddp or n_acc + 1 >= group["grad_accum"]
-    with (contextlib.nullcontext() if sync else model.no_sync()), global_batch():
-        out = model(batch, generator=generator, gt_pad_rows=gt_pad_rows)
-        loss, scalars = compute_losses(out, batch, cfg.loss, net.cfg.fine.window_size)
-        (loss / (n_acc + 1)).backward()
-    _finish_micro_batch(optimizer, scheduler, on_update)
-    return {k: v.detach() for k, v in scalars.items()}
+    with annotate("train_step", frames=batch["query_image"].shape[0]):
+        ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
+        net = model.module if ddp else model
+        net.train()
+        group = optimizer.param_groups[0]
+        n_acc = group["mini_step"]
+        with annotate("train_step.update"):  # the running mean's scaling, before the backward adds to it
+            _scale_running_mean(group["params"], n_acc)
+        sync = not ddp or n_acc + 1 >= group["grad_accum"]
+        with (contextlib.nullcontext() if sync else model.no_sync()), global_batch():
+            with annotate("train_step.forward"):
+                out = model(batch, generator=generator, gt_pad_rows=gt_pad_rows)
+                loss, scalars = compute_losses(out, batch, cfg.loss, net.cfg.fine.window_size)
+            with annotate("train_step.backward"):
+                (loss / (n_acc + 1)).backward()
+        with annotate("train_step.update"):
+            _finish_micro_batch(optimizer, scheduler, on_update)
+        return {k: v.detach() for k, v in scalars.items()}

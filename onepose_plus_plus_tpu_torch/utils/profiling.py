@@ -1,4 +1,5 @@
-"""Profilers for the CLIs (port of ``onepose_plus_plus_tpu/utils/profiling.py``).
+"""Profilers for the CLIs (port of ``onepose_plus_plus_tpu/utils/profiling.py``),
+and the port's spans.
 
 The registry of the reference's ``build_profiler`` names (``none``,
 ``simple``, ``advanced``, ``chrome``) with ``torch.profiler`` in place of
@@ -9,28 +10,121 @@ The registry of the reference's ``build_profiler`` names (``none``,
   * :class:`AdvancedProfiler` -- one ``cProfile`` per action; nested regions
     work (the inner region pauses the outer one's profile);
   * :class:`ChromeTraceProfiler` -- every region as a ``chrome://tracing``
-    event;
+    event, stamped on the span clock;
   * :func:`trace` -- a ``torch.profiler`` trace (host and, on a GPU, device)
-    written as a Chrome trace; :func:`annotate` -- a named range in it.
+    written as a Chrome trace.
 
-Every ``record`` region is also a ``torch.profiler.record_function`` range, so
-it shows in a :func:`trace` taken around it. ``write(out_dir)`` writes what a
-profiler keeps beyond its summary: the ``.pstats`` files of the advanced
-profiler and the chrome profiler's trace (the JAX CLI never wrote them).
+:func:`annotate` is the port's one span: every ``record`` region opens one,
+and the hot paths open them where their work happens (``run_inference``,
+the query step, the backbone, the SfM surfaces, ``train_step``). Outside a
+``torch.profiler`` session a span checks one flag and records nothing. Under
+a session it opens a ``record_function`` range (so it shows in any export,
+on the host row and as the device's user annotation) and records, in a
+bounded in-memory buffer: its name, its id, its parent's and its root's ids
+(the root is the outermost open span), its counts (``frames=48``), its host
+start and end on :func:`clock_ns` (Unix-epoch nanoseconds, the clock of the
+profiler's host events and of the device events it maps), and, where CUDA is
+initialised, a timing event at each end on the current stream (never a
+synchronisation). :func:`spans` returns the records, each with the device
+milliseconds between its events once they have completed: read it after
+synchronising.
+
+``write(out_dir)`` writes what a profiler keeps beyond its summary: the
+``.pstats`` files of the advanced profiler and the chrome profiler's trace
+(the JAX CLI never wrote them). The chrome profiler's ``ts`` are
+microseconds on the span clock; a :func:`trace` export gives its ``ts``
+relative to its ``baseTimeNanoseconds``, and adding that base lines the two
+files up.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import cProfile
+import dataclasses
 import io
+import itertools
 import json
 import os
 import pstats
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional
+from typing import Deque, Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+MAX_SPANS = 1 << 16  # the buffer keeps the newest spans
+
+
+def clock_ns() -> int:
+    """The span clock: Unix-epoch nanoseconds, on which ``torch.profiler``
+    stamps its host events and maps its device events."""
+    return time.time_ns()
+
+
+@dataclasses.dataclass
+class Span:
+    """One recorded span (:func:`annotate`)."""
+
+    name: str
+    id: int
+    parent: Optional[int]  # the enclosing recorded span's id
+    root: int  # the outermost recorded span's id (its own where it is outermost)
+    start_ns: int  # host, on clock_ns()
+    end_ns: int
+    counts: Dict[str, int]
+    device_ms: Optional[float] = None  # between its timing events, once both have completed
+    events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+
+_SPANS: Deque[Span] = collections.deque(maxlen=MAX_SPANS)
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # this thread's open spans: (id, root) pairs
+
+
+@contextlib.contextmanager
+def annotate(name: str, **counts: int) -> Iterator[None]:
+    """A span named ``name`` (module docstring); records only under a
+    ``torch.profiler`` session."""
+    if not torch.autograd._profiler_enabled():
+        yield
+        return
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    sid = next(_IDS)
+    parent, root = stack[-1] if stack else (None, sid)
+    events = None
+    if torch.cuda.is_initialized():
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    stack.append((sid, root))
+    try:  # a span whose body raises is not recorded
+        with torch.profiler.record_function(name):
+            if events is not None:
+                events[0].record()
+            start = clock_ns()
+            yield
+            end = clock_ns()
+            if events is not None:
+                events[1].record()
+    finally:
+        stack.pop()
+    _SPANS.append(Span(name, sid, parent, root, start, end, counts, events=events))
+
+
+def spans(clear: bool = False) -> List[Span]:
+    """The recorded spans, oldest first, each span's ``device_ms`` resolved
+    where both its events have completed; ``clear`` empties the buffer."""
+    out = list(_SPANS)
+    for s in out:
+        if s.events is not None and s.events[1].query():
+            s.device_ms = s.events[0].elapsed_time(s.events[1])
+            s.events = None
+    if clear:
+        _SPANS.clear()
+    return out
 
 
 class PassThroughProfiler:
@@ -60,7 +154,7 @@ class SimpleProfiler(PassThroughProfiler):
     def record(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            with torch.profiler.record_function(name):
+            with annotate(name):
                 yield
         finally:
             self.totals[name] += time.perf_counter() - t0
@@ -132,7 +226,7 @@ class AdvancedProfiler(SimpleProfiler):
 class ChromeTraceProfiler(SimpleProfiler):
     """Every region occurrence as a Catapult/Perfetto event (``chrome://tracing``
     JSON), the host-side analogue of the reference's PyTorch chrome-trace
-    export; :func:`trace` adds the device."""
+    export, stamped on the span clock; :func:`trace` adds the device."""
 
     def __init__(self):
         super().__init__()
@@ -140,13 +234,13 @@ class ChromeTraceProfiler(SimpleProfiler):
 
     @contextlib.contextmanager
     def record(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
+        t0 = clock_ns()
         try:
             with super().record(name):
                 yield
         finally:
-            self.events.append({"name": name, "ph": "X", "ts": t0 * 1e6,
-                                "dur": (time.perf_counter() - t0) * 1e6, "pid": 0, "tid": 0})
+            self.events.append({"name": name, "ph": "X", "ts": t0 / 1e3,
+                                "dur": (clock_ns() - t0) / 1e3, "pid": 0, "tid": 0})
 
     def write(self, out_dir: str) -> List[str]:
         os.makedirs(out_dir, exist_ok=True)
@@ -180,10 +274,3 @@ def trace(log_dir: str) -> Iterator[None]:
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range, visible in a :func:`trace`."""
-    with torch.profiler.record_function(name):
-        yield
