@@ -60,6 +60,10 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
      instance on that forward's coarse features against the plain bf16 version:
      the same match set
   4  batched RANSAC-PnP on the GPU: 16 frames, 512 noisy correspondences each
+     against GT; then the query step's PnP through PnPGraphs at 16 and 48
+     frames (512 slots, 512 hypotheses): the replays bitwise the eager
+     solver's, and one eager call against one replay (wall ms, device ms
+     between two events, kernels launched)
   5  run_inference at the bench configuration (bf16, 512 slots, 48 frames of
      512^2, frame_batch 16, 7000 points, GT poses): launch counts of every
      kernel, finite poses, poses/s and peak memory
@@ -191,7 +195,7 @@ from onepose_plus_plus_tpu_torch.eval.trajectory import absolute_trajectory_erro
 from onepose_plus_plus_tpu_torch.geometry.levenberg_marquardt import lm_solve_scalar
 from onepose_plus_plus_tpu_torch.geometry.residuals import depth_residual_and_derivative, depth_residual_track
 from onepose_plus_plus_tpu_torch.geometry.rotations import matrix_to_angle_axis
-from onepose_plus_plus_tpu_torch.geometry.pnp import ransac_pnp
+from onepose_plus_plus_tpu_torch.geometry.pnp import PnPGraphs, ransac_pnp, ransac_pnp_from_samples, sample_hypotheses
 from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
 from onepose_plus_plus_tpu_torch.inference import pipeline
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
@@ -1437,6 +1441,61 @@ def phase4() -> None:
         f"max t err {t_err.max().item():.4f} cm (< 2), ok {int(res.ok.sum())}/{B}")
     check(bool(res.ok.all()) and r_err.max().item() < 1.0 and t_err.max().item() < 2.0,
           "PnP on the GPU misses the GT poses")
+    for b in (16, 48):
+        phase4_graph(rng, b)
+
+
+def _pnp_call_ms(fn):
+    """(wall ms, device ms between two events, each the median of five; the
+    kernels the profiler kept of one call)."""
+    walls, spans = [], []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        spans.append(start.elapsed_time(end))
+    rows, _, _ = device_rows(fn, reps=5)
+    return float(np.median(walls)), float(np.median(spans)), sum(r[1] for r in rows) // 5
+
+
+def phase4_graph(rng, b: int) -> None:
+    """The query step's PnP (512 slots, 512 hypotheses, its options) through
+    PnPGraphs: the first call eager, the second captured, all four bitwise
+    the eager solver's; then one eager call against one replay."""
+    dev = "cuda"
+    K, pts, Ts = _scene(rng, b, 7000)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b)
+    graphs = PnPGraphs()
+    for i in range(4):
+        p3, p2 = [], []
+        for T in Ts:
+            idx = rng.choice(7000, 512, replace=False)
+            pc = pts[idx] @ T[:3, :3].T + T[:3, 3]
+            uv = pc[:, :2] / pc[:, 2:3] @ K[:2, :2].T + K[:2, 2] + rng.normal(0, 0.5, (512, 2))
+            bad = rng.random(512) < 0.2
+            uv[bad] = rng.uniform(0, 512, (int(bad.sum()), 2))
+            p3.append(pts[idx])
+            p2.append(uv)
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        valid = torch.from_numpy(rng.random((b, 512)) > 0.1).to(dev)
+        args = (t(p3), t(p2), t(np.tile(K, (b, 1, 1))), valid,
+                *sample_hypotheses(valid, gen, num_hypotheses=512, prescore_subset=128))
+        got, want = graphs(*args), ransac_pnp_from_samples(*args)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"PnP's graph {'replay' if i else 'first call'} at B {b} differs from the eager solver")
+    check(next(iter(graphs._graphs.values())) is not None, f"PnP's graph did not capture at B {b}")
+    ok = float(want.ok.float().mean())
+    eager = _pnp_call_ms(lambda: ransac_pnp_from_samples(*args))
+    replay = _pnp_call_ms(lambda: graphs(*args))
+    log(f"[4g] PnPGraphs at B {b} (N 512, H 512): 4 calls (eager, capture, 2 replays) bitwise the eager solver's, "
+        f"ok {ok:.3f}; one call, eager / replay: wall {eager[0]:.3f} / {replay[0]:.3f} ms, device span "
+        f"{eager[1]:.3f} / {replay[1]:.3f} ms, {eager[2]} / {replay[2]} kernels")
 
 
 def phase5(smi: str):

@@ -12,17 +12,24 @@ inliers. Sampling draws Gumbel keys from an explicit ``torch.Generator``;
 ``ransac_pnp_from_samples`` takes the sample indices from outside.
 
 Port, not workaround: the smallest eigenvector is inverse iteration on a
-batched ``torch.linalg.cholesky_ex`` factor (the JAX package unrolls a scalar
-Cholesky for the TPU), and the Gauss-Newton Jacobian is written in closed
-form (the JAX package differentiates the residual with ``jacfwd``).
+Cholesky factor written out column by column and vectorised over the leading
+dimensions (the JAX package unrolls the same factor scalar by scalar), and
+the Gauss-Newton Jacobian is written in closed form (the JAX package
+differentiates the residual with ``jacfwd``).
+
+Nothing in ``ransac_pnp_from_samples`` reads a value back to the host or
+copies one to the device, so it can be captured as a CUDA graph:
+:class:`PnPGraphs` replays it at shapes that repeat.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import collections
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops.matching import topk_stable
+from ..utils.profiling import annotate
 from .rotations import angle_axis_to_matrix, skew
 
 _EPS = 1e-9
@@ -88,6 +95,34 @@ def _orthogonalize(M: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def _cholesky_factor(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lower Cholesky factor L of symmetric [..., D, D] and the reciprocal of
+    its diagonal [..., D], a column at a time (right-looking), each pivot
+    floored at 1e-20 as in the JAX package's ``_smallest_eigvec``."""
+    d = A.shape[-1]
+    L = A.clone()  # column j becomes L's once the columns before it are out of the trailing block
+    inv_diag = torch.empty_like(A[..., 0])
+    for j in range(d):
+        diag = L[..., j, j].clamp_min_(1e-20).sqrt_()
+        torch.reciprocal(diag, out=inv_diag[..., j])
+        col = L[..., j + 1:, j].mul_(inv_diag[..., j, None])
+        L[..., j + 1:, j + 1:].addcmul_(col[..., :, None], col[..., None, :], value=-1)
+    return L.tril(), inv_diag
+
+
+def _cholesky_solve(L: torch.Tensor, inv_diag: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with L L^T x = b for b [..., D]: forward then back substitution."""
+    d = b.shape[-1]
+    x = b.clone()
+    for j in range(d):  # L y = b, a column of L at a time
+        x[..., j].mul_(inv_diag[..., j])
+        x[..., j + 1:].addcmul_(L[..., j + 1:, j], x[..., j, None], value=-1)
+    for j in reversed(range(d)):  # L^T x = y, a row of L at a time
+        x[..., j].mul_(inv_diag[..., j])
+        x[..., :j].addcmul_(L[..., j, :j], x[..., j, None], value=-1)
+    return x
+
+
 def _smallest_eigvec(AtA: torch.Tensor, iters: int = 4) -> torch.Tensor:
     """Smallest eigenvector of symmetric PSD [..., D, D] by shifted inverse
     iteration from the all-ones direction."""
@@ -95,10 +130,10 @@ def _smallest_eigvec(AtA: torch.Tensor, iters: int = 4) -> torch.Tensor:
     trace = AtA.diagonal(dim1=-2, dim2=-1).sum(dim=-1)
     shift = 1e-6 * (trace / d) + 1e-12
     eye = torch.eye(d, dtype=AtA.dtype, device=AtA.device)
-    L, _ = torch.linalg.cholesky_ex(AtA + shift[..., None, None] * eye)
+    L, inv_diag = _cholesky_factor(AtA + shift[..., None, None] * eye)
     v = torch.full(AtA.shape[:-1], 1.0 / d ** 0.5, dtype=AtA.dtype, device=AtA.device)
     for _ in range(iters):
-        v = torch.cholesky_solve(v[..., None], L)[..., 0]
+        v = _cholesky_solve(L, inv_diag, v)
         v = v / (_norm(v) + _EPS)[..., None]
     return v
 
@@ -179,7 +214,7 @@ def _solve_quartic(c: torch.Tensor) -> torch.Tensor:
     Q = 2 * A2 ** 3 / 27 - A2 * A1 / 3 + A0
     disc = torch.sqrt(Q * Q / 4 + P ** 3 / 27)
     u1 = torch.exp(torch.log(floor_abs(-Q / 2 + disc, 1e-30)) / 3)
-    w = torch.tensor(-0.5 + 0.8660254037844386j, dtype=ctype, device=c.device)
+    w = -0.5 + 0.8660254037844386j  # a scalar operand: no copy to the device
     us = floor_abs(torch.stack([u1, u1 * w, u1 * w * w], dim=-1), 1e-30)
     ms = us - P[..., None] / (3 * us) - A2[..., None] / 3
     m = torch.gather(ms, -1, ms.abs().argmax(dim=-1, keepdim=True))[..., 0]
@@ -307,7 +342,7 @@ def _gauss_newton_refine(R0, t0, pts3d, pts2dn, weights, iters: int = 10):
         rf = r.reshape(*r.shape[:-2], -1)
         JtJ = J.transpose(-1, -2) @ J + 1e-6 * eye6
         g = (J.transpose(-1, -2) @ rf[..., None])[..., 0]
-        delta = -torch.linalg.solve(JtJ, g)
+        delta = -torch.linalg.solve_ex(JtJ, g)[0]  # no error check: nothing read back to the host
         new_R = angle_axis_to_matrix(delta[..., :3]) @ R
         new_t = t + delta[..., 3:]
         new_r = _residual(new_R, new_t, pts3d, pts2dn, weights)[0]
@@ -473,3 +508,71 @@ def ransac_pnp(
         planar_hypotheses=planar_hypotheses, p3p_hypotheses=p3p_hypotheses,
         p3p_samples=p3p_samples, min_inliers=min_inliers, rescore_top=rescore_top,
     )
+
+
+_Replay = Callable[[Sequence[torch.Tensor]], List[torch.Tensor]]
+
+
+class PnPGraphs:
+    """:func:`ransac_pnp_from_samples` replayed from a CUDA graph at shapes
+    that repeat; a call takes the same arguments and gives the same result.
+
+    Keyed on what a call observes: the device, each input's shape and dtype
+    (B, N, H, S, n_sub) and the options. A key's first call runs eagerly and
+    serves as the warm-up; its second captures one graph into static input
+    buffers and replays it; every later call copies its inputs into those
+    buffers, replays, and clones the outputs, inside a ``pnp.graph`` span.
+    At most ``SLOTS`` keys are kept, the least recently used evicted, so a
+    shape seen once never captures. CPU tensors, and calls made while a
+    stream is capturing, run eagerly. The graph holds the eager call's
+    kernels on the same inputs, so its outputs are the eager call's to the
+    bit; sampling stays outside it.
+    """
+
+    SLOTS = 4
+
+    def __init__(self):
+        self._graphs: "collections.OrderedDict[tuple, Optional[_Replay]]" = collections.OrderedDict()
+
+    def __call__(self, pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor, valid: torch.Tensor,
+                 sample_idx: torch.Tensor, sub_idx: Optional[torch.Tensor], **options) -> PnPResult:
+        if not self._graphable(pts3d):
+            return ransac_pnp_from_samples(pts3d, pts2d, K, valid, sample_idx, sub_idx, **options)
+        inputs = [t for t in (pts3d, pts2d, K, valid, sample_idx, sub_idx) if t is not None]
+        key = (pts3d.device, tuple((t.shape, t.dtype) for t in inputs), tuple(sorted(options.items())))
+        if key not in self._graphs:
+            self._graphs[key] = None
+            if len(self._graphs) > self.SLOTS:
+                self._graphs.popitem(last=False)
+            return ransac_pnp_from_samples(pts3d, pts2d, K, valid, sample_idx, sub_idx, **options)
+        self._graphs.move_to_end(key)
+        replay = self._graphs[key]
+        if replay is None:
+            def solve(p3, p2, k, v, samples, *sub):
+                return ransac_pnp_from_samples(p3, p2, k, v, samples, sub[0] if sub else None, **options)
+            replay = self._graphs[key] = self._capture(solve, inputs)
+        with annotate("pnp.graph"):
+            return PnPResult(*replay(inputs))
+
+    @staticmethod
+    def _graphable(x: torch.Tensor) -> bool:
+        return x.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+    @staticmethod
+    def _capture(fn: Callable[..., Sequence[torch.Tensor]], inputs: Sequence[torch.Tensor]) -> _Replay:
+        """One graph of ``fn`` on static copies of ``inputs``; the returned
+        function copies new inputs in, replays, and clones the outputs."""
+        device = inputs[0].device  # the graph captures and replays on the inputs' device, current or not
+        static = [t.clone() for t in inputs]
+        graph = torch.cuda.CUDAGraph()
+        # only this thread's calls are checked: another's (a process group's watchdog) is not captured
+        with torch.cuda.device(device), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn(*static)
+
+        def replay(new: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+            with torch.cuda.device(device):
+                for dst, src in zip(static, new):
+                    dst.copy_(src)
+                graph.replay()
+                return [o.clone() for o in out]
+        return replay

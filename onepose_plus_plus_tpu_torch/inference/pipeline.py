@@ -21,7 +21,7 @@ import torch.distributed as dist
 
 from ..data.preprocessing import pad_point_cloud
 from ..eval.metrics import aggregate_metrics, batched_pose_errors
-from ..geometry.pnp import ransac_pnp
+from ..geometry.pnp import PnPGraphs, sample_hypotheses
 from ..parallel.mesh import Mesh
 from ..utils.profiling import annotate
 
@@ -61,7 +61,12 @@ def make_query_step(
     (first, total): the batch is rows [first, first + B) of a batch of
     ``total`` split over ranks; RANSAC draws the whole batch's samples and
     keeps these rows.
+
+    The step draws RANSAC's samples eagerly and solves them through its own
+    ``geometry.pnp.PnPGraphs``: one CUDA graph replay at a batch shape it
+    has seen before.
     """
+    pnp = PnPGraphs()
 
     @torch.no_grad()
     def step(batch: Dict[str, torch.Tensor], generator: torch.Generator,
@@ -80,12 +85,12 @@ def make_query_step(
                 out = model(batch)
             with annotate("query_step.pnp"):
                 mask = out["match_mask"].bool() & (out["mconf"] > conf_threshold)
-                res = ransac_pnp(
-                    out["mkpts_3d"], out["mkpts_query_f"], batch["intrinsics"], mask, generator,
-                    reproj_threshold_px=reproj_threshold_px, num_hypotheses=num_hypotheses,
-                    planar_hypotheses=planar_hypotheses, p3p_hypotheses=p3p_hypotheses,
-                    p3p_samples=p3p_samples, prescore_subset=prescore_subset, rescore_top=rescore_top,
-                    rows=rows,
+                sample_idx, sub_idx = sample_hypotheses(mask, generator, num_hypotheses=num_hypotheses,
+                                                        prescore_subset=prescore_subset, rows=rows)
+                res = pnp(
+                    out["mkpts_3d"], out["mkpts_query_f"], batch["intrinsics"], mask, sample_idx, sub_idx,
+                    reproj_threshold_px=reproj_threshold_px, planar_hypotheses=planar_hypotheses,
+                    p3p_hypotheses=p3p_hypotheses, p3p_samples=p3p_samples, rescore_top=rescore_top,
                 )
                 poses = torch.eye(4, dtype=torch.float32, device=img.device).repeat(b, 1, 1)
                 poses[:, :3, :3] = res.R

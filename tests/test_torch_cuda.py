@@ -42,6 +42,8 @@ from onepose_plus_plus_tpu_torch.ops.cuda_matching import (
     rowcol_stats_plain,
 )
 from onepose_plus_plus_tpu_torch.config import ResNetFPNConfig
+from onepose_plus_plus_tpu_torch.geometry.pnp import PnPGraphs, ransac_pnp_from_samples, sample_hypotheses
+from onepose_plus_plus_tpu_torch.geometry.rotations import angle_axis_to_matrix
 from onepose_plus_plus_tpu_torch.models.backbone import ResNetFPN_8_2
 from onepose_plus_plus_tpu_torch.ops import quant
 from onepose_plus_plus_tpu_torch.ops.cuda_patch_gather import patch_gather, patch_gather_centered, patch_gather_plain
@@ -1187,3 +1189,41 @@ def test_k7_bf16_tensor_cores_match_plain_and_repeat_bitwise(gen, l, s):
     if l == s:
         assert torch.equal(fused_short_encoder_layer_packed(x, x.clone(), packed), got)
 
+
+
+def _pnp_scene(gen, b, n=512):
+    """b frames of n correspondences of one cloud seen from near (0, 0, -2): a
+    fifth of them outliers, a tenth of the slots padded."""
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    ru = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")  # noqa: E731
+    pts = 0.3 * rn(n, 3)
+    R = angle_axis_to_matrix(0.3 * rn(b, 3))
+    t = 0.05 * rn(b, 3) + torch.tensor([0.0, 0.0, 2.0], device="cuda")
+    pc = pts @ R.transpose(-1, -2) + t[:, None]
+    uv = 500.0 * pc[..., :2] / pc[..., 2:] + 256.0 + 0.5 * rn(b, n, 2)
+    uv = torch.where(ru(b, n, 1) < 0.2, 512.0 * ru(b, n, 2), uv)
+    K = torch.tensor([[500.0, 0.0, 256.0], [0.0, 500.0, 256.0], [0.0, 0.0, 1.0]], device="cuda").expand(b, 3, 3)
+    return pts.expand(b, n, 3), uv, K, ru(b, n) > 0.1
+
+
+@pytest.mark.parametrize("b", [48, 1])
+def test_pnp_graph_replay_is_bitwise_eager(gen, b):
+    """The query step's PnP at 512 slots and 512 hypotheses: the first call
+    at a shape runs eagerly, the next three replay the captured graph on new
+    inputs, and each gives the eager solver's R, t, inliers, counts and ok to
+    the bit; a replay's outputs are its own (a later replay leaves them)."""
+    graphs = PnPGraphs()
+    calls = []
+    for i in range(4):
+        p3, p2, K, valid = _pnp_scene(gen, b)
+        args = (p3, p2, K, valid, *sample_hypotheses(valid, gen, num_hypotheses=512, prescore_subset=128))
+        got = graphs(*args)
+        assert (next(iter(graphs._graphs.values())) is None) == (i == 0)
+        want = ransac_pnp_from_samples(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert want.ok.float().mean().item() > 0.9
+        calls.append((args, got))
+    args, got = calls[1]
+    for g, w in zip(got, ransac_pnp_from_samples(*args)):
+        assert torch.equal(g, w)

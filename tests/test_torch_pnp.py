@@ -17,6 +17,7 @@ from onepose_plus_plus_tpu.geometry.rotations import angle_axis_to_matrix as jax
 from onepose_plus_plus_tpu_torch.eval.metrics import batched_pose_errors
 from onepose_plus_plus_tpu_torch.geometry import pnp
 from onepose_plus_plus_tpu_torch.geometry.rotations import angle_axis_to_matrix
+from onepose_plus_plus_tpu_torch.utils import profiling
 from synthetic_scenes import make_scene
 
 torch.set_num_threads(2)
@@ -209,3 +210,126 @@ def test_hypothesis_family_toggles(planar, p3p):
                          planar_hypotheses=planar, p3p_hypotheses=p3p)
     assert res.ok.all()
     assert (_rot_err_deg(res.R.numpy(), Ts[:, :3, :3]) < 1.0).all()
+
+
+def _spd(d, near_singular, seed):
+    """A^T A of a [2d, d] float64 matrix plus _smallest_eigvec's shift; with
+    ``near_singular`` A has rank d - 1, so the shift alone keeps it positive
+    definite (condition number ~1e6)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((5, 2 * d, d))
+    if near_singular:
+        a[..., -1] = a[..., :-1] @ rng.standard_normal(d - 1)
+    m = np.swapaxes(a, -1, -2) @ a
+    shift = 1e-6 * np.trace(m, axis1=-2, axis2=-1) / d + 1e-12
+    return torch.from_numpy(m + shift[:, None, None] * np.eye(d))
+
+
+@pytest.mark.parametrize("near_singular", [False, True], ids=["conditioned", "near_singular"])
+@pytest.mark.parametrize("d", [3, 6, 9, 12])
+def test_cholesky_factor_and_solve_match_torch_linalg(d, near_singular):
+    A = _spd(d, near_singular, seed=d)
+    L, inv_diag = pnp._cholesky_factor(A)
+    L_ref = torch.linalg.cholesky(A)
+    assert (L.triu(1) == 0).all()
+    torch.testing.assert_close(L, L_ref, rtol=0, atol=1e-9 * float(L_ref.abs().max()))
+    torch.testing.assert_close(inv_diag, 1.0 / L_ref.diagonal(dim1=-2, dim2=-1), rtol=1e-9, atol=0)
+    b = torch.from_numpy(np.random.default_rng(d + 1).standard_normal((5, d)))
+    x = pnp._cholesky_solve(L, inv_diag, b)
+    x_ref = torch.cholesky_solve(b[..., None], L_ref)[..., 0]
+    assert float(((x - x_ref).norm(dim=-1) / x_ref.norm(dim=-1)).max()) < 1e-8
+
+
+@pytest.mark.parametrize("d", [3, 9, 12])
+def test_smallest_eigvec_matches_jax(d):
+    """The same matrices through both packages' inverse iteration (float32):
+    the DLT's 12, the homography's 9, the plane normal's 3."""
+    rng = np.random.default_rng(20 + d)
+    a = rng.standard_normal((32, 2 * d, d)).astype(np.float32)
+    a[..., -1] = a[..., :-1] @ rng.standard_normal(d - 1).astype(np.float32) + 1e-3 * a[..., -1]
+    m = np.swapaxes(a, -1, -2) @ a
+    vj = np.asarray(jax.vmap(jpnp._smallest_eigvec)(m))
+    vt = pnp._smallest_eigvec(torch.from_numpy(m)).numpy()
+    np.testing.assert_allclose(vt, vj, atol=1e-5)
+    w, v = np.linalg.eigh(m.astype(np.float64))
+    assert (np.abs((v[..., 0] * vt).sum(-1)) > 1 - 1e-6).all()  # and it is the smallest eigenvector
+
+
+class _StandInGraphs(pnp.PnPGraphs):
+    """``PnPGraphs``' policy on the CPU: a stand-in 'capture' that records
+    itself and replays by running the solver eagerly on static buffers."""
+
+    def __init__(self):
+        super().__init__()
+        self.captures = []
+
+    @staticmethod
+    def _graphable(x):
+        return True
+
+    def _capture(self, fn, inputs):
+        self.captures.append(tuple(t.shape for t in inputs))
+        static = [t.clone() for t in inputs]
+
+        def replay(new):
+            for dst, src in zip(static, new):
+                dst.copy_(src)
+            return [o.clone() for o in fn(*static)]
+        return replay
+
+
+def _pnp_inputs(seed, b=2, n=40, h=16):
+    p3, p2, K, valid, _ = _scene_batch(seed, b=b, n=n)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    valid = torch.from_numpy(valid)
+    sample_idx, sub_idx = pnp.sample_hypotheses(valid, gen, num_hypotheses=h, prescore_subset=16)
+    return _t(p3), _t(p2), _t(K), valid, sample_idx, sub_idx
+
+
+def _assert_same_result(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pnp_graphs_run_eagerly_on_the_cpu(monkeypatch):
+    graphs = pnp.PnPGraphs()
+    monkeypatch.setattr(graphs, "_capture", lambda *a: pytest.fail("captured on the CPU"))
+    for seed in (1, 1, 2):
+        args = _pnp_inputs(seed)
+        _assert_same_result(graphs(*args, rescore_top=8), pnp.ransac_pnp_from_samples(*args, rescore_top=8))
+    assert not graphs._graphs
+
+
+def test_pnp_graphs_capture_on_a_keys_second_call():
+    graphs = _StandInGraphs()
+    profiling.spans(clear=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i, seed in enumerate((1, 2, 3, 4)):
+            args = _pnp_inputs(seed)
+            _assert_same_result(graphs(*args, rescore_top=8), pnp.ransac_pnp_from_samples(*args, rescore_top=8))
+            assert len(graphs.captures) == (0 if i == 0 else 1)  # eager first, captured once on the second
+        graphs(*_pnp_inputs(5), rescore_top=4)  # other options: another key, eager
+        graphs(*_pnp_inputs(5, b=3), rescore_top=8)  # another batch: another key, eager
+    assert len(graphs.captures) == 1
+    assert [s.name for s in profiling.spans(clear=True)].count("pnp.graph") == 3  # one a replay
+
+
+def test_pnp_graphs_evict_the_least_recently_used_key():
+    graphs = _StandInGraphs()
+    call = lambda b: graphs(*_pnp_inputs(b, b=b), rescore_top=8)  # noqa: E731  the batch size is the key
+    keys = lambda: [k[1][0][0][0] for k in graphs._graphs]  # noqa: E731
+    for b in (1, 2, 3, 4, 1):  # four keys; 1 captures on its second call
+        call(b)
+    assert len(graphs.captures) == 1 and keys() == [2, 3, 4, 1]
+    call(5)  # a fifth key evicts 2, the least recently used
+    call(2)  # 2 is new again: eager, no capture; it evicts 3
+    call(1)  # a replay keeps 1 the most recently used
+    assert keys() == [4, 5, 2, 1] and len(graphs.captures) == 1
+    for b in (3, 4, 5, 6):  # four new keys evict everything, 1's graph too
+        call(b)
+    assert keys() == [3, 4, 5, 6]
+    call(1)  # new again: eager
+    assert len(graphs.captures) == 1
+    call(1)  # its second call since: captured anew
+    assert len(graphs.captures) == 2

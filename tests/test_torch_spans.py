@@ -413,3 +413,19 @@ def test_every_span_reader_has_its_entry():
         assert m["source"] == "program_counter" and m["better"] == "lower"
         assert m["workloads"] == [cells[metric.rsplit(".", 1)[1]]]
         assert m["layer"] in ("host driver", "model")
+
+
+def test_pnp_graph_share_reads_the_replays(monkeypatch):
+    read = harness.load_reader("pnp_graph_pct.query")
+    replayed = QUERY + [_span("pnp.graph", 17, 81, 89, 15.0, parent=14, root=1)]  # the second batch's PnP
+    monkeypatch.setattr(bench_spans, "program_spans", lambda: copy.deepcopy(replayed))
+    assert read(_trace(QUERY_BUSY)) == pytest.approx(50.0)
+    assert read(_trace([])) is None
+    monkeypatch.setattr(bench_spans, "program_spans", lambda: copy.deepcopy(QUERY))
+    assert read(_trace(QUERY_BUSY)) is None  # a program without the graph: nothing to read
+
+
+def test_pnp_graph_share_has_its_entry():
+    m = {m["name"]: m for m in harness.load_spec()["per_layer"]}["pnp_graph_pct.query"]
+    assert (m["source"], m["better"], m["layer"], m["moves"], m["workloads"]) == (
+        "program_counter", "higher", "model", "query_poses_per_s", ["query_eval_fb48"])
