@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``onepose_plus_plus_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # needs one CUDA GPU
+    python3 chip_smoke.py         # needs one CUDA GPU
+    python3 chip_smoke.py 8m      # phases 0 and 1, then the named phases alone (those of STANDALONE)
 
-Phases, all run every time (each prints its own lines; any failure raises and
-exits non-zero), in this order but for 8a and 9a, which run right after
-phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
+Phases, all run every time unless phases are named (each prints its own
+lines; any failure raises and exits non-zero), in this order but for 8a and
+9a, which run right after phase 2, and phase 10, which runs right after
+phase 6; phase 11 runs last:
   0  device: GPU name and power limit, torch and CUDA versions
   1  build the CUDA kernels from csrc/ (nvcc, -Xptxas -v report)
   2  each kernel against its plain PyTorch version at main-path shapes
@@ -112,7 +114,14 @@ phase 2, and phase 10, which runs right after phase 6; phase 11 runs last:
      SfM CLI with them), launch counts, stage walls, pairs/s, peak memory and each
      stage's peak, then descriptor extraction at its shape through the
      self-pair refine it ran before (fine stage included) and through
-     extract, wall and peak memory of each, outputs bitwise equal; 8d the same
+     extract, wall and peak memory of each, outputs bitwise equal; 8m LoFTR's
+     outdoor matcher on padded MegaDepth-1500 views (1200 x 800 and 800 x 1200
+     padded to 1200^2: 22 500 coarse cells, 15 000 valid): K1's bf16 tc
+     instance with padding masks at [4, 22500, 256], self and cross, and K2
+     with row_add and col_add at [4, 22500] x [4, 22500], against their plain
+     versions, each timed; one batch of run_pairs through make_loftr_match_fn
+     (bf16, 5120 slots), its K1, K2 and K3 launches counted from 0 against
+     one call's, every match inside its view's valid extent; 8d the same
      stages in f32 on a 6-frame object of 256^2, GPU against CPU
   9  the serving entry points and K7: 9a K7 against its plain version at the
      fine transformer's four (L, S) shapes, M 8192 (and 8189, not a multiple
@@ -200,7 +209,13 @@ from onepose_plus_plus_tpu_torch.inference import cli as inference_cli
 from onepose_plus_plus_tpu_torch.inference import pipeline
 from onepose_plus_plus_tpu_torch.inference.pipeline import make_query_step, run_inference
 from onepose_plus_plus_tpu_torch.models.backbone import build_backbone
-from onepose_plus_plus_tpu_torch.models.build import build_loftr_matcher, build_onepose_model, make_loftr_fns
+from onepose_plus_plus_tpu_torch.models.build import (
+    build_loftr_matcher,
+    build_onepose_model,
+    loftr_matcher_from_dict,
+    make_loftr_fns,
+    make_loftr_match_fn,
+)
 from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher
 from onepose_plus_plus_tpu_torch.models.transformer import LoFTREncoderLayer
 from onepose_plus_plus_tpu_torch.models.onepose_plus import OnePosePlusModel, normalize_3d_keypoints
@@ -218,6 +233,7 @@ from onepose_plus_plus_tpu_torch.ops.cuda_encoder import (
     encoder_layer_plain,
     fused_encoder_layer,
     fused_encoder_layer_packed,
+    k1_instance,
     pack_encoder_weights,
 )
 from onepose_plus_plus_tpu_torch.ops.cuda_gather import (
@@ -2569,6 +2585,117 @@ def phase8d() -> None:
           "the f32 SfM stages on the GPU disagree with the CPU")
 
 
+# LoFTR's outdoor dual-softmax matcher (benchmark/configs/loftr_outdoor_ds.json's model), at thr 1e-6
+# so that random weights give matches
+OUTDOOR_MODEL = {
+    "compute_dtype": "bfloat16", "d_model": 256, "nhead": 8, "layer_iter_n": 4, "temp_bug_fix": True,
+    "match_coarse": {"thr": 1e-6, "dsmax_temperature": 0.1, "border_rm": 2, "max_matches": 5120},
+    "fine_window_size": 5, "fine_concat_coarse_feat": True,
+}
+MD_LONG, MD_SHORT = 1200, 800  # MegaDepth-1500's views: longer side 1200, each padded to 1200^2
+
+
+def _md_masks():
+    """Coarse masks [22500] of a landscape (1200 x 800) and a portrait (800 x 1200) view padded
+    bottom-right to 1200^2: 150 x 150 cells, 15 000 of them valid."""
+    side, short = MD_LONG // 8, MD_SHORT // 8
+    land = torch.zeros(side, side, dtype=torch.bool, device="cuda")
+    port = torch.zeros_like(land)
+    land[:short] = True
+    port[:, :short] = True
+    return land.reshape(-1), port.reshape(-1)
+
+
+def phase8m(gen, smi: str) -> None:
+    """LoFTR outdoor's padded path at MegaDepth-1500 shapes: K1 masked (bf16)
+    at [4, 22500, 256], self and cross, and K2 with row and column masks at
+    [4, 22500] x [4, 22500], against their plain versions; then one batch of
+    run_pairs through the full-match surface on 1200 x 800 and 800 x 1200
+    views, its launches counted from 0."""
+    land, port = _md_masks()
+    m0 = torch.stack([land, port, land, port])
+    m1 = torch.stack([port, port, land, land])
+    n, l, c = 4, MD_LONG ** 2 // 64, 256
+    check(k1_instance(c, 8, torch.bfloat16) == "tc", "K1 at C = 256 in bf16 is not the tc instance")
+    for tag, cross in (("self", False), ("cross", True)):
+        x, src, w = _encoder_inputs(gen, l, l if cross else None, n=n)
+        masks = {"x_mask": m0, "source_mask": m1 if cross else m0}
+        wb = {k: (_bf16(v) if v.dim() == 2 else v) for k, v in w.items()}
+        got = fused_encoder_layer(x, src, **wb, **masks, nhead=8, dtype=torch.bfloat16)
+        ref = encoder_layer_plain(x, src, **wb, **masks, nhead=8, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        d = (got - ref).abs()
+        packed = pack_encoder_weights(**wb, nhead=8, dtype=torch.bfloat16)
+        ms = time_ms(lambda: fused_encoder_layer_packed(x, src, packed, masks["x_mask"], masks["source_mask"]))
+        log(f"[8m] K1 tc masked {tag} x{tuple(x.shape)} src{tuple(src.shape)}: max|d| {d.max().item():.3e} "
+            f"(<= 5e-2), mean|d| {d.mean().item():.3e} (<= 5e-3) against the plain bf16 layer; "
+            f"{ms:.3f} ms a call with packed weights (median of 20)")
+        check(d.max().item() <= 5e-2 and d.mean().item() <= 5e-3 and bool(torch.isfinite(got).all()),
+              f"K1 masked {tag} at the MegaDepth shape disagrees")
+        del x, src, got, ref, d
+    f0 = torch.randn(n, l, c, generator=gen, device="cuda")
+    f1 = torch.randn(n, l, c, generator=gen, device="cuda")
+    row_add, col_add = torch.where(m0, 0.0, -1e9), torch.where(m1, 0.0, -1e9)
+    got = dual_softmax_rowcol_stats(f0, f1, 0.1, row_add=row_add, col_add=col_add, dtype=torch.bfloat16)
+    lse, agree, padded = 0.0, 1.0, 0
+    for i in range(n):  # one pair at a time: a pair's dense f32 similarity is 2 GB
+        ref = rowcol_stats_plain((f0[i:i + 1] * c ** -0.5).to(torch.bfloat16),
+                                 (f1[i:i + 1] * c ** -0.5).to(torch.bfloat16), 1 / (0.1 + 1e-4),
+                                 row_add[i:i + 1], col_add[i:i + 1])
+        rows, cols = m0[i], m1[i]
+        for k, at in (("row_lse", rows), ("row_best_val", rows), ("col_lse", cols), ("col_best_val", cols)):
+            lse = max(lse, (got[k][i][at] - ref[k][0][at]).abs().max().item())
+        agree = min(agree, (got["row_best_j"][i][rows] == ref["row_best_j"][0][rows]).float().mean().item(),
+                    (got["col_best_p"][i][cols] == ref["col_best_p"][0][cols]).float().mean().item())
+        padded += int((~m1[i][got["row_best_j"][i][rows].long()]).sum() + (~m0[i][got["col_best_p"][i][cols].long()]).sum())
+        del ref
+    ms = time_ms(lambda: dual_softmax_rowcol_stats(f0, f1, 0.1, row_add=row_add, col_add=col_add,
+                                                   dtype=torch.bfloat16))
+    log(f"[8m] K2 tc with row_add and col_add, f0{tuple(f0.shape)} f1{tuple(f1.shape)}: at the valid rows and "
+        f"columns LSE and best values max|d| {lse:.3e} (<= 2e-3), argmax agree {agree:.6f} (>= 0.999), "
+        f"{padded} best indices in padding (0); {ms:.3f} ms a call (median of 20)")
+    check(lse <= 2e-3 and agree >= 0.999 and padded == 0, "K2 with both masks at the MegaDepth shape disagrees")
+    del f0, f1, got
+    torch.cuda.empty_cache()
+
+    matcher = loftr_matcher_from_dict(OUTDOOR_MODEL).eval().to("cuda")
+    matcher.load_state_dict(random_state_dict(matcher, seed=667))
+    sq = _textured_images(np.random.default_rng(88), 1, MD_LONG)[0]
+    lo = (MD_LONG - MD_SHORT) // 2
+    land_img, port_img = sq[lo:lo + MD_SHORT], np.ascontiguousarray(sq[:, lo:lo + MD_SHORT])
+    images = {0: land_img, 1: port_img, 2: land_img.copy(), 3: port_img.copy()}
+    scales = {i: np.ones(2) for i in images}
+    pairs = [(0, 1), (1, 2), (2, 3), (3, 0)]
+    match_fn = make_loftr_match_fn(matcher)
+    run_pairs(match_fn, images, scales, pairs, pair_batch=4)  # cuDNN's first choice, first launches
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    raw = run_pairs(match_fn, images, scales, pairs, pair_batch=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = {"K1_encoder_layer": 2 * len(matcher.cfg.coarse.layer_sequence), "K2_rowcol_stats": 1,
+                "K3_window_gather": 2, "K4_window_scatter": 0, "K5_coarse_loss": 0, "K5_coarse_loss_bwd": 0,
+                "K6_patch_gather": 0, "K7_short_encoder": 0}
+    bd, inside = matcher.cfg.coarse_matching.border_rm * 8, True
+    for pm, (i, j) in zip(raw, pairs):
+        (h0, w0), (h1, w1) = images[i].shape, images[j].shape
+        inside &= bool(((pm.pts0 >= bd) & (pm.pts0 < np.array([w0, h0]) - bd)).all())
+        inside &= bool(((pm.pts1 >= bd - 4) & (pm.pts1 < np.array([w1, h1]) - bd + 4)).all())
+    n_matches = [len(pm.conf) for pm in raw]
+    finite = all(np.isfinite(pm.pts1).all() and np.isfinite(pm.conf).all() for pm in raw)
+    log(f"[8m] run_pairs through make_loftr_match_fn, 4 pairs of 1200x800 and 800x1200 views padded to 1200^2 "
+        f"(bf16, 5120 slots, thr 1e-6, random weights): launches K1 {counts['K1_encoder_layer']}, K2 "
+        f"{counts['K2_rowcol_stats']}, K3 {counts['K3_window_gather']} (all counts {counts}; expected {expected}); "
+        f"matches a pair {n_matches}, every match inside its view's valid extent less the border band {inside}, "
+        f"finite {finite}; one batch {wall:.3f} s ({len(pairs) / wall:.2f} pairs/s, synchronised), on {smi}")
+    check(counts == expected, "a kernel of the padded full-match path was not launched as one call implies")
+    check(inside and finite and min(n_matches) > 0, "the padded full-match path gave matches outside the views")
+    del matcher, match_fn
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- phase 9
 
 def phase8e(smi: str) -> None:
@@ -3443,12 +3570,25 @@ K5_NAMES = ("pack_operand_kernel", "lse_tc_kernel", "col_lse_reduce", "loss_tc_k
 K5_OLD_NAMES = ("lse_kernel", "loss_kernel", "gsum_kernel", "df0_kernel", "df1_kernel")  # the CUDA-core design
 
 
-def main() -> int:
+# phases that need nothing another phase makes: ``python3 chip_smoke.py <name> ...`` runs them alone
+STANDALONE = {"8m": phase8m}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    unknown = sorted(set(argv) - set(STANDALONE))
+    if unknown:
+        raise SystemExit(f"no standalone phase {unknown}; those there are: {sorted(STANDALONE)}")
     smi = phase0()
     phase1(smi)
     no_tf32()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if argv:
+        for name in argv:
+            STANDALONE[name](gen, smi)
+        print(json.dumps({"ok": True, "phases": argv, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}}))
+        return 0
     records = {"K1_encoder_layer": phase2_k1(gen), "K2_rowcol_stats": phase2_k2(gen),
                "K3_window_gather": phase2_k3(gen)}
     phase2_k2_wide(gen, smi)  # K2 above 576 channels
@@ -3495,6 +3635,8 @@ def main() -> int:
     phase8b()
     sfm_counts = phase8c(smi)  # the SfM path's own run: K6's launches come from it
     counts["K6_patch_gather"] = sfm_counts["K6_patch_gather"] + sparse_k6
+    torch.cuda.empty_cache()
+    phase8m(gen, smi)  # LoFTR outdoor's padded path at MegaDepth-1500 shapes
     torch.cuda.empty_cache()
     phase8d()
     torch.cuda.empty_cache()

@@ -6,8 +6,9 @@ and of the SfM configs' ``model`` block onto the dataclasses of
 ``config.py`` (tests hold both packages to equal configs), the builders of
 the 2D-3D matcher and of LoFTR (both on ``cuda`` unless asked otherwise),
 and :func:`make_loftr_fns`, the three batched surfaces the SfM runner and the
-detector call. They take host numpy arrays and return CPU tensors, which
-``np.asarray`` reads.
+detector call, and :func:`make_loftr_match_fn`, LoFTR's whole forward (coarse
+and fine) as ``run_pairs`` calls it. They take host numpy arrays and return
+CPU tensors, which ``np.asarray`` reads.
 """
 from __future__ import annotations
 
@@ -89,11 +90,13 @@ def onepose_config_from_dict(d: Optional[Dict[str, Any]] = None) -> OnePosePlusC
 
 
 def loftr_config_from_dict(d: Optional[Dict[str, Any]] = None) -> LoFTRConfig:
-    """Image-pair LoFTR config (reference loftr_for_onepose_plus_cfg.py)."""
+    """Image-pair LoFTR config (reference loftr_for_onepose_plus_cfg.py;
+    LoFTR's own ``temp_bug_fix`` where the dict gives it)."""
     d = d or {}
     cm = d.get("match_coarse", {})
     return LoFTRConfig(
         compute_dtype=d.get("compute_dtype", "float32"),
+        pe_temp_bug_fix=d.get("temp_bug_fix", False),
         backbone=ResNetFPNConfig(
             quant_int8=d.get("backbone", {}).get("quant_int8", False),
             stem_s2d=d.get("backbone", {}).get("stem_s2d", True),
@@ -122,11 +125,19 @@ def build_onepose_model(cfg_dict: Optional[Dict[str, Any]] = None,
     return OnePosePlusModel(onepose_config_from_dict(cfg_dict)).eval().to(device)
 
 
+def loftr_matcher_from_dict(d: Optional[Dict[str, Any]] = None) -> LoFTRMatcher:
+    """The LoFTR pair matcher of a config dict: :func:`loftr_config_from_dict`,
+    and ``fine_concat_coarse_feat`` (LoFTR's ``FINE_CONCAT_COARSE_FEAT``: the
+    ``fine_preprocess`` module), which ``LoFTRConfig`` does not carry."""
+    d = d or {}
+    return LoFTRMatcher(loftr_config_from_dict(d), fine_concat_coarse_feat=d.get("fine_concat_coarse_feat", False))
+
+
 def build_loftr_matcher(cfg_dict: Optional[Dict[str, Any]] = None,
                         device: str = "cuda") -> LoFTRMatcher:
     """The LoFTR pair matcher in eval mode on ``device`` (weights are torch's
     initialisation: load a state dict, or ``utils.weights.random_state_dict``)."""
-    return LoFTRMatcher(loftr_config_from_dict(cfg_dict)).eval().to(device)
+    return loftr_matcher_from_dict(cfg_dict).eval().to(device)
 
 
 def _to_host(out: Dict[str, Any]) -> Dict[str, Any]:
@@ -138,7 +149,7 @@ def make_loftr_fns(model: LoFTRMatcher) -> Tuple[Callable, Callable, Callable]:
 
     All three take numpy arrays, run on the model's device under
     ``torch.inference_mode`` and return CPU tensors:
-      coarse_match_fn(img0, img1) -> match_coarse dict
+      coarse_match_fn(img0, img1[, mask0, mask1]) -> match_coarse dict
       refine_fn(img0, img1, mkpts0, mkpts1, mask) -> refine dict (+features)
       extract_fn(img, kpts, mask) -> {"feat_fine", "feat_coarse"} at kpts
     """
@@ -147,13 +158,7 @@ def make_loftr_fns(model: LoFTRMatcher) -> Tuple[Callable, Callable, Callable]:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    @torch.inference_mode()
-    def coarse_match_fn(img0, img1):
-        with annotate("sfm.h2d"):
-            args = dev(img0), dev(img1)
-        out = model.match_coarse(*args)
-        with annotate("sfm.d2h"):
-            return _to_host(out)
+    coarse_match_fn = _pair_surface(model, "match_coarse")
 
     @torch.inference_mode()
     def refine_fn(img0, img1, mkpts0, mkpts1, mask):
@@ -172,3 +177,32 @@ def make_loftr_fns(model: LoFTRMatcher) -> Tuple[Callable, Callable, Callable]:
         return {"feat_fine": fine.cpu(), "feat_coarse": coarse.cpu()}
 
     return coarse_match_fn, refine_fn, extract_fn
+
+
+def _pair_surface(model: LoFTRMatcher, method: str) -> Callable:
+    """The model's ``method(img0, img1[, mask0, mask1])`` on numpy inputs
+    (images [B, H, W, 1], coarse masks [B, h_c, w_c] where given) on its
+    device, under ``torch.inference_mode``, its dict returned as CPU tensors."""
+    device = next(model.parameters()).device
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    @torch.inference_mode()
+    def fn(img0, img1, mask0=None, mask1=None):
+        with annotate("sfm.h2d"):
+            args = dev(img0), dev(img1)
+            masks = () if mask0 is None else (dev(mask0), dev(mask1))
+        out = getattr(model, method)(*args, *masks)
+        with annotate("sfm.d2h"):
+            return _to_host(out)
+
+    return fn
+
+
+def make_loftr_match_fn(model: LoFTRMatcher) -> Callable:
+    """LoFTR's whole forward (``LoFTRMatcher.match``: coarse and fine) as
+    ``run_pairs`` calls it: ``match_fn(img0, img1, mask0=None, mask1=None)``
+    returning the match dict as CPU tensors (``mkpts0_f`` / ``mkpts1_f``,
+    which ``run_pairs`` reads where given)."""
+    return _pair_surface(model, "match")

@@ -58,7 +58,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import KERNEL_DTYPES, LAUNCHES, build, check_cuda_operands, ptr, stream_ptr, tf32_split
-from .matching import CoarseMatches, _border_keep, topk_stable
+from .matching import CoarseMatches, _border_keep, border_keep_padded, topk_stable
 from .take import take_scalars
 
 
@@ -390,6 +390,7 @@ def fused_select_topk_matches(
     feat_norm: str = "sqrt_feat_dim",
     col_mask: Optional[torch.Tensor] = None,
     dtype: torch.dtype = torch.float32,
+    row_mask: Optional[torch.Tensor] = None,
 ) -> CoarseMatches:
     """Streaming replacement for confidence matrix + ``select_topk_matches``.
 
@@ -398,26 +399,39 @@ def fused_select_topk_matches(
     match (it is not rerouted to its second-best column), like the reference
     ``mask_border`` on the thresholded mask. ``row_grid_hw`` makes the rows a
     grid too (image-pair matching), whose border rows give no match.
+    ``col_mask`` [B, L] takes masked columns out of the softmax. ``row_mask``
+    [B, P] (an image pair padded bottom-right: with ``row_grid_hw`` and
+    ``col_mask``) takes masked rows out too, as K2's ``row_add``, and removes
+    the border per pair from each image's valid extent, as LoFTR's
+    ``mask_border_with_padding``.
     """
     b, p, _ = feat0.shape
     l = feat1.shape[1]
     h, w = grid_hw
     if h * w != l:
         raise ValueError(f"grid {grid_hw} != L {l}")
-    col_add = None
+    col_add = row_add = None
     if col_mask is not None:
         col_add = torch.where(col_mask.bool(), 0.0, -1e9).float()
+    if row_mask is not None:
+        if row_grid_hw is None or col_mask is None:
+            raise ValueError("row_mask needs row_grid_hw and col_mask")
+        row_add = torch.where(row_mask.bool(), 0.0, -1e9).float()
     stats = dual_softmax_rowcol_stats(
-        feat0, feat1, temperature, col_add=col_add, feat_norm=feat_norm, dtype=dtype
+        feat0, feat1, temperature, row_add=row_add, col_add=col_add, feat_norm=feat_norm, dtype=dtype
     )
     j_of_row = stats["row_best_j"].long()  # [B, P]
-    col_keep = _border_keep(h, w, border_rm, border_two_sided, feat0.device)  # [L]
     best_p_at_j = take_scalars(stats["col_best_p"], j_of_row)
     mutual = best_p_at_j.long() == torch.arange(p, device=feat0.device)[None, :]
-    keep_at_j = col_keep[j_of_row]
+    if row_mask is not None:
+        keep_at_j = torch.gather(border_keep_padded(col_mask, grid_hw, border_rm), 1, j_of_row)
+    else:
+        keep_at_j = _border_keep(h, w, border_rm, border_two_sided, feat0.device)[j_of_row]
     conf = torch.exp(stats["row_best_val"] - stats["row_lse"])  # [B, P]
     valid = mutual & (conf > thr) & keep_at_j
-    if row_grid_hw is not None:
+    if row_mask is not None:
+        valid = valid & border_keep_padded(row_mask, row_grid_hw, border_rm)
+    elif row_grid_hw is not None:
         rh, rw = row_grid_hw
         if rh * rw != p:
             raise ValueError(f"row grid {row_grid_hw} != P {p}")

@@ -94,6 +94,25 @@ def _border_keep(h: int, w: int, border: int, two_sided: bool, device=None) -> t
     return keep
 
 
+def border_keep_padded(mask: torch.Tensor, grid_hw: Tuple[int, int], border: int) -> torch.Tensor:
+    """[N, h*w] bool: cells of each padded grid outside the removed border,
+    measured from the valid extent of its mask [N, h*w] (True where the cell
+    holds image): LoFTR's ``mask_border_with_padding``, the border of
+    ``border`` cells removed on all four sides of each image's own extent, so
+    that the padding beyond it is removed too. ``border`` 0 removes nothing,
+    as there."""
+    n = mask.shape[0]
+    h, w = grid_hw
+    if border <= 0:
+        return torch.ones((n, h * w), dtype=torch.bool, device=mask.device)
+    m = mask.reshape(n, h, w).bool()
+    rows = m.sum(1).amax(-1)  # [N] valid rows (the longest column of valid cells)
+    cols = m.sum(2).amax(-1)  # [N] valid columns
+    idx = torch.arange(h * w, device=mask.device)
+    r, c = (idx // w)[None], (idx % w)[None]
+    return ((r >= border) & (c >= border) & (r < (rows - border)[:, None]) & (c < (cols - border)[:, None]))
+
+
 def topk_stable(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis, lower index first among equal scores (as
     ``lax.top_k``); pads to k slots with score -1 and index 0 when k > L."""
@@ -115,6 +134,8 @@ def select_topk_matches(
     k: int,
     border_two_sided: bool = False,
     row_grid_hw: Optional[Tuple[int, int]] = None,
+    row_mask: Optional[torch.Tensor] = None,
+    col_mask: Optional[torch.Tensor] = None,
 ) -> CoarseMatches:
     """Mutual-nearest-neighbour + threshold + border filter into K slots.
 
@@ -123,6 +144,10 @@ def select_topk_matches(
         grid_hw: (h, w) of the S-axis grid (query image coarse grid).
         row_grid_hw: if given, the L axis is also an (h, w) grid whose border
             is removed too (image-pair matching); otherwise L indexes 3D points.
+        row_mask, col_mask: [N, L], [N, S] padding masks of an image pair
+            padded bottom-right (``conf`` computed with them): the border is
+            then removed per pair from each image's valid extent
+            (:func:`border_keep_padded`), both given or neither.
     """
     n, l, s = conf.shape
     h, w = grid_hw
@@ -131,12 +156,18 @@ def select_topk_matches(
     row_max = conf.amax(dim=2, keepdim=True)
     col_max = conf.amax(dim=1, keepdim=True)
     valid = (conf == row_max) & (conf == col_max) & (conf > thr)
-    valid = valid & _border_keep(h, w, border_rm, border_two_sided, conf.device)[None, None, :]
-    if row_grid_hw is not None:
-        rh, rw = row_grid_hw
-        if rh * rw != l:
-            raise ValueError(f"row grid {row_grid_hw} != L {l}")
-        valid = valid & _border_keep(rh, rw, border_rm, border_two_sided, conf.device)[None, :, None]
+    if row_mask is not None:
+        if row_grid_hw is None or col_mask is None:
+            raise ValueError("padding masks need row_grid_hw and both masks")
+        valid = valid & border_keep_padded(col_mask, grid_hw, border_rm)[:, None, :]
+        valid = valid & border_keep_padded(row_mask, row_grid_hw, border_rm)[:, :, None]
+    else:
+        valid = valid & _border_keep(h, w, border_rm, border_two_sided, conf.device)[None, None, :]
+        if row_grid_hw is not None:
+            rh, rw = row_grid_hw
+            if rh * rw != l:
+                raise ValueError(f"row grid {row_grid_hw} != L {l}")
+            valid = valid & _border_keep(rh, rw, border_rm, border_two_sided, conf.device)[None, :, None]
     row_has = valid.any(dim=2)
     j_of_row = torch.argmax(torch.where(valid, conf, torch.full_like(conf, -1.0)), dim=2)
     conf_of_row = torch.gather(conf, 2, j_of_row[:, :, None])[..., 0]

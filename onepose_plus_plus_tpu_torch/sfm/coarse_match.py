@@ -9,7 +9,9 @@ inference over 4 fractional-GPU Ray workers. Port of
 pair-batch dimension), and the host merges results:
 
   1. ``run_pairs``: fixed-capacity coarse matches for every covisible pair in
-     batches of ``pair_batch`` (one device dispatch per batch, not per pair).
+     batches of ``pair_batch`` (one device dispatch per batch, not per pair);
+     images of mixed shapes are padded bottom-right to one square with coarse
+     masks, as LoFTR's MegaDepth loader pads each view (:func:`pad_batch`).
   2. ``merge_keypoints``: quantize matched endpoints to integer pixels and
      aggregate duplicates per image by score sum (reference
      ``points2D_worker`` / ``agg_groupby_2d``), producing pseudo-keypoints.
@@ -26,6 +28,7 @@ import numpy as np
 from ..utils.profiling import annotate
 
 Pair = Tuple[int, int]
+DF = 8  # LoFTR's coarse grid: one cell per 8 x 8 pixels (resolution (8, 2))
 
 
 @dataclasses.dataclass
@@ -48,6 +51,21 @@ class SceneKeypoints:
     match_confs: Dict[Pair, np.ndarray]  # pair -> [M]
 
 
+def pad_batch(images: Sequence[np.ndarray], side: int, df: int = DF) -> Tuple[np.ndarray, np.ndarray]:
+    """Images [H, W] padded bottom-right with zeros to ``side`` x ``side``
+    (LoFTR's ``pad_bottom_right``) -> ([B, side, side, 1], coarse masks
+    [B, side / df, side / df] bool): a coarse cell is valid where the pixel at
+    its top-left corner is, the nearest-neighbour downsampling by 1 / df of
+    the pixel mask that LoFTR's loader does."""
+    img = np.zeros((len(images), side, side, 1), dtype=images[0].dtype)
+    mask = np.zeros((len(images), side // df, side // df), dtype=bool)
+    for b, im in enumerate(images):
+        h, w = im.shape
+        img[b, :h, :w, 0] = im
+        mask[b, : -(-h // df), : -(-w // df)] = True
+    return img, mask
+
+
 def run_pairs(
     coarse_match_fn: Callable,
     images: Dict[int, np.ndarray],
@@ -60,34 +78,49 @@ def run_pairs(
     Args:
         coarse_match_fn: batched fn (img0 [B,H,W,1], img1 [B,H,W,1]) -> dict
             with ``mkpts0_c``/``mkpts1_c`` [B,K,2], ``mconf`` [B,K],
-            ``match_mask`` [B,K] (the LoFTRMatcher ``match_coarse`` surface).
-        images: img_id -> [H, W] float grayscale (all same shape per call).
+            ``match_mask`` [B,K] (the LoFTRMatcher ``match_coarse`` surface),
+            and ``mkpts0_f``/``mkpts1_f`` where it refines them (the
+            ``match`` surface, ``models.build.make_loftr_match_fn``), which
+            are then the matches returned. Where the images' shapes differ it
+            is called with coarse masks too: fn(img0, img1, mask0, mask1).
+        images: img_id -> [H, W] float grayscale. Of one shape, they are
+            stacked as they are and no mask is passed; of mixed shapes, each
+            is padded bottom-right to the square of the longest side rounded
+            up to the coarse cell (:func:`pad_batch`), so the matches stay in
+            each image's own pixels.
         scales: img_id -> [2] (w_orig/w_net, h_orig/h_net) from the loader.
         pairs: (i, j) image-id pairs.
         pair_batch: device batch; the tail batch is padded by repetition.
     Returns:
         one PairMatches per input pair (masked slots removed, conf-sorted).
+    After each batch's ``sfm.unpack``, an empty ``sfm.count`` span carries the
+    batch's valid ``matches`` and its pairs whose valid matches fill every
+    slot (``slots_full``), counted from the host's masks outside the timed
+    spans.
     """
     out: List[PairMatches] = []
     pairs = list(pairs)
     shapes = {im.shape for im in images.values()}
-    if len(shapes) > 1:
-        raise ValueError(
-            "run_pairs requires uniform image shapes for device batching, got "
-            f"{sorted(shapes)}; resize via load_gray_resize_divisible(resize_max=...)"
-        )
+    side = -(-max(max(sh) for sh in shapes) // DF) * DF if len(shapes) > 1 else None
     with annotate("run_pairs", pairs=len(pairs)):
         for s in range(0, len(pairs), pair_batch):
             chunk = pairs[s : s + pair_batch]
             pad = pair_batch - len(chunk)
             chunk_p = chunk + [chunk[-1]] * pad
-            with annotate("sfm.stack"):
-                img0 = np.stack([images[i][..., None] for i, _ in chunk_p])
-                img1 = np.stack([images[j][..., None] for _, j in chunk_p])
-            res = coarse_match_fn(img0, img1)
+            if side is None:
+                with annotate("sfm.stack"):
+                    img0 = np.stack([images[i][..., None] for i, _ in chunk_p])
+                    img1 = np.stack([images[j][..., None] for _, j in chunk_p])
+                res = coarse_match_fn(img0, img1)
+            else:
+                with annotate("sfm.pad"):
+                    img0, mask0 = pad_batch([images[i] for i, _ in chunk_p], side)
+                    img1, mask1 = pad_batch([images[j] for _, j in chunk_p], side)
+                res = coarse_match_fn(img0, img1, mask0, mask1)
             with annotate("sfm.unpack"):
-                mk0 = np.asarray(res["mkpts0_c"])
-                mk1 = np.asarray(res["mkpts1_c"])
+                fine = "mkpts0_f" in res
+                mk0 = np.asarray(res["mkpts0_f" if fine else "mkpts0_c"])
+                mk1 = np.asarray(res["mkpts1_f" if fine else "mkpts1_c"])
                 conf = np.asarray(res["mconf"])
                 mask = np.asarray(res["match_mask"]).astype(bool)
                 for b, (i, j) in enumerate(chunk):
@@ -95,6 +128,9 @@ def run_pairs(
                     p0 = mk0[b][m] * scales[i][None, :]
                     p1 = mk1[b][m] * scales[j][None, :]
                     out.append(PairMatches((i, j), p0, p1, conf[b][m]))
+            real = mask[: len(chunk)]
+            with annotate("sfm.count", matches=int(real.sum()), slots_full=int(real.all(1).sum())):
+                pass
     return out
 
 

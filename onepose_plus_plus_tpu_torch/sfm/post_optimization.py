@@ -178,13 +178,21 @@ def run_fine_refinement(
         refine_fn: batched (img0 [B,H,W,1], img1, mkpts0 [B,K,2], mkpts1,
             mask [B,K]) -> dict with ``mkpts1_f`` [B,K,2] (and optional
             ``feat_*`` outputs).
-        images_px: img_id -> [H, W] grayscale in network resolution.
+        images_px: img_id -> [H, W] grayscale in network resolution, of one
+            shape over the pairs' images (the refine surface takes no
+            padding masks; ``run_pairs`` pads mixed shapes, this raises).
         match_capacity: static per-pair match slots (longest pair must fit).
     Returns:
         pair -> {"mkpts0", "mkpts1_f", "point3d_ids"} with padding stripped.
     """
     out: Dict[Pair, dict] = {}
     pairs = list(pairs)
+    shapes = {images_px[i].shape for p in pairs for i in p.pair}
+    if len(shapes) > 1:
+        raise ValueError(
+            "run_fine_refinement requires uniform image shapes for device batching, got "
+            f"{sorted(shapes)}; resize via load_gray_resize_divisible(resize_max=...)"
+        )
     with annotate("run_fine_refinement", pairs=len(pairs)):
         for s in range(0, len(pairs), pair_batch):
             chunk = pairs[s : s + pair_batch]

@@ -30,10 +30,11 @@ from onepose_plus_plus_tpu.utils.checkpoint import convert_torch_state_dict
 from onepose_plus_plus_tpu_torch.models.build import (
     build_loftr_matcher,
     loftr_config_from_dict,
+    loftr_matcher_from_dict,
     make_loftr_fns,
 )
 from onepose_plus_plus_tpu_torch.models.loftr import LoFTRMatcher, bilinear_sample
-from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables, state_dict_from_jax
+from onepose_plus_plus_tpu_torch.utils.weights import load_jax_variables, random_state_dict, state_dict_from_jax
 from port_helpers import perturbed, textured, to_port_config
 
 torch.set_num_threads(2)
@@ -101,6 +102,36 @@ def test_loftr_weights_round_trip_strictly():
     assert len(flat_ref) == len(flat_back)
     for path, leaf in flat_ref:
         np.testing.assert_array_equal(np.asarray(flat_back[path]), leaf)
+
+
+def test_outdoor_loftr_weights_round_trip_strictly():
+    """LoFTR outdoor's 194 tensors (``fine_concat_coarse_feat``): the SfM
+    LoFTR's 190, which the JAX matcher's tree holds, and LoFTR's four
+    ``fine_preprocess.{down_proj,merge_feat}.{weight,bias}``, which go to a
+    flax Dense pair under the same names beside them. ``random_state_dict``
+    draws all 194; ``convert_torch_state_dict(strict=True)`` places every one
+    and ``load_jax_variables`` brings them back bit for bit. The SfM LoFTR
+    keeps its 190."""
+    jm = JaxLoFTR(jax_loftr_config({}))
+    probe = np.zeros((1, 64, 64, 1), np.float32)
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(1), probe, probe))
+    port = loftr_matcher_from_dict({"fine_concat_coarse_feat": True})
+    state = random_state_dict(port, seed=3)
+    names = [k for k in state if not k.endswith("num_batches_tracked")]
+    assert len(names) == 194 and len(set(names) - set(state_dict_from_jax(variables))) == 4
+    sfm = [k for k in LoFTRMatcher(loftr_config_from_dict({})).state_dict() if not k.endswith("num_batches_tracked")]
+    assert len(sfm) == 190
+    tree = {"params": dict(variables["params"]), "batch_stats": variables["batch_stats"]}
+    tree["params"]["fine_preprocess"] = {
+        "down_proj": {"kernel": np.zeros((256, 128), np.float32), "bias": np.zeros(128, np.float32)},
+        "merge_feat": {"kernel": np.zeros((256, 128), np.float32), "bias": np.zeros(128, np.float32)}}
+    back, report = convert_torch_state_dict({k: v.numpy() for k, v in state.items()}, tree, strict=True)
+    assert not report["missing"] and not report["skipped"]
+    again = loftr_matcher_from_dict({"fine_concat_coarse_feat": True})
+    load_jax_variables(again, jax.tree_util.tree_map(np.asarray, back))
+    for k, v in again.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, state[k]), k
 
 
 def test_loftr_config_from_dict_matches_jax():

@@ -219,7 +219,7 @@ def test_sfm_surfaces_emit_the_named_spans_and_the_same_result():
     assert profiling.spans() == []
     (raw_t, refined_t), spans = _traced(work)
     batch = ["sfm.stack", "sfm.h2d", "model.backbone", "sfm.d2h", "sfm.unpack"]
-    assert _names(spans) == ["run_pairs"] + batch * 2 + ["run_fine_refinement"] + batch * 2
+    assert _names(spans) == ["run_pairs"] + (batch + ["sfm.count"]) * 2 + ["run_fine_refinement"] + batch * 2
     roots = [s for s in spans if s.parent is None]
     assert [(s.name, s.counts) for s in roots] == [("run_pairs", {"pairs": 3}), ("run_fine_refinement", {"pairs": 3})]
     assert [s.counts for s in spans if s.name == "model.backbone"] == [{"frames": 4}] * 4
@@ -429,3 +429,89 @@ def test_pnp_graph_share_has_its_entry():
     m = {m["name"]: m for m in harness.load_spec()["per_layer"]}["pnp_graph_pct.query"]
     assert (m["source"], m["better"], m["layer"], m["moves"], m["workloads"]) == (
         "program_counter", "higher", "model", "query_poses_per_s", ["query_eval_fb48"])
+
+
+# ------------------------------------------------- the full-match surface, the mesh gather
+
+
+def test_full_match_surface_emits_the_named_spans_and_the_same_result():
+    """``run_pairs`` over ``make_loftr_match_fn`` on images of mixed shapes:
+    the padding, LoFTR's three stages under the ``run_pairs`` root, and the
+    match and full-slot counts on ``sfm.count``; bitwise the same matches
+    with a session open."""
+    from onepose_plus_plus_tpu_torch.models.build import loftr_matcher_from_dict, make_loftr_match_fn
+    model = loftr_matcher_from_dict({"match_coarse": {"thr": 0.0, "max_matches": 8}, "fine_window_size": 5,
+                                     "fine_concat_coarse_feat": True}).eval()
+    model.load_state_dict(random_state_dict(model, seed=4))
+    rng = np.random.default_rng(5)
+    base = np.kron(rng.random((8, 8)), np.ones((8, 8))).astype(np.float32)
+    images = {0: base[:48], 1: base[:, :48], 2: base[8:56]}
+    fn = make_loftr_match_fn(model)
+
+    def work():
+        return run_pairs(fn, images, {i: np.ones(2) for i in images}, [(0, 1), (1, 2), (0, 2)], pair_batch=2)
+
+    raw = work()
+    assert profiling.spans() == []
+    raw_t, spans = _traced(work)
+    batch = ["sfm.pad", "sfm.h2d", "loftr.coarse", "model.backbone", "loftr.match_coarse", "loftr.fine", "sfm.d2h",
+             "sfm.unpack", "sfm.count"]
+    assert _names(spans) == ["run_pairs"] + batch * 2
+    assert all(s.root == spans[0].root for s in spans)
+    unpack = [s.counts for s in sorted(spans, key=lambda s: s.id) if s.name == "sfm.count"]
+    assert [c["matches"] for c in unpack] == [len(raw[0].pts0) + len(raw[1].pts0), len(raw[2].pts0)]
+    assert all(c["slots_full"] == sum(len(pm.pts0) == 8 for pm in part) for c, part in zip(unpack, (raw[:2], raw[2:])))
+    for a, b in zip(raw, raw_t):
+        assert a.pair == b.pair and np.array_equal(a.pts0, b.pts0) and np.array_equal(a.pts1, b.pts1)
+
+
+MD = [  # two batches of 4 pairs through the full-match surface
+    _span("run_pairs", 1, 0, 100, pairs=8),
+    _span("loftr.match_coarse", 2, 10, 20, 4.0, parent=1, root=1),
+    _span("loftr.fine", 3, 20, 40, 10.0, parent=1, root=1),
+    _span("sfm.unpack", 4, 45, 50, parent=1, root=1),
+    _span("sfm.count", 9, 50, 50, parent=1, root=1, matches=9000, slots_full=1),
+    _span("loftr.match_coarse", 5, 60, 70, 6.0, parent=1, root=1),
+    _span("loftr.fine", 6, 70, 90, 14.0, parent=1, root=1),
+    _span("sfm.unpack", 7, 95, 99, parent=1, root=1),
+    _span("sfm.count", 10, 99, 99, parent=1, root=1, matches=7000, slots_full=0),
+    _span("loftr.fine", 8, 200, 210, 50.0),  # outside the surface
+]
+MD_BUSY = [(5, 95)]
+QUERY_X4 = QUERY + [_span("run_inference.gather", 19, 128, 129.5, parent=1, root=1)]
+
+READINGS_NEW = [
+    ("coarse_match_ms.md", MD, MD_BUSY, 1.25),  # (4 + 6) ms over 8 pairs
+    ("fine_ms.md", MD, MD_BUSY, 3.0),  # (10 + 14) ms over 8 pairs
+    ("slots_full_pct.md", MD, MD_BUSY, 12.5),  # 1 pair of 8
+    ("gather_ms.query_x4", QUERY_X4, QUERY_BUSY, 1.5),  # 1.5 host ms over one object
+]
+
+
+@pytest.mark.parametrize("metric,spans,busy,want", READINGS_NEW, ids=[r[0] for r in READINGS_NEW])
+def test_new_reader_reads_the_hand_made_window(monkeypatch, metric, spans, busy, want):
+    monkeypatch.setattr(bench_spans, "program_spans", lambda: copy.deepcopy(spans))
+    assert harness.load_reader(metric)(_trace(busy)) == pytest.approx(want)
+    assert harness.load_reader(metric)(_trace([])) is None
+
+
+@pytest.mark.parametrize("metric,spans", [("slots_full_pct.md", [s for s in MD if s.name != "sfm.count"]),
+                                          ("slots_full_pct.md", [profiling.Span("sfm.count", 4, 1, 1, 50, 50, {})]
+                                           + MD[:1]),
+                                          ("gather_ms.query_x4", QUERY),
+                                          ("coarse_match_ms.md", QUERY), ("fine_ms.md", SFM)])
+def test_new_reader_reads_nothing_where_the_program_records_nothing(monkeypatch, metric, spans):
+    """A program without the spans or counts (one older than them, or a
+    window without a mesh) gives no reading, and raises nothing."""
+    monkeypatch.setattr(bench_spans, "program_spans", lambda: copy.deepcopy(spans))
+    assert harness.load_reader(metric)(_trace(MD_BUSY)) is None
+
+
+def test_new_readers_have_their_entries():
+    entries = {m["name"]: m for m in harness.load_spec()["per_layer"]}
+    for metric, cell, moves, layer in (("coarse_match_ms.md", "loftr_md1200_pb4", "sfm_pairs_per_s", "model"),
+                                       ("fine_ms.md", "loftr_md1200_pb4", "sfm_pairs_per_s", "model"),
+                                       ("slots_full_pct.md", "loftr_md1200_pb4", "sfm_pairs_per_s", "model")):
+        m = entries[metric]
+        assert (m["source"], m["better"], m["moves"], m["layer"], m["workloads"]) == (
+            "program_counter", "lower", moves, layer, [cell])
